@@ -1,0 +1,164 @@
+"""High-level encoder objects: tower module + forward -> `EncoderResult`.
+
+Counterparts of `bayesvlm_tpu.models.encoders` (and of the reference's
+`CLIPImageEncoder` / `CLIPTextEncoder`, ref:bayesvlm/vlm.py). The
+projection layer (the Laplace layer) enters the Bayesian chain through
+`projection_l2` / `projection_num_params`.
+"""
+
+from __future__ import annotations
+
+import math
+from pathlib import Path
+from typing import Callable, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from bayesvlm_tpu_torch.models.clip import CLIPTextTower, CLIPVisionTower
+from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME, VLMConfig
+from bayesvlm_tpu_torch.probforward.smith import ProbabilisticHead
+from bayesvlm_tpu_torch.types import EncoderResult
+
+# logit scale of the pretrained laion CLIP checkpoints (ln 100), used
+# with random-init towers, as in the JAX package
+DEFAULT_LOGIT_SCALE = {"clip": 4.6052}
+
+_GEMM_MODULES = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
+
+
+class _EncoderBase:
+    projection_name: str
+
+    def __init__(self, config: VLMConfig, module: nn.Module):
+        self.config = config
+        self.module = module
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.module.parameters()).device
+
+    def projection_weight(self) -> torch.Tensor:
+        return getattr(self.module, self.projection_name).weight
+
+    def projection_l2(self) -> float:
+        """Squared L2 norm of the projection parameters."""
+        return float(self.projection_weight().float().square().sum())
+
+    def projection_num_params(self) -> int:
+        return self.projection_weight().numel()
+
+
+class ImageEncoder(_EncoderBase):
+    """Vision tower wrapper. Call with NHWC (or NCHW) float images."""
+
+    projection_name = "visual_projection"
+
+    @torch.inference_mode()
+    def __call__(self, images) -> EncoderResult:
+        x = torch.as_tensor(images, device=self.device)
+        if not torch.is_floating_point(x):
+            raise ValueError("pixels must be normalized floats (the uint8 "
+                             "ingest lane is not ported yet)")
+        if x.dim() == 4 and x.shape[1] == 3 and x.shape[-1] != 3:
+            x = x.permute(0, 2, 3, 1)  # NCHW -> NHWC
+        embeds, activations = self.module(x.float())
+        return EncoderResult.create(embeds=embeds, activations=activations)
+
+
+class TextEncoder(_EncoderBase):
+    """Text tower wrapper. Call with integer token ids [B, T]."""
+
+    projection_name = "text_projection"
+
+    def __init__(self, config: VLMConfig, module: nn.Module,
+                 tokenizer: Optional[Callable] = None):
+        super().__init__(config, module)
+        self.tokenizer = tokenizer
+
+    @torch.inference_mode()
+    def __call__(self, input_ids) -> EncoderResult:
+        ids = torch.as_tensor(input_ids, dtype=torch.long, device=self.device)
+        embeds, activations = self.module(ids)
+        return EncoderResult.create(embeds=embeds, activations=activations)
+
+    def encode_texts(self, texts) -> EncoderResult:
+        if self.tokenizer is None:
+            raise ValueError("no tokenizer attached; pass token ids directly "
+                             "or attach one (data/tokenizer.py)")
+        return self(self.tokenizer(list(texts)))
+
+
+def cast_gemm_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Put the big GEMM weights (attention projections + MLP, weights and
+    biases) in the compute dtype, in place. LayerNorm, embedding and
+    projection parameters stay fp32 (the fp32-LN numerics contract)."""
+    for name, sub in module.named_modules():
+        if name.rsplit(".", 1)[-1] in _GEMM_MODULES:
+            sub.to(dtype)
+    return module
+
+
+def _init_tower(module: nn.Module, gen: torch.Generator) -> None:
+    """Random init with the JAX package's initializer scales: lecun-normal
+    dense and conv kernels (std 1/sqrt(fan_in)) with zero biases,
+    normal(0.02) class/position embeddings, normal 1/sqrt(vocab) token
+    embeddings (flax's default embed init). LayerNorms keep their
+    unit/zero construction values."""
+
+    def normal_(t, std):
+        t.copy_(torch.randn(t.shape, generator=gen, device=t.device,
+                            dtype=t.dtype) * std)
+
+    with torch.no_grad():
+        for sub in module.modules():
+            if isinstance(sub, (nn.Linear, nn.Conv2d)):
+                normal_(sub.weight, 1.0 / math.sqrt(sub.weight[0].numel()))
+                if sub.bias is not None:
+                    sub.bias.zero_()
+            elif isinstance(sub, nn.Embedding):
+                normal_(sub.weight, 1.0 / math.sqrt(sub.weight.shape[0]))
+        normal_(module.position_embedding, 0.02)
+        if hasattr(module, "class_embedding"):
+            normal_(module.class_embedding, 0.02)
+
+
+def load_model(
+    model_str: str,
+    weights_dir: Optional[Union[str, Path]] = None,
+    dtype: torch.dtype = torch.bfloat16,
+    seed: int = 0,
+    device: Union[str, torch.device] = "cpu",
+) -> Tuple[ImageEncoder, TextEncoder, ProbabilisticHead]:
+    """Build (image_encoder, text_encoder, similarity head) for a model
+    name (ref:bayesvlm/utils.py:28-46) on `device`.
+
+    `weights_dir`: a directory holding `vision.pt` and `text.pt`, the
+    towers' state dicts (models/bridge.py writes them from the JAX
+    package's parameter trees). When None, parameters are drawn from a
+    `torch.Generator` on `device` seeded with `seed`; the draws differ
+    between devices and from the JAX package's.
+    """
+    config = CONFIGS_BY_NAME[model_str]
+    if config.family != "clip":
+        raise NotImplementedError(f"{config.family} towers are not ported yet")
+    device = torch.device(device)
+    vision = CLIPVisionTower(config.vision, dtype=dtype).to(device)
+    text = CLIPTextTower(config.text, dtype=dtype).to(device)
+    if weights_dir is not None:
+        wd = Path(weights_dir)
+        for tower, name in ((vision, "vision.pt"), (text, "text.pt")):
+            tower.load_state_dict(torch.load(wd / name, map_location=device,
+                                             weights_only=True))
+    else:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        _init_tower(vision, gen)
+        _init_tower(text, gen)
+    for tower in (vision, text):
+        cast_gemm_params(tower, dtype).eval().requires_grad_(False)
+    head = ProbabilisticHead.create(
+        logit_scale=DEFAULT_LOGIT_SCALE[config.family], device=device,
+        has_bias=config.projection_has_bias,
+    )
+    return ImageEncoder(config, vision), TextEncoder(config, text), head
