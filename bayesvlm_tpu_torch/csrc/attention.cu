@@ -41,7 +41,7 @@
 // query rows >= T are computed on zeros and never written, keys >= T
 // are never stored as scores and never read in pass 2.
 //
-// Built by bayesvlm_tpu_torch/models/attention.py with
+// Built by bayesvlm_tpu_torch/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through the plain C interface at the bottom (ctypes).
 

@@ -19,6 +19,7 @@ import json
 from pathlib import Path
 from typing import Literal, Union
 
+import numpy as np
 import torch
 
 PathLike = Union[str, Path]
@@ -55,3 +56,21 @@ def save_prior_precision(la_dir: PathLike, lambda_img: float, n_img: float,
     }
     with open(la_dir / "prior_precision_analytic.json", "w") as f:
         json.dump(result, f, indent=4)
+
+
+def save_synthetic_hessians(la_dir: PathLike, config, seed: int = 0) -> Path:
+    """Random SPD K-FAC factors at a model's full dims (the recipe of the
+    JAX package's bench.py `_synthetic_hessian_dir`), drawn from `seed`,
+    with a prior-precision file: a Hessian directory for benchmarks and
+    smoke runs of models that have none."""
+    rng = np.random.default_rng(seed)
+
+    def spd(dim, scale):
+        M = rng.normal(size=(dim, dim)).astype(np.float32)
+        return (M @ M.T / dim + np.eye(dim, dtype=np.float32)) * scale
+
+    D = config.vision.projection_dim
+    save_hessians(la_dir, spd(config.vision.hidden_size, 40.0), spd(D, 25.0), "img")
+    save_hessians(la_dir, spd(config.text.hidden_size, 35.0), spd(D, 15.0), "txt")
+    save_prior_precision(la_dir, 300.0, 1.0, 300.0, 1.0)
+    return Path(la_dir)

@@ -13,27 +13,20 @@ the dot, an exact fp32 softmax, `p` rounded to the input dtype, and
   PyTorch. The tests and chip_smoke.py hold the kernel against it.
 
 The kernel is compiled with nvcc for sm_90a on first use, from
-`csrc/attention.cu`, into `build/` beside this package (a shared
-library with a plain C interface, loaded with ctypes).
+`csrc/attention.cu` (`bayesvlm_tpu_torch/kernels.py` builds and loads
+it).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "attention.cu"
-BUILD_DIR = _PKG / "build"
+from bayesvlm_tpu_torch import kernels
+
 # head dims the kernel is instantiated for (csrc/attention.cu launch_dtype)
 KERNEL_HEAD_DIMS = (16, 64, 80)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -59,49 +52,9 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return o.transpose(1, 2).reshape(B, T, D).to(q.dtype)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = Path(cuda_home) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise RuntimeError("nvcc not found: the attention kernel is built with "
-                       "the CUDA toolkit (PATH or CUDA_HOME)")
-
-
-def build_kernel() -> Path:
-    """Compile csrc/attention.cu into build/ unless a library built from
-    the same source is there already; return the library's path. The
-    file name carries a hash of the source, and the library is written
-    to a temporary name and renamed, so a process that builds while
-    another loads never exposes a half-written file."""
-    src = _SOURCE.read_bytes()
-    digest = hashlib.sha256(src).hexdigest()[:16]
-    lib = BUILD_DIR / f"libbvt_attention_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-           "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, str(_SOURCE)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
-
-
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_kernel()))
+    lib = kernels.load("attention")
     lib.bvt_attention.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -112,8 +65,6 @@ def _library() -> ctypes.CDLL:
     lib.bvt_attention_smem_bytes.restype = ctypes.c_long
     lib.bvt_attention_smem_limit.argtypes = []
     lib.bvt_attention_smem_limit.restype = ctypes.c_int
-    lib.bvt_error_string.argtypes = [ctypes.c_int]
-    lib.bvt_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -162,9 +113,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                 o.data_ptr(), B, T, num_heads, Dh,
                                 _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(Dh),
                                 stream)
-    if err != 0:
-        raise RuntimeError("attention kernel launch failed: "
-                           + lib.bvt_error_string(err).decode())
+    kernels.check(lib, err, "attention kernel")
     fused_attention.launches += 1
     return o
 

@@ -23,9 +23,10 @@ from bayesvlm_tpu_torch.models.layers import (
 )
 
 
-def _encoder(cfg) -> TransformerEncoder:
+def _encoder(cfg, **int8) -> TransformerEncoder:
     return TransformerEncoder(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
-                              cfg.mlp_dim, cfg.hidden_act, cfg.layer_norm_eps)
+                              cfg.mlp_dim, cfg.hidden_act, cfg.layer_norm_eps,
+                              **int8)
 
 
 class CLIPVisionTower(nn.Module):
@@ -40,7 +41,11 @@ class CLIPVisionTower(nn.Module):
         self.class_embedding = nn.Parameter(torch.zeros(D))
         self.position_embedding = nn.Parameter(torch.zeros(config.seq_len, D))
         self.pre_layernorm = LayerNormFP32(D, config.layer_norm_eps)
-        self.encoder = _encoder(config)
+        # the int8 lanes reach the vision encoder only, as in the JAX
+        # package (its load_model replaces config.vision alone)
+        self.encoder = _encoder(config, mlp_int8=config.mlp_int8,
+                                attn_int8=config.attn_int8,
+                                mlp_weight_bits=config.mlp_weight_bits)
         self.post_layernorm = LayerNormFP32(D, config.layer_norm_eps)
         self.visual_projection = nn.Linear(D, config.projection_dim, bias=False)
 

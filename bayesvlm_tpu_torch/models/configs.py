@@ -12,9 +12,11 @@ same as `bayesvlm_tpu.models.configs`:
 
 TINY_* configs are CPU-runnable shapes for tests.
 
-The JAX package's per-kernel switches (attn_pallas, mlp_int8, ...) are
-not carried over: the port routes the vision tower's attention to its
-kernel from the tensor's device, and the int8 lanes are not ported yet.
+Of the JAX package's per-kernel switches, the W8A8 int8 lanes are
+carried over (`mlp_int8`, `attn_int8`, `mlp_weight_bits`; vision towers
+only, off by default). The attention-schedule switches (attn_pallas, ...)
+are not: the port routes the vision tower's attention to its kernel from
+the tensor's device.
 """
 
 from __future__ import annotations
@@ -35,6 +37,14 @@ class VisionConfig:
     hidden_act: str = "gelu"
     layer_norm_eps: float = 1e-5
     use_class_token: bool = True       # CLIP: CLS token; SigLIP: none
+    # W8A8 int8 MLP sublayers (models/mlp_int8.py, fused pre-LN variant);
+    # approximate, opt-in
+    mlp_int8: bool = False
+    # weight width of the int8 MLP kernel: 8 (W8A8) or 4 (W4A8, +-7)
+    mlp_weight_bits: int = 8
+    # W8A8 int8 attention projections (models/linear_int8.py, fused QKV);
+    # non-causal self-attention only; approximate, opt-in
+    attn_int8: bool = False
 
     @property
     def num_patches(self) -> int:

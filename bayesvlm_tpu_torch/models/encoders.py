@@ -8,7 +8,9 @@ projection layer (the Laplace layer) enters the Bayesian chain through
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import warnings
 from pathlib import Path
 from typing import Callable, Optional, Tuple, Union
 
@@ -17,6 +19,7 @@ from torch import nn
 
 from bayesvlm_tpu_torch.models.clip import CLIPTextTower, CLIPVisionTower
 from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME, VLMConfig
+from bayesvlm_tpu_torch.models.layers import MLP
 from bayesvlm_tpu_torch.probforward.smith import ProbabilisticHead
 from bayesvlm_tpu_torch.types import EncoderResult
 
@@ -54,8 +57,52 @@ class ImageEncoder(_EncoderBase):
 
     projection_name = "visual_projection"
 
+    def __init__(self, config: VLMConfig, module: nn.Module):
+        super().__init__(config, module)
+        # what the W8A8 weight cache was quantized from (_weight_key)
+        self._quant_src = None
+
+    def _int8_mlps(self):
+        return [m for m in self.module.modules()
+                if isinstance(m, MLP) and m.use_int8]
+
+    def _weight_key(self) -> tuple:
+        """Identity, storage and in-place version of every weight the
+        cache derives from: a load_state_dict, a `.data` swap or a new
+        Parameter each change it."""
+        return tuple((id(p), p.data_ptr(), p._version)
+                     for m in self._int8_mlps() for p in (m.fc1.weight, m.fc2.weight))
+
+    def prequantize_int8(self) -> "ImageEncoder":
+        """Quantize the int8 MLPs' weights once into their per-layer cache
+        buffers (in place), so forwards skip the per-call weight
+        quantization. A no-op unless the tower has `mlp_int8`; the
+        attention projections stay quantized per call, as in the JAX
+        package. Replacing the weights afterwards is caught per call
+        (_validate_quant_cache)."""
+        mlps = self._int8_mlps()
+        if mlps:
+            with torch.no_grad():
+                for m in mlps:
+                    m.prequantize()
+            self._quant_src = self._weight_key()
+        return self
+
+    def _validate_quant_cache(self) -> None:
+        """Never run on a stale cache: if the MLP weights changed since
+        prequantize_int8, recompute the cache with a warning (the JAX
+        package's `_validate_quant_cache`)."""
+        if self._quant_src is None or self._quant_src == self._weight_key():
+            return
+        warnings.warn(
+            "ImageEncoder weights were replaced after prequantize_int8(); "
+            "recomputing the W8A8 weight cache from the new weights.",
+            RuntimeWarning, stacklevel=3)
+        self.prequantize_int8()
+
     @torch.inference_mode()
     def __call__(self, images) -> EncoderResult:
+        self._validate_quant_cache()
         x = torch.as_tensor(images, device=self.device)
         if not torch.is_floating_point(x):
             raise ValueError("pixels must be normalized floats (the uint8 "
@@ -128,10 +175,21 @@ def load_model(
     weights_dir: Optional[Union[str, Path]] = None,
     dtype: torch.dtype = torch.bfloat16,
     seed: int = 0,
-    device: Union[str, torch.device] = "cpu",
+    device: Union[str, torch.device] = "cuda",
+    mlp_int8: bool = False,
+    attn_int8: bool = False,
+    mlp_weight_bits: int = 8,
 ) -> Tuple[ImageEncoder, TextEncoder, ProbabilisticHead]:
     """Build (image_encoder, text_encoder, similarity head) for a model
-    name (ref:bayesvlm/utils.py:28-46) on `device`.
+    name (ref:bayesvlm/utils.py:28-46) on `device` (the card unless the
+    caller asks for another).
+
+    `mlp_int8` / `attn_int8`: run the vision tower's MLP sublayers /
+    attention projections through the W8A8 int8 kernels
+    (models/mlp_int8.py, models/linear_int8.py), with `mlp_weight_bits`
+    8 or 4 for the MLP weights. Approximate and opt-in; the parameters
+    are the same, so weight files are unaffected. The weight cache is
+    not filled here (ImageEncoder.prequantize_int8).
 
     `weights_dir`: a directory holding `vision.pt` and `text.pt`, the
     towers' state dicts (models/bridge.py writes them from the JAX
@@ -142,6 +200,10 @@ def load_model(
     config = CONFIGS_BY_NAME[model_str]
     if config.family != "clip":
         raise NotImplementedError(f"{config.family} towers are not ported yet")
+    if mlp_int8 or attn_int8:
+        config = dataclasses.replace(config, vision=dataclasses.replace(
+            config.vision, mlp_int8=mlp_int8, attn_int8=attn_int8,
+            mlp_weight_bits=mlp_weight_bits))
     device = torch.device(device)
     vision = CLIPVisionTower(config.vision, dtype=dtype).to(device)
     text = CLIPTextTower(config.text, dtype=dtype).to(device)

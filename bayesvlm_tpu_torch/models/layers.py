@@ -9,7 +9,12 @@ Counterpart of `bayesvlm_tpu.models.layers`, with its numerics contract:
     JAX package: the approximation's error is below bf16 rounding);
   - non-causal, unmasked self-attention goes to the fused kernel
     (models/attention.py); the causal text path stays plain torch
-    (matmul, additive mask, fp32 softmax), as the JAX einsum path does.
+    (matmul, additive mask, fp32 softmax), as the JAX einsum path does;
+  - the opt-in W8A8 lanes (vision towers only): `MLP(use_int8)` runs
+    the whole pre-LN MLP sublayer through models/mlp_int8.py, and
+    `MultiHeadAttention(use_int8_proj)` the fused QKV and out
+    projections through models/linear_int8.py. Parameters are the same
+    either way; the int8 weight cache is a set of non-persistent buffers.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from bayesvlm_tpu_torch.models.attention import fused_attention
+from bayesvlm_tpu_torch.models.linear_int8 import linear_int8
+from bayesvlm_tpu_torch.models.mlp_int8 import mlp_int8, quantize_mlp_weights
 
 
 def get_activation(name: str):
@@ -51,11 +58,19 @@ class LayerNormFP32(nn.Module):
 
 
 class MultiHeadAttention(nn.Module):
-    """MHA with separate q/k/v/out projections (HF layout)."""
+    """MHA with separate q/k/v/out projections (HF layout).
 
-    def __init__(self, hidden_size: int, num_heads: int):
+    `use_int8_proj`: on unmasked self-attention, the q/k/v weights are
+    concatenated to [3D, D] so each input row is quantized once, one
+    W8A8 product writes contiguous q, k, v, and the out-projection is a
+    second W8A8 product (JAX layers.py:147-163). Masked calls keep the
+    float projections."""
+
+    def __init__(self, hidden_size: int, num_heads: int,
+                 use_int8_proj: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.use_int8_proj = use_int8_proj
         self.q_proj = nn.Linear(hidden_size, hidden_size)
         self.k_proj = nn.Linear(hidden_size, hidden_size)
         self.v_proj = nn.Linear(hidden_size, hidden_size)
@@ -64,6 +79,12 @@ class MultiHeadAttention(nn.Module):
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x [B, T, D] in the compute dtype; mask [T, T] additive."""
+        if mask is None and self.use_int8_proj:
+            projs = (self.q_proj, self.k_proj, self.v_proj)
+            q, k, v = linear_int8(x, torch.cat([p.weight for p in projs]),
+                                  torch.cat([p.bias for p in projs]), chunks=3)
+            o = fused_attention(q, k, v, self.num_heads)
+            return linear_int8(o, self.out_proj.weight, self.out_proj.bias)
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         if mask is None:
             return self.out_proj(fused_attention(q, k, v, self.num_heads))
@@ -82,13 +103,44 @@ class MultiHeadAttention(nn.Module):
 
 
 class MLP(nn.Module):
-    def __init__(self, hidden_size: int, mlp_dim: int, hidden_act: str):
+    """fc2(act(fc1(x))). With `use_int8`, the W8A8 kernel, which with
+    `pre_ln` runs the whole sublayer x + fc2(act(fc1(LN(x)))) and returns
+    straight from the kernel (JAX layers.py:209-246)."""
+
+    _CACHE = ("w1q", "s1", "w2q", "s2")
+
+    def __init__(self, hidden_size: int, mlp_dim: int, hidden_act: str,
+                 use_int8: bool = False, weight_bits: int = 8):
         super().__init__()
         self.hidden_act = hidden_act
+        self.use_int8 = use_int8
+        self.weight_bits = weight_bits
         self.fc1 = nn.Linear(hidden_size, mlp_dim)
         self.fc2 = nn.Linear(mlp_dim, hidden_size)
+        # the prequantized W8A8 weights (prequantize); not in state_dict
+        for name in self._CACHE:
+            self.register_buffer(name, None, persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def prequantize(self) -> None:
+        """Quantize fc1/fc2 once into the cache buffers, so forwards skip
+        the per-call weight quantization."""
+        quant = quantize_mlp_weights(self.fc1.weight, self.fc2.weight,
+                                     self.weight_bits)
+        for name in self._CACHE:
+            setattr(self, name, quant[name])
+
+    def forward(self, x: torch.Tensor, pre_ln: Optional[tuple] = None) -> torch.Tensor:
+        if self.use_int8:
+            quant = (None if self.w1q is None
+                     else {name: getattr(self, name) for name in self._CACHE})
+            ln = {}
+            if pre_ln is not None:
+                ln = dict(zip(("ln_weight", "ln_bias", "ln_eps"), pre_ln))
+            return mlp_int8(x, self.fc1.weight, self.fc1.bias, self.fc2.weight,
+                            self.fc2.bias, act_name=self.hidden_act,
+                            quant=quant, weight_bits=self.weight_bits, **ln)
+        if pre_ln is not None:
+            raise ValueError("MLP(pre_ln=...) requires use_int8=True")
         act = self.hidden_act
         if act == "gelu" and x.dtype == torch.bfloat16:
             act = "gelu_tanh"
@@ -99,16 +151,23 @@ class TransformerBlock(nn.Module):
     """Pre-LN block: x + MHA(LN1(x)); x + MLP(LN2(x))."""
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_dim: int,
-                 hidden_act: str, layer_norm_eps: float):
+                 hidden_act: str, layer_norm_eps: float, mlp_int8: bool = False,
+                 attn_int8: bool = False, mlp_weight_bits: int = 8):
         super().__init__()
         self.layer_norm1 = LayerNormFP32(hidden_size, layer_norm_eps)
-        self.self_attn = MultiHeadAttention(hidden_size, num_heads)
+        self.self_attn = MultiHeadAttention(hidden_size, num_heads, attn_int8)
         self.layer_norm2 = LayerNormFP32(hidden_size, layer_norm_eps)
-        self.mlp = MLP(hidden_size, mlp_dim, hidden_act)
+        self.mlp = MLP(hidden_size, mlp_dim, hidden_act, mlp_int8,
+                       mlp_weight_bits)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         x = x + self.self_attn(self.layer_norm1(x), mask)
+        if self.mlp.use_int8:
+            # LN2 + MLP + residual in the kernel, the residual added in
+            # fp32 (the default path adds in the compute dtype)
+            ln = self.layer_norm2
+            return self.mlp(x, pre_ln=(ln.weight, ln.bias, ln.eps))
         return x + self.mlp(self.layer_norm2(x))
 
 
@@ -118,11 +177,14 @@ class TransformerEncoder(nn.Module):
     bridge unstacks them)."""
 
     def __init__(self, num_layers: int, hidden_size: int, num_heads: int,
-                 mlp_dim: int, hidden_act: str, layer_norm_eps: float):
+                 mlp_dim: int, hidden_act: str, layer_norm_eps: float,
+                 mlp_int8: bool = False, attn_int8: bool = False,
+                 mlp_weight_bits: int = 8):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerBlock(hidden_size, num_heads, mlp_dim, hidden_act,
-                             layer_norm_eps)
+                             layer_norm_eps, mlp_int8, attn_int8,
+                             mlp_weight_bits)
             for _ in range(num_layers)
         )
 

@@ -12,9 +12,16 @@ when num_samples=0, Monte-Carlo otherwise).
     probs = vlm.predict(images)           # [B, C] calibrated probs
     logits = vlm.logits(images)           # ProbabilisticLogits (mean+var)
 
+The W8A8 int8 lane of the vision tower is an opt-in, as in the JAX
+package (`--mlp_int8` in its CLIs):
+
+    vlm = ProbabilisticVLM.from_pretrained(
+        "clip-large", hessian_dir, dtype="bf16", mlp_int8=True,
+        attn_int8=True)
+
 Not ported yet: AOT serving (`compile_serving`, the serving cache),
-meshes, PIL inputs, the int8 lanes and real HF checkpoints (the HF
-tokenizer and `models/convert.py`).
+meshes, PIL inputs and real HF checkpoints (the HF tokenizer and
+`models/convert.py`).
 """
 
 from __future__ import annotations
@@ -47,12 +54,20 @@ class ProbabilisticVLM:
         lambda_init: float = 300.0,
         prior_lr: float = 1e-2,
         prior_num_steps: int = 1000,
+        mlp_int8: bool = False,
+        attn_int8: bool = False,
         seed: int = 0,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
     ) -> "ProbabilisticVLM":
         """Load towers + K-FAC posterior and finalize covariances, in the
         reference's order (ref:scripts/zeroshot.py:54-94): towers, lambda
         for the image side, lambda for the text side, covariances, head.
+        Runs on the card unless `device` names another.
+
+        `mlp_int8` / `attn_int8`: the vision tower's W8A8 int8 lanes
+        (models/encoders.load_model). The GEMM weights are cast to the
+        compute dtype first, then the MLP weight cache is quantized from
+        those rounded values, as on the TPU.
 
         `seed` only matters when weights_dir is None (random-init towers
         for tests and benchmarks)."""
@@ -63,9 +78,12 @@ class ProbabilisticVLM:
         from bayesvlm_tpu_torch.models.encoders import load_model
 
         device = torch.device(device)
+        # load_model casts the GEMM weights to the compute dtype; the
+        # int8 cache is quantized after that
         image_encoder, text_encoder, head = load_model(
             model_str, weights_dir=weights_dir, dtype=_DTYPES[dtype],
-            seed=seed, device=device)
+            seed=seed, device=device, mlp_int8=mlp_int8, attn_int8=attn_int8)
+        image_encoder.prequantize_int8()
         tcfg = image_encoder.config.text
         text_encoder.tokenizer = HashTokenizer(
             tcfg.vocab_size, tcfg.max_length, eos_id=tcfg.eos_token_id)

@@ -56,7 +56,7 @@ class ProbabilisticHead:
 
     @classmethod
     def create(cls, logit_scale: float, logit_bias: float = 0.0,
-               device="cpu", has_bias: bool = False) -> "ProbabilisticHead":
+               device="cuda", has_bias: bool = False) -> "ProbabilisticHead":
         return cls(
             logit_scale=torch.tensor(logit_scale, dtype=torch.float32, device=device),
             logit_bias=torch.tensor(logit_bias, dtype=torch.float32, device=device),

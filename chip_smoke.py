@@ -1,23 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Stage-2 main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's Stage-2 paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero, without the result line):
   1. device: a CUDA card is required; prints its name and power limit;
-  2. build: compiles the attention kernel (csrc/attention.cu, nvcc,
-     sm_90a) from this checkout;
-  3. kernel vs plain: the kernel against its plain PyTorch version at the
-     ViT-L/14 shape (B=64, T=257, H=16, Dh=64) and the ViT-B/32 shape
-     (T=50, H=12), in bf16 and fp32, with errors and CUDA-event times;
-  4. main path: ProbabilisticVLM.from_pretrained("clip-large", bf16,
+  2. build: compiles every kernel of the paths (csrc/attention.cu,
+     csrc/mlp_int8.cu, csrc/linear_int8.cu; nvcc, sm_90a, one process
+     each, all started together) from this checkout, with each one's time;
+  3. attention kernel vs plain at the ViT-L/14 shape (B=64, T=257, H=16,
+     Dh=64) and the ViT-B/32 shape (T=50, H=12), bf16 and fp32, with
+     errors and CUDA-event times; F.scaled_dot_product_attention timed
+     beside it as the yardstick (library_ms; the port never calls it);
+  4. int8 kernels vs plain at the ViT-L/14 shapes in bf16 (M = 64*257):
+     mlp_int8 plain and fused pre-LN (D=1024, F=4096, tanh-GELU), once
+     with 4-bit weights; linear_int8 for the fused QKV (N=3072, three
+     outputs) and the out-projection (N=1024); and a ragged M. Beside
+     them, for reference only (no single PyTorch call computes the W8A8
+     function): the bf16 cuBLAS sublayer each replaces and torch._int_mm
+     on the same int8 operands;
+  5. bf16 main path: ProbabilisticVLM.from_pretrained("clip-large", bf16,
      seeded random towers, synthetic full-dimension K-FAC factors) ->
      set_class_prompts(100 prompts) -> predict on [64, 224, 224, 3]
-     pixels; checks shape, finiteness, row sums, 24 kernel launches per
-     image-tower forward, agreement with an fp32 predict of the same
-     weights, and tiny-clip on the card against tiny-clip on the CPU;
-  5. prints the kernels line, then the result line
+     pixels; checks shape, finiteness, row sums, 24 attention launches
+     per image-tower forward and agreement with an fp32 predict;
+  6. int8 main path: the same with mlp_int8=True, attn_int8=True; checks
+     24 mlp_int8, 48 linear_int8 and 24 attention launches per forward,
+     none from the text tower, and the image embeddings' cosine against
+     the bf16 lane's; prints img/s beside the bf16 lane's;
+  7. tiny-clip on the card against tiny-clip on the CPU;
+  8. prints the kernels line, then the result line
      {"ok": true, "device": {...}} last.
+
+Each path's launch counts are set to 0 just before it and read just
+after; the launches of phases 3 and 4 are not counted.
 """
 
 from __future__ import annotations
@@ -40,6 +56,12 @@ SEED = 0
 # bf16 ulp (2^-8 relative), and a p flip and an output flip can stack.
 # fp32: summation order only.
 KERNEL_TOL = {"bf16": 2.0 ** -6, "fp32": 1e-4}
+# int8 kernels vs plain: the JAX package's flip tolerance
+# (tests/test_mlp_int8.py:50-62). An ulp of difference before a rounding
+# (the LayerNorm's summation order, tanhf, rsqrt) can flip one int8 step
+# of one element; flips are sparse, a systematic fault moves every
+# element. max |d| <= 0.02 max|ref|, mean |d| <= 0.002 max|ref|.
+INT8_TOL_MAX, INT8_TOL_MEAN = 0.02, 0.002
 # bf16 towers vs fp32 towers of the same weights. With random weights
 # the probit probs are near uniform (max ~0.014 over 100 classes), so
 # top-1 agreement is decided by noise-sized margins and is only printed.
@@ -50,8 +72,21 @@ KERNEL_TOL = {"bf16": 2.0 ** -6, "fp32": 1e-4}
 # errors of ~0.1-0.3. And the image embeddings' cosine similarity.
 BF16_LOGP_ATOL = 0.5
 BF16_EMBED_COS_MIN = 0.99
+# int8 lane vs bf16 lane of the same weights: W8A8 rounds every
+# activation row and weight channel to 1/127 of its absmax, a relative
+# error of ~1-2% per sublayer output (the JAX package bounds one MLP at
+# 5% relative L2, tests/test_mlp_int8.py). 48 such sublayers feed the
+# residual stream; their errors are independent, so they add as a random
+# walk, ~sqrt(48) * 2% = 14% relative L2 at worst-typical, a cosine of
+# ~0.99. 0.95 leaves room for ~30% and still catches a lane that is
+# wrong (a wrong scale or layout gives a cosine near 0).
+INT8_EMBED_COS_MIN = 0.95
 # tiny-clip fp32 on the card vs on the CPU: fp32 summation order only
 TINY_TOL = 1e-4
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and operations/s
+# of the tensor cores by operand type
+HBM_BYTES_S = 3.35e12
+PEAK_OPS_S = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -73,6 +108,15 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, ops: float, op_type: str) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = ops / PEAK_OPS_S[op_type] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
 def phase_device(torch) -> str:
     check(torch.cuda.is_available(), "no CUDA device: this script needs a GPU")
     smi = subprocess.run(
@@ -88,14 +132,23 @@ def phase_device(torch) -> str:
     return torch.cuda.get_device_name(0)
 
 
-def phase_build(attention) -> None:
+def phase_build(kernels, modules) -> None:
     t0 = time.perf_counter()
-    lib = attention.build_kernel()
-    attention._library()
-    print(f"build: {lib.name} in {time.perf_counter() - t0:.2f} s")
+    seconds = kernels.build_all()
+    wall = time.perf_counter() - t0
+    for name, sec in seconds.items():
+        took = "already built" if sec is None else f"{sec:.2f} s"
+        print(f"build: {kernels.library_path(name).name} {took}")
+    print(f"build: {len(seconds)} kernels in {wall:.2f} s wall (in parallel)")
+    check(set(seconds) == {"attention", "mlp_int8", "linear_int8"},
+          f"kernel sources {sorted(seconds)}")
+    for module in modules:
+        module._library()
 
 
-def phase_kernel_vs_plain(torch, attention) -> dict:
+def phase_attention_vs_plain(torch, attention) -> dict:
+    import torch.nn.functional as F
+
     dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
     shapes = {"vit-l/14": (BATCH, 257, 16, 64), "vit-b/32": (BATCH, 50, 12, 64)}
     results = {}
@@ -109,85 +162,190 @@ def phase_kernel_vs_plain(torch, attention) -> dict:
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs()
             tol = KERNEL_TOL[dname]
-            bound = tol + tol * ref.float().abs()
-            worst = float((err / bound).max())
+            worst = float((err / (tol + tol * ref.float().abs())).max())
             ms = cuda_ms(torch, lambda: attention.fused_attention(q, k, v, H))
             plain_ms = cuda_ms(
                 torch, lambda: attention.fused_attention_reference(q, k, v, H))
+            heads = [t.view(B, T, H, Dh).transpose(1, 2) for t in (q, k, v)]
+            library_ms = cuda_ms(
+                torch, lambda: F.scaled_dot_product_attention(*heads))
+            b = bound(4 * B * T * H * Dh * q.element_size(),
+                      4 * B * H * T * T * Dh, dname)
             max_err = float(err.max())
-            print(f"kernel vs plain {shape_name} {dname} B={B} T={T} H={H} "
+            print(f"attention vs plain {shape_name} {dname} B={B} T={T} H={H} "
                   f"Dh={Dh}: max_abs_err={max_err:.3e} (tol {tol:.3e} abs + "
                   f"rel, worst/bound={worst:.3f}) kernel_ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f}")
-            check(worst <= 1.0, f"{shape_name} {dname} kernel disagrees "
-                                f"with plain (max_abs_err {max_err})")
-            results[(shape_name, dname)] = dict(max_abs_err=max_err, ms=ms,
-                                                plain_ms=plain_ms)
+                  f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
+                  f"bound_ms={b['bound_ms']:.4f} ({b['bound_by']})")
+            check(worst <= 1.0, f"{shape_name} {dname} attention kernel "
+                                f"disagrees with plain (max_abs_err {max_err})")
+            results[(shape_name, dname)] = dict(
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, **b)
     return results
 
 
-def _synthetic_hessian_dir(root: str, config) -> str:
-    """Random SPD K-FAC factors at the model's full dims (the recipe of
-    bench.py's _synthetic_hessian_dir), written from a seed."""
-    from bayesvlm_tpu_torch.io.artifacts import save_hessians, save_prior_precision
-
-    rng = np.random.default_rng(SEED)
-
-    def spd(dim, scale):
-        M = rng.normal(size=(dim, dim)).astype(np.float32)
-        return (M @ M.T / dim + np.eye(dim, dtype=np.float32)) * scale
-
-    D = config.vision.projection_dim
-    save_hessians(root, spd(config.vision.hidden_size, 40.0), spd(D, 25.0), "img")
-    save_hessians(root, spd(config.text.hidden_size, 35.0), spd(D, 15.0), "txt")
-    save_prior_precision(root, 300.0, 1.0, 300.0, 1.0)
-    return root
+def _flip_check(torch, name: str, out, ref) -> dict:
+    d = (out.float() - ref.float()).abs()
+    scale = float(ref.float().abs().max()) + 1e-12
+    max_err, mean_err = float(d.max()), float(d.mean())
+    print(f"  {name}: max_abs_err={max_err:.3e} (tol {INT8_TOL_MAX * scale:.3e}) "
+          f"mean_abs_err={mean_err:.3e} (tol {INT8_TOL_MEAN * scale:.3e}) "
+          f"flipped={int((d > 0).sum())}/{d.numel()}")
+    check(max_err <= INT8_TOL_MAX * scale and mean_err <= INT8_TOL_MEAN * scale,
+          f"{name}: the kernel disagrees with its plain version")
+    return {"max_abs_err": max_err, "mean_abs_err": mean_err}
 
 
-def phase_main_path(torch, attention, hessian_dir: str) -> int:
-    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+def phase_int8_vs_plain(torch, mlp, linear) -> dict:
+    """Both int8 kernels at the ViT-L/14 int8 lane's shapes, bf16."""
+    import torch.nn.functional as F
+
+    M, D, Fd = BATCH * 257, 1024, 4096
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    x = randn(M, D).bfloat16()
+    w1 = randn(Fd, D, scale=D ** -0.5).bfloat16()
+    w2 = randn(D, Fd, scale=Fd ** -0.5).bfloat16()
+    b1, b2 = randn(Fd, scale=0.02), randn(D, scale=0.02)
+    ln = dict(ln_weight=1.0 + randn(D, scale=0.1), ln_bias=randn(D, scale=0.1),
+              ln_eps=1e-5)
+    results = {}
+
+    print(f"int8 kernels vs plain (bf16, M={M}):")
+    for label, bits, kw in (("mlp_int8 plain", 8, {}), ("mlp_int8 fused-LN", 8, ln),
+                            ("mlp_int8 fused-LN w4", 4, ln)):
+        quant = mlp.quantize_mlp_weights(w1, w2, bits)
+        run = lambda: mlp.mlp_int8(x, w1, b1, w2, b2, "gelu_tanh", quant=quant, **kw)
+        plain = lambda: mlp.mlp_int8_reference(x, w1, b1, w2, b2, "gelu_tanh",
+                                               quant=quant, **kw)
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        r = _flip_check(torch, f"{label} D={D} F={Fd}", out, ref)
+        r["ms"], r["plain_ms"] = cuda_ms(torch, run), cuda_ms(torch, plain, iters=5)
+        # the function's bytes: x read, out written, int8 weights, fp32
+        # scales, biases and LN parameters; its operations: the two int8
+        # products (the fp32 epilogues are ~1% of them)
+        nbytes = (2 * M * D * x.element_size() + 2 * D * Fd
+                  + 4 * (2 * Fd + 2 * D + (2 * D if kw else 0)))
+        r.update(bound(nbytes, 4 * M * D * Fd, "int8"))
+        print(f"  {label}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+        results[label] = r
+
+    xq, _ = mlp._quant_rows(x.float())
+    w1q, w2q = mlp.quantize_weight(w1)[0], mlp.quantize_weight(w2)[0]
+    aq = torch.randint(-127, 128, (M, Fd), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    yard = {
+        "bf16_cublas_ms": cuda_ms(torch, lambda: F.linear(
+            F.gelu(F.linear(x, w1, b1.bfloat16()), approximate="tanh"),
+            w2, b2.bfloat16())),
+        "int_mm_ms": cuda_ms(torch, lambda: (torch._int_mm(xq, w1q.t()),
+                                             torch._int_mm(aq, w2q.t()))),
+    }
+    print(f"  yardsticks mlp (reference only): bf16 F.linear->GELU->F.linear "
+          f"{yard['bf16_cublas_ms']:.4f} ms, torch._int_mm x2 "
+          f"{yard['int_mm_ms']:.4f} ms")
+    results["mlp_int8 yardsticks"] = yard
+    del aq
+
+    wqkv = randn(3 * D, D, scale=D ** -0.5).bfloat16()
+    bqkv = randn(3 * D, scale=0.02)
+    wo, bo = randn(D, D, scale=D ** -0.5).bfloat16(), randn(D, scale=0.02)
+    for label, w, b, chunks in (("linear_int8 qkv", wqkv, bqkv, 3),
+                                ("linear_int8 out_proj", wo, bo, 1)):
+        N = w.shape[0]
+        run = lambda: linear.linear_int8(x, w, b, chunks=chunks)
+        plain = lambda: linear.linear_int8_reference(x, w, b)
+        out = run()
+        out = torch.cat(out, dim=-1) if chunks > 1 else out
+        ref = plain()
+        torch.cuda.synchronize()
+        r = _flip_check(torch, f"{label} K={D} N={N}", out, ref)
+        r["ms"], r["plain_ms"] = cuda_ms(torch, run), cuda_ms(torch, plain, iters=5)
+        # bytes: x read, out written, the bf16 weight (quantized per call,
+        # as in the JAX package), the fp32 bias
+        nbytes = (M * D + M * N) * x.element_size() + N * D * w.element_size() + 4 * N
+        r.update(bound(nbytes, 2 * M * D * N, "int8"))
+        wq = linear.quantize_weight(w)[0]
+        r["bf16_cublas_ms"] = cuda_ms(torch, lambda: F.linear(x, w, b.bfloat16()))
+        r["int_mm_ms"] = cuda_ms(torch, lambda: torch._int_mm(xq, wq.t()))
+        print(f"  {label}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); yardsticks "
+              f"(reference only): bf16 F.linear {r['bf16_cublas_ms']:.4f} ms, "
+              f"torch._int_mm {r['int_mm_ms']:.4f} ms")
+        results[label] = r
+
+    # a ragged M (no multiple of the 128-row tile or of 32)
+    Mr = 333
+    xr = x[:Mr]
+    quant = mlp.quantize_mlp_weights(w1, w2)
+    _flip_check(torch, f"mlp_int8 fused-LN ragged M={Mr}",
+                mlp.mlp_int8(xr, w1, b1, w2, b2, quant=quant, **ln),
+                mlp.mlp_int8_reference(xr, w1, b1, w2, b2, quant=quant, **ln))
+    _flip_check(torch, f"linear_int8 qkv ragged M={Mr}",
+                torch.cat(linear.linear_int8(xr, wqkv, bqkv, chunks=3), dim=-1),
+                linear.linear_int8_reference(xr, wqkv, bqkv))
+    return results
+
+
+def _drive(torch, counters, hessian_dir: str, pixels, prompts, per_forward: dict,
+           **lanes):
+    """from_pretrained -> set_class_prompts -> predict x (PREDICT_CALLS+1)
+    with every launch count set to 0 just before and read just after;
+    checks each kernel's launches per image-tower forward and that the
+    text tower launches none. Returns (vlm, probs, launches, img/s,
+    from_pretrained seconds, first call seconds, row-sum error)."""
     from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
-    from bayesvlm_tpu_torch.utils import get_image_size
 
-    vcfg = CONFIGS_BY_NAME[MODEL].vision
-    size = get_image_size(MODEL)
-    prompts = [f"a photo of a thing of class {i}" for i in range(NUM_PROMPTS)]
-    pixels = np.random.default_rng(SEED + 1).normal(
-        size=(BATCH, size, size, 3)).astype(np.float32)
-
-    attention.fused_attention.launches = 0
+    for c in counters.values():
+        c.launches = 0
     t0 = time.perf_counter()
     vlm = ProbabilisticVLM.from_pretrained(MODEL, hessian_dir, dtype="bf16",
-                                           device="cuda", seed=SEED)
+                                           device="cuda", seed=SEED, **lanes)
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
     vlm.set_class_prompts(prompts)
-    check(attention.fused_attention.launches == 0,
-          "the causal text tower must not reach the attention kernel")
-
+    check(all(c.launches == 0 for c in counters.values()),
+          "the causal text tower must launch no kernel of the vision lanes")
     times, probs = [], None
     for _ in range(PREDICT_CALLS + 1):
-        before = attention.fused_attention.launches
+        before = {n: c.launches for n, c in counters.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         probs = vlm.predict(pixels)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        check(attention.fused_attention.launches - before == vcfg.num_layers,
-              f"expected {vcfg.num_layers} kernel launches per image-tower "
-              f"forward, got {attention.fused_attention.launches - before}")
-    launches = attention.fused_attention.launches
-
+        got = {n: c.launches - before[n] for n, c in counters.items()}
+        check(got == per_forward, f"launches per image-tower forward: expected "
+                                  f"{per_forward}, got {got}")
+    launches = {n: c.launches for n, c in counters.items()}
     check(tuple(probs.shape) == (BATCH, NUM_PROMPTS), f"shape {tuple(probs.shape)}")
     check(bool(torch.isfinite(probs).all()), "non-finite probabilities")
     row_err = float((probs.sum(-1) - 1.0).abs().max())
     check(row_err <= 1e-5, f"rows sum to 1 within {row_err:.2e}")
     steady = times[1:]  # the first call pays cuBLAS/cuDNN warm-up
     img_s = BATCH * len(steady) / sum(steady)
-    print(f"main path: lambda_img={vlm.info['lambda_img']!r} "
+    return vlm, probs, launches, img_s, t_load, times[0], row_err
+
+
+def phase_main_path(torch, counters, hessian_dir: str, pixels, prompts):
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+    from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
+
+    L = CONFIGS_BY_NAME[MODEL].vision.num_layers
+    vlm, probs, launches, img_s, t_load, t_first, row_err = _drive(
+        torch, counters, hessian_dir, pixels, prompts,
+        {"attention": L, "mlp_int8": 0, "linear_int8": 0})
+    print(f"bf16 main path: lambda_img={vlm.info['lambda_img']!r} "
           f"lambda_txt={vlm.info['lambda_txt']!r} from_pretrained_s={t_load:.2f} "
-          f"predict_first_s={times[0]:.3f} predict_img_s_B{BATCH}={img_s:.1f} "
+          f"predict_first_s={t_first:.3f} predict_img_s_B{BATCH}={img_s:.1f} "
           f"launches={launches} row_sum_err={row_err:.2e}")
+    embeds = vlm.encode_images(pixels).embeds
 
     vlm32 = ProbabilisticVLM.from_pretrained(MODEL, hessian_dir, dtype="fp32",
                                              device="cuda", seed=SEED)
@@ -196,8 +354,7 @@ def phase_main_path(torch, attention, hessian_dir: str) -> int:
     logp_diff = float((probs.float().log() - probs32.log()).abs().max())
     top1 = float((probs.argmax(-1) == probs32.argmax(-1)).float().mean())
     cos = float(torch.nn.functional.cosine_similarity(
-        vlm.encode_images(pixels).embeds, vlm32.encode_images(pixels).embeds,
-        dim=-1).min())
+        embeds, vlm32.encode_images(pixels).embeds, dim=-1).min())
     print(f"bf16 vs fp32 predict: max_abs_logp_diff={logp_diff:.3e} "
           f"(tol {BF16_LOGP_ATOL}) max_abs_prob_diff="
           f"{float((probs.float() - probs32).abs().max()):.3e} "
@@ -207,7 +364,30 @@ def phase_main_path(torch, attention, hessian_dir: str) -> int:
     check(logp_diff <= BF16_LOGP_ATOL, "bf16 log-probs stray from fp32")
     check(cos >= BF16_EMBED_COS_MIN, "bf16 image embeddings stray from fp32")
     del vlm, vlm32
-    return launches
+    return launches, img_s, embeds, probs
+
+
+def phase_int8_path(torch, counters, hessian_dir: str, pixels, prompts,
+                    bf16_embeds, bf16_probs, bf16_img_s):
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+
+    L = CONFIGS_BY_NAME[MODEL].vision.num_layers
+    vlm, probs, launches, img_s, t_load, t_first, row_err = _drive(
+        torch, counters, hessian_dir, pixels, prompts,
+        {"attention": L, "mlp_int8": L, "linear_int8": 2 * L},
+        mlp_int8=True, attn_int8=True)
+    cos = float(torch.nn.functional.cosine_similarity(
+        vlm.encode_images(pixels).embeds, bf16_embeds, dim=-1).min())
+    logp_diff = float((probs.float().log() - bf16_probs.float().log()).abs().max())
+    print(f"int8 main path (mlp_int8 + attn_int8): from_pretrained_s={t_load:.2f} "
+          f"predict_first_s={t_first:.3f} predict_img_s_B{BATCH}={img_s:.1f} "
+          f"(bf16 lane {bf16_img_s:.1f}) launches={launches} "
+          f"row_sum_err={row_err:.2e}")
+    print(f"int8 vs bf16 lane: min_embed_cos={cos:.6f} (min {INT8_EMBED_COS_MIN}) "
+          f"max_abs_logp_diff={logp_diff:.3e}")
+    check(cos >= INT8_EMBED_COS_MIN, "int8 image embeddings stray from the bf16 lane")
+    del vlm
+    return launches, img_s
 
 
 def phase_tiny_reference(torch, hessian_dir: str) -> None:
@@ -237,34 +417,67 @@ def phase_tiny_reference(torch, hessian_dir: str) -> None:
     check(diff <= TINY_TOL, "tiny-clip on the card disagrees with the CPU")
 
 
+def _entry(name, source, replaces, launches, r, library_ms):
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, **{k: r[k] for k in keys},
+            "library_ms": library_ms}
+
+
 def main() -> int:
     import torch
 
     kind = phase_device(torch)
-    from bayesvlm_tpu_torch.models import attention
+    from bayesvlm_tpu_torch import kernels
+    from bayesvlm_tpu_torch.io.artifacts import save_synthetic_hessians
+    from bayesvlm_tpu_torch.models import attention, linear_int8, mlp_int8
     from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME, TINY_CLIP_CONFIG
+    from bayesvlm_tpu_torch.utils import get_image_size
 
-    phase_build(attention)
-    kernel = phase_kernel_vs_plain(torch, attention)
-    attention.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=attention.BUILD_DIR) as big, \
-            tempfile.TemporaryDirectory(dir=attention.BUILD_DIR) as tiny:
-        launches = phase_main_path(
-            torch, attention,
-            _synthetic_hessian_dir(big, CONFIGS_BY_NAME[MODEL]))
-        phase_tiny_reference(torch, _synthetic_hessian_dir(tiny, TINY_CLIP_CONFIG))
+    phase_build(kernels, (attention, mlp_int8, linear_int8))
+    attn = phase_attention_vs_plain(torch, attention)
+    int8 = phase_int8_vs_plain(torch, mlp_int8, linear_int8)
 
-    main_shape = kernel[("vit-l/14", "bf16")]
-    print(json.dumps({"kernels": [{
-        "name": "fused_attention",
-        "route": "cuda",
-        "source": "bayesvlm_tpu_torch/csrc/attention.cu",
-        "replaces": "bayesvlm_tpu/models/attention_pallas.py:199",
-        "launches": launches,
-        "max_abs_err": main_shape["max_abs_err"],
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-    }]}))
+    counters = {"attention": attention.fused_attention,
+                "mlp_int8": mlp_int8.mlp_int8,
+                "linear_int8": linear_int8.linear_int8}
+    size = get_image_size(MODEL)
+    prompts = [f"a photo of a thing of class {i}" for i in range(NUM_PROMPTS)]
+    pixels = np.random.default_rng(SEED + 1).normal(
+        size=(BATCH, size, size, 3)).astype(np.float32)
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as big, \
+            tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tiny:
+        hdir = save_synthetic_hessians(big, CONFIGS_BY_NAME[MODEL], SEED)
+        bf16_launches, bf16_img_s, bf16_embeds, bf16_probs = phase_main_path(
+            torch, counters, hdir, pixels, prompts)
+        int8_launches, _ = phase_int8_path(
+            torch, counters, hdir, pixels, prompts, bf16_embeds, bf16_probs,
+            bf16_img_s)
+        phase_tiny_reference(torch, str(save_synthetic_hessians(
+            tiny, TINY_CLIP_CONFIG, SEED)))
+
+    qkv, out_proj = int8["linear_int8 qkv"], int8["linear_int8 out_proj"]
+    linear_entry = _entry(
+        "linear_int8", "bayesvlm_tpu_torch/csrc/linear_int8.cu",
+        "bayesvlm_tpu/models/linear_int8.py:53", int8_launches["linear_int8"],
+        qkv, None)
+    # the row above is the fused QKV shape; the out-projection's numbers
+    linear_entry["out_proj"] = {k: out_proj[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+    fused = int8["mlp_int8 fused-LN"]
+    mlp_entry = _entry("mlp_int8", "bayesvlm_tpu_torch/csrc/mlp_int8.cu",
+                       "bayesvlm_tpu/models/mlp_int8.py:101",
+                       int8_launches["mlp_int8"], fused, None)
+    mlp_entry["yardsticks"] = int8["mlp_int8 yardsticks"]
+    print(json.dumps({"kernels": [
+        _entry("fused_attention", "bayesvlm_tpu_torch/csrc/attention.cu",
+               "bayesvlm_tpu/models/attention_pallas.py:199",
+               bf16_launches["attention"], attn[("vit-l/14", "bf16")],
+               attn[("vit-l/14", "bf16")]["library_ms"]),
+        mlp_entry,
+        linear_entry,
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

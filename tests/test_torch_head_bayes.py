@@ -54,7 +54,8 @@ def test_smith_forward_matches_jax(has_bias):
 
     T = torch.from_numpy
     cov = lambda A, B: KroneckerFactorizedCovariance(T(A), T(B))
-    head = ProbabilisticHead.create(float(scale), has_bias=has_bias)
+    head = ProbabilisticHead.create(float(scale), has_bias=has_bias,
+                                    device="cpu")
     head = head.set_covariances(cov(A_s, B_s), cov(A_t, B_t))
     out = probabilistic_logits(head, EncoderResult.create(T(emb_s), T(act_s)),
                                EncoderResult.create(T(emb_t), T(act_t)))
@@ -73,7 +74,7 @@ def test_map_logits_match_jax():
     tgt = rng.normal(size=(7, 6)).astype(np.float32)
     ref = deterministic_logits(src, tgt, np.float32(4.6052), np.float32(0.0))
     T = torch.from_numpy
-    head = ProbabilisticHead.create(4.6052)
+    head = ProbabilisticHead.create(4.6052, device="cpu")
     out = head(EncoderResult.create(T(src), T(src)),
                EncoderResult.create(T(tgt), T(tgt)), map_estimate=True)
     np.testing.assert_allclose(out.mean.numpy(), np.asarray(ref),

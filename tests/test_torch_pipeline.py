@@ -3,6 +3,7 @@ package's, tiny-clip in fp32, the same bridged weights and the same
 Hessian directory; and the port's independence from JAX."""
 
 import ast
+import inspect
 import subprocess
 import sys
 import textwrap
@@ -11,6 +12,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from bayesvlm_tpu.io.artifacts import save_hessians, save_prior_precision
 from bayesvlm_tpu.models.configs import TINY_CLIP_CONFIG
@@ -52,7 +54,8 @@ def vlms(hessian_dir, tmp_path_factory):
                       to_np(jvlm.image_encoder.params),
                       to_np(jvlm.text_encoder.params))
     tvlm = ProbabilisticVLM.from_pretrained(
-        "tiny-clip", str(hessian_dir), weights_dir=str(wd), dtype="fp32")
+        "tiny-clip", str(hessian_dir), weights_dir=str(wd), dtype="fp32",
+        device="cpu")
     return jvlm.set_class_prompts(PROMPTS), tvlm.set_class_prompts(PROMPTS)
 
 
@@ -106,6 +109,58 @@ def test_mc_predict_matches_jax_in_distribution(vlms):
     assert not np.allclose(mc, tvlm.predict(imgs).numpy(), atol=1e-4)
 
 
+@pytest.fixture(scope="module")
+def int8_vlms(hessian_dir, tmp_path_factory):
+    """Both packages' VLMs with the vision tower's W8A8 lanes (mlp_int8 +
+    attn_int8), fp32, the port carrying the JAX towers' weights. 100
+    lambda steps: the lambdas do not depend on the lanes."""
+    jvlm = JaxProbabilisticVLM.from_pretrained(
+        "tiny-clip", str(hessian_dir), dtype="fp32", mesh=None,
+        mlp_int8=True, attn_int8=True, prior_num_steps=100)
+    to_np = lambda p: jax.tree_util.tree_map(np.asarray, p)
+    wd = save_weights(tmp_path_factory.mktemp("torch_pipeline_int8_weights"),
+                      to_np(jvlm.image_encoder.params),
+                      to_np(jvlm.text_encoder.params))
+    tvlm = ProbabilisticVLM.from_pretrained(
+        "tiny-clip", str(hessian_dir), weights_dir=str(wd), dtype="fp32",
+        mlp_int8=True, attn_int8=True, prior_num_steps=100, device="cpu")
+    return jvlm.set_class_prompts(PROMPTS), tvlm.set_class_prompts(PROMPTS)
+
+
+def test_int8_predict_matches_jax(int8_vlms, vlms):
+    """The int8 lane end to end. Tolerance: the fp32 one of
+    test_predict_matches_jax. Both packages quantize the same fp32
+    weights bit for bit (test_torch_mlp_int8.py), and on these inputs no
+    activation lands within an ulp of an int8 rounding boundary, so every
+    int8 step agrees and only fp32 summation order differs (measured
+    max |dp| 4.5e-7). A flipped step would show here; the kernel tests
+    bound flips on their own."""
+    jvlm, tvlm = int8_vlms
+    mlp = tvlm.image_encoder.module.encoder.layers[0].mlp
+    assert mlp.use_int8 and mlp.w1q is not None  # prequantized
+    imgs = _images()
+    ref = np.asarray(jvlm.predict(imgs))
+    probs = tvlm.predict(imgs)
+    np.testing.assert_allclose(probs.sum(-1).numpy(), 1.0, rtol=1e-5)
+    np.testing.assert_allclose(probs.numpy(), ref, rtol=1e-4, atol=1e-5)
+    # the lane was taken: the float lane (the same seed-0 weights) embeds
+    # the images otherwise
+    _, float_vlm = vlms
+    assert not torch.allclose(float_vlm.encode_images(imgs).embeds,
+                              tvlm.encode_images(imgs).embeds, atol=1e-5)
+
+
+def test_entry_points_default_to_the_card():
+    """The port runs on the card unless the caller asks for another
+    device; the CPU tests all pass device="cpu"."""
+    from bayesvlm_tpu_torch.models.encoders import load_model
+    from bayesvlm_tpu_torch.probforward.smith import ProbabilisticHead
+
+    for fn in (ProbabilisticVLM.from_pretrained, load_model,
+               ProbabilisticHead.create):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
 def test_package_source_imports_no_jax():
     banned = ("jax", "jaxlib", "flax", "optax", "bayesvlm_tpu")
     for path in (REPO / "bayesvlm_tpu_torch").rglob("*.py"):
@@ -130,7 +185,7 @@ def test_slice_runs_without_jax(hessian_dir):
         from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
         vlm = ProbabilisticVLM.from_pretrained(
             "tiny-clip", {str(hessian_dir)!r}, dtype="fp32",
-            prior_num_steps=5)
+            prior_num_steps=5, device="cpu")
         vlm.set_class_prompts(["a cat", "a dog"])
         probs = vlm.predict(np.zeros((2, 32, 32, 3), np.float32))
         assert probs.shape == (2, 2)

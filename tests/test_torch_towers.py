@@ -39,7 +39,7 @@ def towers(tmp_path_factory):
     wd = save_weights(tmp_path_factory.mktemp("bridged"),
                       _np_tree(j_img.params), _np_tree(j_txt.params))
     t_img, t_txt, _ = load_model("tiny-clip", weights_dir=wd,
-                                 dtype=torch.float32)
+                                 dtype=torch.float32, device="cpu")
     return j_img, j_txt, t_img, t_txt
 
 
@@ -122,7 +122,7 @@ def test_cast_gemm_params_matches_jax_split(towers):
     jax_cast = jax_cast_gemm_params(j_img.params, jnp.bfloat16)
     jax_bf16 = sum(int(leaf.dtype == jnp.bfloat16) * leaf.size
                    for leaf in jax.tree_util.tree_leaves(jax_cast))
-    t_img, _, _ = load_model("tiny-clip", dtype=torch.bfloat16)
+    t_img, _, _ = load_model("tiny-clip", dtype=torch.bfloat16, device="cpu")
     cast_gemm_params(t_img.module, torch.bfloat16)
     ours_bf16 = sum(p.numel() for p in t_img.module.parameters()
                     if p.dtype == torch.bfloat16)
@@ -135,7 +135,7 @@ def test_bf16_tower_stays_close_to_fp32(towers):
     """bf16 compute with fp32 LN/softmax/projection tracks the fp32 tower
     (tanh-GELU in bf16, as in the JAX package)."""
     _, _, t_img, _ = towers
-    wd_img, _, _ = load_model("tiny-clip", dtype=torch.bfloat16)
+    wd_img, _, _ = load_model("tiny-clip", dtype=torch.bfloat16, device="cpu")
     wd_img.module.load_state_dict(
         {k: v.to(wd_img.module.state_dict()[k].dtype)
          for k, v in t_img.module.state_dict().items()})
