@@ -1,10 +1,11 @@
 """Core value containers: `EncoderResult` and `ProbabilisticLogits`.
 
 Counterparts of `bayesvlm_tpu.types` (ref:bayesvlm/vlm.py:27-204), as
-plain dataclasses of torch tensors. Sampling draws from an explicit
-`torch.Generator` seeded by the caller; it gives other numbers than the
-JAX package's `jax.random` keys for the same seed, so the two agree in
-distribution, not bit for bit.
+plain dataclasses of torch tensors. Every Monte-Carlo draw comes from
+`_normal`, backed by an explicit `torch.Generator` seeded by the caller;
+it gives other numbers than the JAX package's `jax.random` keys for the
+same seed, so the two agree in distribution, not bit for bit (a test
+hands both packages the same noise by replacing `_normal`).
 
 The probit path takes elementwise variances ([N, C]) as they are, as the
 reference's zero-shot script does (ref:scripts/zeroshot.py:119-120).
@@ -67,6 +68,14 @@ def probit_scaled_mean(mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
     return mean / torch.sqrt(1.0 + _PROBIT_C * var)
 
 
+def _normal(seed: int, shape, device, dtype) -> torch.Tensor:
+    """Standard normal noise of `shape` from a generator seeded with
+    `seed`: the one source of the Monte-Carlo noise of this module."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=device, dtype=dtype)
+
+
 @dataclasses.dataclass
 class ProbabilisticLogits:
     """Gaussian distribution over logits: mean [N, C] and elementwise
@@ -74,6 +83,12 @@ class ProbabilisticLogits:
 
     mean: torch.Tensor
     var: torch.Tensor
+
+    def __len__(self) -> int:
+        return self.mean.shape[0]
+
+    def __getitem__(self, idx) -> "ProbabilisticLogits":
+        return ProbabilisticLogits(mean=self.mean[idx], var=self.var[idx])
 
     def map_softmax(self, dim: int = -1) -> torch.Tensor:
         return torch.softmax(self.mean, dim=dim)
@@ -89,16 +104,24 @@ class ProbabilisticLogits:
         (ref:bayesvlm/vlm.py:68-103)."""
         if num_samples == 0:
             return self.probit_softmax(dim=dim)
+        logits = self._sample_logits(seed, num_samples)
+        return torch.softmax(logits, dim=dim).mean(dim=0)
+
+    def _sample_logits(self, seed: Optional[int], num_samples: int) -> torch.Tensor:
+        """[S, N, C] Gaussian samples of the logits (diagonal variance)."""
         if self.var.ndim != self.mean.ndim:
             raise NotImplementedError(
                 "full-covariance sampling is not ported yet")
-        gen = torch.Generator(device=self.mean.device)
-        gen.manual_seed(0 if seed is None else int(seed))
-        eps = torch.randn((num_samples,) + tuple(self.mean.shape),
-                          generator=gen, device=self.mean.device,
-                          dtype=self.mean.dtype)
-        logits = self.mean[None] + eps * torch.sqrt(self.var)[None]
-        return torch.softmax(logits, dim=dim).mean(dim=0)
+        eps = _normal(0 if seed is None else int(seed),
+                      (num_samples,) + tuple(self.mean.shape),
+                      self.mean.device, self.mean.dtype)
+        return self.mean[None] + eps * torch.sqrt(self.var)[None]
+
+    def sample_probas(self, num_samples: int,
+                      seed: Optional[int] = None) -> torch.Tensor:
+        """[N, S, C] softmax probability samples (ref:bayesvlm/vlm.py:105-139)."""
+        logits = self._sample_logits(seed, num_samples)
+        return torch.softmax(logits, dim=-1).transpose(0, 1)
 
     @staticmethod
     def concatenate(parts: list["ProbabilisticLogits"]) -> "ProbabilisticLogits":

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Stage-2 paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's Stage-2 and Stage-3 paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero, without the result line):
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles every kernel of the paths (csrc/attention.cu,
-     csrc/mlp_int8.cu, csrc/linear_int8.cu; nvcc, sm_90a, one process
-     each, all started together) from this checkout, with each one's time;
+     csrc/mlp_int8.cu, csrc/linear_int8.cu, csrc/xlogy_rowsum.cu; nvcc,
+     sm_90a, one process each, all started together) from this checkout,
+     with each one's time;
   3. attention kernel vs plain at the ViT-L/14 shape (B=64, T=257, H=16,
      Dh=64) and the ViT-B/32 shape (T=50, H=12), bf16 and fp32, with
      errors and CUDA-event times; F.scaled_dot_product_attention timed
@@ -19,21 +20,34 @@ Phases (any failure raises and exits non-zero, without the result line):
      them, for reference only (no single PyTorch call computes the W8A8
      function): the bf16 cuBLAS sublayer each replaces and torch._int_mm
      on the same int8 operands;
-  5. bf16 main path: ProbabilisticVLM.from_pretrained("clip-large", bf16,
+  5. EPIG joint-entropy kernel vs plain at the reference operating point
+     (pool 4000, targets 2000, C=65, K=100 MC samples: a [260000, 130000]
+     joint), bf16 and int8, and a ragged small shape: row sums and EPIG
+     scores within a stated tolerance, top-50 overlap with the plain
+     ranking (printed), times, bound and the cuBLAS bf16 product of the
+     same shape as a yardstick (reference only). The int8 kernel's path,
+     `epig_from_probs_fused(use_int8=True)`, is read with its count;
+  6. bf16 main path: ProbabilisticVLM.from_pretrained("clip-large", bf16,
      seeded random towers, synthetic full-dimension K-FAC factors) ->
      set_class_prompts(100 prompts) -> predict on [64, 224, 224, 3]
      pixels; checks shape, finiteness, row sums, 24 attention launches
      per image-tower forward and agreement with an fp32 predict;
-  6. int8 main path: the same with mlp_int8=True, attn_int8=True; checks
+  7. int8 main path: the same with mlp_int8=True, attn_int8=True; checks
      24 mlp_int8, 48 linear_int8 and 24 attention launches per forward,
      none from the text tower, and the image embeddings' cosine against
      the bf16 lane's; prints img/s beside the bf16 lane's;
-  7. tiny-clip on the card against tiny-clip on the CPU;
-  8. prints the kernels line, then the result line
+  8. Stage-3 online EPIG path at clip-large width: from_pretrained, 6000
+     pool and 2000 target images of seeded pixels and 65 prompts encoded,
+     then select_epig_online(budget=3, num_samples=100,
+     pool_subsampling="knn_wasserstein", the active-learning defaults);
+     checks 3 distinct indices, finite scores, one kernel launch per step
+     and pool chunk, and lambda moved; ms per step and its split;
+  9. tiny-clip on the card against tiny-clip on the CPU;
+  10. prints the kernels line, then the result line
      {"ok": true, "device": {...}} last.
 
 Each path's launch counts are set to 0 just before it and read just
-after; the launches of phases 3 and 4 are not counted.
+after; the launches of phases 3, 4 and 5's comparisons are not counted.
 """
 
 from __future__ import annotations
@@ -87,6 +101,24 @@ TINY_TOL = 1e-4
 # of the tensor cores by operand type
 HBM_BYTES_S = 3.35e12
 PEAK_OPS_S = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+# transcendentals (MUFU lg2) per SM per clock; the card's rate is this
+# times its SM count and maximum SM clock, read in phase_device
+MUFU_PER_SM_CLOCK = 16
+DEVICE = {}
+# the EPIG reference operating point (the JAX package's bench.py)
+EPIG_POOL, EPIG_TARG, EPIG_C, EPIG_K = 4000, 2000, 65, 100
+# EPIG kernel vs plain, row sums: both take the same fp32 s (bf16 products
+# are exact; int8 sums exact in both), so they differ by the fp32
+# summation order of N = 130,000 terms of one sign (the kernel adds ~8k
+# a thread, sequentially: about sqrt(8k) * 2^-24 = 5e-6 of the sum, 5e-4
+# at worst) and by __log2f (<= 3e-7 s a term). 1e-4 of |row sum| is 20x
+# the typical drift. A score is (sum over the C rows of a pool item) / N_t,
+# so its error is at most 1e-4 * sum_c |r| / N_t.
+ROWSUM_RTOL = 1e-4
+# Stage-3 online EPIG path, the active-learning script's settings
+# (scripts/activelearning.py:67-71, 185-210)
+EPIG_POOL_IMAGES, EPIG_TARGET_IMAGES, EPIG_CLASSES = 6000, 2000, 65
+EPIG_BUDGET, EPIG_CHUNK = 3, 4096
 
 
 def check(ok: bool, msg: str) -> None:
@@ -108,13 +140,16 @@ def cuda_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops: float, op_type: str) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the peak rate of their type."""
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = ops / PEAK_OPS_S[op_type] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+def bound(nbytes: float, ops: float, op_type: str,
+          transcendentals: float = 0.0) -> dict:
+    """The least time the card could take: the largest of the bytes over
+    the memory rate, the operations over the peak rate of their type and
+    the transcendentals over the MUFU rate."""
+    times = {"bytes": nbytes / HBM_BYTES_S * 1e3,
+             "operations": ops / PEAK_OPS_S[op_type] * 1e3,
+             "transcendentals": transcendentals / DEVICE.get("mufu_s", 1.0) * 1e3}
+    by = max(times, key=times.get)
+    return {"bound_ms": times[by], "bound_by": by}
 
 
 def phase_device(torch) -> str:
@@ -124,6 +159,15 @@ def phase_device(torch) -> str:
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     print(f"card: {smi.stdout.strip().splitlines()[0]}")
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60)
+    check(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr.strip()}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(clk.stdout.strip().splitlines()[0])
+    DEVICE["mufu_s"] = MUFU_PER_SM_CLOCK * sms * mhz * 1e6
+    print(f"SMs {sms}, max SM clock {mhz:.0f} MHz: {DEVICE['mufu_s']:.4e} "
+          f"transcendentals/s")
     # cuDNN runs fp32 convolutions in TF32 by default; fp32 matmuls stay
     # full fp32 (the default, left as it is)
     torch.backends.cudnn.allow_tf32 = False
@@ -140,7 +184,7 @@ def phase_build(kernels, modules) -> None:
         took = "already built" if sec is None else f"{sec:.2f} s"
         print(f"build: {kernels.library_path(name).name} {took}")
     print(f"build: {len(seconds)} kernels in {wall:.2f} s wall (in parallel)")
-    check(set(seconds) == {"attention", "mlp_int8", "linear_int8"},
+    check(set(seconds) == {"attention", "mlp_int8", "linear_int8", "xlogy_rowsum"},
           f"kernel sources {sorted(seconds)}")
     for module in modules:
         module._library()
@@ -417,6 +461,264 @@ def phase_tiny_reference(torch, hessian_dir: str) -> None:
     check(diff <= TINY_TOL, "tiny-clip on the card disagrees with the CPU")
 
 
+class _Count:
+    """One kernel's launch count, read and set as `.launches`."""
+
+    def __init__(self, obj, attr: str):
+        self.obj, self.attr = obj, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.obj, self.attr)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        setattr(self.obj, self.attr, value)
+
+
+def _top_overlap(torch, a, b, k: int = 50) -> int:
+    k = min(k, a.numel())
+    ta = set(torch.topk(a, k).indices.tolist())
+    return len(ta & set(torch.topk(b, k).indices.tolist()))
+
+
+def _rowsum_check(torch, ej, label: str, pool, targ, k: int, use_int8: bool):
+    """Kernel vs plain row sums and EPIG scores on the same operands."""
+    n_p, n_t = pool.shape[0] // EPIG_C, targ.shape[0] // EPIG_C
+    out = ej.joint_xlogy_rowsums(pool, targ, k, use_int8=use_int8)
+    ref = ej.joint_xlogy_rowsums_reference(pool, targ, k, use_int8=use_int8)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    row_ok = bool((err <= ROWSUM_RTOL * ref.abs()).all())
+    s_k = ej.scores_from_rowsums(pool, targ, out, n_p, n_t, EPIG_C)
+    s_p = ej.scores_from_rowsums(pool, targ, ref, n_p, n_t, EPIG_C)
+    score_tol = ROWSUM_RTOL * ref.abs().reshape(n_p, EPIG_C).sum(1) / n_t
+    score_err = (s_k - s_p).abs()
+    r = {"max_abs_err": float(err.max()), "max_rel_err": float((err / ref.abs()).max()),
+         "max_score_err": float(score_err.max()), "scores": s_k, "plain_scores": s_p}
+    print(f"  {label}: max |d rowsum|={r['max_abs_err']:.3e} (max rel "
+          f"{r['max_rel_err']:.3e}, tol {ROWSUM_RTOL:.0e} rel) max |d EPIG|="
+          f"{r['max_score_err']:.3e} (tol {float(score_tol.min()):.3e}.."
+          f"{float(score_tol.max()):.3e}, per row)")
+    check(row_ok, f"{label}: row sums disagree with the plain version")
+    check(bool((score_err <= score_tol).all()),
+          f"{label}: EPIG scores disagree with the plain version")
+    return r
+
+
+def phase_epig_vs_plain(torch, ej, counters) -> dict:
+    """The joint-entropy kernel, bf16 and int8, at the operating point."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+
+    def probs(n, k=EPIG_K):
+        return torch.softmax(torch.randn(n, k, EPIG_C, generator=gen, device="cuda"), -1)
+
+    probs_pool, probs_targ = probs(EPIG_POOL), probs(EPIG_TARG)
+    pool, targ = ej._flatten(probs_pool), ej._flatten(probs_targ)
+    M, N, K = pool.shape[0], targ.shape[0], EPIG_K
+    print(f"EPIG joint-entropy kernel vs plain (pool {EPIG_POOL}, targets "
+          f"{EPIG_TARG}, C={EPIG_C}, K={K}: M={M}, N={N}):")
+    results = {}
+    for name, use_int8, op_type in (("bf16", False, "bf16"), ("int8", True, "int8")):
+        r = _rowsum_check(torch, ej, f"{name} M={M} N={N} K={K}", pool, targ, K,
+                          use_int8)
+        r["top50_overlap"] = _top_overlap(torch, r["scores"], r["plain_scores"])
+        r["ms"] = cuda_ms(torch, lambda: ej.joint_xlogy_rowsums(
+            pool, targ, K, use_int8=use_int8), iters=10, warmup=2)
+        r["plain_ms"] = cuda_ms(torch, lambda: ej.joint_xlogy_rowsums_reference(
+            pool, targ, K, use_int8=use_int8), iters=3, warmup=1)
+        # the function's bytes: the fp32 operands read once, the row sums
+        # written; its operations: the product at the unpadded K; one log
+        # per joint element
+        r.update(bound((M + N) * K * 4 + M * 4, 2 * M * N * K, op_type,
+                       transcendentals=M * N))
+        print(f"  {name}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) top50 overlap with "
+              f"plain={r['top50_overlap']}/50")
+        results[name] = r
+
+    # yardstick (reference only: no single PyTorch call computes the
+    # function): the cuBLAS bf16 product of the same shape, in the plain
+    # version's pool chunks, writing the joint chunk by chunk
+    a16, b16 = pool.bfloat16(), targ.bfloat16()
+    rows = ej._CHUNK_ELEMS // N
+
+    def cublas():
+        for i in range(0, M, rows):
+            torch.matmul(a16[i:i + rows], b16.T)
+
+    yard = cuda_ms(torch, cublas, iters=5, warmup=1)
+    results["bf16"]["cublas_bf16_ms"] = yard
+    print(f"  yardstick (reference only): cuBLAS bf16 joint product in "
+          f"{-(-M // rows)} chunks of {rows} rows: {yard:.4f} ms")
+
+    s16, s8 = results["bf16"]["scores"], results["int8"]["scores"]
+    print(f"  int8 vs bf16 EPIG scores (printed only; the JAX package measured "
+          f"int8 ranking-destroying): max |d|={float((s8 - s16).abs().max()):.3e} "
+          f"score spread={float(s16.max() - s16.min()):.3e} top50 overlap="
+          f"{_top_overlap(torch, s8, s16)}/50")
+
+    # the int8 kernel's path (the JAX package's epig_from_probs_pallas with
+    # use_int8=True), counts set to 0 just before and read just after
+    for c in counters.values():
+        c.launches = 0
+    scores = ej.epig_from_probs_fused(probs_pool, probs_targ, use_int8=True)
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    expected = {n: int(n == "xlogy_rowsum_int8") for n in counters}
+    print(f"  int8 scoring path epig_from_probs_fused(use_int8=True): "
+          f"launches={launches}")
+    check(launches == expected, f"int8 scoring path launches {launches}")
+    check(bool(torch.isfinite(scores).all()), "non-finite int8 EPIG scores")
+    check(torch.equal(scores, s8), "the int8 scoring path disagrees with its kernel")
+    results["int8"]["launches"] = launches["xlogy_rowsum_int8"]
+
+    # a ragged small shape: M, N no multiple of the 128-row tiles, K = 9
+    gen.manual_seed(SEED + 6)
+    small_p, small_t = ej._flatten(probs(37, 9)), ej._flatten(probs(29, 9))
+    for name, use_int8 in (("bf16", False), ("int8", True)):
+        _rowsum_check(torch, ej, f"{name} ragged M={small_p.shape[0]} "
+                      f"N={small_t.shape[0]} K=9", small_p, small_t, 9, use_int8)
+    for r in results.values():
+        del r["scores"], r["plain_scores"]
+    return results
+
+
+def phase_epig_path(torch, counters, hessian_dir: str) -> dict:
+    """Stage 3 at clip-large width: features from the port's bf16 towers
+    on seeded pixels, then select_epig_online as the active-learning
+    script runs it."""
+    from bayesvlm_tpu_torch.io.artifacts import load_hessians
+    from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
+    from bayesvlm_tpu_torch.probforward import smith
+    from bayesvlm_tpu_torch.select import epig as epig_mod
+    from bayesvlm_tpu_torch.types import EncoderResult
+    from bayesvlm_tpu_torch.utils import get_image_size
+
+    t0 = time.perf_counter()
+    vlm = ProbabilisticVLM.from_pretrained(MODEL, hessian_dir, dtype="bf16",
+                                           device="cuda", seed=SEED)
+    size = get_image_size(MODEL)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def encode(n: int, batch: int = 250) -> EncoderResult:
+        parts = []
+        for i in range(0, n, batch):
+            pixels = torch.randn(min(batch, n - i), size, size, 3, generator=gen,
+                                 device="cuda")
+            parts.append(vlm.encode_images(pixels))
+        r = EncoderResult.concatenate(parts)
+        return EncoderResult(r.embeds.float(), r.activations.float(),
+                             r.residuals.float())
+
+    pool, targ = encode(EPIG_POOL_IMAGES), encode(EPIG_TARGET_IMAGES)
+    labels = vlm.encode_texts([f"a photo of a thing of class {i}"
+                               for i in range(EPIG_CLASSES)])
+    labels = EncoderResult(labels.embeds.float(), labels.activations.float(),
+                           labels.residuals.float())
+    torch.cuda.synchronize()
+    t_feat = time.perf_counter() - t0
+    A_img, B_img = load_hessians(hessian_dir, "img")
+    A_txt, B_txt = load_hessians(hessian_dir, "txt")
+    kernel = vlm.image_encoder.projection_weight().detach().float().T.contiguous()
+    class_ids = np.random.default_rng(SEED + 7).integers(
+        0, EPIG_CLASSES, size=EPIG_POOL_IMAGES)
+    kwargs = dict(
+        label_features=labels, pool_features=pool, target_features=targ,
+        pool_class_ids=class_ids, projection_kernel=kernel, projection_bias=None,
+        head=vlm.head, A_img=A_img, A_txt=A_txt, B_img=B_img, B_txt=B_txt,
+        cov_info=vlm.info, budget=EPIG_BUDGET, lr=1e-4, hessian_update_scale=10.0,
+        num_samples=EPIG_K, seed=0,
+        projection_l2=vlm.image_encoder.projection_l2(),
+        projection_num_params=vlm.image_encoder.projection_num_params(),
+        chunk_size=EPIG_CHUNK, pool_subsampling="knn_wasserstein",
+        k_nearest_neighbors=1, device="cuda")
+    print(f"EPIG path (clip-large, bf16 towers): projection {tuple(kernel.shape)}, "
+          f"{EPIG_POOL_IMAGES} pool + {EPIG_TARGET_IMAGES} target images and "
+          f"{EPIG_CLASSES} prompts encoded; from_pretrained + features "
+          f"{t_feat:.2f} s; lambda_img={vlm.info['lambda_img']!r}")
+
+    # the main run: every count set to 0 just before, read just after
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    selected, scores = epig_mod.select_epig_online(**kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: c.launches for n, c in counters.items()}
+
+    # a second run with each part timed (synchronised wrappers) for the
+    # split of a step; it also reads the pool subsample and lambda
+    spans: dict = {}
+    seen: dict = {"n_pool": [], "lambda": []}
+
+    def timed(module, name, span, note=None):
+        fn = getattr(module, name)
+
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            spans[span] = spans.get(span, 0.0) + time.perf_counter() - t
+            if note:
+                note(args, kw, out)
+            return out
+        return fn, wrapper
+
+    notes = {
+        "epig_from_logits_using_matmul":
+            lambda a, kw, out: seen["n_pool"].append(len(a[0])),
+        "optimize_prior_precision":
+            lambda a, kw, out: seen["lambda"].append(float(out)),
+    }
+    patches = [(epig_mod, "epig_from_logits_using_matmul", "scoring"),
+               (smith, "probabilistic_logits", "scoring"),
+               (epig_mod, "_epig_sgd_step", "sgd step + re-embed"),
+               (epig_mod, "update_embeddings", "sgd step + re-embed"),
+               (epig_mod, "hessian_infonce", "hessian update"),
+               (epig_mod, "optimize_prior_precision", "lambda re-opt"),
+               (epig_mod, "compute_covariances", "covariances")]
+    originals = []
+    for module, name, span in patches:
+        fn, wrapper = timed(module, name, span, notes.get(name))
+        originals.append((module, name, fn))
+        setattr(module, name, wrapper)
+    try:
+        t0 = time.perf_counter()
+        selected2, scores2 = epig_mod.select_epig_online(**kwargs)
+        torch.cuda.synchronize()
+        wall2 = time.perf_counter() - t0
+    finally:
+        for module, name, fn in originals:
+            setattr(module, name, fn)
+
+    n_pool = seen["n_pool"][0]
+    expected = {n: 0 for n in counters}
+    expected["xlogy_rowsum"] = EPIG_BUDGET * -(-n_pool // EPIG_CHUNK)
+    for span in ("scoring", "sgd step + re-embed", "hessian update",
+                 "lambda re-opt", "covariances"):
+        ms = spans.get(span, 0.0) / EPIG_BUDGET * 1e3
+        print(f"  EPIG step split: {span}: {ms:.2f} ms per step")
+    rest = (wall2 - sum(spans.values())) / EPIG_BUDGET * 1e3
+    print(f"  EPIG step split: rest (subsampling, argsort, host loop): "
+          f"{rest:.2f} ms per step")
+    ms_step = wall / EPIG_BUDGET * 1e3
+    print(f"EPIG path: selected={selected} scores={scores} pool_subsample={n_pool} "
+          f"launches={launches} ms_per_step={ms_step:.2f} "
+          f"(timed run {wall2 / EPIG_BUDGET * 1e3:.2f}) lambda_img "
+          f"{vlm.info['lambda_img']!r} -> {seen['lambda']}")
+    check(len(set(selected)) == EPIG_BUDGET, f"selected {selected}")
+    check(all(np.isfinite(s) for s in scores), f"scores {scores}")
+    check(launches == expected, f"EPIG path launches: expected {expected}, "
+                                f"got {launches}")
+    check(seen["lambda"][-1] != vlm.info["lambda_img"], "lambda_img did not move")
+    check(selected2 == selected, "a second run selected other indices")
+    del vlm
+    return {"launches": launches, "ms_per_step": ms_step, "n_pool": n_pool}
+
+
 def _entry(name, source, replaces, launches, r, library_ms):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -432,15 +734,22 @@ def main() -> int:
     from bayesvlm_tpu_torch.io.artifacts import save_synthetic_hessians
     from bayesvlm_tpu_torch.models import attention, linear_int8, mlp_int8
     from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME, TINY_CLIP_CONFIG
+    from bayesvlm_tpu_torch.select import epig_joint
     from bayesvlm_tpu_torch.utils import get_image_size
 
-    phase_build(kernels, (attention, mlp_int8, linear_int8))
+    phase_build(kernels, (attention, mlp_int8, linear_int8, epig_joint))
     attn = phase_attention_vs_plain(torch, attention)
     int8 = phase_int8_vs_plain(torch, mlp_int8, linear_int8)
 
     counters = {"attention": attention.fused_attention,
                 "mlp_int8": mlp_int8.mlp_int8,
                 "linear_int8": linear_int8.linear_int8}
+    all_counters = {
+        **counters,
+        "xlogy_rowsum": _Count(epig_joint.joint_xlogy_rowsums, "launches"),
+        "xlogy_rowsum_int8": _Count(epig_joint.joint_xlogy_rowsums, "launches_int8"),
+    }
+    epig = phase_epig_vs_plain(torch, epig_joint, all_counters)
     size = get_image_size(MODEL)
     prompts = [f"a photo of a thing of class {i}" for i in range(NUM_PROMPTS)]
     pixels = np.random.default_rng(SEED + 1).normal(
@@ -454,6 +763,7 @@ def main() -> int:
         int8_launches, _ = phase_int8_path(
             torch, counters, hdir, pixels, prompts, bf16_embeds, bf16_probs,
             bf16_img_s)
+        epig_path = phase_epig_path(torch, all_counters, hdir)
         phase_tiny_reference(torch, str(save_synthetic_hessians(
             tiny, TINY_CLIP_CONFIG, SEED)))
 
@@ -477,6 +787,13 @@ def main() -> int:
                attn[("vit-l/14", "bf16")]["library_ms"]),
         mlp_entry,
         linear_entry,
+        dict(_entry("xlogy_rowsum", "bayesvlm_tpu_torch/csrc/xlogy_rowsum.cu",
+                    "bayesvlm_tpu/select/epig_pallas.py:43",
+                    epig_path["launches"]["xlogy_rowsum"], epig["bf16"], None),
+             cublas_bf16_ms=epig["bf16"]["cublas_bf16_ms"]),
+        _entry("xlogy_rowsum_int8", "bayesvlm_tpu_torch/csrc/xlogy_rowsum.cu",
+               "bayesvlm_tpu/select/epig_pallas.py:77", epig["int8"]["launches"],
+               epig["int8"], None),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
