@@ -2,9 +2,11 @@
 
     python -m bayesvlm_tpu_torch.breakdown
 
-For each lane (bf16, and the int8 lane: mlp_int8 + attn_int8), builds
-clip-large in bf16 (random towers from seed 0, synthetic full-dimension
-K-FAC factors), encodes 100 class prompts, warms up with two `predict`
+For each lane (bf16; the int8 lane: mlp_int8 + attn_int8; the block
+lane: the vision tower rebuilt with attn_pallas_block=True on the same
+weights), builds clip-large in bf16 (random towers from seed 0,
+synthetic full-dimension K-FAC factors), encodes 100 class prompts,
+warms up with two `predict`
 calls on [64, 224, 224, 3] numpy pixels, then profiles three more with
 torch.profiler. Prints, per lane: the wall ms per call (host clock
 around synchronised calls), the device's busy ms per call (the sum of
@@ -29,10 +31,14 @@ MODEL = "clip-large"
 BATCH = 64
 CALLS = 3
 TOP = 10
-LANES = {"bf16": {}, "int8": {"mlp_int8": True, "attn_int8": True}}
+# lane -> (from_pretrained keywords, VisionConfig fields of a rebuilt tower)
+LANES = {"bf16": ({}, {}), "int8": ({"mlp_int8": True, "attn_int8": True}, {}),
+         "block": ({}, {"attn_pallas_block": True})}
 # kernel name -> group; the first pattern that matches wins
 GROUPS = (
     ("attention kernel (mha_kernel)", r"mha_kernel"),
+    ("block GEMMs (gemm_bf16_kernel)", r"gemm_bf16_kernel"),
+    ("block LayerNorm (ln_rows_kernel)", r"ln_rows_kernel"),
     ("int8 GEMMs (gemm_s8_kernel)", r"gemm_s8_kernel"),
     ("int8 quantize (quant_rows_kernel)", r"quant_rows_kernel"),
     ("GEMMs (cuBLAS)", r"nvjet|gemm|xmma|cutlass|cublas"),
@@ -65,10 +71,14 @@ def _device_rows(prof):
 
 
 def profile_lane(lane: str, hessian_dir, pixels, prompts) -> None:
+    from bayesvlm_tpu_torch.models.encoders import rebuild_image_encoder
     from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
 
+    keywords, vision = LANES[lane]
     vlm = ProbabilisticVLM.from_pretrained(MODEL, hessian_dir, dtype="bf16",
-                                           device="cuda", seed=0, **LANES[lane])
+                                           device="cuda", seed=0, **keywords)
+    if vision:
+        vlm.image_encoder = rebuild_image_encoder(vlm.image_encoder, **vision)
     vlm.set_class_prompts(prompts)
     for _ in range(2):
         vlm.predict(pixels)

@@ -1,5 +1,7 @@
 // W8A8 int8 building blocks shared by csrc/mlp_int8.cu and
 // csrc/linear_int8.cu (each includes this header and is its own library).
+// Its cp.async, ldmatrix and mma helpers (mma_bf16 too) also serve
+// csrc/xlogy_rowsum.cu and csrc/bf16_gemm.cuh.
 //
 //   quant_rows_kernel  per-row symmetric absmax int8 quantize of [M, K],
 //                      optionally after an fp32 LayerNorm; one block a row
@@ -196,6 +198,16 @@ __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, const uint32_t
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c (16 x 8 fp32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 

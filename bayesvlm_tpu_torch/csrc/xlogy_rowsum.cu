@@ -81,6 +81,7 @@ using bvt_int8::cp_async16;
 using bvt_int8::cp_async_commit;
 using bvt_int8::cp_async_wait;
 using bvt_int8::ldmatrix_x4;
+using bvt_int8::mma_bf16;
 using bvt_int8::mma_s8;
 
 constexpr int BM = 128;   // pool rows per block (resident A tile)
@@ -90,16 +91,6 @@ constexpr int WM = 32;    // pool rows per warp
 constexpr int WN = 64;    // target rows per warp and tile
 constexpr int PAD = 16;   // bytes appended to each shared-memory row
 constexpr float kLn2 = 0.693147180559945309f;
-
-// c (16 x 8 fp32) += a (16 x 16 bf16, row) . b (16 x 8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // log2(x) by MUFU, for normal x (subnormals would read as 0)
 __device__ __forceinline__ float lg2_ftz(float x) {

@@ -1,20 +1,27 @@
-"""Fused non-causal multi-head attention: the CUDA kernel and its plain
-PyTorch version.
+"""Fused non-causal multi-head attention and the whole pre-LN attention
+sublayer: the CUDA kernels and their plain PyTorch versions.
 
 `fused_attention` is the port of `bayesvlm_tpu.models.attention_pallas.
-fused_attention` (default schedule, `_mha_kernel`). On packed-head
-`q, k, v: [B, T, H*Dh]` it computes, per head, fp32 scores scaled AFTER
-the dot, an exact fp32 softmax, `p` rounded to the input dtype, and
-`p @ v` accumulated in fp32 (csrc/attention.cu says how).
+fused_attention` with its three schedules: one-block (`_mha_kernel`),
+split-key (`_mha_split_kernel`) and packed-pair (`_mha_packed_kernel`).
+On packed-head `q, k, v: [B, T, H*Dh]` each computes, per head, fp32
+scores scaled AFTER the dot, an exact fp32 softmax, `p` rounded to the
+input dtype, and `p @ v` accumulated in fp32 (csrc/attention.cuh says
+how each schedule walks the keys and heads).
 
-- CUDA tensors launch the hand-written kernel or raise; nothing falls
+`fused_attention_block` is the port of `fused_attention_block`
+(`_mha_block_kernel`): `x + out_proj(MHA(LN(x)))` with the LN in fp32
+and each projection rounded once (csrc/attention_block.cu).
+
+- CUDA tensors launch the hand-written kernels or raise; nothing falls
   back to the plain version on the card.
-- CPU tensors run `fused_attention_reference`, the same math in plain
-  PyTorch. The tests and chip_smoke.py hold the kernel against it.
+- CPU tensors run `fused_attention_reference` /
+  `fused_attention_block_reference`, the same math in plain PyTorch. The
+  tests and chip_smoke.py hold the kernels against them.
 
-The kernel is compiled with nvcc for sm_90a on first use, from
-`csrc/attention.cu` (`bayesvlm_tpu_torch/kernels.py` builds and loads
-it).
+The kernels are compiled with nvcc for sm_90a on first use, from
+`csrc/attention.cu` and `csrc/attention_block.cu`
+(`bayesvlm_tpu_torch/kernels.py` builds and loads them).
 """
 
 from __future__ import annotations
@@ -27,18 +34,27 @@ import torch
 
 from bayesvlm_tpu_torch import kernels
 
-# head dims the kernel is instantiated for (csrc/attention.cu launch_dtype)
+# head dims the kernels are instantiated for (csrc/attention.cuh
+# launch_head_dim)
 KERNEL_HEAD_DIMS = (16, 64, 80)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/attention.cuh Schedule
+ONE_BLOCK, SPLIT_KEY, PACKED_PAIR = 0, 1, 2
+# split-key: the main block of keys is a multiple of this (the TPU's lane
+# tile, kept so that the two packages split at the same key)
+SPLIT_TILE = 128
 
 
 def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel's math, same rounding points:
-    fp32 scores (inputs widened, so bf16 products are exact) times the
-    scale, fp32 softmax written as exp(s - max) / sum, p rounded to the
-    input dtype, p @ v accumulated in fp32 and rounded to the input
-    dtype. Materialises the [B, H, T, T] scores."""
+    """Plain PyTorch version of the kernels' math, for all three
+    schedules (they compute one function with the same rounding points;
+    the split-key remainder's -inf filler and the packed pair's segment
+    mask contribute exp() = 0 on the TPU). fp32 scores (inputs widened,
+    so bf16 products are exact) times the scale, fp32 softmax written as
+    exp(s - max) / sum, p rounded to the input dtype, p @ v accumulated
+    in fp32 and rounded to the input dtype. Materialises the
+    [B, H, T, T] scores."""
     B, T, D = q.shape
     Dh = D // num_heads
 
@@ -58,28 +74,53 @@ def _library() -> ctypes.CDLL:
     lib.bvt_attention.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.bvt_attention.restype = ctypes.c_int
-    lib.bvt_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.bvt_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.bvt_attention_smem_bytes.restype = ctypes.c_long
     lib.bvt_attention_smem_limit.argtypes = []
     lib.bvt_attention_smem_limit.restype = ctypes.c_int
     return lib
 
 
+def _check_kernel_operands(tensors, dtype, head_dim: int, what: str) -> None:
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"{what} takes float32 or bfloat16, not {dtype}")
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{what} has no head dim {head_dim} "
+                         f"(built for {KERNEL_HEAD_DIMS})")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} needs contiguous operands")
+
+
+def _check_smem(lib, T: int, head_dim: int, schedule: int) -> None:
+    smem = lib.bvt_attention_smem_bytes(T, head_dim, schedule)
+    budget = lib.bvt_attention_smem_limit()
+    if smem > budget:
+        raise ValueError(f"T={T} needs {smem} bytes of shared memory for "
+                         f"its scores; the card allows {budget} per block")
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    num_heads: int) -> torch.Tensor:
+                    num_heads: int, split_key: bool = False,
+                    packed_heads: bool = False) -> torch.Tensor:
     """Non-causal self-attention on packed heads [B, T, H*Dh] -> same.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (and count the launch in `fused_attention.launches`) or raise."""
+    `packed_heads` (even head counts only) takes the packed-pair
+    schedule; else `split_key` takes the split-key schedule when T has a
+    remainder past a multiple of 128 (otherwise the one-block schedule,
+    as in JAX). CPU tensors take the plain version; CUDA tensors launch
+    the kernel, counting the launch in `fused_attention.launches` (one
+    block), `.launches_split` or `.launches_packed`, or raise."""
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one [B, T, D] shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, T, D = q.shape
     if D % num_heads:
         raise ValueError(f"hidden size {D} is not a multiple of {num_heads} heads")
+    if packed_heads and num_heads % 2:
+        raise ValueError("packed_heads requires an even head count")
     if not (q.device == k.device == v.device):
         raise ValueError("q, k, v must be on one device")
     if not (q.dtype == k.dtype == v.dtype):
@@ -90,32 +131,140 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"no attention kernel for device {q.device}")
 
     Dh = D // num_heads
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"attention kernel takes float32 or bfloat16, not {q.dtype}")
-    if Dh not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"attention kernel has no head dim {Dh} "
-                         f"(built for {KERNEL_HEAD_DIMS})")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("attention kernel needs contiguous q, k, v")
+    _check_kernel_operands((q, k, v), q.dtype, Dh, "attention kernel")
     if B > 65535 or num_heads > 65535:
         raise ValueError("attention kernel grid takes at most 65535 batch rows "
                          "and heads")
+    t_main = T // SPLIT_TILE * SPLIT_TILE
+    if packed_heads:
+        schedule, count = PACKED_PAIR, "launches_packed"
+    elif split_key and 0 < t_main < T:
+        schedule, count = SPLIT_KEY, "launches_split"
+    else:
+        schedule, count = ONE_BLOCK, "launches"
     lib = _library()
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        smem = lib.bvt_attention_smem_bytes(T, Dh)
-        budget = lib.bvt_attention_smem_limit()
-        if smem > budget:
-            raise ValueError(f"T={T} needs {smem} bytes of shared memory for "
-                             f"its scores; the card allows {budget} per block")
+        _check_smem(lib, T, Dh, schedule)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.bvt_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 o.data_ptr(), B, T, num_heads, Dh,
                                 _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(Dh),
-                                stream)
+                                schedule, stream)
     kernels.check(lib, err, "attention kernel")
-    fused_attention.launches += 1
+    setattr(fused_attention, count, getattr(fused_attention, count) + 1)
     return o
 
 
 fused_attention.launches = 0
+fused_attention.launches_split = 0
+fused_attention.launches_packed = 0
+
+
+# -- the whole sublayer ------------------------------------------------------
+
+
+def _layer_norm_fp32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                     eps: float) -> torch.Tensor:
+    """`_mha_block_kernel`'s LayerNorm: fp32, two-pass, rounded once."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * w.float() + b.float()).to(x.dtype)
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """x . w^T accumulated in fp32 (bf16 products are exact in fp32), plus
+    the bias in fp32, rounded once to x's dtype."""
+    return (x.float() @ w.float().T + b.float()).to(x.dtype)
+
+
+def fused_attention_block_reference(x, ln_weight, ln_bias, wq, bq, wk, bk, wv,
+                                    bv, wo, bo, num_heads: int,
+                                    ln_eps: float = 1e-5) -> torch.Tensor:
+    """Plain PyTorch version of the sublayer kernel, op for op
+    (attention_pallas.py:241-287): fp32 two-pass LN rounded once; q, k, v
+    each accumulated in fp32 with the bias added in fp32 and rounded
+    once; the attention core; the out-projection the same way; then
+    x + out in the compute dtype (two values, summed, rounded once)."""
+    h = _layer_norm_fp32(x, ln_weight, ln_bias, ln_eps)
+    q, k, v = _proj(h, wq, bq), _proj(h, wk, bk), _proj(h, wv, bv)
+    a = fused_attention_reference(q, k, v, num_heads)
+    return x + _proj(a, wo, bo)
+
+
+@functools.cache
+def _block_library() -> ctypes.CDLL:
+    lib = kernels.load("attention_block")
+    lib.bvt_attention_block.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+        *[ctypes.c_void_p] * 8,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, *[ctypes.c_void_p] * 5,
+    ]
+    lib.bvt_attention_block.restype = ctypes.c_int
+    return lib
+
+
+def fused_attention_block(x: torch.Tensor, ln_weight, ln_bias, wq, bq, wk, bk,
+                          wv, bv, wo, bo, num_heads: int,
+                          ln_eps: float = 1e-5) -> torch.Tensor:
+    """Non-causal pre-LN attention sublayer with the residual:
+    x [B, T, D] (pre-LN, compute dtype) -> x + out_proj(MHA(LN(x))).
+
+    Weights [D, D] in torch's [out, in] layout (the product is x @ W.T)
+    and biases [D] in x's dtype; LN parameters [D] (used in fp32). CPU
+    tensors take the plain version; CUDA tensors launch the kernel chain
+    of csrc/attention_block.cu (counted once per call in
+    `fused_attention_block.launches`) or raise."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be [B, T, D], got {tuple(x.shape)}")
+    B, T, D = x.shape
+    weights, biases = (wq, wk, wv, wo), (bq, bk, bv, bo)
+    if any(tuple(w.shape) != (D, D) for w in weights):
+        raise ValueError(f"projection weights must be [{D}, {D}]")
+    if any(tuple(t.shape) != (D,) for t in (*biases, ln_weight, ln_bias)):
+        raise ValueError(f"biases and LN parameters must be [{D}]")
+    if D % num_heads:
+        raise ValueError(f"hidden size {D} is not a multiple of {num_heads} heads")
+    if any(t.device != x.device for t in (*weights, *biases, ln_weight, ln_bias)):
+        raise ValueError("x and the sublayer's parameters must be on one device")
+    if x.device.type == "cpu":
+        return fused_attention_block_reference(x, ln_weight, ln_bias, wq, bq, wk,
+                                               bk, wv, bv, wo, bo, num_heads,
+                                               ln_eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no attention block kernel for device {x.device}")
+
+    Dh = D // num_heads
+    params = (*weights, *biases)
+    _check_kernel_operands((x, *params), x.dtype, Dh, "attention block kernel")
+    if any(t.dtype != x.dtype for t in params):
+        raise ValueError("projection weights and biases must be in x's dtype")
+    if D % 8:
+        raise ValueError(f"attention block kernel needs D a multiple of 8, not {D}")
+    if B > 65535:
+        raise ValueError("attention block kernel takes at most 65535 batch rows")
+    ln_w, ln_b = ln_weight.float().contiguous(), ln_bias.float().contiguous()
+    M = B * T
+    h = torch.empty(M, D, device=x.device, dtype=x.dtype)
+    qkv = torch.empty(3, M, D, device=x.device, dtype=x.dtype)
+    attn = torch.empty(M, D, device=x.device, dtype=x.dtype)
+    out = torch.empty_like(x)
+    if any(w.data_ptr() % 16 for w in weights):
+        raise ValueError("attention block kernel needs 16-byte aligned weights")
+    lib = _block_library()
+    with torch.cuda.device(x.device):
+        _check_smem(_library(), T, Dh, ONE_BLOCK)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.bvt_attention_block(
+            x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), ln_eps,
+            *(t.data_ptr() for t in (wq, bq, wk, bk, wv, bv, wo, bo)),
+            B, T, D, num_heads, _DTYPE_CODES[x.dtype], 1.0 / math.sqrt(Dh),
+            h.data_ptr(), qkv.data_ptr(), attn.data_ptr(), out.data_ptr(), stream)
+    kernels.check(lib, err, "attention block kernel")
+    fused_attention_block.launches += 1
+    return out
+
+
+fused_attention_block.launches = 0

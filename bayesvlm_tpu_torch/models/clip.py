@@ -26,7 +26,7 @@ from bayesvlm_tpu_torch.models.layers import (
 def _encoder(cfg, **int8) -> TransformerEncoder:
     return TransformerEncoder(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
                               cfg.mlp_dim, cfg.hidden_act, cfg.layer_norm_eps,
-                              **int8)
+                              attn_pallas_block=cfg.attn_pallas_block, **int8)
 
 
 class CLIPVisionTower(nn.Module):

@@ -14,9 +14,10 @@ TINY_* configs are CPU-runnable shapes for tests.
 
 Of the JAX package's per-kernel switches, the W8A8 int8 lanes are
 carried over (`mlp_int8`, `attn_int8`, `mlp_weight_bits`; vision towers
-only, off by default). The attention-schedule switches (attn_pallas, ...)
-are not: the port routes the vision tower's attention to its kernel from
-the tensor's device.
+only, off by default), and so is `attn_pallas_block`, the whole-sublayer
+attention kernel (off by default; on a causal tower it changes nothing,
+as in JAX). `attn_pallas` is not: the port routes non-causal attention
+to its kernel from the tensor's device.
 """
 
 from __future__ import annotations
@@ -45,6 +46,10 @@ class VisionConfig:
     # W8A8 int8 attention projections (models/linear_int8.py, fused QKV);
     # non-causal self-attention only; approximate, opt-in
     attn_int8: bool = False
+    # the whole pre-LN attention sublayer x + out_proj(MHA(LN(x))) in one
+    # kernel chain (models/attention.py fused_attention_block); opt-in,
+    # and it takes precedence over attn_int8
+    attn_pallas_block: bool = False
 
     @property
     def num_patches(self) -> int:
@@ -72,6 +77,7 @@ class TextConfig:
     layer_norm_eps: float = 1e-5
     causal: bool = True                # CLIP: causal; SigLIP: bidirectional
     eos_token_id: int = 49407
+    attn_pallas_block: bool = False    # see VisionConfig (no effect when causal)
 
     @property
     def head_dim(self) -> int:

@@ -146,6 +146,22 @@ def cast_gemm_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return module
 
 
+def rebuild_image_encoder(encoder: ImageEncoder, **vision_fields) -> ImageEncoder:
+    """An ImageEncoder whose tower is built from `encoder`'s VisionConfig
+    with `vision_fields` replaced, holding the same weights in the same
+    dtypes on the same device. This is how a lane that `load_model` has
+    no keyword for is reached, as the JAX package reaches it: a tower
+    built from `dataclasses.replace(cfg.vision, attn_pallas_block=True)`
+    with the parameters it already has."""
+    config = dataclasses.replace(encoder.config, vision=dataclasses.replace(
+        encoder.config.vision, **vision_fields))
+    old = encoder.module
+    tower = CLIPVisionTower(config.vision, dtype=old.dtype).to(encoder.device)
+    tower.load_state_dict(old.state_dict())
+    cast_gemm_params(tower, old.dtype).eval().requires_grad_(False)
+    return ImageEncoder(config, tower).prequantize_int8()
+
+
 def _init_tower(module: nn.Module, gen: torch.Generator) -> None:
     """Random init with the JAX package's initializer scales: lecun-normal
     dense and conv kernels (std 1/sqrt(fan_in)) with zero biases,

@@ -14,7 +14,13 @@ Counterpart of `bayesvlm_tpu.models.layers`, with its numerics contract:
     the whole pre-LN MLP sublayer through models/mlp_int8.py, and
     `MultiHeadAttention(use_int8_proj)` the fused QKV and out
     projections through models/linear_int8.py. Parameters are the same
-    either way; the int8 weight cache is a set of non-persistent buffers.
+    either way; the int8 weight cache is a set of non-persistent buffers;
+  - the opt-in block lane (`attn_pallas_block`): on unmasked
+    self-attention, `MultiHeadAttention(use_pallas_block)` runs the whole
+    pre-LN sublayer x + out_proj(MHA(LN1(x))) through
+    `fused_attention_block` (JAX layers.py:127-145, 294-304). It takes
+    precedence over `use_int8_proj`, as in JAX; masked calls keep the
+    per-op path. Parameters and state_dict keys are unchanged.
 """
 
 from __future__ import annotations
@@ -26,7 +32,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bayesvlm_tpu_torch.models.attention import fused_attention
+from bayesvlm_tpu_torch.models.attention import (
+    fused_attention,
+    fused_attention_block,
+)
 from bayesvlm_tpu_torch.models.linear_int8 import linear_int8
 from bayesvlm_tpu_torch.models.mlp_int8 import mlp_int8, quantize_mlp_weights
 
@@ -64,21 +73,34 @@ class MultiHeadAttention(nn.Module):
     concatenated to [3D, D] so each input row is quantized once, one
     W8A8 product writes contiguous q, k, v, and the out-projection is a
     second W8A8 product (JAX layers.py:147-163). Masked calls keep the
-    float projections."""
+    float projections.
+
+    `use_pallas_block`: called on unmasked self-attention with `pre_ln`
+    = (LN weight, LN bias, eps) and the PRE-LN x, returns the whole
+    sublayer x + out_proj(MHA(LN(x))), residual included, from
+    `fused_attention_block` (JAX layers.py:127-145)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 use_int8_proj: bool = False):
+                 use_int8_proj: bool = False, use_pallas_block: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.use_int8_proj = use_int8_proj
+        self.use_pallas_block = use_pallas_block
         self.q_proj = nn.Linear(hidden_size, hidden_size)
         self.k_proj = nn.Linear(hidden_size, hidden_size)
         self.v_proj = nn.Linear(hidden_size, hidden_size)
         self.out_proj = nn.Linear(hidden_size, hidden_size)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                pre_ln: Optional[tuple] = None) -> torch.Tensor:
         """x [B, T, D] in the compute dtype; mask [T, T] additive."""
+        if self.use_pallas_block and mask is None and pre_ln is not None:
+            ln_weight, ln_bias, ln_eps = pre_ln
+            params = []
+            for proj in (self.q_proj, self.k_proj, self.v_proj, self.out_proj):
+                params += [proj.weight.to(x.dtype), proj.bias.to(x.dtype)]
+            return fused_attention_block(x, ln_weight, ln_bias, *params,
+                                         num_heads=self.num_heads, ln_eps=ln_eps)
         if mask is None and self.use_int8_proj:
             projs = (self.q_proj, self.k_proj, self.v_proj)
             q, k, v = linear_int8(x, torch.cat([p.weight for p in projs]),
@@ -148,21 +170,29 @@ class MLP(nn.Module):
 
 
 class TransformerBlock(nn.Module):
-    """Pre-LN block: x + MHA(LN1(x)); x + MLP(LN2(x))."""
+    """Pre-LN block: x + MHA(LN1(x)); x + MLP(LN2(x)). With
+    `attn_pallas_block`, an unmasked call runs the first sublayer, LN1
+    and residual included, in the block kernel."""
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_dim: int,
                  hidden_act: str, layer_norm_eps: float, mlp_int8: bool = False,
-                 attn_int8: bool = False, mlp_weight_bits: int = 8):
+                 attn_int8: bool = False, mlp_weight_bits: int = 8,
+                 attn_pallas_block: bool = False):
         super().__init__()
         self.layer_norm1 = LayerNormFP32(hidden_size, layer_norm_eps)
-        self.self_attn = MultiHeadAttention(hidden_size, num_heads, attn_int8)
+        self.self_attn = MultiHeadAttention(hidden_size, num_heads, attn_int8,
+                                            attn_pallas_block)
         self.layer_norm2 = LayerNormFP32(hidden_size, layer_norm_eps)
         self.mlp = MLP(hidden_size, mlp_dim, hidden_act, mlp_int8,
                        mlp_weight_bits)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.self_attn(self.layer_norm1(x), mask)
+        if self.self_attn.use_pallas_block and mask is None:
+            ln = self.layer_norm1
+            x = self.self_attn(x, pre_ln=(ln.weight, ln.bias, ln.eps))
+        else:
+            x = x + self.self_attn(self.layer_norm1(x), mask)
         if self.mlp.use_int8:
             # LN2 + MLP + residual in the kernel, the residual added in
             # fp32 (the default path adds in the compute dtype)
@@ -179,12 +209,12 @@ class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, hidden_size: int, num_heads: int,
                  mlp_dim: int, hidden_act: str, layer_norm_eps: float,
                  mlp_int8: bool = False, attn_int8: bool = False,
-                 mlp_weight_bits: int = 8):
+                 mlp_weight_bits: int = 8, attn_pallas_block: bool = False):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerBlock(hidden_size, num_heads, mlp_dim, hidden_act,
                              layer_norm_eps, mlp_int8, attn_int8,
-                             mlp_weight_bits)
+                             mlp_weight_bits, attn_pallas_block)
             for _ in range(num_layers)
         )
 

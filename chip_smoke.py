@@ -6,13 +6,23 @@
 Phases (any failure raises and exits non-zero, without the result line):
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles every kernel of the paths (csrc/attention.cu,
-     csrc/mlp_int8.cu, csrc/linear_int8.cu, csrc/xlogy_rowsum.cu; nvcc,
-     sm_90a, one process each, all started together) from this checkout,
-     with each one's time;
+     csrc/attention_block.cu, csrc/mlp_int8.cu, csrc/linear_int8.cu,
+     csrc/xlogy_rowsum.cu; nvcc, sm_90a, one process each, all started
+     together) from this checkout, with each one's time;
   3. attention kernel vs plain at the ViT-L/14 shape (B=64, T=257, H=16,
      Dh=64) and the ViT-B/32 shape (T=50, H=12), bf16 and fp32, with
      errors and CUDA-event times; F.scaled_dot_product_attention timed
-     beside it as the yardstick (library_ms; the port never calls it);
+     beside it as the yardstick (library_ms; the port never calls it).
+     The same for the split-key and packed-pair schedules at ViT-L/14
+     (bf16, fp32) and packed at T=50; at T=50 split_key takes the
+     one-block schedule (its count is the one that moves). Then each
+     schedule's entry point, fused_attention(..., split_key=True) and
+     (..., packed_heads=True), driven once with every count set to 0;
+  3b. the attention sublayer kernel chain (fused_attention_block) vs
+     plain at the ViT-L/14 sublayer (B=64, T=257, D=1024, H=16), bf16 and
+     fp32, and a ragged small shape; beside it, for reference only (no
+     single PyTorch call computes the sublayer), the chain F.layer_norm
+     -> F.linear (QKV) -> SDPA -> F.linear -> add;
   4. int8 kernels vs plain at the ViT-L/14 shapes in bf16 (M = 64*257):
      mlp_int8 plain and fused pre-LN (D=1024, F=4096, tanh-GELU), once
      with 4-bit weights; linear_int8 for the fused QKV (N=3072, three
@@ -36,13 +46,20 @@ Phases (any failure raises and exits non-zero, without the result line):
      24 mlp_int8, 48 linear_int8 and 24 attention launches per forward,
      none from the text tower, and the image embeddings' cosine against
      the bf16 lane's; prints img/s beside the bf16 lane's;
+  7b. block lane: the bf16 lane's towers, with the vision tower rebuilt
+     from dataclasses.replace(vision, attn_pallas_block=True) and the
+     same weights (as the JAX package reaches the lane), then
+     set_class_prompts -> predict; checks 24 attention_block launches
+     and no other per forward, none from the text tower, and the
+     embeddings' cosine against the bf16 lane's; prints img/s;
   8. Stage-3 online EPIG path at clip-large width: from_pretrained, 6000
      pool and 2000 target images of seeded pixels and 65 prompts encoded,
      then select_epig_online(budget=3, num_samples=100,
      pool_subsampling="knn_wasserstein", the active-learning defaults);
      checks 3 distinct indices, finite scores, one kernel launch per step
      and pool chunk, and lambda moved; ms per step and its split;
-  9. tiny-clip on the card against tiny-clip on the CPU;
+  9. tiny-clip on the card against tiny-clip on the CPU, in the default
+     lane and in the block lane;
   10. prints the kernels line, then the result line
      {"ok": true, "device": {...}} last.
 
@@ -70,6 +87,21 @@ SEED = 0
 # bf16 ulp (2^-8 relative), and a p flip and an output flip can stack.
 # fp32: summation order only.
 KERNEL_TOL = {"bf16": 2.0 ** -6, "fp32": 1e-4}
+# attention sublayer kernel vs plain: LN, q, k, v, p, the attention output,
+# the out-projection and x + out are each rounded to bf16 once, at the same
+# points in both. A flip upstream (one ulp of one q, k, v or a element)
+# moves the fp32 sums after it by far less than an ulp of their result
+# (it is one term of a 1024-term sum, ~2^-8 of its size), so what reaches
+# the output is the last two roundings, out and x + out, one ulp each:
+# the attention kernel's tolerance again. fp32: summation order only.
+BLOCK_TOL = KERNEL_TOL
+# block lane vs bf16 lane of the same weights: both bf16 with the same
+# rounding points but one per projection (the block kernel adds the bias
+# before it rounds) and the summation order; each changes a value by at
+# most an ulp (2^-8), a random walk over 24 layers of ~1e-2 relative at
+# worst, a cosine above 0.9999. 0.999 leaves room and still catches a
+# wrong weight, head or layout (a cosine far below 0.99).
+BLOCK_EMBED_COS_MIN = 0.999
 # int8 kernels vs plain: the JAX package's flip tolerance
 # (tests/test_mlp_int8.py:50-62). An ulp of difference before a rounding
 # (the LayerNorm's summation order, tanhf, rsqrt) can flip one int8 step
@@ -184,48 +216,159 @@ def phase_build(kernels, modules) -> None:
         took = "already built" if sec is None else f"{sec:.2f} s"
         print(f"build: {kernels.library_path(name).name} {took}")
     print(f"build: {len(seconds)} kernels in {wall:.2f} s wall (in parallel)")
-    check(set(seconds) == {"attention", "mlp_int8", "linear_int8", "xlogy_rowsum"},
-          f"kernel sources {sorted(seconds)}")
+    check(set(seconds) == {"attention", "attention_block", "mlp_int8", "linear_int8",
+                           "xlogy_rowsum"}, f"kernel sources {sorted(seconds)}")
     for module in modules:
         module._library()
 
 
-def phase_attention_vs_plain(torch, attention) -> dict:
+def _attention_case(torch, attention, label: str, B: int, T: int, H: int, Dh: int,
+                    dname: str, **schedule) -> dict:
+    """One schedule of the attention kernel vs plain on seeded q, k, v."""
     import torch.nn.functional as F
 
-    dtypes = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dname]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn(B, T, H * Dh, generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    out = attention.fused_attention(q, k, v, H, **schedule)
+    ref = attention.fused_attention_reference(q, k, v, H)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    tol = KERNEL_TOL[dname]
+    worst = float((err / (tol + tol * ref.float().abs())).max())
+    ms = cuda_ms(torch, lambda: attention.fused_attention(q, k, v, H, **schedule))
+    plain_ms = cuda_ms(torch, lambda: attention.fused_attention_reference(q, k, v, H))
+    heads = [t.view(B, T, H, Dh).transpose(1, 2) for t in (q, k, v)]
+    library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(*heads))
+    # the real work whatever the schedule: q, k, v read and o written once,
+    # 4 B H T^2 Dh operations (no padded keys, no zero blocks)
+    b = bound(4 * B * T * H * Dh * q.element_size(), 4 * B * H * T * T * Dh, dname)
+    max_err = float(err.max())
+    print(f"attention {label} vs plain {dname} B={B} T={T} H={H} Dh={Dh}: "
+          f"max_abs_err={max_err:.3e} (tol {tol:.3e} abs + rel, worst/bound="
+          f"{worst:.3f}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"sdpa_ms={library_ms:.4f} bound_ms={b['bound_ms']:.4f} ({b['bound_by']})")
+    check(worst <= 1.0, f"{label} {dname} attention kernel disagrees with plain "
+                        f"(max_abs_err {max_err})")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                **b)
+
+
+def phase_attention_vs_plain(torch, attention) -> dict:
+    """The three schedules of csrc/attention.cu vs plain."""
     shapes = {"vit-l/14": (BATCH, 257, 16, 64), "vit-b/32": (BATCH, 50, 12, 64)}
     results = {}
-    for shape_name, (B, T, H, Dh) in shapes.items():
-        for dname, dtype in dtypes.items():
-            gen = torch.Generator(device="cuda").manual_seed(SEED)
-            q, k, v = (torch.randn(B, T, H * Dh, generator=gen, device="cuda")
-                       .to(dtype) for _ in range(3))
-            out = attention.fused_attention(q, k, v, H)
-            ref = attention.fused_attention_reference(q, k, v, H)
+    for shape_name, shape in shapes.items():
+        for dname in ("bf16", "fp32"):
+            results[(shape_name, dname)] = _attention_case(
+                torch, attention, f"one-block {shape_name}", *shape, dname)
+    for sched in ("split_key", "packed_heads"):
+        for dname in ("bf16", "fp32"):
+            results[("vit-l/14", dname, sched)] = _attention_case(
+                torch, attention, f"{sched} vit-l/14", *shapes["vit-l/14"], dname,
+                **{sched: True})
+    results[("vit-b/32", "bf16", "packed_heads")] = _attention_case(
+        torch, attention, "packed_heads vit-b/32", *shapes["vit-b/32"], "bf16",
+        packed_heads=True)
+    # T=50 has no 128-key main block: split_key takes the one-block
+    # schedule, as in JAX, and counts there
+    fa = attention.fused_attention
+    before = fa.launches, fa.launches_split
+    _attention_case(torch, attention, "split_key vit-b/32", *shapes["vit-b/32"], "bf16",
+                    split_key=True)
+    moved = fa.launches - before[0], fa.launches_split - before[1]
+    print(f"attention split_key at T=50 (t_main = 0) took the one-block schedule: "
+          f"one-block launches +{moved[0]}, split-key +{moved[1]}")
+    check(moved[0] > 0 and moved[1] == 0, "split_key at T=50 must run one-block")
+    return results
+
+
+def phase_schedule_paths(torch, attention, counters) -> dict:
+    """The entry point that reaches the split-key and packed-pair kernels
+    in JAX, fused_attention(q, k, v, 16, split_key=True) and
+    (..., packed_heads=True), at the ViT-L/14 shape in bf16, each driven
+    once with every count set to 0 just before and read just after."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    q, k, v = (torch.randn(BATCH, 257, 1024, generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    launches = {}
+    for sched, count in (("split_key", "attention_split"),
+                         ("packed_heads", "attention_packed")):
+        for c in counters.values():
+            c.launches = 0
+        out = attention.fused_attention(q, k, v, 16, **{sched: True})
+        torch.cuda.synchronize()
+        got = {n: c.launches for n, c in counters.items()}
+        print(f"{sched} path fused_attention(..., {sched}=True) B={BATCH} T=257: "
+              f"launches={got}")
+        check(got == {n: int(n == count) for n in counters}, f"{sched} path launches")
+        check(bool(torch.isfinite(out.float()).all()), f"{sched}: non-finite output")
+        launches[count] = got[count]
+    return launches
+
+
+def phase_block_vs_plain(torch, attention) -> dict:
+    """The attention sublayer kernel chain vs plain."""
+    import torch.nn.functional as F
+
+    results = {}
+    for label, (B, T, D, H) in (("vit-l/14", (BATCH, 257, 1024, 16)),
+                                ("ragged", (3, 37, 80, 1))):
+        for dname in ("bf16", "fp32"):
+            dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dname]
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+
+            def randn(*shape, scale=1.0):
+                return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+            x = randn(B, T, D).to(dtype)
+            ln_w, ln_b = 1.0 + randn(D, scale=0.1), randn(D, scale=0.1)
+            ws = [randn(D, D, scale=D ** -0.5).to(dtype) for _ in range(4)]
+            bs = [randn(D, scale=0.02).to(dtype) for _ in range(4)]
+            params = [t for pair in zip(ws, bs) for t in pair]
+            run = lambda: attention.fused_attention_block(x, ln_w, ln_b, *params,
+                                                          num_heads=H)
+            plain = lambda: attention.fused_attention_block_reference(
+                x, ln_w, ln_b, *params, num_heads=H)
+            out, ref = run(), plain()
             torch.cuda.synchronize()
             err = (out.float() - ref.float()).abs()
-            tol = KERNEL_TOL[dname]
+            tol = BLOCK_TOL[dname]
             worst = float((err / (tol + tol * ref.float().abs())).max())
-            ms = cuda_ms(torch, lambda: attention.fused_attention(q, k, v, H))
-            plain_ms = cuda_ms(
-                torch, lambda: attention.fused_attention_reference(q, k, v, H))
-            heads = [t.view(B, T, H, Dh).transpose(1, 2) for t in (q, k, v)]
-            library_ms = cuda_ms(
-                torch, lambda: F.scaled_dot_product_attention(*heads))
-            b = bound(4 * B * T * H * Dh * q.element_size(),
-                      4 * B * H * T * T * Dh, dname)
-            max_err = float(err.max())
-            print(f"attention vs plain {shape_name} {dname} B={B} T={T} H={H} "
-                  f"Dh={Dh}: max_abs_err={max_err:.3e} (tol {tol:.3e} abs + "
-                  f"rel, worst/bound={worst:.3f}) kernel_ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
-                  f"bound_ms={b['bound_ms']:.4f} ({b['bound_by']})")
-            check(worst <= 1.0, f"{shape_name} {dname} attention kernel "
-                                f"disagrees with plain (max_abs_err {max_err})")
-            results[(shape_name, dname)] = dict(
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, **b)
+            r = {"max_abs_err": float(err.max())}
+            print(f"attention block {label} vs plain {dname} B={B} T={T} D={D} H={H}: "
+                  f"max_abs_err={r['max_abs_err']:.3e} (tol {tol:.3e} abs + rel, "
+                  f"worst/bound={worst:.3f})")
+            check(worst <= 1.0, f"{label} {dname} attention block kernel disagrees "
+                                f"with plain (max_abs_err {r['max_abs_err']})")
+            if label == "ragged":
+                continue
+            r["ms"], r["plain_ms"] = cuda_ms(torch, run), cuda_ms(torch, plain, iters=5)
+            # yardstick (reference only): the cuBLAS / SDPA chain on the same
+            # tensors, the QKV weights concatenated once outside the timing
+            wqkv, bqkv = torch.cat(ws[:3]), torch.cat(bs[:3])
+
+            def chain():
+                h = F.layer_norm(x.float(), (D,), ln_w, ln_b, 1e-5).to(dtype)
+                q, k, v = (t.view(B, T, H, D // H).transpose(1, 2)
+                           for t in F.linear(h, wqkv, bqkv).split(D, dim=-1))
+                a = F.scaled_dot_product_attention(q, k, v)
+                return x + F.linear(a.transpose(1, 2).reshape(B, T, D), ws[3], bs[3])
+
+            r["chain_ms"] = cuda_ms(torch, chain)
+            # the function's bytes: x read, out written, the four weights,
+            # biases and LN parameters; its operations: the four products
+            # and the attention core (attention_pallas.py:344)
+            Dh = D // H
+            nbytes = ((2 * B * T * D + 4 * D * D + 4 * D) * x.element_size()
+                      + 2 * D * 4)
+            r.update(bound(nbytes, B * (8 * T * D * D + 4 * H * T * T * Dh), dname))
+            print(f"  kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+                  f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); yardstick "
+                  f"(reference only) LN -> F.linear QKV -> SDPA -> F.linear -> add "
+                  f"{r['chain_ms']:.4f} ms")
+            results[dname] = r
     return results
 
 
@@ -338,19 +481,26 @@ def phase_int8_vs_plain(torch, mlp, linear) -> dict:
 
 
 def _drive(torch, counters, hessian_dir: str, pixels, prompts, per_forward: dict,
-           **lanes):
+           vision=None, **lanes):
     """from_pretrained -> set_class_prompts -> predict x (PREDICT_CALLS+1)
     with every launch count set to 0 just before and read just after;
-    checks each kernel's launches per image-tower forward and that the
-    text tower launches none. Returns (vlm, probs, launches, img/s,
-    from_pretrained seconds, first call seconds, row-sum error)."""
+    checks each kernel's launches per image-tower forward (every count
+    per_forward does not name: 0) and that the text tower launches none.
+    `vision`: VisionConfig fields the image tower is rebuilt with, on the
+    same weights (a lane from_pretrained has no keyword for, as in JAX).
+    Returns (vlm, probs, launches, img/s, from_pretrained seconds, first
+    call seconds, row-sum error)."""
+    from bayesvlm_tpu_torch.models.encoders import rebuild_image_encoder
     from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
 
+    per_forward = {**dict.fromkeys(counters, 0), **per_forward}
     for c in counters.values():
         c.launches = 0
     t0 = time.perf_counter()
     vlm = ProbabilisticVLM.from_pretrained(MODEL, hessian_dir, dtype="bf16",
                                            device="cuda", seed=SEED, **lanes)
+    if vision:
+        vlm.image_encoder = rebuild_image_encoder(vlm.image_encoder, **vision)
     torch.cuda.synchronize()
     t_load = time.perf_counter() - t0
     vlm.set_class_prompts(prompts)
@@ -383,8 +533,7 @@ def phase_main_path(torch, counters, hessian_dir: str, pixels, prompts):
 
     L = CONFIGS_BY_NAME[MODEL].vision.num_layers
     vlm, probs, launches, img_s, t_load, t_first, row_err = _drive(
-        torch, counters, hessian_dir, pixels, prompts,
-        {"attention": L, "mlp_int8": 0, "linear_int8": 0})
+        torch, counters, hessian_dir, pixels, prompts, {"attention": L})
     print(f"bf16 main path: lambda_img={vlm.info['lambda_img']!r} "
           f"lambda_txt={vlm.info['lambda_txt']!r} from_pretrained_s={t_load:.2f} "
           f"predict_first_s={t_first:.3f} predict_img_s_B{BATCH}={img_s:.1f} "
@@ -434,11 +583,36 @@ def phase_int8_path(torch, counters, hessian_dir: str, pixels, prompts,
     return launches, img_s
 
 
-def phase_tiny_reference(torch, hessian_dir: str) -> None:
-    """tiny-clip fp32 through the kernel on the card vs the plain path on
-    the CPU, with the same weights and Hessian factors."""
+def phase_block_path(torch, counters, hessian_dir: str, pixels, prompts,
+                     bf16_embeds, bf16_probs, bf16_img_s):
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+
+    L = CONFIGS_BY_NAME[MODEL].vision.num_layers
+    vlm, probs, launches, img_s, t_load, t_first, row_err = _drive(
+        torch, counters, hessian_dir, pixels, prompts, {"attention_block": L},
+        vision={"attn_pallas_block": True})
+    cos = float(torch.nn.functional.cosine_similarity(
+        vlm.encode_images(pixels).embeds, bf16_embeds, dim=-1).min())
+    logp_diff = float((probs.float().log() - bf16_probs.float().log()).abs().max())
+    print(f"block lane (attn_pallas_block): from_pretrained_s={t_load:.2f} "
+          f"predict_first_s={t_first:.3f} predict_img_s_B{BATCH}={img_s:.1f} "
+          f"(bf16 lane {bf16_img_s:.1f}) launches={launches} "
+          f"row_sum_err={row_err:.2e}")
+    print(f"block vs bf16 lane: min_embed_cos={cos:.6f} (min {BLOCK_EMBED_COS_MIN}) "
+          f"max_abs_logp_diff={logp_diff:.3e}")
+    check(cos >= BLOCK_EMBED_COS_MIN, "block-lane image embeddings stray from the "
+                                      "bf16 lane")
+    del vlm
+    return launches, img_s
+
+
+def phase_tiny_reference(torch, attention, hessian_dir: str) -> None:
+    """tiny-clip fp32 through the kernels on the card vs the plain path on
+    the CPU, with the same weights and Hessian factors, in the default
+    lane and in the block lane."""
     from pathlib import Path
 
+    from bayesvlm_tpu_torch.models.encoders import rebuild_image_encoder
     from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
 
     cpu = ProbabilisticVLM.from_pretrained("tiny-clip", hessian_dir,
@@ -454,11 +628,22 @@ def phase_tiny_reference(torch, hessian_dir: str) -> None:
     prompts = ["a cat", "a dog", "a bird"]
     pixels = np.random.default_rng(SEED + 2).normal(
         size=(8, 32, 32, 3)).astype(np.float32)
-    ref = cpu.set_class_prompts(prompts).predict(pixels)
-    out = gpu.set_class_prompts(prompts).predict(pixels).cpu()
-    diff = float((out - ref).abs().max())
-    print(f"tiny-clip card vs CPU (fp32): max_abs_diff={diff:.3e} (tol {TINY_TOL})")
-    check(diff <= TINY_TOL, "tiny-clip on the card disagrees with the CPU")
+    for lane in ("default", "block"):
+        if lane == "block":
+            for vlm in (cpu, gpu):
+                vlm.image_encoder = rebuild_image_encoder(vlm.image_encoder,
+                                                          attn_pallas_block=True)
+        ref = cpu.set_class_prompts(prompts).predict(pixels)
+        before = attention.fused_attention_block.launches
+        out = gpu.set_class_prompts(prompts).predict(pixels).cpu()
+        blocks = attention.fused_attention_block.launches - before
+        diff = float((out - ref).abs().max())
+        print(f"tiny-clip {lane} lane card vs CPU (fp32): max_abs_diff={diff:.3e} "
+              f"(tol {TINY_TOL}) attention_block launches={blocks}")
+        check(diff <= TINY_TOL, f"tiny-clip {lane} lane on the card disagrees "
+                                f"with the CPU")
+        check(blocks == (0 if lane == "default" else 2), f"tiny-clip {lane} lane "
+                                                          f"block launches {blocks}")
 
 
 class _Count:
@@ -738,12 +923,19 @@ def main() -> int:
     from bayesvlm_tpu_torch.utils import get_image_size
 
     phase_build(kernels, (attention, mlp_int8, linear_int8, epig_joint))
-    attn = phase_attention_vs_plain(torch, attention)
-    int8 = phase_int8_vs_plain(torch, mlp_int8, linear_int8)
-
-    counters = {"attention": attention.fused_attention,
+    attention._block_library()
+    fa = attention.fused_attention
+    counters = {"attention": fa,
+                "attention_split": _Count(fa, "launches_split"),
+                "attention_packed": _Count(fa, "launches_packed"),
+                "attention_block": attention.fused_attention_block,
                 "mlp_int8": mlp_int8.mlp_int8,
                 "linear_int8": linear_int8.linear_int8}
+    attn = phase_attention_vs_plain(torch, attention)
+    sched_launches = phase_schedule_paths(torch, attention, counters)
+    block = phase_block_vs_plain(torch, attention)
+    int8 = phase_int8_vs_plain(torch, mlp_int8, linear_int8)
+
     all_counters = {
         **counters,
         "xlogy_rowsum": _Count(epig_joint.joint_xlogy_rowsums, "launches"),
@@ -763,8 +955,11 @@ def main() -> int:
         int8_launches, _ = phase_int8_path(
             torch, counters, hdir, pixels, prompts, bf16_embeds, bf16_probs,
             bf16_img_s)
+        block_launches, _ = phase_block_path(
+            torch, counters, hdir, pixels, prompts, bf16_embeds, bf16_probs,
+            bf16_img_s)
         epig_path = phase_epig_path(torch, all_counters, hdir)
-        phase_tiny_reference(torch, str(save_synthetic_hessians(
+        phase_tiny_reference(torch, attention, str(save_synthetic_hessians(
             tiny, TINY_CLIP_CONFIG, SEED)))
 
     qkv, out_proj = int8["linear_int8 qkv"], int8["linear_int8 out_proj"]
@@ -780,11 +975,23 @@ def main() -> int:
                        "bayesvlm_tpu/models/mlp_int8.py:101",
                        int8_launches["mlp_int8"], fused, None)
     mlp_entry["yardsticks"] = int8["mlp_int8 yardsticks"]
+    split, packed = attn[("vit-l/14", "bf16", "split_key")], attn[
+        ("vit-l/14", "bf16", "packed_heads")]
     print(json.dumps({"kernels": [
         _entry("fused_attention", "bayesvlm_tpu_torch/csrc/attention.cu",
                "bayesvlm_tpu/models/attention_pallas.py:199",
                bf16_launches["attention"], attn[("vit-l/14", "bf16")],
                attn[("vit-l/14", "bf16")]["library_ms"]),
+        _entry("fused_attention_split", "bayesvlm_tpu_torch/csrc/attention.cu",
+               "bayesvlm_tpu/models/attention_pallas.py:53",
+               sched_launches["attention_split"], split, split["library_ms"]),
+        _entry("fused_attention_packed", "bayesvlm_tpu_torch/csrc/attention.cu",
+               "bayesvlm_tpu/models/attention_pallas.py:132",
+               sched_launches["attention_packed"], packed, packed["library_ms"]),
+        dict(_entry("fused_attention_block", "bayesvlm_tpu_torch/csrc/attention_block.cu",
+                    "bayesvlm_tpu/models/attention_pallas.py:225",
+                    block_launches["attention_block"], block["bf16"], None),
+             chain_ms=block["bf16"]["chain_ms"]),
         mlp_entry,
         linear_entry,
         dict(_entry("xlogy_rowsum", "bayesvlm_tpu_torch/csrc/xlogy_rowsum.cu",
