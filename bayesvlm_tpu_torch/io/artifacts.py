@@ -58,19 +58,31 @@ def save_prior_precision(la_dir: PathLike, lambda_img: float, n_img: float,
         json.dump(result, f, indent=4)
 
 
+def kfac_dims(config) -> dict:
+    """tag -> (A dim, B dim) of a model's K-FAC factors: A is the
+    projection's input (CLIP: the hidden size; SigLIP: head_fc2's mlp_dim
+    activations and the text hidden size) plus the ones column of a
+    biased projection (SigLIP), B the projection dim."""
+    bias = int(config.projection_has_bias)
+    a_img = config.vision.mlp_dim if config.family == "siglip" else config.vision.hidden_size
+    D = config.vision.projection_dim
+    return {"img": (a_img + bias, D), "txt": (config.text.hidden_size + bias, D)}
+
+
 def save_synthetic_hessians(la_dir: PathLike, config, seed: int = 0) -> Path:
     """Random SPD K-FAC factors at a model's full dims (the recipe of the
     JAX package's bench.py `_synthetic_hessian_dir`), drawn from `seed`,
     with a prior-precision file: a Hessian directory for benchmarks and
-    smoke runs of models that have none."""
+    smoke runs of models that have none, at `kfac_dims(config)`."""
     rng = np.random.default_rng(seed)
 
     def spd(dim, scale):
         M = rng.normal(size=(dim, dim)).astype(np.float32)
         return (M @ M.T / dim + np.eye(dim, dtype=np.float32)) * scale
 
-    D = config.vision.projection_dim
-    save_hessians(la_dir, spd(config.vision.hidden_size, 40.0), spd(D, 25.0), "img")
-    save_hessians(la_dir, spd(config.text.hidden_size, 35.0), spd(D, 15.0), "txt")
+    dims = kfac_dims(config)
+    for tag, a_scale, b_scale in (("img", 40.0, 25.0), ("txt", 35.0, 15.0)):
+        a_dim, b_dim = dims[tag]
+        save_hessians(la_dir, spd(a_dim, a_scale), spd(b_dim, b_scale), tag)
     save_prior_precision(la_dir, 300.0, 1.0, 300.0, 1.0)
     return Path(la_dir)

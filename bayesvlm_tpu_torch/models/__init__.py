@@ -1,4 +1,4 @@
-"""CLIP towers, the attention kernel and model loading."""
+"""CLIP and SigLIP towers, the attention kernels and model loading."""
 
 from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
 from bayesvlm_tpu_torch.models.encoders import (

@@ -114,8 +114,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the kernel, counting the launch in `fused_attention.launches` (one
     block), `.launches_split` or `.launches_packed`, or raise."""
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"q, k, v must share one [B, T, D] shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+        # the kernels tile q, k and v from q's length: cross-attention with
+        # Tq != Tk (the SigLIP probe) takes the caller's plain path
+        raise ValueError(f"q, k, v must share one [B, T, D] shape (self-attention, "
+                         f"Tq == Tk), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     B, T, D = q.shape
     if D % num_heads:
         raise ValueError(f"hidden size {D} is not a multiple of {num_heads} heads")

@@ -1,15 +1,19 @@
-"""Weight bridge: the JAX package's CLIP parameter trees -> the port's
-state dicts (counterpart of `bayesvlm_tpu.models.convert`, run the other
-way).
+"""Weight bridge: the JAX package's CLIP and SigLIP parameter trees -> the
+port's state dicts (counterpart of `bayesvlm_tpu.models.convert`, run
+the other way).
 
-Input: the flax parameter trees of `bayesvlm_tpu.models.clip` towers,
-with every leaf as a numpy array (`jax.tree_util.tree_map(np.asarray,
-params)`); this module imports neither JAX nor the JAX package.
+Input: the flax parameter trees of `bayesvlm_tpu.models.clip` or
+`bayesvlm_tpu.models.siglip` towers, with every leaf as a numpy array
+(`jax.tree_util.tree_map(np.asarray, params)`); this module imports
+neither JAX nor the JAX package.
   - the encoder's layers are stacked along a leading [L, ...] axis
     (flax `nn.scan`): they are unstacked into `encoder.layers.<i>`;
   - dense kernels are [in, out]: transposed to torch's [out, in];
-  - the patch conv kernel is flax HWIO: permuted to torch OIHW;
-  - LayerNorm `ln/{scale,bias}` becomes `{weight,bias}`.
+  - the patch conv kernel is flax HWIO: permuted to torch OIHW (SigLIP's
+    bias carried as it is);
+  - LayerNorm `ln/{scale,bias}` becomes `{weight,bias}`;
+  - SigLIP's probe [1, 1, D] and head (probe attention, LN, fc1, fc2;
+    the text `head`) keep their names.
 """
 
 from __future__ import annotations
@@ -56,15 +60,22 @@ def _index(tree, i: int):
     return np.asarray(tree)[i]
 
 
+def _patch_embedding(tree, out: dict) -> None:
+    # HWIO -> OIHW
+    out["patch_embedding.weight"] = _t(np.transpose(np.asarray(tree["kernel"]),
+                                                    (3, 2, 0, 1)))
+    if "bias" in tree:
+        out["patch_embedding.bias"] = _t(tree["bias"])
+
+
 def clip_vision_state_dict(params) -> Dict[str, torch.Tensor]:
     """`CLIPVisionTower` params (flax tree of numpy arrays) -> state dict."""
-    out = {
-        # HWIO -> OIHW
-        "patch_embedding.weight": _t(np.transpose(
-            np.asarray(params["patch_embedding"]["kernel"]), (3, 2, 0, 1))),
+    out = {}
+    _patch_embedding(params["patch_embedding"], out)
+    out.update({
         "class_embedding": _t(params["class_embedding"]),
         "position_embedding": _t(params["position_embedding"]),
-    }
+    })
     _ln(params["pre_layernorm"], "pre_layernorm", out)
     _encoder(params["encoder"], out)
     _ln(params["post_layernorm"], "post_layernorm", out)
@@ -84,12 +95,44 @@ def clip_text_state_dict(params) -> Dict[str, torch.Tensor]:
     return out
 
 
+def siglip_vision_state_dict(params) -> Dict[str, torch.Tensor]:
+    """`SiglipVisionTower` params (flax tree of numpy arrays) -> state dict."""
+    out = {}
+    _patch_embedding(params["patch_embedding"], out)
+    out["position_embedding"] = _t(params["position_embedding"])
+    _encoder(params["encoder"], out)
+    _ln(params["post_layernorm"], "post_layernorm", out)
+    out["probe"] = _t(params["probe"])
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        _dense(params["head_attention"][name], f"head_attention.{name}", out)
+    _ln(params["head_layernorm"], "head_layernorm", out)
+    _dense(params["head_fc1"], "head_fc1", out)
+    _dense(params["head_fc2"], "head_fc2", out)
+    return out
+
+
+def siglip_text_state_dict(params) -> Dict[str, torch.Tensor]:
+    """`SiglipTextTower` params (flax tree of numpy arrays) -> state dict."""
+    out = {
+        "token_embedding.weight": _t(params["token_embedding"]["embedding"]),
+        "position_embedding": _t(params["position_embedding"]),
+    }
+    _encoder(params["encoder"], out)
+    _ln(params["final_layer_norm"], "final_layer_norm", out)
+    _dense(params["head"], "head", out)
+    return out
+
+
 def save_weights(weights_dir: Union[str, Path], vision_params,
                  text_params) -> Path:
     """Write `vision.pt` / `text.pt`, the layout `load_model(weights_dir=...)`
-    reads."""
+    reads, for either family (told apart by the vision tree's probe)."""
     wd = Path(weights_dir)
     wd.mkdir(parents=True, exist_ok=True)
-    torch.save(clip_vision_state_dict(vision_params), wd / "vision.pt")
-    torch.save(clip_text_state_dict(text_params), wd / "text.pt")
+    if "probe" in vision_params:
+        vision, text = siglip_vision_state_dict, siglip_text_state_dict
+    else:
+        vision, text = clip_vision_state_dict, clip_text_state_dict
+    torch.save(vision(vision_params), wd / "vision.pt")
+    torch.save(text(text_params), wd / "text.pt")
     return wd

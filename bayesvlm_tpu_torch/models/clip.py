@@ -18,15 +18,22 @@ from torch import nn
 from bayesvlm_tpu_torch.models.configs import TextConfig, VisionConfig
 from bayesvlm_tpu_torch.models.layers import (
     LayerNormFP32,
-    TransformerEncoder,
+    build_encoder,
     causal_mask,
 )
 
 
-def _encoder(cfg, **int8) -> TransformerEncoder:
-    return TransformerEncoder(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
-                              cfg.mlp_dim, cfg.hidden_act, cfg.layer_norm_eps,
-                              attn_pallas_block=cfg.attn_pallas_block, **int8)
+def patchify(pixels: torch.Tensor, p: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, (H/p)(W/p), C p p] row-major patches, laid out
+    as a flattened OIHW conv weight's input dims. Rows and columns past
+    the last whole patch are dropped, as a VALID conv drops them (the
+    SigLIP transform's 265 px images)."""
+    B, Hi, Wi, C = pixels.shape
+    Hi, Wi = Hi // p * p, Wi // p * p
+    pixels = pixels[:, :Hi, :Wi]
+    return (pixels.reshape(B, Hi // p, p, Wi // p, p, C)
+            .permute(0, 1, 3, 5, 2, 4)            # [B, gh, gw, C, p, p]
+            .reshape(B, (Hi // p) * (Wi // p), C * p * p))
 
 
 class CLIPVisionTower(nn.Module):
@@ -43,9 +50,10 @@ class CLIPVisionTower(nn.Module):
         self.pre_layernorm = LayerNormFP32(D, config.layer_norm_eps)
         # the int8 lanes reach the vision encoder only, as in the JAX
         # package (its load_model replaces config.vision alone)
-        self.encoder = _encoder(config, mlp_int8=config.mlp_int8,
-                                attn_int8=config.attn_int8,
-                                mlp_weight_bits=config.mlp_weight_bits)
+        self.encoder = build_encoder(config, attn_kernel=True,
+                                     mlp_int8=config.mlp_int8,
+                                     attn_int8=config.attn_int8,
+                                     mlp_weight_bits=config.mlp_weight_bits)
         self.post_layernorm = LayerNormFP32(D, config.layer_norm_eps)
         self.visual_projection = nn.Linear(D, config.projection_dim, bias=False)
 
@@ -53,13 +61,8 @@ class CLIPVisionTower(nn.Module):
         """pixel_values [B, H, W, 3] (NHWC, normalized).
 
         Returns (embeds [B, proj] fp32, activations [B, D] fp32)."""
-        cfg = self.config
-        p = cfg.patch_size
-        B, Hi, Wi, C = pixel_values.shape
-        x = pixel_values.to(self.dtype)
-        patches = (x.reshape(B, Hi // p, p, Wi // p, p, C)
-                   .permute(0, 1, 3, 5, 2, 4)            # [B, gh, gw, C, p, p]
-                   .reshape(B, (Hi // p) * (Wi // p), C * p * p))
+        B = pixel_values.shape[0]
+        patches = patchify(pixel_values.to(self.dtype), self.config.patch_size)
         w = self.patch_embedding.weight.to(self.dtype).flatten(1)
         patches = F.linear(patches, w)
         cls = self.class_embedding.to(self.dtype).expand(B, 1, -1)
@@ -80,7 +83,7 @@ class CLIPTextTower(nn.Module):
         D = config.hidden_size
         self.token_embedding = nn.Embedding(config.vocab_size, D)
         self.position_embedding = nn.Parameter(torch.zeros(config.max_length, D))
-        self.encoder = _encoder(config)
+        self.encoder = build_encoder(config, attn_kernel=False)
         self.final_layer_norm = LayerNormFP32(D, config.layer_norm_eps)
         self.text_projection = nn.Linear(D, config.projection_dim, bias=False)
 

@@ -16,8 +16,10 @@ Of the JAX package's per-kernel switches, the W8A8 int8 lanes are
 carried over (`mlp_int8`, `attn_int8`, `mlp_weight_bits`; vision towers
 only, off by default), and so is `attn_pallas_block`, the whole-sublayer
 attention kernel (off by default; on a causal tower it changes nothing,
-as in JAX). `attn_pallas` is not: the port routes non-causal attention
-to its kernel from the tensor's device.
+as in JAX). `attn_pallas` is not: the towers themselves send the vision
+encoder's unmasked self-attention to the kernel and keep the text
+encoders on the plain path (`layers.build_encoder(attn_kernel=...)`), as
+the JAX package sets `attn_pallas` on a TPU.
 """
 
 from __future__ import annotations

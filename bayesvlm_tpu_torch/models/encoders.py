@@ -1,9 +1,12 @@
 """High-level encoder objects: tower module + forward -> `EncoderResult`.
 
 Counterparts of `bayesvlm_tpu.models.encoders` (and of the reference's
-`CLIPImageEncoder` / `CLIPTextEncoder`, ref:bayesvlm/vlm.py). The
-projection layer (the Laplace layer) enters the Bayesian chain through
-`projection_l2` / `projection_num_params`.
+`CLIPImageEncoder` / `CLIPTextEncoder` / `SiglipImageEncoder` /
+`SiglipTextEncoder`, ref:bayesvlm/vlm.py). The projection layer (the
+Laplace layer: CLIP's `visual_projection` / `text_projection`, SigLIP's
+`head_fc2` / `head`, both with a bias) enters the Bayesian chain through
+`projection_l2` / `projection_num_params`, which count every parameter
+of it.
 """
 
 from __future__ import annotations
@@ -20,18 +23,32 @@ from torch import nn
 from bayesvlm_tpu_torch.models.clip import CLIPTextTower, CLIPVisionTower
 from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME, VLMConfig
 from bayesvlm_tpu_torch.models.layers import MLP
+from bayesvlm_tpu_torch.models.siglip import SiglipTextTower, SiglipVisionTower
 from bayesvlm_tpu_torch.probforward.smith import ProbabilisticHead
 from bayesvlm_tpu_torch.types import EncoderResult
 
-# logit scale of the pretrained laion CLIP checkpoints (ln 100), used
-# with random-init towers, as in the JAX package
-DEFAULT_LOGIT_SCALE = {"clip": 4.6052}
+# logit scale and bias of the pretrained checkpoints, used with
+# random-init towers, as in the JAX package: CLIP ln(100) = 4.6052 (laion
+# CLIP); SigLIP base ships scale 4.765, bias -16.5 (HF configs)
+DEFAULT_LOGIT_SCALE = {"clip": 4.6052, "siglip": 4.7651}
+DEFAULT_LOGIT_BIAS = {"clip": 0.0, "siglip": -16.5}
+
+# (vision, text) tower classes of each family
+TOWERS = {"clip": (CLIPVisionTower, CLIPTextTower),
+          "siglip": (SiglipVisionTower, SiglipTextTower)}
 
 _GEMM_MODULES = ("q_proj", "k_proj", "v_proj", "out_proj", "fc1", "fc2")
 
 
+def _projection_path(family: str, tower: str) -> str:
+    """The projection (Laplace) layer's module name in a tower."""
+    if family == "clip":
+        return "visual_projection" if tower == "vision" else "text_projection"
+    return "head_fc2" if tower == "vision" else "head"
+
+
 class _EncoderBase:
-    projection_name: str
+    tower: str  # "vision" | "text"
 
     def __init__(self, config: VLMConfig, module: nn.Module):
         self.config = config
@@ -41,21 +58,24 @@ class _EncoderBase:
     def device(self) -> torch.device:
         return next(self.module.parameters()).device
 
+    def projection(self) -> nn.Linear:
+        return getattr(self.module, _projection_path(self.config.family, self.tower))
+
     def projection_weight(self) -> torch.Tensor:
-        return getattr(self.module, self.projection_name).weight
+        return self.projection().weight
 
     def projection_l2(self) -> float:
-        """Squared L2 norm of the projection parameters."""
-        return float(self.projection_weight().float().square().sum())
+        """Squared L2 norm of the projection parameters (bias included)."""
+        return float(sum(p.float().square().sum() for p in self.projection().parameters()))
 
     def projection_num_params(self) -> int:
-        return self.projection_weight().numel()
+        return sum(p.numel() for p in self.projection().parameters())
 
 
 class ImageEncoder(_EncoderBase):
     """Vision tower wrapper. Call with NHWC (or NCHW) float images."""
 
-    projection_name = "visual_projection"
+    tower = "vision"
 
     def __init__(self, config: VLMConfig, module: nn.Module):
         super().__init__(config, module)
@@ -109,14 +129,14 @@ class ImageEncoder(_EncoderBase):
                              "ingest lane is not ported yet)")
         if x.dim() == 4 and x.shape[1] == 3 and x.shape[-1] != 3:
             x = x.permute(0, 2, 3, 1)  # NCHW -> NHWC
-        embeds, activations = self.module(x.float())
-        return EncoderResult.create(embeds=embeds, activations=activations)
+        # (embeds, activations) for CLIP, SigLIP adds its residuals
+        return EncoderResult.create(*self.module(x.float()))
 
 
 class TextEncoder(_EncoderBase):
     """Text tower wrapper. Call with integer token ids [B, T]."""
 
-    projection_name = "text_projection"
+    tower = "text"
 
     def __init__(self, config: VLMConfig, module: nn.Module,
                  tokenizer: Optional[Callable] = None):
@@ -138,8 +158,11 @@ class TextEncoder(_EncoderBase):
 
 def cast_gemm_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Put the big GEMM weights (attention projections + MLP, weights and
-    biases) in the compute dtype, in place. LayerNorm, embedding and
-    projection parameters stay fp32 (the fp32-LN numerics contract)."""
+    biases) in the compute dtype, in place, chosen by module name as the
+    JAX package chooses by key: q/k/v/out_proj (the SigLIP probe
+    attention's too) and fc1/fc2. LayerNorm, embedding, projection and
+    SigLIP head_fc1/head_fc2 parameters stay fp32 (the fp32-LN numerics
+    contract)."""
     for name, sub in module.named_modules():
         if name.rsplit(".", 1)[-1] in _GEMM_MODULES:
             sub.to(dtype)
@@ -156,7 +179,7 @@ def rebuild_image_encoder(encoder: ImageEncoder, **vision_fields) -> ImageEncode
     config = dataclasses.replace(encoder.config, vision=dataclasses.replace(
         encoder.config.vision, **vision_fields))
     old = encoder.module
-    tower = CLIPVisionTower(config.vision, dtype=old.dtype).to(encoder.device)
+    tower = TOWERS[config.family][0](config.vision, dtype=old.dtype).to(encoder.device)
     tower.load_state_dict(old.state_dict())
     cast_gemm_params(tower, old.dtype).eval().requires_grad_(False)
     return ImageEncoder(config, tower).prequantize_int8()
@@ -165,9 +188,9 @@ def rebuild_image_encoder(encoder: ImageEncoder, **vision_fields) -> ImageEncode
 def _init_tower(module: nn.Module, gen: torch.Generator) -> None:
     """Random init with the JAX package's initializer scales: lecun-normal
     dense and conv kernels (std 1/sqrt(fan_in)) with zero biases,
-    normal(0.02) class/position embeddings, normal 1/sqrt(vocab) token
-    embeddings (flax's default embed init). LayerNorms keep their
-    unit/zero construction values."""
+    normal(0.02) class/position embeddings and SigLIP probe, normal
+    1/sqrt(vocab) token embeddings (flax's default embed init).
+    LayerNorms keep their unit/zero construction values."""
 
     def normal_(t, std):
         t.copy_(torch.randn(t.shape, generator=gen, device=t.device,
@@ -182,8 +205,9 @@ def _init_tower(module: nn.Module, gen: torch.Generator) -> None:
             elif isinstance(sub, nn.Embedding):
                 normal_(sub.weight, 1.0 / math.sqrt(sub.weight.shape[0]))
         normal_(module.position_embedding, 0.02)
-        if hasattr(module, "class_embedding"):
-            normal_(module.class_embedding, 0.02)
+        for name in ("class_embedding", "probe"):
+            if hasattr(module, name):
+                normal_(getattr(module, name), 0.02)
 
 
 def load_model(
@@ -214,15 +238,14 @@ def load_model(
     between devices and from the JAX package's.
     """
     config = CONFIGS_BY_NAME[model_str]
-    if config.family != "clip":
-        raise NotImplementedError(f"{config.family} towers are not ported yet")
     if mlp_int8 or attn_int8:
         config = dataclasses.replace(config, vision=dataclasses.replace(
             config.vision, mlp_int8=mlp_int8, attn_int8=attn_int8,
             mlp_weight_bits=mlp_weight_bits))
     device = torch.device(device)
-    vision = CLIPVisionTower(config.vision, dtype=dtype).to(device)
-    text = CLIPTextTower(config.text, dtype=dtype).to(device)
+    vision_cls, text_cls = TOWERS[config.family]
+    vision = vision_cls(config.vision, dtype=dtype).to(device)
+    text = text_cls(config.text, dtype=dtype).to(device)
     if weights_dir is not None:
         wd = Path(weights_dir)
         for tower, name in ((vision, "vision.pt"), (text, "text.pt")):
@@ -236,7 +259,8 @@ def load_model(
     for tower in (vision, text):
         cast_gemm_params(tower, dtype).eval().requires_grad_(False)
     head = ProbabilisticHead.create(
-        logit_scale=DEFAULT_LOGIT_SCALE[config.family], device=device,
+        logit_scale=DEFAULT_LOGIT_SCALE[config.family],
+        logit_bias=DEFAULT_LOGIT_BIAS[config.family], device=device,
         has_bias=config.projection_has_bias,
     )
     return ImageEncoder(config, vision), TextEncoder(config, text), head

@@ -7,9 +7,13 @@ Counterpart of `bayesvlm_tpu.models.layers`, with its numerics contract:
     compute dtype;
   - bf16 towers swap erf-GELU for tanh-GELU (layers.py:250-255 of the
     JAX package: the approximation's error is below bf16 rounding);
-  - non-causal, unmasked self-attention goes to the fused kernel
-    (models/attention.py); the causal text path stays plain torch
-    (matmul, additive mask, fp32 softmax), as the JAX einsum path does;
+  - unmasked self-attention in a tower built with `attn_kernel` (the
+    vision towers) goes to the fused kernel (models/attention.py), as the
+    JAX package's vision towers take its Pallas kernel on a TPU; masked
+    attention (causal CLIP text), the bidirectional SigLIP text tower and
+    cross-attention (the SigLIP probe: one query over the patch tokens)
+    stay plain torch (matmul, additive mask, fp32 softmax), as the JAX
+    einsum path does;
   - the opt-in W8A8 lanes (vision towers only): `MLP(use_int8)` runs
     the whole pre-LN MLP sublayer through models/mlp_int8.py, and
     `MultiHeadAttention(use_int8_proj)` the fused QKV and out
@@ -69,6 +73,11 @@ class LayerNormFP32(nn.Module):
 class MultiHeadAttention(nn.Module):
     """MHA with separate q/k/v/out projections (HF layout).
 
+    `use_kernel`: unmasked self-attention runs in the fused attention
+    kernel; elsewhere, and for cross-attention (`keys_values`), the plain
+    path (JAX layers.py:170-175 guards its kernel the same way: the
+    kernel tiles from q's length).
+
     `use_int8_proj`: on unmasked self-attention, the q/k/v weights are
     concatenated to [3D, D] so each input row is quantized once, one
     W8A8 product writes contiguous q, k, v, and the out-projection is a
@@ -81,46 +90,57 @@ class MultiHeadAttention(nn.Module):
     `fused_attention_block` (JAX layers.py:127-145)."""
 
     def __init__(self, hidden_size: int, num_heads: int,
-                 use_int8_proj: bool = False, use_pallas_block: bool = False):
+                 use_int8_proj: bool = False, use_pallas_block: bool = False,
+                 use_kernel: bool = True):
         super().__init__()
         self.num_heads = num_heads
         self.use_int8_proj = use_int8_proj
         self.use_pallas_block = use_pallas_block
+        self.use_kernel = use_kernel
         self.q_proj = nn.Linear(hidden_size, hidden_size)
         self.k_proj = nn.Linear(hidden_size, hidden_size)
         self.v_proj = nn.Linear(hidden_size, hidden_size)
         self.out_proj = nn.Linear(hidden_size, hidden_size)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                pre_ln: Optional[tuple] = None) -> torch.Tensor:
-        """x [B, T, D] in the compute dtype; mask [T, T] additive."""
-        if self.use_pallas_block and mask is None and pre_ln is not None:
+                pre_ln: Optional[tuple] = None,
+                keys_values: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, Tq, D] (the queries) in the compute dtype; keys_values
+        [B, Tk, D] (None: self-attention); mask [Tq, Tk] additive."""
+        self_attention = keys_values is None
+        unmasked_self = mask is None and self_attention
+        if self.use_pallas_block and unmasked_self and pre_ln is not None:
             ln_weight, ln_bias, ln_eps = pre_ln
             params = []
             for proj in (self.q_proj, self.k_proj, self.v_proj, self.out_proj):
                 params += [proj.weight.to(x.dtype), proj.bias.to(x.dtype)]
             return fused_attention_block(x, ln_weight, ln_bias, *params,
                                          num_heads=self.num_heads, ln_eps=ln_eps)
-        if mask is None and self.use_int8_proj:
+        if unmasked_self and self.use_int8_proj:
             projs = (self.q_proj, self.k_proj, self.v_proj)
             q, k, v = linear_int8(x, torch.cat([p.weight for p in projs]),
                                   torch.cat([p.bias for p in projs]), chunks=3)
             o = fused_attention(q, k, v, self.num_heads)
             return linear_int8(o, self.out_proj.weight, self.out_proj.bias)
-        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
-        if mask is None:
+        kv = x if self_attention else keys_values
+        q, k, v = self.q_proj(x), self.k_proj(kv), self.v_proj(kv)
+        if unmasked_self and self.use_kernel:
             return self.out_proj(fused_attention(q, k, v, self.num_heads))
-        B, T, D = q.shape
+        B, Tq, D = q.shape
+        Tk = k.shape[1]
         H = self.num_heads
         Dh = D // H
-        q, k, v = (t.reshape(B, T, H, Dh).transpose(1, 2) for t in (q, k, v))
+        q = q.reshape(B, Tq, H, Dh).transpose(1, 2)
+        k, v = (t.reshape(B, Tk, H, Dh).transpose(1, 2) for t in (k, v))
         # scores in the compute dtype, divided there, then fp32 — the
         # order of the JAX einsum path (layers.py:193-198)
         scores = (q @ k.transpose(-1, -2)) / torch.tensor(
             math.sqrt(Dh), dtype=q.dtype, device=q.device)
-        scores = scores.float() + mask.float()
+        scores = scores.float()
+        if mask is not None:
+            scores = scores + mask.float()
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        out = (probs @ v).transpose(1, 2).reshape(B, T, D)
+        out = (probs @ v).transpose(1, 2).reshape(B, Tq, D)
         return self.out_proj(out)
 
 
@@ -177,11 +197,11 @@ class TransformerBlock(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, mlp_dim: int,
                  hidden_act: str, layer_norm_eps: float, mlp_int8: bool = False,
                  attn_int8: bool = False, mlp_weight_bits: int = 8,
-                 attn_pallas_block: bool = False):
+                 attn_pallas_block: bool = False, attn_kernel: bool = True):
         super().__init__()
         self.layer_norm1 = LayerNormFP32(hidden_size, layer_norm_eps)
         self.self_attn = MultiHeadAttention(hidden_size, num_heads, attn_int8,
-                                            attn_pallas_block)
+                                            attn_pallas_block, attn_kernel)
         self.layer_norm2 = LayerNormFP32(hidden_size, layer_norm_eps)
         self.mlp = MLP(hidden_size, mlp_dim, hidden_act, mlp_int8,
                        mlp_weight_bits)
@@ -209,12 +229,13 @@ class TransformerEncoder(nn.Module):
     def __init__(self, num_layers: int, hidden_size: int, num_heads: int,
                  mlp_dim: int, hidden_act: str, layer_norm_eps: float,
                  mlp_int8: bool = False, attn_int8: bool = False,
-                 mlp_weight_bits: int = 8, attn_pallas_block: bool = False):
+                 mlp_weight_bits: int = 8, attn_pallas_block: bool = False,
+                 attn_kernel: bool = True):
         super().__init__()
         self.layers = nn.ModuleList(
             TransformerBlock(hidden_size, num_heads, mlp_dim, hidden_act,
                              layer_norm_eps, mlp_int8, attn_int8,
-                             mlp_weight_bits, attn_pallas_block)
+                             mlp_weight_bits, attn_pallas_block, attn_kernel)
             for _ in range(num_layers)
         )
 
@@ -223,6 +244,15 @@ class TransformerEncoder(nn.Module):
         for layer in self.layers:
             x = layer(x, mask)
         return x
+
+
+def build_encoder(cfg, attn_kernel: bool, **int8) -> TransformerEncoder:
+    """A tower's encoder from its Vision- or TextConfig; `attn_kernel`
+    for the vision towers, `int8`: their W8A8 lane switches."""
+    return TransformerEncoder(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
+                              cfg.mlp_dim, cfg.hidden_act, cfg.layer_norm_eps,
+                              attn_pallas_block=cfg.attn_pallas_block,
+                              attn_kernel=attn_kernel, **int8)
 
 
 def causal_mask(seq_len: int, device=None) -> torch.Tensor:

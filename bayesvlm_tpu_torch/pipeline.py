@@ -12,6 +12,10 @@ when num_samples=0, Monte-Carlo otherwise).
     probs = vlm.predict(images)           # [B, C] calibrated probs
     logits = vlm.logits(images)           # ProbabilisticLogits (mean+var)
 
+Both families: the CLIP and SigLIP names of `models/configs.py`.
+`predict` takes normalised NHWC float pixels, or PIL images, which go
+through the family's transform (`data/transforms.get_transform`).
+
 The W8A8 int8 lane of the vision tower is an opt-in, as in the JAX
 package (`--mlp_int8` in its CLIs):
 
@@ -20,7 +24,7 @@ package (`--mlp_int8` in its CLIs):
         attn_int8=True)
 
 Not ported yet: AOT serving (`compile_serving`, the serving cache),
-meshes, PIL inputs and real HF checkpoints (the HF tokenizer and
+meshes and real HF checkpoints (the HF tokenizer and
 `models/convert.py`).
 """
 
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from bayesvlm_tpu_torch.types import EncoderResult, ProbabilisticLogits
@@ -36,11 +41,13 @@ _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
 class ProbabilisticVLM:
-    def __init__(self, image_encoder, text_encoder, head, info: dict):
+    def __init__(self, image_encoder, text_encoder, head, info: dict,
+                 transform=None):
         self.image_encoder = image_encoder
         self.text_encoder = text_encoder
         self.head = head
         self.info = dict(info)
+        self.transform = transform
         self._label_features: Optional[EncoderResult] = None
 
     @classmethod
@@ -74,8 +81,10 @@ class ProbabilisticVLM:
         from bayesvlm_tpu_torch.bayes.kfac import compute_covariances
         from bayesvlm_tpu_torch.bayes.prior import optimize_prior_precision
         from bayesvlm_tpu_torch.data.tokenizer import HashTokenizer
+        from bayesvlm_tpu_torch.data.transforms import get_transform
         from bayesvlm_tpu_torch.io.artifacts import load_hessians
         from bayesvlm_tpu_torch.models.encoders import load_model
+        from bayesvlm_tpu_torch.utils import get_image_size
 
         device = torch.device(device)
         # load_model casts the GEMM weights to the compute dtype; the
@@ -105,21 +114,24 @@ class ProbabilisticVLM:
         ))
         cov_img, cov_txt = compute_covariances(A_img, B_img, A_txt, B_txt, info)
         head = head.set_covariances(cov_img, cov_txt)
-        return cls(image_encoder, text_encoder, head, info)
+        transform = get_transform(image_encoder.config.family,
+                                  get_image_size(model_str))
+        return cls(image_encoder, text_encoder, head, info, transform=transform)
 
     # -- encoding -------------------------------------------------------
 
     def encode_images(self, images, batch_size: int = 256) -> EncoderResult:
-        """Encode NHWC (or NCHW) normalized float pixels in batches of at
-        most `batch_size` (bounded device memory for large inputs)."""
+        """Encode NHWC (or NCHW) normalized float pixels, or a list of PIL
+        images (run through the model's transform), in batches of at most
+        `batch_size` (bounded device memory for large inputs)."""
+        from bayesvlm_tpu_torch.inference.precompute import encode_images_batched
+
         if isinstance(images, (list, tuple)):
-            raise TypeError("PIL inputs are not ported yet; pass normalized "
-                            "NHWC float pixels")
-        n = len(images)
-        return EncoderResult.concatenate([
-            self.image_encoder(images[i:i + batch_size])
-            for i in range(0, n, batch_size)
-        ])
+            if self.transform is None:
+                raise ValueError("PIL inputs need a transform; construct "
+                                 "via from_pretrained")
+            images = np.stack([self.transform(im) for im in images])
+        return encode_images_batched(self.image_encoder, images, batch_size)
 
     def encode_texts(self, prompts: Sequence[str]) -> EncoderResult:
         return self.text_encoder.encode_texts(list(prompts))

@@ -7,14 +7,15 @@ Phases (any failure raises and exits non-zero, without the result line):
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles every kernel of the paths (csrc/attention.cu,
      csrc/attention_block.cu, csrc/mlp_int8.cu, csrc/linear_int8.cu,
-     csrc/xlogy_rowsum.cu; nvcc, sm_90a, one process each, all started
-     together) from this checkout, with each one's time;
+     csrc/xlogy_rowsum.cu, csrc/smith_head.cu; nvcc, sm_90a, one process
+     each, all started together) from this checkout, with each one's time;
   3. attention kernel vs plain at the ViT-L/14 shape (B=64, T=257, H=16,
      Dh=64) and the ViT-B/32 shape (T=50, H=12), bf16 and fp32, with
      errors and CUDA-event times; F.scaled_dot_product_attention timed
      beside it as the yardstick (library_ms; the port never calls it).
      The same for the split-key and packed-pair schedules at ViT-L/14
-     (bf16, fp32) and packed at T=50; at T=50 split_key takes the
+     (bf16, fp32) and packed at T=50, and one-block at SigLIP's T=256
+     (no class token, no remainder row); at T=50 split_key takes the
      one-block schedule (its count is the one that moves). Then each
      schedule's entry point, fused_attention(..., split_key=True) and
      (..., packed_heads=True), driven once with every count set to 0;
@@ -37,6 +38,12 @@ Phases (any failure raises and exits non-zero, without the result line):
      ranking (printed), times, bound and the cuBLAS bf16 product of the
      same shape as a yardstick (reference only). The int8 kernel's path,
      `epig_from_probs_fused(use_int8=True)`, is read with its count;
+  5b. fused probit head kernel (fused_probit_probs, csrc/smith_head.cu)
+     vs plain in fp32 at B=2048 with C=1000, D=768 (ImageNet, ViT-L/14
+     widths) and C=102, D=1024 (flowers102, SigLIP-L), at predict's head
+     (B=64, C=100, D=768) and a ragged B=37, C=13, D=80: max |d| within
+     rtol 1e-4 / atol 1e-5, rows summing to 1 within 1e-5, CUDA-event
+     times and the bound; a C past the shared-memory limit must raise;
   6. bf16 main path: ProbabilisticVLM.from_pretrained("clip-large", bf16,
      seeded random towers, synthetic full-dimension K-FAC factors) ->
      set_class_prompts(100 prompts) -> predict on [64, 224, 224, 3]
@@ -58,13 +65,28 @@ Phases (any failure raises and exits non-zero, without the result line):
      pool_subsampling="knn_wasserstein", the active-learning defaults);
      checks 3 distinct indices, finite scores, one kernel launch per step
      and pool chunk, and lambda moved; ms per step and its split;
+  8b. Stage-2 zero-shot evaluation at siglip-large width through the
+     port's CLI, zeroshot.run (the steps under zeroshot.main): seeded
+     bf16 towers (24 x 1024 vision at 256 px / 16, T=256; 24 x 1024
+     text, length 64), synthetic
+     full-dimension K-FAC factors (A 4097 image, 1025 text), `synthetic`
+     with 2048 test images of 256 px and 100 classes, batch 64,
+     pseudo_data_count 10 and the CLI's 1000 lambda steps; then the fused
+     head on the run's own features and sigma. Checks ACC, NLPD, ECE
+     finite (ECE in [0, 1]), lambda moved, 24 attention launches per
+     image-tower forward (none from the text tower or the probe), one
+     fused-head launch, and the fused head's probabilities against the
+     CLI's (rtol 1e-4, atol 1e-5); prints the seconds of steps [1]-[4],
+     img/s of the image features and the head's times at the run's shape
+     beside the CLI's eager chain;
   9. tiny-clip on the card against tiny-clip on the CPU, in the default
-     lane and in the block lane;
+     lane and in the block lane; tiny-siglip the same, default lane;
   10. prints the kernels line, then the result line
      {"ok": true, "device": {...}} last.
 
 Each path's launch counts are set to 0 just before it and read just
-after; the launches of phases 3, 4 and 5's comparisons are not counted.
+after; the launches of phases 3, 4, 5 and 5b's comparisons are not
+counted.
 """
 
 from __future__ import annotations
@@ -151,6 +173,16 @@ ROWSUM_RTOL = 1e-4
 # (scripts/activelearning.py:67-71, 185-210)
 EPIG_POOL_IMAGES, EPIG_TARGET_IMAGES, EPIG_CLASSES = 6000, 2000, 65
 EPIG_BUDGET, EPIG_CHUNK = 3, 4096
+# fused probit head vs plain: both fp32, summation order only; the JAX
+# package's tolerance (tests/test_pallas_smith.py:30)
+SMITH_RTOL, SMITH_ATOL, SMITH_ROW_TOL = 1e-4, 1e-5, 1e-5
+SMITH_SHAPES = {"imagenet vit-l/14": (2048, 1000, 768),
+                "flowers102 siglip-l": (2048, 102, 1024),
+                "predict head": (BATCH, NUM_PROMPTS, 768),
+                "ragged": (37, 13, 80)}
+# Stage-2 zero-shot evaluation (scripts/zeroshot.py's chain) at full width
+ZS_MODEL, ZS_IMAGES, ZS_CLASSES, ZS_BATCH, ZS_IMAGE_SIZE = (
+    "siglip-large", 2048, 100, 64, 256)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -217,7 +249,8 @@ def phase_build(kernels, modules) -> None:
         print(f"build: {kernels.library_path(name).name} {took}")
     print(f"build: {len(seconds)} kernels in {wall:.2f} s wall (in parallel)")
     check(set(seconds) == {"attention", "attention_block", "mlp_int8", "linear_int8",
-                           "xlogy_rowsum"}, f"kernel sources {sorted(seconds)}")
+                           "xlogy_rowsum", "smith_head"},
+          f"kernel sources {sorted(seconds)}")
     for module in modules:
         module._library()
 
@@ -257,7 +290,8 @@ def _attention_case(torch, attention, label: str, B: int, T: int, H: int, Dh: in
 
 def phase_attention_vs_plain(torch, attention) -> dict:
     """The three schedules of csrc/attention.cu vs plain."""
-    shapes = {"vit-l/14": (BATCH, 257, 16, 64), "vit-b/32": (BATCH, 50, 12, 64)}
+    shapes = {"vit-l/14": (BATCH, 257, 16, 64), "vit-b/32": (BATCH, 50, 12, 64),
+              "siglip-l/16": (BATCH, 256, 16, 64)}
     results = {}
     for shape_name, shape in shapes.items():
         for dname in ("bf16", "fp32"):
@@ -606,29 +640,174 @@ def phase_block_path(torch, counters, hessian_dir: str, pixels, prompts,
     return launches, img_s
 
 
-def phase_tiny_reference(torch, attention, hessian_dir: str) -> None:
-    """tiny-clip fp32 through the kernels on the card vs the plain path on
-    the CPU, with the same weights and Hessian factors, in the default
-    lane and in the block lane."""
+def _smith_operands(torch, B: int, C: int, D: int, seed: int):
+    """Embeddings and positive diagonal covariances, seeded on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(B, D, generator=gen, device="cuda"),
+            0.01 + 0.49 * torch.rand(B, D, generator=gen, device="cuda"),
+            torch.randn(C, D, generator=gen, device="cuda"),
+            0.01 + 0.49 * torch.rand(C, D, generator=gen, device="cuda"))
+
+
+def _smith_check(torch, pk, label: str, ops, logit_scale, ref=None) -> dict:
+    """The fused head vs `ref` (default: its plain version) on `ops`:
+    |d| <= atol + rtol |ref| everywhere, rows summing to 1."""
+    out = pk.fused_probit_probs(*ops, logit_scale)
+    if ref is None:
+        ref = pk.smith_probit_probs_reference(*ops, logit_scale)
+    torch.cuda.synchronize()
+    err = (out - ref).abs()
+    worst = float((err / (SMITH_ATOL + SMITH_RTOL * ref.abs())).max())
+    row_err = float((out.sum(-1) - 1.0).abs().max())
+    r = {"max_abs_err": float(err.max()), "row_sum_err": row_err}
+    print(f"  {label}: max_abs_err={r['max_abs_err']:.3e} (rtol {SMITH_RTOL} atol "
+          f"{SMITH_ATOL}, worst/bound={worst:.3f}) row_sum_err={row_err:.2e}")
+    check(worst <= 1.0, f"{label}: the fused head disagrees (max_abs_err "
+                        f"{r['max_abs_err']})")
+    check(row_err <= SMITH_ROW_TOL, f"{label}: rows sum to 1 within {row_err:.2e}")
+    return r
+
+
+def _smith_bound(B: int, C: int, D: int) -> dict:
+    """6 B C D fp32 operations (three products of 2 B C D) against the
+    four fp32 operands read and the [B, C] output written once."""
+    return bound(4 * (2 * B * D + 2 * C * D + B * C), 6 * B * C * D, "fp32")
+
+
+def phase_smith_vs_plain(torch, pk) -> dict:
+    """The fused probit head kernel vs plain, fp32, at the CLI's and
+    predict's shapes and a ragged one; a C past the limit must raise."""
+    logit_scale = 4.7651  # SigLIP's (models/encoders.DEFAULT_LOGIT_SCALE)
+    print("fused probit head (csrc/smith_head.cu) vs plain, fp32:")
+    results = {}
+    for i, (label, (B, C, D)) in enumerate(SMITH_SHAPES.items()):
+        ops = _smith_operands(torch, B, C, D, SEED + 10 + i)
+        r = _smith_check(torch, pk, f"{label} B={B} C={C} D={D}", ops, logit_scale)
+        if label == "ragged":
+            continue
+        r["ms"] = cuda_ms(torch, lambda: pk.fused_probit_probs(*ops, logit_scale))
+        r["plain_ms"] = cuda_ms(torch, lambda: pk.smith_probit_probs_reference(
+            *ops, logit_scale))
+        r.update(_smith_bound(B, C, D))
+        print(f"    kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} (the eager "
+              f"cuBLAS fp32 chain) bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+        results[label] = r
+    limit = pk.max_classes()
+    ops = _smith_operands(torch, 4, limit + 1, 16, SEED + 20)
+    try:
+        pk.fused_probit_probs(*ops, logit_scale)
+    except ValueError as e:
+        print(f"  C={limit + 1} (past the limit of {limit}) raises: {e}")
+    else:
+        check(False, f"C={limit + 1} past the shared-memory limit did not raise")
+    return results
+
+
+def phase_zeroshot(torch, counters, hessian_dir: str) -> dict:
+    """Stage-2 zero-shot evaluation at siglip-large width through the
+    port's CLI (`zeroshot.run`, the steps under `main`), then the fused
+    head on the run's features, every count set to 0 just before and read
+    just after."""
+    from bayesvlm_tpu_torch import zeroshot
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+    from bayesvlm_tpu_torch.probforward import kernels as pk
+    from bayesvlm_tpu_torch.probforward.smith import activation_diag_covariance
+
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = zeroshot.run(
+        "synthetic", hessian_dir, ZS_MODEL, pseudo_data_count=10,
+        batch_size=ZS_BATCH, dtype="bf16", device="cuda",
+        dataset_overrides=dict(image_size=ZS_IMAGE_SIZE, num_test=ZS_IMAGES,
+                               num_classes=ZS_CLASSES))
+    wall = time.perf_counter() - t0
+    (acc, nlpd, ece), info = run["metrics"], run["info"]
+    head, img, lab = run["head"], run["image_outputs"], run["label_outputs"]
+
+    def sigmas():
+        return (activation_diag_covariance(img.activations, head.source_covariance,
+                                           head.source_projection_has_bias),
+                activation_diag_covariance(lab.activations, head.target_covariance,
+                                           head.target_projection_has_bias))
+
+    sig_s, sig_t = sigmas()
+    ops = (img.embeds, sig_s, lab.embeds, sig_t)
+    fused = _smith_check(torch, pk, f"fused head on the run's features vs the CLI's "
+                         f"probabilities B={len(img)} C={len(lab)}", ops,
+                         head.logit_scale, ref=run["probs"])
+    launches = {n: c.launches for n, c in counters.items()}
+
+    L = CONFIGS_BY_NAME[ZS_MODEL].vision.num_layers
+    forwards = -(-ZS_IMAGES // ZS_BATCH)
+    expected = {n: 0 for n in counters}
+    expected.update(attention=L * forwards, smith_head=1)
+    sec = run["seconds"]
+    img_s = ZS_IMAGES / sec["[2] image features"]
+    print(f"zero-shot path ({ZS_MODEL}, bf16, synthetic {ZS_IMAGES} images of "
+          f"{ZS_IMAGE_SIZE} px, {ZS_CLASSES} classes, batch {ZS_BATCH}): ACC={acc!r} "
+          f"NLPD={nlpd!r} ECE={ece!r} lambda_img={info['lambda_img']!r} "
+          f"lambda_txt={info['lambda_txt']!r} wall_s={wall:.2f} launches={launches}")
+    for step, seconds in sec.items():
+        print(f"  zero-shot step {step}: {seconds:.3f} s")
+    print(f"  precompute_image_features: {img_s:.1f} img/s")
+    check(all(np.isfinite(v) for v in (acc, nlpd, ece)), "non-finite metrics")
+    check(0.0 <= ece <= 1.0, f"ECE {ece} outside [0, 1]")
+    check(info["lambda_img"] != 300.0 and info["lambda_txt"] != 300.0,
+          "lambda did not move from its initial 300")
+    check(launches == expected, f"zero-shot path launches: expected {expected}, "
+                                f"got {launches}")
+
+    # the head at the run's shape: the kernel (given sigma), its plain
+    # version, sigma alone, and the CLI's eager chain from the features
+    # (make_predictions in one batch, then the probit softmax)
+    from bayesvlm_tpu_torch.inference.predictions import make_predictions
+
+    def cli_chain():
+        pl = make_predictions(head, img, lab, batch_size=len(img))
+        return torch.softmax(pl.mean / torch.sqrt(1.0 + np.pi / 8 * pl.var), dim=-1)
+
+    B, C, D = len(img), len(lab), img.embeds.shape[1]
+    fused["ms"] = cuda_ms(torch, lambda: pk.fused_probit_probs(*ops, head.logit_scale))
+    fused["plain_ms"] = cuda_ms(torch, lambda: pk.smith_probit_probs_reference(
+        *ops, head.logit_scale))
+    fused["sigma_ms"] = cuda_ms(torch, sigmas)
+    fused["cli_chain_ms"] = cuda_ms(torch, cli_chain)
+    fused.update(_smith_bound(B, C, D))
+    print(f"  fused head B={B} C={C} D={D}: kernel_ms={fused['ms']:.4f} "
+          f"plain_ms={fused['plain_ms']:.4f} bound_ms={fused['bound_ms']:.4f} "
+          f"({fused['bound_by']}); sigma (both sides) {fused['sigma_ms']:.4f} ms; "
+          f"yardstick (reference only) the CLI's eager chain from the features, "
+          f"sigma included: {fused['cli_chain_ms']:.4f} ms")
+    return {"launches": launches, "head": fused, "seconds": sec, "img_s": img_s}
+
+
+def phase_tiny_reference(torch, attention, hessian_dir: str,
+                         model: str = "tiny-clip",
+                         lanes=("default", "block")) -> None:
+    """A tiny model in fp32 through the kernels on the card vs the plain
+    path on the CPU, with the same weights and Hessian factors, in the
+    default lane and (tiny-clip) in the block lane."""
     from pathlib import Path
 
     from bayesvlm_tpu_torch.models.encoders import rebuild_image_encoder
     from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
 
-    cpu = ProbabilisticVLM.from_pretrained("tiny-clip", hessian_dir,
+    cpu = ProbabilisticVLM.from_pretrained(model, hessian_dir,
                                            dtype="fp32", device="cpu",
                                            prior_num_steps=50)
     wd = Path(hessian_dir)
     torch.save(cpu.image_encoder.module.state_dict(), wd / "vision.pt")
     torch.save(cpu.text_encoder.module.state_dict(), wd / "text.pt")
-    gpu = ProbabilisticVLM.from_pretrained("tiny-clip", hessian_dir,
+    gpu = ProbabilisticVLM.from_pretrained(model, hessian_dir,
                                            weights_dir=hessian_dir,
                                            dtype="fp32", device="cuda",
                                            prior_num_steps=50)
     prompts = ["a cat", "a dog", "a bird"]
     pixels = np.random.default_rng(SEED + 2).normal(
         size=(8, 32, 32, 3)).astype(np.float32)
-    for lane in ("default", "block"):
+    for lane in lanes:
         if lane == "block":
             for vlm in (cpu, gpu):
                 vlm.image_encoder = rebuild_image_encoder(vlm.image_encoder,
@@ -638,11 +817,11 @@ def phase_tiny_reference(torch, attention, hessian_dir: str) -> None:
         out = gpu.set_class_prompts(prompts).predict(pixels).cpu()
         blocks = attention.fused_attention_block.launches - before
         diff = float((out - ref).abs().max())
-        print(f"tiny-clip {lane} lane card vs CPU (fp32): max_abs_diff={diff:.3e} "
+        print(f"{model} {lane} lane card vs CPU (fp32): max_abs_diff={diff:.3e} "
               f"(tol {TINY_TOL}) attention_block launches={blocks}")
-        check(diff <= TINY_TOL, f"tiny-clip {lane} lane on the card disagrees "
+        check(diff <= TINY_TOL, f"{model} {lane} lane on the card disagrees "
                                 f"with the CPU")
-        check(blocks == (0 if lane == "default" else 2), f"tiny-clip {lane} lane "
+        check(blocks == (0 if lane == "default" else 2), f"{model} {lane} lane "
                                                           f"block launches {blocks}")
 
 
@@ -918,11 +1097,16 @@ def main() -> int:
     from bayesvlm_tpu_torch import kernels
     from bayesvlm_tpu_torch.io.artifacts import save_synthetic_hessians
     from bayesvlm_tpu_torch.models import attention, linear_int8, mlp_int8
-    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME, TINY_CLIP_CONFIG
+    from bayesvlm_tpu_torch.models.configs import (
+        CONFIGS_BY_NAME,
+        TINY_CLIP_CONFIG,
+        TINY_SIGLIP_CONFIG,
+    )
+    from bayesvlm_tpu_torch.probforward import kernels as smith_head
     from bayesvlm_tpu_torch.select import epig_joint
     from bayesvlm_tpu_torch.utils import get_image_size
 
-    phase_build(kernels, (attention, mlp_int8, linear_int8, epig_joint))
+    phase_build(kernels, (attention, mlp_int8, linear_int8, epig_joint, smith_head))
     attention._block_library()
     fa = attention.fused_attention
     counters = {"attention": fa,
@@ -930,11 +1114,13 @@ def main() -> int:
                 "attention_packed": _Count(fa, "launches_packed"),
                 "attention_block": attention.fused_attention_block,
                 "mlp_int8": mlp_int8.mlp_int8,
-                "linear_int8": linear_int8.linear_int8}
+                "linear_int8": linear_int8.linear_int8,
+                "smith_head": smith_head.fused_probit_probs}
     attn = phase_attention_vs_plain(torch, attention)
     sched_launches = phase_schedule_paths(torch, attention, counters)
     block = phase_block_vs_plain(torch, attention)
     int8 = phase_int8_vs_plain(torch, mlp_int8, linear_int8)
+    smith = phase_smith_vs_plain(torch, smith_head)
 
     all_counters = {
         **counters,
@@ -948,7 +1134,9 @@ def main() -> int:
         size=(BATCH, size, size, 3)).astype(np.float32)
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as big, \
-            tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tiny:
+            tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as zs, \
+            tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tiny, \
+            tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tiny_siglip:
         hdir = save_synthetic_hessians(big, CONFIGS_BY_NAME[MODEL], SEED)
         bf16_launches, bf16_img_s, bf16_embeds, bf16_probs = phase_main_path(
             torch, counters, hdir, pixels, prompts)
@@ -959,8 +1147,12 @@ def main() -> int:
             torch, counters, hdir, pixels, prompts, bf16_embeds, bf16_probs,
             bf16_img_s)
         epig_path = phase_epig_path(torch, all_counters, hdir)
+        zs_path = phase_zeroshot(torch, all_counters, str(save_synthetic_hessians(
+            zs, CONFIGS_BY_NAME[ZS_MODEL], SEED)))
         phase_tiny_reference(torch, attention, str(save_synthetic_hessians(
             tiny, TINY_CLIP_CONFIG, SEED)))
+        phase_tiny_reference(torch, attention, str(save_synthetic_hessians(
+            tiny_siglip, TINY_SIGLIP_CONFIG, SEED)), "tiny-siglip", ("default",))
 
     qkv, out_proj = int8["linear_int8 qkv"], int8["linear_int8 out_proj"]
     linear_entry = _entry(
@@ -1001,6 +1193,16 @@ def main() -> int:
         _entry("xlogy_rowsum_int8", "bayesvlm_tpu_torch/csrc/xlogy_rowsum.cu",
                "bayesvlm_tpu/select/epig_pallas.py:77", epig["int8"]["launches"],
                epig["int8"], None),
+        # the row is the zero-shot run's shape (B=2048, C=100, D=1024); the
+        # other shapes beside it
+        dict(_entry("smith_head", "bayesvlm_tpu_torch/csrc/smith_head.cu",
+                    "bayesvlm_tpu/probforward/kernels/smith_pallas.py:40",
+                    zs_path["launches"]["smith_head"], zs_path["head"], None),
+             cli_chain_ms=zs_path["head"]["cli_chain_ms"],
+             sigma_ms=zs_path["head"]["sigma_ms"],
+             shapes={label: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                               "bound_ms", "bound_by")}
+                     for label, r in smith.items()}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

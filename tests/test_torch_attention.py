@@ -141,6 +141,7 @@ _TOL = {torch.float32: 1e-4, torch.bfloat16: 2**-6}
 @pytest.mark.parametrize("T,H,Dh,spread", [
     (17, 2, 16, 1.0), (50, 12, 64, 1.0), (257, 16, 64, 1.0), (257, 16, 80, 1.0),
     (257, 16, 64, 8.0),  # scores of a few hundred: the softmax must subtract the max
+    (256, 16, 64, 1.0),  # SigLIP-L/16: no class token, no row past the 128-key tiles
 ])
 def test_kernel_matches_plain_on_card(cuda, dtype, T, H, Dh, spread):
     gen = torch.Generator(device=cuda).manual_seed(T)
