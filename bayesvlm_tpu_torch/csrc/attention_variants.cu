@@ -1,0 +1,576 @@
+// The attention-schedule probes of scripts/dev/, as Hopper kernels: three
+// templates that each change one thing of the one-block attention kernel
+// (#1, csrc/attention.cuh), so that a probe times that one change on the
+// card. Packed-head q, k, v, o: [B, T, H*Dh], fp32 or bf16, Dh 16, 64, 80.
+//
+// (a) mha_v2_kernel<T, HD, kSubtractMax> replaces `_kernel_v2`
+//     (scripts/dev/bench_attn_variants.py:45; v3 is kSubtractMax =
+//     false, the script's subtract_max=False). Its function, per head:
+//       qs = round_in(fp32(q) * scale)       the scale moves into q
+//       s  = fp32 sum qs . k                 no scale after the dot
+//       e  = exp(s - max_row s)              v3: exp(s)
+//       den = fp32 sum of the UNROUNDED e
+//       p  = round_in(e)                     unnormalised
+//       o  = round_out(fp32(sum p . v) / den)   a true division
+//     On Hopper the scale is applied as the Q tile is loaded; the softmax
+//     pass writes round(e) and keeps the row sums, so #1's third pass over
+//     the [T, BQ] score tile (the normalisation) becomes one division per
+//     output element. v3 also drops the max pass: one pass over the tile
+//     and two barriers where v2 has two passes and four. The layout is
+//     #1's: 104,208 B at T = 257, Dh = 64, two blocks an SM.
+//
+// (b) mha_v4_kernel<T, HD> replaces `_kernel_v4`
+//     (scripts/dev/bench_attn_variants2.py:46):
+//       s = round_bf16(fp32(q . k) * scale)   bf16 whatever the input dtype
+//       p = round_in(exp(s - max) / sum)      fp32 softmax of the bf16 s
+//       o = round_out(fp32 sum p . v)
+//     For bf16 inputs the score tile is bf16 [T][BQ + 4]: 69,256 B at
+//     T = 257 instead of 104,208, three blocks an SM instead of two (the
+//     probe's question on this card). p is written back into the tile,
+//     where a bf16 p fits; the unrounded e does not, so the sum pass and
+//     the write pass each take the exp (two exps an element where #1 has
+//     one). For fp32 inputs p is fp32: that instantiation keeps an fp32
+//     tile and holds the bf16-rounded scores in it.
+//
+// (c) mha_group_kernel<T, HD, NH, NR> replaces `_kernel_v5`
+//     (bench_attn_variants2.py:68: a (B, 2) grid, H/2 heads a program)
+//     with NH = H/2, NR = 1, and `_kernel_v6` (bench_attn_variants3.py:37:
+//     2 batch rows a program) with NH = 1, NR = 2. Both compute exactly
+//     #1's function (`_mha_kernel`, attention_pallas.py:199-222); only
+//     the work one block holds differs: NG = NH * NR (head, batch row)
+//     groups. The TPU kept [NG, T, T] fp32 scores in VMEM; at BQ = 64 and
+//     NH = 8 the tiles alone would take 559 KB here. So the block keeps
+//     #1's one [T][68] fp32 tile and shrinks its query tile: its 64
+//     columns are NG groups of BQ = 4 floor(16 / NG) query rows (v5: 8,
+//     v6: 32), and a thread's 4 rows always lie in one group (NG = 6
+//     leaves 16 columns idle). K/V are staged for all NG groups at once,
+//     in tiles of 64 / NG keys (at least 16): v6 needs #1's 104,208 B
+//     (two blocks an SM), v5 120,848 B (one). The score dots, softmax
+//     and p . v run in #1's order, so the result equals #1's bit for bit.
+//
+// What bounds them on an H100: as #1, all dots run as fp32 FMAs on the
+// CUDA cores fed from shared memory, far from the tensor cores; at the
+// probes' B=80, T=257, H=16, Dh=64 the function moves 168.4 MB (0.050 ms
+// at 3.35 TB/s) and does 21.65 G operations (0.022 ms at the bf16 tensor
+// rate). Each probe asks how much one change to #1 moves that.
+//
+// Built by bayesvlm_tpu_torch/kernels.py with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+// and called through the plain C interface at the bottom (ctypes).
+
+#include <stdint.h>
+
+#include "attention.cuh"
+
+namespace {
+
+using namespace bvt_attn;
+
+enum Variant { kV2 = 0, kV3 = 1, kV4 = 2, kGroup = 3 };
+
+// -- (a) v2 / v3 --------------------------------------------------------
+
+// the deferred softmax over the [n][SP] tile: st becomes round_in(e),
+// and red[0 .. BQ) the row sums of the unrounded e
+template <typename T, bool kSubtractMax>
+__device__ __forceinline__ void softmax_deferred(float* st, int n, float* red) {
+  const int i = threadIdx.x % BQ, part = threadIdx.x / BQ;
+  float m = 0.f;
+  if constexpr (kSubtractMax) {
+    m = -INFINITY;
+    for (int j = part; j < n; j += PARTS) m = fmaxf(m, st[j * SP + i]);
+    red[part * BQ + i] = m;
+    __syncthreads();
+    m = red[i];
+#pragma unroll
+    for (int p = 1; p < PARTS; ++p) m = fmaxf(m, red[p * BQ + i]);
+  }
+  float s = 0.f;
+  for (int j = part; j < n; j += PARTS) {
+    const float e = expf(st[j * SP + i] - m);
+    st[j * SP + i] = to_f(from_f<T>(e));
+    s += e;
+  }
+  if constexpr (kSubtractMax) __syncthreads();  // every thread has read the maxima
+  red[part * BQ + i] = s;
+  __syncthreads();
+  s = red[i];
+#pragma unroll
+  for (int p = 1; p < PARTS; ++p) s += red[p * BQ + i];
+  __syncthreads();  // every thread has read the partial sums
+  if (part == 0) red[i] = s;
+}
+
+// grid: (ceil(seq / BQ), heads, B)
+template <typename T, int HD, bool kSubtractMax>
+__global__ void __launch_bounds__(NT)
+mha_v2_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ o, int seq, int heads,
+              float scale) {
+  static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int HP = HD + 1, TN = HD / 16;
+  extern __shared__ float attn_smem[];
+  float* qs = attn_smem;           // [BQ][HP]
+  float* kv = qs + BQ * HP;        // [BK][HP]
+  float* red = kv + BK * HP;       // [PARTS][BQ]; then the row sums
+  float* st = red + PARTS * BQ;    // [seq][SP], key-major
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int q0 = blockIdx.x * BQ;
+  const long D = (long)heads * HD;
+  const long base = (long)blockIdx.z * seq * D + (long)blockIdx.y * HD;
+
+  for (int idx = tid; idx < BQ * HD; idx += NT) {
+    const int i = idx / HD, d = idx % HD;
+    const int t = q0 + i;
+    qs[i * HP + d] = t < seq ? to_f(from_f<T>(to_f(q[base + t * D + d]) * scale)) : 0.f;
+  }
+  for (int j0 = 0; j0 < seq; j0 += BK) {
+    __syncthreads();
+    load_kv<T, HD, true>(kv, k, base, D, j0, seq);
+    __syncthreads();
+    qk_tile<HD, HP, true>(qs, kv, st, j0, seq, 1.f);
+  }
+  __syncthreads();
+  softmax_deferred<T, kSubtractMax>(st, seq, red);
+
+  float acc[4][TN] = {};
+  for (int j0 = 0; j0 < seq; j0 += BK) {
+    __syncthreads();  // (the first also publishes the row sums)
+    load_kv<T, HD, true>(kv, v, base, D, j0, seq);
+    __syncthreads();
+    pv_tile<HD, HP, false>(st, kv, acc, j0, min(BK, seq - j0));
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int t = q0 + ty * 4 + r;
+    if (t < seq) {
+      const float den = red[ty * 4 + r];
+#pragma unroll
+      for (int c = 0; c < TN; ++c)
+        o[base + t * D + tx + 16 * c] = from_f<T>(__fdiv_rn(acc[r][c], den));
+    }
+  }
+}
+
+// -- (b) v4 ---------------------------------------------------------------
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// four consecutive score-tile values (8 or 16 bytes, aligned)
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c,
+                                       float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// score tile element type: bf16 for bf16 inputs, fp32 (holding bf16
+// values) for fp32 inputs, whose p stays fp32
+template <typename T> struct V4Tile { using type = float; };
+template <> struct V4Tile<__nv_bfloat16> { using type = __nv_bfloat16; };
+
+// qk_tile with the scaled score rounded to bf16 and stored as ST
+template <int HD, int HP, typename ST>
+__device__ __forceinline__ void qk_tile_v4(const float* qs, const float* kv, ST* st,
+                                           int j0, int seq, float scale) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][4] = {};
+#pragma unroll 8
+  for (int d = 0; d < HD; ++d) {
+    float a[4], b[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[r] = qs[(ty * 4 + r) * HP + d];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) b[c] = kv[(tx + 16 * c) * HP + d];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int j = j0 + tx + 16 * c;
+    if (j < seq)
+      store4(&st[j * SP + ty * 4], round_bf16(acc[0][c] * scale),
+             round_bf16(acc[1][c] * scale), round_bf16(acc[2][c] * scale),
+             round_bf16(acc[3][c] * scale));
+  }
+}
+
+// exact fp32 softmax of the tile's scores, p = round_in(exp(s - m) / sum)
+// written back in place; the exp is taken again in the write pass
+template <typename T, typename ST>
+__device__ __forceinline__ void softmax_v4(ST* st, int n, float* red) {
+  const int i = threadIdx.x % BQ, part = threadIdx.x / BQ;
+  float m = -INFINITY;
+  for (int j = part; j < n; j += PARTS) m = fmaxf(m, to_f(st[j * SP + i]));
+  red[part * BQ + i] = m;
+  __syncthreads();
+  m = red[i];
+#pragma unroll
+  for (int p = 1; p < PARTS; ++p) m = fmaxf(m, red[p * BQ + i]);
+  float s = 0.f;
+  for (int j = part; j < n; j += PARTS) s += expf(to_f(st[j * SP + i]) - m);
+  __syncthreads();  // every thread has read the maxima
+  red[part * BQ + i] = s;
+  __syncthreads();
+  s = red[i];
+#pragma unroll
+  for (int p = 1; p < PARTS; ++p) s += red[p * BQ + i];
+  for (int j = part; j < n; j += PARTS)
+    st[j * SP + i] = from_f<ST>(to_f(from_f<T>(expf(to_f(st[j * SP + i]) - m) / s)));
+}
+
+// pv_tile reading p from an ST tile
+template <int HD, int HP, typename ST>
+__device__ __forceinline__ void pv_tile_v4(const ST* st, const float* kv,
+                                           float (&acc)[4][HD / 16], int j0, int jn) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  for (int j = 0; j < jn; ++j) {
+    const float4 p = load4(&st[(j0 + j) * SP + ty * 4]);
+#pragma unroll
+    for (int c = 0; c < HD / 16; ++c) {
+      const float x = kv[j * HP + tx + 16 * c];
+      acc[0][c] = fmaf(p.x, x, acc[0][c]);
+      acc[1][c] = fmaf(p.y, x, acc[1][c]);
+      acc[2][c] = fmaf(p.z, x, acc[2][c]);
+      acc[3][c] = fmaf(p.w, x, acc[3][c]);
+    }
+  }
+}
+
+// grid: (ceil(seq / BQ), heads, B)
+template <typename T, int HD>
+__global__ void __launch_bounds__(NT)
+mha_v4_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ o, int seq, int heads,
+              float scale) {
+  static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
+  using ST = typename V4Tile<T>::type;
+  constexpr int HP = HD + 1, TN = HD / 16;
+  extern __shared__ float attn_smem[];
+  float* qs = attn_smem;           // [BQ][HP]
+  float* kv = qs + BQ * HP;        // [BK][HP]
+  float* red = kv + BK * HP;       // [PARTS][BQ]
+  ST* st = reinterpret_cast<ST*>(red + PARTS * BQ);  // [seq][SP]; 16-byte aligned
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int q0 = blockIdx.x * BQ;
+  const long D = (long)heads * HD;
+  const long base = (long)blockIdx.z * seq * D + (long)blockIdx.y * HD;
+
+  for (int idx = tid; idx < BQ * HD; idx += NT) {
+    const int i = idx / HD, d = idx % HD;
+    const int t = q0 + i;
+    qs[i * HP + d] = t < seq ? to_f(q[base + t * D + d]) : 0.f;
+  }
+  for (int j0 = 0; j0 < seq; j0 += BK) {
+    __syncthreads();
+    load_kv<T, HD, true>(kv, k, base, D, j0, seq);
+    __syncthreads();
+    qk_tile_v4<HD, HP>(qs, kv, st, j0, seq, scale);
+  }
+  __syncthreads();
+  softmax_v4<T>(st, seq, red);
+
+  float acc[4][TN] = {};
+  for (int j0 = 0; j0 < seq; j0 += BK) {
+    __syncthreads();
+    load_kv<T, HD, true>(kv, v, base, D, j0, seq);
+    __syncthreads();
+    pv_tile_v4<HD, HP>(st, kv, acc, j0, min(BK, seq - j0));
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int t = q0 + ty * 4 + r;
+    if (t < seq) {
+#pragma unroll
+      for (int c = 0; c < TN; ++c) o[base + t * D + tx + 16 * c] = from_f<T>(acc[r][c]);
+    }
+  }
+}
+
+// -- (c) the group kernel (v5, v6) ---------------------------------------
+
+// query rows of one group, and keys per K/V tile, for NG groups a block
+__host__ __device__ constexpr int group_bq(int ng) { return 4 * (16 / ng); }
+__host__ __device__ constexpr int group_bk(int ng) { return ng >= 4 ? 16 : 64 / ng; }
+
+// qk_tile for KPT = BKG / 16 keys a thread; a thread with no group
+// (live false) writes zero scores, so the idle columns stay finite
+template <int HD, int HP, int KPT>
+__device__ __forceinline__ void qk_group(const float* qs, const float* kv, float* st,
+                                         int j0, int seq, float scale, bool live) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][KPT] = {};
+  if (live) {
+#pragma unroll 8
+    for (int d = 0; d < HD; ++d) {
+      float a[4], b[KPT];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) a[r] = qs[(ty * 4 + r) * HP + d];
+#pragma unroll
+      for (int c = 0; c < KPT; ++c) b[c] = kv[(tx + 16 * c) * HP + d];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < KPT; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < KPT; ++c) {
+    const int j = j0 + tx + 16 * c;
+    if (j < seq)
+      *reinterpret_cast<float4*>(&st[j * SP + ty * 4]) =
+          make_float4(acc[0][c] * scale, acc[1][c] * scale, acc[2][c] * scale,
+                      acc[3][c] * scale);
+  }
+}
+
+// shared memory of a group block, in floats
+__host__ __device__ constexpr long group_smem_floats(int ng, int seq, int hd) {
+  return (long)(BQ + ng * group_bk(ng)) * (hd + 1) + PARTS * BQ + (long)seq * SP;
+}
+
+// grid: (ceil(seq / BQG), heads / NH, B / NR); group g = r * NH + h is
+// batch row blockIdx.z * NR + r, head blockIdx.y * NH + h
+template <typename T, int HD, int NH, int NR>
+__global__ void __launch_bounds__(NT)
+mha_group_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o, int seq, int heads,
+                 float scale) {
+  static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int NG = NH * NR;
+  constexpr int BQG = group_bq(NG), BKG = group_bk(NG), KPT = BKG / 16;
+  constexpr int HP = HD + 1, TN = HD / 16;
+  static_assert(NG >= 1 && NG <= 16 && NG * BQG <= BQ && BKG % 16 == 0, "group shape");
+  extern __shared__ float attn_smem[];
+  float* qs = attn_smem;           // [BQ][HP]: column g * BQG + i is row q0 + i of group g
+  float* kv = qs + BQ * HP;        // [NG][BKG][HP]
+  float* red = kv + NG * BKG * HP; // [PARTS][BQ]
+  float* st = red + PARTS * BQ;    // [seq][SP], key-major; 16-byte aligned
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int q0 = blockIdx.x * BQG;
+  const long D = (long)heads * HD;
+  const long row0 = (long)blockIdx.z * NR, head0 = (long)blockIdx.y * NH;
+  auto group_base = [&](int g) {
+    return (row0 + g / NH) * seq * D + (head0 + g % NH) * HD;
+  };
+  const int my_g = ty * 4 / BQG;  // the group of this thread's 4 columns
+  const bool live = my_g < NG;
+
+  for (int idx = tid; idx < BQ * HD; idx += NT) {
+    const int col = idx / HD, d = idx % HD;
+    const int g = col / BQG, t = q0 + col % BQG;
+    qs[col * HP + d] = g < NG && t < seq ? to_f(q[group_base(g) + t * D + d]) : 0.f;
+  }
+  auto load_group_kv = [&](const T* __restrict__ src, int j0) {
+    for (int idx = tid; idx < NG * BKG * HD; idx += NT) {
+      const int g = idx / (BKG * HD), j = idx / HD % BKG, d = idx % HD;
+      kv[(g * BKG + j) * HP + d] =
+          j0 + j < seq ? to_f(src[group_base(g) + (j0 + j) * D + d]) : 0.f;
+    }
+  };
+  const float* my_kv = kv + (live ? my_g : 0) * BKG * HP;
+
+  for (int j0 = 0; j0 < seq; j0 += BKG) {
+    __syncthreads();
+    load_group_kv(k, j0);
+    __syncthreads();
+    qk_group<HD, HP, KPT>(qs, my_kv, st, j0, seq, scale, live);
+  }
+  __syncthreads();
+  softmax_rows<T, 1>(st, seq, red);
+
+  float acc[4][TN] = {};
+  for (int j0 = 0; j0 < seq; j0 += BKG) {
+    __syncthreads();
+    load_group_kv(v, j0);
+    __syncthreads();
+    if (live) pv_tile<HD, HP, false>(st, my_kv, acc, j0, min(BKG, seq - j0));
+  }
+  if (!live) return;
+  const long ob = group_base(my_g);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int t = q0 + (ty * 4 + r) % BQG;
+    if (t < seq) {
+#pragma unroll
+      for (int c = 0; c < TN; ++c) o[ob + t * D + tx + 16 * c] = from_f<T>(acc[r][c]);
+    }
+  }
+}
+
+// -- dispatch ---------------------------------------------------------------
+
+template <typename T>
+using KernelFn = void (*)(const T*, const T*, const T*, T*, int, int, float);
+
+// the kernel of one variant and its block shape: query rows a block
+// (grid x), heads and batch rows a block (grid y, z), dynamic smem bytes
+template <typename T>
+struct Plan {
+  KernelFn<T> fn = nullptr;
+  int bq = BQ, nh = 1, nr = 1;
+  long bytes = 0;
+};
+
+template <typename T, int HD, int NH, int NR>
+Plan<T> group_plan(int seq) {
+  Plan<T> p;
+  p.fn = mha_group_kernel<T, HD, NH, NR>;
+  p.bq = group_bq(NH * NR);
+  p.nh = NH;
+  p.nr = NR;
+  p.bytes = group_smem_floats(NH * NR, seq, HD) * (long)sizeof(float);
+  return p;
+}
+
+// heads a block of the group kernel for v5 (NR = 1): H / 2 for H in
+// {2, 4, 8, 12, 16}; v6 takes NH = 1, NR = 2
+template <typename T, int HD>
+Plan<T> plan_head_dim(int variant, int seq, int nh, int nr) {
+  Plan<T> p;
+  const long head = (long)(BQ + BK) * (HD + 1) * sizeof(float) + PARTS * BQ * sizeof(float);
+  switch (variant) {
+    case kV2: p.fn = mha_v2_kernel<T, HD, true>; break;
+    case kV3: p.fn = mha_v2_kernel<T, HD, false>; break;
+    case kV4:
+      p.fn = mha_v4_kernel<T, HD>;
+      p.bytes = head + (long)seq * SP * sizeof(typename V4Tile<T>::type);
+      return p;
+    case kGroup:
+      if (nr == 2 && nh == 1) return group_plan<T, HD, 1, 2>(seq);
+      if (nr != 1) return p;
+      switch (nh) {
+        case 1: return group_plan<T, HD, 1, 1>(seq);
+        case 2: return group_plan<T, HD, 2, 1>(seq);
+        case 4: return group_plan<T, HD, 4, 1>(seq);
+        case 6: return group_plan<T, HD, 6, 1>(seq);
+        case 8: return group_plan<T, HD, 8, 1>(seq);
+        default: return p;
+      }
+    default: return p;
+  }
+  p.bytes = head + (long)seq * SP * sizeof(float);  // v2, v3: #1's layout
+  return p;
+}
+
+template <typename T>
+Plan<T> plan(int variant, int seq, int head_dim, int nh, int nr) {
+  switch (head_dim) {
+    case 16: return plan_head_dim<T, 16>(variant, seq, nh, nr);
+    case 64: return plan_head_dim<T, 64>(variant, seq, nh, nr);
+    case 80: return plan_head_dim<T, 80>(variant, seq, nh, nr);
+    default: return Plan<T>();
+  }
+}
+
+// the plan's kernel opted in to its shared memory, or an error
+template <typename T>
+cudaError_t prepare(const Plan<T>& p) {
+  if (p.fn == nullptr) return cudaErrorInvalidValue;
+  const int optin = smem_optin();
+  if (optin < 0) return static_cast<cudaError_t>(-optin);
+  if (p.bytes > optin) return cudaErrorInvalidValue;
+  // above 48 KB a launch is refused unless the kernel opted in
+  return cudaFuncSetAttribute(p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)p.bytes);
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int seq,
+           int heads, int head_dim, float scale, int variant, int nh, int nr,
+           cudaStream_t stream) {
+  const Plan<T> p = plan<T>(variant, seq, head_dim, nh, nr);
+  cudaError_t err = prepare(p);
+  if (err != cudaSuccess) return err;
+  if (heads % p.nh != 0 || B % p.nr != 0) return cudaErrorInvalidValue;
+  const dim3 grid((seq + p.bq - 1) / p.bq, heads / p.nh, B / p.nr);
+  const KernelFn<T> fn = p.fn;
+  fn<<<grid, NT, p.bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), seq, heads, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int blocks_per_sm(int variant, int seq, int head_dim, int nh, int nr) {
+  const Plan<T> p = plan<T>(variant, seq, head_dim, nh, nr);
+  cudaError_t err = prepare(p);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, p.fn, NT, p.bytes);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+}  // namespace
+
+extern "C" {
+
+// variant: 0 v2, 1 v3, 2 v4, 3 the group kernel with nh heads and nr
+// batch rows a block (nh = H/2, nr = 1: v5; nh = 1, nr = 2: v6; ignored
+// by the others); dtype: 0 = float32, 1 = bfloat16
+
+// bytes of dynamic shared memory one block needs for seq keys (0: no such
+// kernel)
+long bvt_attn_variant_smem_bytes(int variant, int seq, int head_dim, int dtype, int nh,
+                                 int nr) {
+  return dtype == 1 ? plan<__nv_bfloat16>(variant, seq, head_dim, nh, nr).bytes
+                    : plan<float>(variant, seq, head_dim, nh, nr).bytes;
+}
+
+// blocks of the kernel one SM holds at once (the occupancy calculator),
+// or a negative cudaError_t
+int bvt_attn_variant_blocks_per_sm(int variant, int seq, int head_dim, int dtype, int nh,
+                                   int nr) {
+  return dtype == 1 ? blocks_per_sm<__nv_bfloat16>(variant, seq, head_dim, nh, nr)
+                    : blocks_per_sm<float>(variant, seq, head_dim, nh, nr);
+}
+
+// the most dynamic shared memory a block of the current device may opt
+// in to, or -1 when the device cannot be queried
+int bvt_attn_variant_smem_limit(void) {
+  const int optin = smem_optin();
+  return optin < 0 ? -1 : optin;
+}
+
+// scale: 1/sqrt(head_dim). Returns a cudaError_t (0 = launched).
+int bvt_attn_variant(const void* q, const void* k, const void* v, void* o, int B,
+                     int seq, int heads, int head_dim, int dtype, float scale,
+                     int variant, int nh, int nr, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(q, k, v, o, B, seq, heads, head_dim, scale, variant, nh, nr, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, o, B, seq, heads, head_dim, scale, variant,
+                                 nh, nr, s);
+  return cudaErrorInvalidValue;
+}
+
+const char* bvt_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

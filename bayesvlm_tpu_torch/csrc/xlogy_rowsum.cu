@@ -63,9 +63,20 @@
 // K (zero-padded by the wrapper to a multiple of 16 bf16 / 32 int8
 // values; a zero column adds zero) lives whole in shared memory:
 // 3 x 128 rows of K bytes + 16 (A, two B buffers) + 1.5 KB, 93.7 KB at
-// K = 112 bf16. The launch is refused (cudaErrorInvalidValue) when that
-// exceeds the device's opt-in limit: K > 288 bf16 or K > 576 int8 on an
-// H100. Ragged M and N are zero-filled by cp.async: an s of 0 adds 0.
+// K = 112 bf16. That fits the device's opt-in limit up to K = 288 bf16
+// or K = 576 int8 on an H100. Ragged M and N are zero-filled by
+// cp.async: an s of 0 adds 0.
+//
+// Longer rows take the streamed instantiation (the caller picks it when
+// the resident block would not fit): A and B both go through the same
+// cp.async double buffer in chunks of KC = 128 bytes of each row (64
+// bf16 / 128 int8 values), one (B tile, K chunk) pair a step, so the A
+// tile is read again for every B tile. Each warp keeps its whole
+// [32 rows x 64 targets] tile of fp32 (or s32) dot products in
+// registers across the chunks and runs the epilogue only after the last
+// chunk of a B tile: xlogy is not linear, so every dot must be whole
+// first. 75 KB of shared memory whatever K, two blocks an SM; columns
+// past K are zero-filled by cp.async.
 //
 // Built by bayesvlm_tpu_torch/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -295,6 +306,188 @@ xlogy_rowsum_kernel(const int8_t* __restrict__ a, const float* __restrict__ a_sc
     out[m0 + tid] = __fmul_rn(red[tid] + red[BM + tid], kLn2);
 }
 
+// -- the streamed instantiation (any K) ----------------------------------
+
+constexpr int KC = 128;        // bytes of each row per streamed chunk
+constexpr int SBS = KC + PAD;  // row stride of a streamed chunk
+
+// one stage (A chunk, B chunk) twice, the cross-warp row sums and the
+// pool-row scales
+__host__ __device__ constexpr long stream_smem_bytes() {
+  return 2L * (BM + BN) * SBS + 3L * BM * (long)sizeof(float);
+}
+
+// bytes kc0 .. kc0+KC-1 of rows r0 .. r0+rows_tile-1 of a row-major
+// [rows, kb] operand into shared memory with row stride SBS; rows past
+// `rows` and bytes past kb are zero-filled (kb and kc0 are multiples of
+// 16, so a piece is whole or absent)
+__device__ __forceinline__ void load_chunk(int8_t* dst, const int8_t* src, long r0,
+                                           long rows, int rows_tile, int kb, int kc0) {
+  constexpr int pieces = KC / 16;
+  for (int c = threadIdx.x; c < rows_tile * pieces; c += NT) {
+    const int r = c / pieces, kc = (c % pieces) * 16;
+    const bool ok = r0 + r < rows && kc0 + kc < kb;
+    cp_async16(dst + r * SBS + kc, ok ? src + (r0 + r) * kb + kc0 + kc : src,
+               ok ? 16 : 0);
+  }
+}
+
+// the same function as xlogy_rowsum_kernel for any kb (a multiple of 32):
+// step s of the loop holds B tile s / nchunks and K chunk s % nchunks
+template <bool kInt8>
+__global__ void __launch_bounds__(NT, 2)
+xlogy_rowsum_stream_kernel(const int8_t* __restrict__ a,
+                           const float* __restrict__ a_scale,
+                           const int8_t* __restrict__ b,
+                           const float* __restrict__ b_scale, float* __restrict__ out,
+                           int M, int N, int kb, float inv_k) {
+  using Acc = typename Op<kInt8>::Acc;
+  constexpr int STAGE = (BM + BN) * SBS;
+  extern __shared__ __align__(16) int8_t smem[];
+  float* red = reinterpret_cast<float*>(smem + 2 * STAGE);  // [2][BM]
+  float* asc = red + 2 * BM;                                // [BM]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wm = (warp / 2) * WM, wn = (warp % 2) * WN;
+  const long m0 = (long)blockIdx.x * BM;
+  const int lq = lane / 8, lr = lane % 8;
+  const int a_off = (lr + (lq & 1) * 8) * SBS + (lq >> 1) * 16;
+  const int b_off = (lr + (lq >> 1) * 8) * SBS + (lq & 1) * 16;
+  const int nchunks = (kb + KC - 1) / KC;
+  const int steps = (N + BN - 1) / BN * nchunks;
+
+  auto load_step = [&](int step) {
+    int8_t* st = smem + (step & 1) * STAGE;
+    const int kc0 = (step % nchunks) * KC;
+    load_chunk(st, a, m0, M, BM, kb, kc0);
+    load_chunk(st + BM * SBS, b, (long)(step / nchunks) * BN, N, BN, kb, kc0);
+  };
+  if (steps > 0) load_step(0);
+  cp_async_commit();
+  if constexpr (kInt8) {
+    for (int r = tid; r < BM; r += NT) asc[r] = m0 + r < M ? a_scale[m0 + r] : 0.f;
+  }
+  __syncthreads();
+  float rs[2][2] = {};  // pool-row scales of this thread's rows (int8)
+  if constexpr (kInt8) {
+    for (int i = 0; i < 2; ++i)
+      for (int h = 0; h < 2; ++h) rs[i][h] = asc[wm + i * 16 + g + h * 8];
+  }
+
+  float part[2][2] = {};  // [m16 tile][row g, row g + 8]: sums of s log2 s
+  Acc acc[2][8][4];       // [m16 tile][8-column fragment][element]
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0;
+  for (int step = 0; step < steps; ++step) {
+    // refill the buffer read in step-1 (every thread is past it)
+    if (step + 1 < steps) load_step(step + 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this step's chunks have landed
+    __syncthreads();
+    const int8_t* at = smem + (step & 1) * STAGE;
+    const int8_t* bt = at + BM * SBS;
+#pragma unroll
+    for (int ks = 0; ks < KC / 32; ++ks) {
+      uint32_t x[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        ldmatrix_x4(x[i], at + (wm + i * 16) * SBS + ks * 32 + a_off);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        uint32_t r[4];  // two 8-column B fragments
+        ldmatrix_x4(r, bt + (wn + p * 16) * SBS + ks * 32 + b_off);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          Op<kInt8>::mma(acc[i][2 * p], x[i], r);
+          Op<kInt8>::mma(acc[i][2 * p + 1], x[i], r + 2);
+        }
+      }
+    }
+
+    if (step % nchunks == nchunks - 1) {
+      // the tile's dots are whole: the epilogue of xlogy_rowsum_kernel,
+      // in its order, then the accumulators start again
+      const long j = step / nchunks;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        float bsc[2][2] = {};
+        if constexpr (kInt8) {
+          for (int n = 0; n < 2; ++n)
+            for (int e = 0; e < 2; ++e) {
+              const long col = j * BN + wn + p * 16 + n * 8 + 2 * t + e;
+              bsc[n][e] = col < N ? b_scale[col] : 0.f;
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float sum = part[i][h];
+#pragma unroll
+            for (int n = 0; n < 2; ++n) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const Acc v = acc[i][2 * p + n][h * 2 + e];
+                float s;
+                if constexpr (kInt8)
+                  s = __fmul_rn(__fmul_rn(__fmul_rn(__int2float_rn(v), bsc[n][e]),
+                                          rs[i][h]), inv_k);
+                else
+                  s = __fmul_rn(v, inv_k);
+                sum = fmaf(s, lg2_ftz(fmaxf(s, FLT_MIN)), sum);
+              }
+            }
+            part[i][h] = sum;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][n][e] = 0;
+    }
+    __syncthreads();  // buffer step & 1 is refilled in step + 1
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = part[i][h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (t == 0) red[(warp % 2) * BM + wm + i * 16 + g + h * 8] = v;
+    }
+  __syncthreads();
+  if (tid < BM && m0 + tid < M)
+    out[m0 + tid] = __fmul_rn(red[tid] + red[BM + tid], kLn2);
+}
+
+template <bool kInt8>
+cudaError_t launch_stream(const int8_t* a, const float* a_scale, const int8_t* b,
+                          const float* b_scale, float* out, int M, int N, int kb,
+                          float inv_k, cudaStream_t stream) {
+  const long bytes = stream_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(xlogy_rowsum_stream_kernel<kInt8>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)bytes);
+  if (err != cudaSuccess) return err;
+  const unsigned blocks = (unsigned)((M + BM - 1) / BM);
+  xlogy_rowsum_stream_kernel<kInt8><<<blocks, NT, bytes, stream>>>(
+      a, a_scale, b, b_scale, out, M, N, kb, inv_k);
+  return cudaGetLastError();
+}
+
+// -- the resident instantiations -----------------------------------------
+
 template <bool kInt8, int KS>
 cudaError_t launch_kernel(const int8_t* a, const float* a_scale, const int8_t* b,
                           const float* b_scale, float* out, int M, int N, int kb,
@@ -326,12 +519,16 @@ cudaError_t launch_regs(const int8_t* a, const float* a_scale, const int8_t* b,
   }
 }
 
+// streamed != 0 takes the streamed instantiation (any kb), else the
+// resident one (refused when its block does not fit)
 template <bool kInt8>
 cudaError_t launch(const int8_t* a, const float* a_scale, const int8_t* b,
                    const float* b_scale, float* out, int M, int N, int kb,
-                   float inv_k, cudaStream_t stream) {
+                   float inv_k, int streamed, cudaStream_t stream) {
   if (kb <= 0 || kb % 32 != 0 || M < 0 || N < 0) return cudaErrorInvalidValue;
   if (M == 0) return cudaSuccess;
+  if (streamed)
+    return launch_stream<kInt8>(a, a_scale, b, b_scale, out, M, N, kb, inv_k, stream);
   const long bytes = smem_bytes(kb);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -350,7 +547,8 @@ cudaError_t launch(const int8_t* a, const float* a_scale, const int8_t* b,
 
 extern "C" {
 
-// bytes of dynamic shared memory one block needs for rows of kb bytes
+// bytes of dynamic shared memory one block of the resident instantiation
+// needs for rows of kb bytes (the streamed one needs 75 KB whatever kb)
 long bvt_xlogy_rowsum_smem_bytes(int kb) { return smem_bytes(kb); }
 
 // the most dynamic shared memory a block of the current device may opt
@@ -365,22 +563,24 @@ int bvt_xlogy_rowsum_smem_limit(void) {
 }
 
 // a [M, k] and b [N, k] bf16, row-major, k a multiple of 16 (zero-padded);
-// out [M] fp32. Returns a cudaError_t (0 = launched).
+// out [M] fp32; streamed: 1 for the streamed instantiation. Returns a
+// cudaError_t (0 = launched).
 int bvt_xlogy_rowsum_bf16(const void* a, const void* b, float* out, int M, int N,
-                          int k, float inv_k, void* stream) {
+                          int k, float inv_k, int streamed, void* stream) {
   if (k <= 0 || k % 16 != 0) return cudaErrorInvalidValue;
   return launch<false>(static_cast<const int8_t*>(a), nullptr,
                        static_cast<const int8_t*>(b), nullptr, out, M, N, 2 * k,
-                       inv_k, static_cast<cudaStream_t>(stream));
+                       inv_k, streamed, static_cast<cudaStream_t>(stream));
 }
 
 // a [M, k] and b [N, k] bf16, row-major, k a multiple of 32 (zero-padded),
 // quantized per row into the scratch aq [M, k] + a_scale [M] and
-// bq [N, k] + b_scale [N]; then the int8 kernel. Three launches on the
-// caller's stream. Returns a cudaError_t (0 = launched).
+// bq [N, k] + b_scale [N]; then the int8 kernel (streamed as above).
+// Three launches on the caller's stream. Returns a cudaError_t (0 =
+// launched).
 int bvt_xlogy_rowsum_int8(const void* a, const void* b, int8_t* aq, float* a_scale,
                           int8_t* bq, float* b_scale, float* out, int M, int N,
-                          int k, float inv_k, void* stream) {
+                          int k, float inv_k, int streamed, void* stream) {
   if (k <= 0 || k % 32 != 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = bvt_int8::quant_rows<__nv_bfloat16>(
@@ -390,7 +590,7 @@ int bvt_xlogy_rowsum_int8(const void* a, const void* b, int8_t* aq, float* a_sca
   err = bvt_int8::quant_rows<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(b), N,
                                             k, nullptr, nullptr, 0.f, bq, b_scale, st);
   if (err != cudaSuccess) return err;
-  return launch<true>(aq, a_scale, bq, b_scale, out, M, N, k, inv_k, st);
+  return launch<true>(aq, a_scale, bq, b_scale, out, M, N, k, inv_k, streamed, st);
 }
 
 const char* bvt_error_string(int err) {

@@ -18,8 +18,9 @@ neither JAX nor the JAX package.
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -123,10 +124,18 @@ def siglip_text_state_dict(params) -> Dict[str, torch.Tensor]:
     return out
 
 
-def save_weights(weights_dir: Union[str, Path], vision_params,
-                 text_params) -> Path:
+def save_weights(weights_dir: Union[str, Path], vision_params, text_params,
+                 logit_scale: Optional[float] = None,
+                 logit_bias: Optional[float] = None) -> Path:
     """Write `vision.pt` / `text.pt`, the layout `load_model(weights_dir=...)`
-    reads, for either family (told apart by the vision tree's probe)."""
+    reads, for either family (told apart by the vision tree's probe).
+
+    With a `logit_scale` or `logit_bias` (the checkpoint's trained head),
+    also `head.json` as `{"logit_scale": ..., "logit_bias": ...}`, the
+    file `scripts/convert_weights.py` writes beside the JAX package's
+    trees; `load_model` reads it with the JAX package's fallbacks. With
+    neither, no `head.json` is written and `load_model` builds the
+    family's default head."""
     wd = Path(weights_dir)
     wd.mkdir(parents=True, exist_ok=True)
     if "probe" in vision_params:
@@ -135,4 +144,7 @@ def save_weights(weights_dir: Union[str, Path], vision_params,
         vision, text = clip_vision_state_dict, clip_text_state_dict
     torch.save(vision(vision_params), wd / "vision.pt")
     torch.save(text(text_params), wd / "text.pt")
+    if logit_scale is not None or logit_bias is not None:
+        (wd / "head.json").write_text(json.dumps(
+            {"logit_scale": logit_scale, "logit_bias": logit_bias}))
     return wd

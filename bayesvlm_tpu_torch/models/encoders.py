@@ -12,6 +12,7 @@ of it.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import warnings
 from pathlib import Path
@@ -233,9 +234,14 @@ def load_model(
 
     `weights_dir`: a directory holding `vision.pt` and `text.pt`, the
     towers' state dicts (models/bridge.py writes them from the JAX
-    package's parameter trees). When None, parameters are drawn from a
-    `torch.Generator` on `device` seeded with `seed`; the draws differ
-    between devices and from the JAX package's.
+    package's parameter trees), and optionally `head.json`, the trained
+    logit scale and bias, read as the JAX package reads it: a null scale
+    takes the family's default, an absent (or null) bias 0.0, and CLIP
+    keeps no bias. A directory without `head.json` (as written before
+    the file was added) gets the family's default head. When None,
+    parameters are drawn from a `torch.Generator` on `device` seeded
+    with `seed`; the draws differ between devices and from the JAX
+    package's.
     """
     config = CONFIGS_BY_NAME[model_str]
     if mlp_int8 or attn_int8:
@@ -246,11 +252,20 @@ def load_model(
     vision_cls, text_cls = TOWERS[config.family]
     vision = vision_cls(config.vision, dtype=dtype).to(device)
     text = text_cls(config.text, dtype=dtype).to(device)
+    scale = DEFAULT_LOGIT_SCALE[config.family]
+    bias = DEFAULT_LOGIT_BIAS[config.family]
     if weights_dir is not None:
         wd = Path(weights_dir)
         for tower, name in ((vision, "vision.pt"), (text, "text.pt")):
             tower.load_state_dict(torch.load(wd / name, map_location=device,
                                              weights_only=True))
+        if (wd / "head.json").exists():
+            # bayesvlm_tpu/models/encoders.py:455-459
+            head_info = json.loads((wd / "head.json").read_text())
+            if head_info.get("logit_scale") is not None:
+                scale = head_info["logit_scale"]
+            bias = head_info.get("logit_bias")
+            bias = 0.0 if bias is None or config.family != "siglip" else bias
     else:
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
@@ -259,8 +274,7 @@ def load_model(
     for tower in (vision, text):
         cast_gemm_params(tower, dtype).eval().requires_grad_(False)
     head = ProbabilisticHead.create(
-        logit_scale=DEFAULT_LOGIT_SCALE[config.family],
-        logit_bias=DEFAULT_LOGIT_BIAS[config.family], device=device,
+        logit_scale=scale, logit_bias=bias, device=device,
         has_bias=config.projection_has_bias,
     )
     return ImageEncoder(config, vision), TextEncoder(config, text), head

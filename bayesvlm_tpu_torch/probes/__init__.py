@@ -1,0 +1,195 @@
+"""The TPU attention-schedule probes of `scripts/dev/`, ported to the card.
+
+Each probe module (`bench_attn_variants`, `bench_attn_variants2`,
+`bench_attn_variants3`, `bench_split_attn`) is run as
+
+    python -m bayesvlm_tpu_torch.probes.<name> [--device cuda] [shape flags]
+
+and does what its script does, at the script's shape (B=80, T=257,
+H=16, Dh=64, bf16, inputs from `np.random.default_rng(0).normal`): it
+checks each variant against the one-block kernel #1 (`max |base - vX|`)
+and against its own plain version, then times #1, each variant and its
+plain version with CUDA events (best of REPS runs of N_ITER launches, a
+tenth of that for the plain versions), beside the bound and
+`F.scaled_dot_product_attention` (timed only; the port never calls it).
+This module holds what the probes share.
+
+`--device cpu` runs the plain versions at a tiny shape for the tests:
+the checks run, no time is measured ("not measured").
+"""
+
+from __future__ import annotations
+
+import argparse
+import math
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+# the scripts' shape and timing (scripts/dev/bench_attn_variants.py:35-37)
+B, T, H, DH = 80, 257, 16, 64
+N_ITER, REPS = 50, 5
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and the tensor
+# cores' bf16 operations/s
+HBM_BYTES_S = 3.35e12
+PEAK_BF16_OPS_S = 989e12
+# the scripts' dtype
+DTYPE = torch.bfloat16
+# kernel vs plain, as chip_smoke.py holds #1 in bf16: both round p and the
+# output at the same points; an fp32 sum in another order moves a value
+# across a rounding boundary by one bf16 ulp (2^-8 relative), and a p flip
+# and an output flip can stack
+TOL = 2.0 ** -6
+
+
+class Variant(NamedTuple):
+    """One timed variant of a probe: the kernel's wrapper and its plain
+    version, each called as fn(q, k, v, num_heads); the kernel's name in
+    `attention_variants.KERNELS` (for its shared memory and blocks an
+    SM), None for a kernel of `models.attention`; what it changes."""
+
+    fn: Callable
+    plain: Callable
+    kernel: Optional[str]
+    what: str
+
+
+Variants = Dict[str, Variant]
+
+
+def parse_args(argv, description: str) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=description.splitlines()[0])
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--batch", type=int, default=B)
+    p.add_argument("--seq", type=int, default=T)
+    p.add_argument("--heads", type=int, default=H)
+    p.add_argument("--head-dim", type=int, default=DH)
+    return p.parse_args(argv)
+
+
+def inputs(args) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v [B, T, H*Dh] drawn as the scripts draw them."""
+    rng = np.random.default_rng(0)
+    shape = (args.batch, args.seq, args.heads * args.head_dim)
+    return tuple(torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                 .to(args.device, DTYPE) for _ in range(3))
+
+
+def device_ms(fn, device: torch.device, iters: int, reps: int) -> Optional[float]:
+    """Best of `reps` CUDA-event timings of `iters` launches of fn, in ms a
+    launch, after one warm-up call; None off the card."""
+    if device.type != "cuda":
+        return None
+    fn()
+    best = math.inf
+    for _ in range(reps):
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize(device)
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
+
+
+def bound(args) -> dict:
+    """The least time the card could take: q, k, v read and o written once
+    over the memory rate, against 4 B H T^2 Dh operations over the tensor
+    cores' bf16 rate."""
+    nbytes = 4 * args.batch * args.seq * args.heads * args.head_dim * DTYPE.itemsize
+    flops = 4 * args.batch * args.heads * args.seq ** 2 * args.head_dim
+    times = {"bytes": nbytes / HBM_BYTES_S * 1e3,
+             "operations": flops / PEAK_BF16_OPS_S * 1e3}
+    by = max(times, key=times.get)
+    return {"bound_ms": times[by], "bound_by": by, "bytes": nbytes, "flops": flops}
+
+
+def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def run(variants: Variants, args) -> dict:
+    """The probe: #1 (the one-block fused_attention, `base`) and each
+    variant on the scripts' inputs; each variant's max |base - v| and its
+    error against its plain version (which must stay within TOL); then
+    the times. Returns the numbers (ms None off the card)."""
+    import torch.nn.functional as F
+
+    from bayesvlm_tpu_torch.models.attention import fused_attention
+    from bayesvlm_tpu_torch.probes.attention_variants import MEAN_TOL, block_resources
+
+    device = torch.device(args.device)
+    q, k, v = inputs(args)
+    nh = args.heads
+    ob = fused_attention(q, k, v, nh)
+    out = {"shape": dict(B=args.batch, T=args.seq, H=nh, Dh=args.head_dim,
+                         dtype="bf16"), "variants": {},
+           "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
+                      else device.type)}
+    for label, (fn, plain, kernel, _) in variants.items():
+        o, ref = fn(q, k, v, nh), plain(q, k, v, nh)
+        err = (o.float() - ref.float()).abs()
+        if float((err / (TOL + TOL * ref.float().abs())).max()) > 1.0:
+            raise RuntimeError(f"{label} disagrees with its plain version: max |d| "
+                               f"{float(err.max()):.3e} (tol {TOL:.3e} abs + rel)")
+        if float(err.mean()) > MEAN_TOL.get(kernel, math.inf):
+            raise RuntimeError(f"{label} strays from its plain version: mean |d| "
+                               f"{float(err.mean()):.3e} (tol {MEAN_TOL[kernel]:.0e})")
+        out["variants"][label] = r = {"vs_base": _max_abs(ob, o),
+                                      "max_abs_err": _max_abs(o, ref),
+                                      "smem_bytes": None, "blocks_per_sm": None}
+        if kernel is not None and device.type == "cuda":
+            r["smem_bytes"], r["blocks_per_sm"] = block_resources(
+                kernel, args.batch, args.seq, nh, args.head_dim, q.dtype)
+
+    def time(fn, iters=N_ITER):
+        return device_ms(lambda: fn(q, k, v, nh), device, iters, REPS)
+
+    out["base_ms"] = time(fused_attention)
+    for label, (fn, plain, _, _) in variants.items():
+        r = out["variants"][label]
+        r["ms"], r["plain_ms"] = time(fn), time(plain, N_ITER // 10)
+    heads = [t.view(args.batch, args.seq, nh, args.head_dim).transpose(1, 2)
+             for t in (q, k, v)]
+    out["sdpa_ms"] = device_ms(lambda: F.scaled_dot_product_attention(*heads), device,
+                               N_ITER, REPS)
+    out.update(bound(args))
+    return out
+
+
+def _ms(x: Optional[float]) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def report(variants: Variants, results: dict) -> int:
+    """Print the probe's lines (as the script's, plus the bound, #1 and
+    SDPA beside each time); returns the exit code."""
+    s = results["shape"]
+    print(f"shape B={s['B']} T={s['T']} H={s['H']} Dh={s['Dh']} {s['dtype']} "
+          f"on {results['device']}")
+    for label, r in results["variants"].items():
+        print(f"max |base - {label}| = {r['vs_base']:.6g}   "
+              f"(vs its plain version: {r['max_abs_err']:.3e})")
+
+    def rate(ms):
+        return "" if ms is None else f"  ({results['flops'] / ms / 1e9:.1f} TFLOP/s)"
+
+    print(f"base (#1 one-block): {_ms(results['base_ms'])}{rate(results['base_ms'])}")
+    for label, r in results["variants"].items():
+        block = ("" if r["smem_bytes"] is None else
+                 f"  [{r['smem_bytes']} B shared memory, {r['blocks_per_sm']} blocks/SM]")
+        print(f"{label} ({variants[label].what}): {_ms(r['ms'])}{rate(r['ms'])}  "
+              f"base {_ms(results['base_ms'])}  plain {_ms(r['plain_ms'])}  bound "
+              f"{results['bound_ms']:.4g} ms ({results['bound_by']})  SDPA "
+              f"{_ms(results['sdpa_ms'])}{block}")
+    return 0
+
+
+def main(variants: Variants, argv, description: str) -> int:
+    """A probe's command line: parse, run, print."""
+    args = parse_args(argv, description)
+    return report(variants, run(variants, args))

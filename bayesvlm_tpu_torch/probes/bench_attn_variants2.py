@@ -1,0 +1,41 @@
+"""Attention-schedule probe 2 on the card, the port of
+scripts/dev/bench_attn_variants2.py: the one-block kernel #1 (fp32
+scores, one head a block) against
+
+  v4  bf16 score tile: the scaled scores rounded to bf16 before an fp32
+      softmax (half the tile's shared memory: three blocks an SM at
+      T=257 instead of two; csrc/attention_variants.cu template (b))
+  v5  H/2 heads a block (the script's grid (B, 2)), #1's function; the
+      query tile shrinks to 8 rows so that the fp32 scores of 8 heads
+      fit (template (c))
+
+at B=80, T=257, H=16, Dh=64, bf16.
+Run: python -m bayesvlm_tpu_torch.probes.bench_attn_variants2
+"""
+
+from __future__ import annotations
+
+import sys
+
+from bayesvlm_tpu_torch import probes
+from bayesvlm_tpu_torch.models.attention import fused_attention_reference
+from bayesvlm_tpu_torch.probes.attention_variants import (
+    attention_group_heads,
+    attention_v4,
+    attention_v4_reference,
+)
+
+VARIANTS = {
+    "v4": probes.Variant(attention_v4, attention_v4_reference, "attention_v4",
+                         "bf16 score tile"),
+    "v5": probes.Variant(attention_group_heads, fused_attention_reference,
+                         "attention_group_heads", "H/2 heads a block"),
+}
+
+
+def main(argv=None) -> int:
+    return probes.main(VARIANTS, argv, __doc__)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

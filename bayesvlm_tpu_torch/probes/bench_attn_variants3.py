@@ -1,0 +1,33 @@
+"""Attention-schedule probe 3 on the card, the port of
+scripts/dev/bench_attn_variants3.py: the one-block kernel #1 (one batch
+row a block) against
+
+  v6  two batch rows a block (half the blocks: the per-block overhead),
+      #1's function; the query tile shrinks to 32 rows a row so that both
+      rows' fp32 scores fit (csrc/attention_variants.cu template (c))
+
+at B=80, T=257, H=16, Dh=64, bf16. An odd batch raises (the script's
+grid B // 2 would leave the last row unwritten).
+Run: python -m bayesvlm_tpu_torch.probes.bench_attn_variants3
+"""
+
+from __future__ import annotations
+
+import sys
+
+from bayesvlm_tpu_torch import probes
+from bayesvlm_tpu_torch.models.attention import fused_attention_reference
+from bayesvlm_tpu_torch.probes.attention_variants import attention_group_rows
+
+VARIANTS = {
+    "v6": probes.Variant(attention_group_rows, fused_attention_reference,
+                         "attention_group_rows", "2 rows a block"),
+}
+
+
+def main(argv=None) -> int:
+    return probes.main(VARIANTS, argv, __doc__)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

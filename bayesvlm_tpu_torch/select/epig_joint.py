@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -85,9 +86,9 @@ def joint_xlogy_rowsums_reference(pool_flat: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = kernels.load("xlogy_rowsum")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bvt_xlogy_rowsum_bf16.argtypes = [p, p, p, i, i, i, f, p]
+    lib.bvt_xlogy_rowsum_bf16.argtypes = [p, p, p, i, i, i, f, i, p]
     lib.bvt_xlogy_rowsum_bf16.restype = ctypes.c_int
-    lib.bvt_xlogy_rowsum_int8.argtypes = [p, p, p, p, p, p, p, i, i, i, f, p]
+    lib.bvt_xlogy_rowsum_int8.argtypes = [p, p, p, p, p, p, p, i, i, i, f, i, p]
     lib.bvt_xlogy_rowsum_int8.restype = ctypes.c_int
     lib.bvt_xlogy_rowsum_smem_bytes.argtypes = [i]
     lib.bvt_xlogy_rowsum_smem_bytes.restype = ctypes.c_long
@@ -113,9 +114,12 @@ def joint_xlogy_rowsums(pool_flat: torch.Tensor, targ_flat: torch.Tensor,
     `-(rowsums.reshape(N_p, C).sum(1)) / N_t`.
 
     CPU tensors take the plain version; CUDA tensors (float32 or
-    bfloat16, any strides) launch the kernel or raise. Each launch is
-    counted: the bf16 kernel's in `joint_xlogy_rowsums.launches`, the
-    int8 kernel's in `joint_xlogy_rowsums.launches_int8`."""
+    bfloat16, any strides) launch the kernel or raise, for any K: rows
+    whose block would not fit in shared memory take the kernel's
+    streamed instantiation (K > 288 bf16 / 576 int8 on an H100). Each
+    launch is counted: the bf16 kernel's in
+    `joint_xlogy_rowsums.launches`, the int8 kernel's in
+    `joint_xlogy_rowsums.launches_int8`."""
     _check_operands(pool_flat, targ_flat)
     if pool_flat.device.type == "cpu":
         return joint_xlogy_rowsums_reference(pool_flat, targ_flat, num_samples,
@@ -126,17 +130,24 @@ def joint_xlogy_rowsums(pool_flat: torch.Tensor, targ_flat: torch.Tensor,
         if x.dtype not in _DTYPES:
             raise ValueError(f"xlogy_rowsum kernel takes float32 or bfloat16, "
                              f"not {x.dtype}")
+    return _launch(pool_flat, targ_flat, num_samples, use_int8)
+
+
+def _launch(pool_flat: torch.Tensor, targ_flat: torch.Tensor, num_samples: int,
+            use_int8: bool, streamed: Optional[bool] = None) -> torch.Tensor:
+    """The kernel on CUDA operands: the resident instantiation where its
+    block fits in shared memory, else the streamed one (`streamed` forces
+    one, for timing them against each other)."""
     (M, K), N = pool_flat.shape, targ_flat.shape[0]
     step = 32 if use_int8 else 16
     k_pad = -(-K // step) * step
     lib = _library()
     dev = pool_flat.device
     with torch.cuda.device(dev):
-        kb = k_pad if use_int8 else 2 * k_pad
-        need, limit = lib.bvt_xlogy_rowsum_smem_bytes(kb), lib.bvt_xlogy_rowsum_smem_limit()
-        if need > limit:
-            raise ValueError(f"xlogy_rowsum kernel: K={K} needs {need} bytes of "
-                             f"shared memory a block, the device allows {limit}")
+        if streamed is None:
+            streamed = (lib.bvt_xlogy_rowsum_smem_bytes(k_pad if use_int8 else 2 * k_pad)
+                        > lib.bvt_xlogy_rowsum_smem_limit())
+        streamed = int(streamed)
         a, b = _padded_bf16(pool_flat, k_pad), _padded_bf16(targ_flat, k_pad)
         out = torch.empty(M, dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -149,11 +160,11 @@ def joint_xlogy_rowsums(pool_flat: torch.Tensor, targ_flat: torch.Tensor,
             err = lib.bvt_xlogy_rowsum_int8(
                 a.data_ptr(), b.data_ptr(), aq.data_ptr(), a_scale.data_ptr(),
                 bq.data_ptr(), b_scale.data_ptr(), out.data_ptr(), M, N, k_pad,
-                inv_k, stream)
+                inv_k, streamed, stream)
         else:
             err = lib.bvt_xlogy_rowsum_bf16(a.data_ptr(), b.data_ptr(),
                                             out.data_ptr(), M, N, k_pad, inv_k,
-                                            stream)
+                                            streamed, stream)
     kernels.check(lib, err, "xlogy_rowsum kernel")
     if use_int8:
         joint_xlogy_rowsums.launches_int8 += 1

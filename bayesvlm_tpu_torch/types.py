@@ -8,8 +8,9 @@ same seed, so the two agree in distribution, not bit for bit (a test
 hands both packages the same noise by replacing `_normal`).
 
 The probit path takes elementwise variances ([N, C]) as they are, as the
-reference's zero-shot script does (ref:scripts/zeroshot.py:119-120).
-Full-covariance ([N, C, C]) sampling is not ported yet.
+reference's zero-shot script does (ref:scripts/zeroshot.py:119-120), and
+the diagonal of a full covariance ([N, C, C]), as the JAX package does.
+Full-covariance sampling is not ported yet.
 """
 
 from __future__ import annotations
@@ -62,10 +63,19 @@ class EncoderResult:
         )
 
 
+def _diag_var(mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
+    """Per-class variances whatever the storage: [N, C] as it is, the
+    diagonal of [N, C, C]."""
+    if var.ndim == mean.ndim + 1:
+        return torch.diagonal(var, dim1=-2, dim2=-1)
+    return var
+
+
 def probit_scaled_mean(mean: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
     """Multiclass probit scaling mu / sqrt(1 + pi/8 * sigma^2)
-    (ref:bayesvlm/vlm.py:74-78, ref:scripts/zeroshot.py:119-120)."""
-    return mean / torch.sqrt(1.0 + _PROBIT_C * var)
+    (ref:bayesvlm/vlm.py:74-78, ref:scripts/zeroshot.py:119-120); a full
+    covariance [N, C, C] contributes its diagonal."""
+    return mean / torch.sqrt(1.0 + _PROBIT_C * _diag_var(mean, var))
 
 
 def _normal(seed: int, shape, device, dtype) -> torch.Tensor:

@@ -6,9 +6,10 @@
 Phases (any failure raises and exits non-zero, without the result line):
   1. device: a CUDA card is required; prints its name and power limit;
   2. build: compiles every kernel of the paths (csrc/attention.cu,
-     csrc/attention_block.cu, csrc/mlp_int8.cu, csrc/linear_int8.cu,
-     csrc/xlogy_rowsum.cu, csrc/smith_head.cu; nvcc, sm_90a, one process
-     each, all started together) from this checkout, with each one's time;
+     csrc/attention_block.cu, csrc/attention_variants.cu,
+     csrc/mlp_int8.cu, csrc/linear_int8.cu, csrc/xlogy_rowsum.cu,
+     csrc/smith_head.cu; nvcc, sm_90a, one process each, all started
+     together) from this checkout, with each one's time;
   3. attention kernel vs plain at the ViT-L/14 shape (B=64, T=257, H=16,
      Dh=64) and the ViT-B/32 shape (T=50, H=12), bf16 and fp32, with
      errors and CUDA-event times; F.scaled_dot_product_attention timed
@@ -33,7 +34,8 @@ Phases (any failure raises and exits non-zero, without the result line):
      on the same int8 operands;
   5. EPIG joint-entropy kernel vs plain at the reference operating point
      (pool 4000, targets 2000, C=65, K=100 MC samples: a [260000, 130000]
-     joint), bf16 and int8, and a ragged small shape: row sums and EPIG
+     joint), bf16 and int8, a ragged small shape, and K=400 (the streamed
+     instantiation; pool 1000, targets 500): row sums and EPIG
      scores within a stated tolerance, top-50 overlap with the plain
      ranking (printed), times, bound and the cuBLAS bf16 product of the
      same shape as a yardstick (reference only). The int8 kernel's path,
@@ -81,11 +83,19 @@ Phases (any failure raises and exits non-zero, without the result line):
      beside the CLI's eager chain;
   9. tiny-clip on the card against tiny-clip on the CPU, in the default
      lane and in the block lane; tiny-siglip the same, default lane;
-  10. prints the kernels line, then the result line
+  10. the attention-schedule probes (bayesvlm_tpu_torch/probes,
+     csrc/attention_variants.cu): v2, v3, v4, v5 (H/2 heads a block) and
+     v6 (2 batch rows a block) vs plain at the probes' shape (B=80,
+     T=257, H=16, Dh=64) and a ragged T=50, H=12, bf16 and fp32; then
+     the probes' entry point, each probe's main logic (probes.run on its
+     variants: the check against #1 and against plain, CUDA-event times
+     beside #1, the bound and SDPA), with every count set to 0 just
+     before and read just after;
+  11. prints the kernels line, then the result line
      {"ok": true, "device": {...}} last.
 
 Each path's launch counts are set to 0 just before it and read just
-after; the launches of phases 3, 4, 5 and 5b's comparisons are not
+after; the launches of phases 3, 4, 5, 5b and 10's comparisons are not
 counted.
 """
 
@@ -183,6 +193,19 @@ SMITH_SHAPES = {"imagenet vit-l/14": (2048, 1000, 768),
 # Stage-2 zero-shot evaluation (scripts/zeroshot.py's chain) at full width
 ZS_MODEL, ZS_IMAGES, ZS_CLASSES, ZS_BATCH, ZS_IMAGE_SIZE = (
     "siglip-large", 2048, 100, 64, 256)
+# EPIG past the resident block's shared memory: the streamed instantiation
+EPIG_LONG_POOL, EPIG_LONG_TARG, EPIG_LONG_K = 1000, 500, 400
+# the attention-schedule probes: each kernel, the probe that runs it, its
+# label there and the TPU body it replaces
+PROBE_KERNELS = {
+    "attention_v2": ("bench_attn_variants", "v2", "bench_attn_variants.py:45"),
+    "attention_v3": ("bench_attn_variants", "v3", "bench_attn_variants.py:45"),
+    "attention_v4": ("bench_attn_variants2", "v4", "bench_attn_variants2.py:46"),
+    "attention_group_heads": ("bench_attn_variants2", "v5", "bench_attn_variants2.py:68"),
+    "attention_group_rows": ("bench_attn_variants3", "v6", "bench_attn_variants3.py:37"),
+}
+PROBES = ("bench_attn_variants", "bench_attn_variants2", "bench_attn_variants3",
+          "bench_split_attn")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -248,8 +271,8 @@ def phase_build(kernels, modules) -> None:
         took = "already built" if sec is None else f"{sec:.2f} s"
         print(f"build: {kernels.library_path(name).name} {took}")
     print(f"build: {len(seconds)} kernels in {wall:.2f} s wall (in parallel)")
-    check(set(seconds) == {"attention", "attention_block", "mlp_int8", "linear_int8",
-                           "xlogy_rowsum", "smith_head"},
+    check(set(seconds) == {"attention", "attention_block", "attention_variants",
+                           "mlp_int8", "linear_int8", "xlogy_rowsum", "smith_head"},
           f"kernel sources {sorted(seconds)}")
     for module in modules:
         module._library()
@@ -899,6 +922,19 @@ def phase_epig_vs_plain(torch, ej, counters) -> dict:
         print(f"  {name}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) top50 overlap with "
               f"plain={r['top50_overlap']}/50")
+        # the streamed instantiation forced at the operating point: what
+        # the resident one saves there (the wrapper takes it only past the
+        # resident block's shared memory)
+        ref = ej.joint_xlogy_rowsums_reference(pool, targ, K, use_int8=use_int8)
+        err = (ej._launch(pool, targ, K, use_int8, streamed=True) - ref).abs()
+        r["streamed_ms"] = cuda_ms(torch, lambda: ej._launch(
+            pool, targ, K, use_int8, streamed=True), iters=10, warmup=2)
+        r["streamed_max_rel_err"] = float((err / ref.abs()).max())
+        print(f"  {name} streamed instantiation forced at K={K}: kernel_ms="
+              f"{r['streamed_ms']:.4f} (resident {r['ms']:.4f}) max rel err "
+              f"{r['streamed_max_rel_err']:.3e}")
+        check(bool((err <= ROWSUM_RTOL * ref.abs()).all()),
+              f"{name} streamed at K={K} disagrees with the plain version")
         results[name] = r
 
     # yardstick (reference only: no single PyTorch call computes the
@@ -943,6 +979,24 @@ def phase_epig_vs_plain(torch, ej, counters) -> dict:
     for name, use_int8 in (("bf16", False), ("int8", True)):
         _rowsum_check(torch, ej, f"{name} ragged M={small_p.shape[0]} "
                       f"N={small_t.shape[0]} K=9", small_p, small_t, 9, use_int8)
+
+    # K past the resident block's shared memory: the streamed instantiation
+    K = EPIG_LONG_K
+    gen.manual_seed(SEED + 11)
+    long_p = ej._flatten(probs(EPIG_LONG_POOL, K))
+    long_t = ej._flatten(probs(EPIG_LONG_TARG, K))
+    Ml, Nl = long_p.shape[0], long_t.shape[0]
+    for name, use_int8, op_type in (("bf16", False, "bf16"), ("int8", True, "int8")):
+        r = _rowsum_check(torch, ej, f"{name} streamed M={Ml} N={Nl} K={K}", long_p,
+                          long_t, K, use_int8)
+        r["ms"] = cuda_ms(torch, lambda: ej.joint_xlogy_rowsums(
+            long_p, long_t, K, use_int8=use_int8), iters=5, warmup=1)
+        r.update(bound((Ml + Nl) * K * 4 + Ml * 4, 2 * Ml * Nl * K, op_type,
+                       transcendentals=Ml * Nl))
+        print(f"  {name} streamed K={K}: kernel_ms={r['ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+        results[name][f"k{K}"] = {k: r[k] for k in ("max_abs_err", "max_rel_err", "ms",
+                                                    "bound_ms", "bound_by")}
     for r in results.values():
         del r["scores"], r["plain_scores"]
     return results
@@ -1083,6 +1137,86 @@ def phase_epig_path(torch, counters, hessian_dir: str) -> dict:
     return {"launches": launches, "ms_per_step": ms_step, "n_pool": n_pool}
 
 
+def phase_probes_vs_plain(torch, attention, av) -> None:
+    """Each probe kernel vs its plain version at the probes' shape and a
+    ragged one, bf16 and fp32 (v4's scores are bf16 in both: the bf16
+    tolerance for the max, and av.MEAN_TOL for the mean, which #1's
+    function, v4 without its rounding, must exceed)."""
+    shapes = {"probe": (80, 257, 16, 64), "ragged": (BATCH, 50, 12, 64)}
+    print("attention-schedule probe kernels (csrc/attention_variants.cu) vs plain:")
+    for label, (B, T, H, Dh) in shapes.items():
+        for dname in ("bf16", "fp32"):
+            dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dname]
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+            q, k, v = (torch.randn(B, T, H * Dh, generator=gen, device="cuda").to(dtype)
+                       for _ in range(3))
+            for name, (fn, plain) in av.KERNELS.items():
+                out, ref = fn(q, k, v, H), plain(q, k, v, H)
+                torch.cuda.synchronize()
+                tol = KERNEL_TOL["bf16" if name in av.BF16_SCORES else dname]
+                err = (out.float() - ref.float()).abs()
+                worst = float((err / (tol + tol * ref.float().abs())).max())
+                where = f"{name} {label} B={B} T={T} H={H} Dh={Dh} {dname}"
+                print(f"  {where}: max_abs_err={float(err.max()):.3e} (tol {tol:.3e} "
+                      f"abs + rel, worst/bound={worst:.3f}) mean_abs_err="
+                      f"{float(err.mean()):.3e}")
+                check(worst <= 1.0, f"{where} disagrees with plain")
+                if name not in av.MEAN_TOL:
+                    continue
+                # the same function without its rounding: #1's
+                unrounded = (attention.fused_attention_reference(q, k, v, H).float()
+                             - ref.float()).abs()
+                mean_tol = av.MEAN_TOL[name]
+                print(f"  {where}: mean |d| kernel {float(err.mean()):.3e}, #1's "
+                      f"function (no score rounding) {float(unrounded.mean()):.3e} "
+                      f"max {float(unrounded.max()):.3e}; mean tol {mean_tol:.0e}")
+                check(float(err.mean()) <= mean_tol, f"{where} strays from plain")
+                check(float(unrounded.mean()) > mean_tol,
+                      f"{where}: the mean tolerance does not pin the score rounding")
+
+
+def phase_probes(torch, counters) -> dict:
+    """The probes' entry point: each probe's main logic (probes.run on its
+    variants at the scripts' shape, then its report), every count set to 0
+    just before and read just after."""
+    import importlib
+
+    from bayesvlm_tpu_torch import probes
+
+    for c in counters.values():
+        c.launches = 0
+    results = {}
+    for name in PROBES:
+        mod = importlib.import_module(f"bayesvlm_tpu_torch.probes.{name}")
+        args = probes.parse_args([], mod.__doc__)
+        print(f"probe {name}:")
+        results[name] = probes.run(mod.VARIANTS, args)
+        probes.report(mod.VARIANTS, results[name])
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    print(f"probes path launches={launches}")
+    ran = ("attention", "attention_split", *PROBE_KERNELS)
+    check(all(launches[n] > 0 for n in ran), f"a probe kernel did not run: {launches}")
+    check(all(launches[n] == 0 for n in launches if n not in ran),
+          f"the probes launched another kernel: {launches}")
+    return {"launches": launches, "results": results}
+
+
+def _probe_entries(probe_path: dict) -> list:
+    entries = []
+    for name, (probe, label, replaces) in PROBE_KERNELS.items():
+        res = probe_path["results"][probe]
+        r = dict(res["variants"][label], bound_ms=res["bound_ms"],
+                 bound_by=res["bound_by"])
+        entries.append(dict(
+            _entry(name, "bayesvlm_tpu_torch/csrc/attention_variants.cu",
+                   f"scripts/dev/{replaces}",
+                   probe_path["launches"][name], r, res["sdpa_ms"]),
+            smem_bytes=r["smem_bytes"], blocks_per_sm=r["blocks_per_sm"],
+            base_ms=res["base_ms"], vs_base=r["vs_base"]))
+    return entries
+
+
 def _entry(name, source, replaces, launches, r, library_ms):
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1102,11 +1236,12 @@ def main() -> int:
         TINY_CLIP_CONFIG,
         TINY_SIGLIP_CONFIG,
     )
+    from bayesvlm_tpu_torch.probes import attention_variants as av
     from bayesvlm_tpu_torch.probforward import kernels as smith_head
     from bayesvlm_tpu_torch.select import epig_joint
     from bayesvlm_tpu_torch.utils import get_image_size
 
-    phase_build(kernels, (attention, mlp_int8, linear_int8, epig_joint, smith_head))
+    phase_build(kernels, (attention, av, mlp_int8, linear_int8, epig_joint, smith_head))
     attention._block_library()
     fa = attention.fused_attention
     counters = {"attention": fa,
@@ -1115,7 +1250,12 @@ def main() -> int:
                 "attention_block": attention.fused_attention_block,
                 "mlp_int8": mlp_int8.mlp_int8,
                 "linear_int8": linear_int8.linear_int8,
-                "smith_head": smith_head.fused_probit_probs}
+                "smith_head": smith_head.fused_probit_probs,
+                "attention_v2": av.attention_v2,
+                "attention_v3": _Count(av.attention_v2, "launches_v3"),
+                "attention_v4": av.attention_v4,
+                "attention_group_heads": av.attention_group_heads,
+                "attention_group_rows": av.attention_group_rows}
     attn = phase_attention_vs_plain(torch, attention)
     sched_launches = phase_schedule_paths(torch, attention, counters)
     block = phase_block_vs_plain(torch, attention)
@@ -1153,6 +1293,8 @@ def main() -> int:
             tiny, TINY_CLIP_CONFIG, SEED)))
         phase_tiny_reference(torch, attention, str(save_synthetic_hessians(
             tiny_siglip, TINY_SIGLIP_CONFIG, SEED)), "tiny-siglip", ("default",))
+    phase_probes_vs_plain(torch, attention, av)
+    probe_path = phase_probes(torch, all_counters)
 
     qkv, out_proj = int8["linear_int8 qkv"], int8["linear_int8 out_proj"]
     linear_entry = _entry(
@@ -1189,10 +1331,12 @@ def main() -> int:
         dict(_entry("xlogy_rowsum", "bayesvlm_tpu_torch/csrc/xlogy_rowsum.cu",
                     "bayesvlm_tpu/select/epig_pallas.py:43",
                     epig_path["launches"]["xlogy_rowsum"], epig["bf16"], None),
-             cublas_bf16_ms=epig["bf16"]["cublas_bf16_ms"]),
-        _entry("xlogy_rowsum_int8", "bayesvlm_tpu_torch/csrc/xlogy_rowsum.cu",
-               "bayesvlm_tpu/select/epig_pallas.py:77", epig["int8"]["launches"],
-               epig["int8"], None),
+             cublas_bf16_ms=epig["bf16"]["cublas_bf16_ms"],
+             **{f"k{EPIG_LONG_K}": epig["bf16"][f"k{EPIG_LONG_K}"]}),
+        dict(_entry("xlogy_rowsum_int8", "bayesvlm_tpu_torch/csrc/xlogy_rowsum.cu",
+                    "bayesvlm_tpu/select/epig_pallas.py:77", epig["int8"]["launches"],
+                    epig["int8"], None),
+             **{f"k{EPIG_LONG_K}": epig["int8"][f"k{EPIG_LONG_K}"]}),
         # the row is the zero-shot run's shape (B=2048, C=100, D=1024); the
         # other shapes beside it
         dict(_entry("smith_head", "bayesvlm_tpu_torch/csrc/smith_head.cu",
@@ -1203,6 +1347,7 @@ def main() -> int:
              shapes={label: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                "bound_ms", "bound_by")}
                      for label, r in smith.items()}),
+        *_probe_entries(probe_path),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

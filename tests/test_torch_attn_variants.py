@@ -1,0 +1,328 @@
+"""The attention-schedule probes (`bayesvlm_tpu_torch.probes`) against the
+TPU probe bodies of scripts/dev/ (`_kernel_v2`, `_kernel_v4`,
+`_kernel_v5`, `_kernel_v6`), run in interpret mode on the CPU with the
+scripts' grids, BlockSpecs and scratch shapes; the probes' command lines
+on the CPU; and each CUDA kernel against its plain version on the card
+(marked `cuda`, skipped without a GPU).
+
+The scripts cannot be imported (they build B=80 inputs and time at
+import), so each body is lifted out of its file with `ast` and executed
+with the names it reads. JAX is imported inside the parity tests, so that
+the `cuda` tests also run where JAX is not installed:
+    python -m pytest --noconftest -m cuda tests/test_torch_attn_variants.py
+"""
+
+import ast
+import functools
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from bayesvlm_tpu_torch.models.attention import fused_attention_reference
+from bayesvlm_tpu_torch.probes import attention_variants as av
+
+DEV = Path(__file__).resolve().parent.parent / "scripts" / "dev"
+# fp32: summation order only, the tolerance of the attention parity tests;
+# bf16: both round p (or e) and the output at the same points, and an fp32
+# sum or exp taken another way can push a value across a rounding
+# boundary: one bf16 ulp (2^-8 relative), as tests/test_torch_attention.py
+TOL = {"fp32": 1e-5, "bf16": 2 ** -7}
+
+
+def _lift(script: str, name: str, **consts):
+    """The function `name` of scripts/dev/<script>, executed alone with
+    jax, jnp, pl, pltpu and the module constants it reads."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    path = DEV / script
+    tree = ast.parse(path.read_text())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == name)
+    ns = dict(jax=jax, jnp=jnp, pl=pl, pltpu=pltpu, **consts)
+    exec(compile(ast.Module(body=[fn], type_ignores=[]), str(path), "exec"), ns)
+    return ns[name]
+
+
+def _qkv(B, T, H, Dh, dtype, seed):
+    """numpy inputs, rounded to bf16 first for the bf16 cases, so that both
+    packages get the same values."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(seed)
+    xs = [rng.normal(size=(B, T, H * Dh)).astype(np.float32) for _ in range(3)]
+    if dtype == "bf16":
+        xs = [np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32)) for x in xs]
+    return xs
+
+
+def _jax_call(kernel, xs, dtype, grid, spec, scratch):
+    """pl.pallas_call(kernel) in interpret mode, with the scripts' specs."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+
+    jdt = jnp.bfloat16 if dtype == "bf16" else jnp.float32
+    q, k, v = (jnp.asarray(x, jdt) for x in xs)
+    out = pl.pallas_call(kernel, grid=grid, in_specs=[spec] * 3, out_specs=spec,
+                         out_shape=jax.ShapeDtypeStruct(q.shape, q.dtype),
+                         scratch_shapes=scratch, interpret=True)(q, k, v)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _jax_one_row_program(body, xs, dtype, H, Dh, score_dtype, **kw):
+    """bench_attn_variants.py:76-84 / bench_attn_variants2.py:100-116: grid
+    (B,), one batch row a program, an [H, T, T] score scratch."""
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    B, T, D = xs[0].shape
+    spec = pl.BlockSpec((1, T, D), lambda b: (b, 0, 0), memory_space=pltpu.VMEM)
+    kernel = functools.partial(body, num_heads=H, head_dim=Dh, scale=1.0 / (Dh ** 0.5),
+                               **kw)
+    return _jax_call(kernel, xs, dtype, (B,), spec,
+                     [pltpu.VMEM((H, T, T), getattr(jnp, score_dtype))])
+
+
+def _port(fn, xs, dtype, H):
+    tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    out = fn(*(torch.from_numpy(x).to(tdt) for x in xs), H)
+    assert out.dtype == tdt and out.device.type == "cpu"
+    return out.float().numpy()
+
+
+def _close(out, ref, dtype):
+    np.testing.assert_allclose(out, ref, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def _close_v4(out, ref):
+    # v4 rounds its scores to bf16 for fp32 inputs too: an fp32 dot summed
+    # in another order can flip one score's rounding (2^-8 relative), which
+    # moves one output vector like a bf16 flip of p -> the bf16 tolerance
+    # for the max; flips are sparse, a rounding left out moves every
+    # output -> av.MEAN_TOL for the mean
+    _close(out, ref, "bf16")
+    mean = float(np.abs(out - ref).mean())
+    assert mean <= av.MEAN_TOL["attention_v4"], f"mean |d| {mean:.3e}"
+
+
+SHAPES = [(2, 17, 2), (4, 50, 4)]  # B, T, H at Dh = 16
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("subtract_max", [True, False])
+@pytest.mark.parametrize("B,T,H", SHAPES)
+def test_v2_matches_jax_probe(dtype, subtract_max, B, T, H):
+    # v3 is the same body with subtract_max=False (an unsafe probe: the
+    # N(0, 1) inputs keep exp(s) small)
+    xs = _qkv(B, T, H, 16, dtype, seed=T + H)
+    body = _lift("bench_attn_variants.py", "_kernel_v2")
+    ref = _jax_one_row_program(body, xs, dtype, H, 16, "float32",
+                               subtract_max=subtract_max)
+    out = _port(functools.partial(av.attention_v2, subtract_max=subtract_max), xs,
+                dtype, H)
+    _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,H", SHAPES)
+def test_v4_matches_jax_probe(dtype, B, T, H):
+    # the scores are bf16 in the scratch for fp32 inputs too
+    xs = _qkv(B, T, H, 16, dtype, seed=2 * T + H)
+    body = _lift("bench_attn_variants2.py", "_kernel_v4")
+    ref = _jax_one_row_program(body, xs, dtype, H, 16, "bfloat16")
+    _close_v4(_port(av.attention_v4, xs, dtype, H), ref)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,H", SHAPES)
+def test_v4_check_pins_the_score_rounding(dtype, B, T, H):
+    # #1's function is v4 without the bf16 rounding of its scores: it
+    # differs from the JAX body everywhere a little (within the max
+    # tolerance) and so fails the mean limit that the port meets
+    xs = _qkv(B, T, H, 16, dtype, seed=5 * T + H)
+    body = _lift("bench_attn_variants2.py", "_kernel_v4")
+    ref = _jax_one_row_program(body, xs, dtype, H, 16, "bfloat16")
+    _close_v4(_port(av.attention_v4_reference, xs, dtype, H), ref)
+    unrounded = _port(fused_attention_reference, xs, dtype, H)
+    _close(unrounded, ref, "bf16")
+    assert np.abs(unrounded - ref).mean() > 10 * av.MEAN_TOL["attention_v4"]
+    with pytest.raises(AssertionError, match="mean"):
+        _close_v4(unrounded, ref)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,H", SHAPES)
+def test_v5_matches_jax_probe(dtype, B, T, H):
+    # bench_attn_variants2.py:97-124: grid (B, GROUPS), HG = H / 2 heads a
+    # program (1 and 2 here), each writing its own lane range
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    xs = _qkv(B, T, H, 16, dtype, seed=3 * T + H)
+    hg = H // av.GROUPS
+    body = _lift("bench_attn_variants2.py", "_kernel_v5", HG=hg)
+    D = H * 16
+    spec = pl.BlockSpec((1, T, D), lambda b, g: (b, 0, 0), memory_space=pltpu.VMEM)
+    ref = _jax_call(functools.partial(body, head_dim=16, scale=0.25), xs, dtype,
+                    (B, av.GROUPS), spec, [pltpu.VMEM((hg, T, T), jnp.float32)])
+    _close(_port(av.attention_group_heads, xs, dtype, H), ref, dtype)
+    # the same function as #1
+    _close(_port(fused_attention_reference, xs, dtype, H), ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,H", SHAPES)
+def test_v6_matches_jax_probe(dtype, B, T, H):
+    # bench_attn_variants3.py:62-82: grid (B // ROWS,), ROWS batch rows a
+    # program, a [ROWS * H, T, T] scratch
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    xs = _qkv(B, T, H, 16, dtype, seed=4 * T + H)
+    body = _lift("bench_attn_variants3.py", "_kernel_v6", ROWS=av.ROWS)
+    D = H * 16
+    spec = pl.BlockSpec((av.ROWS, T, D), lambda b: (b, 0, 0), memory_space=pltpu.VMEM)
+    ref = _jax_call(functools.partial(body, num_heads=H, head_dim=16, scale=0.25), xs,
+                    dtype, (B // av.ROWS,), spec,
+                    [pltpu.VMEM((av.ROWS * H, T, T), jnp.float32)])
+    _close(_port(av.attention_group_rows, xs, dtype, H), ref, dtype)
+    _close(_port(fused_attention_reference, xs, dtype, H), ref, dtype)
+
+
+def test_cpu_path_is_the_plain_version_and_counts_nothing():
+    q, k, v = (torch.from_numpy(x) for x in _qkv(2, 17, 2, 16, "fp32", seed=0))
+    counts = [(av.attention_v2, "launches"), (av.attention_v2, "launches_v3"),
+              (av.attention_v4, "launches"), (av.attention_group_heads, "launches"),
+              (av.attention_group_rows, "launches")]
+    before = [getattr(f, c) for f, c in counts]
+    for name, (fn, plain) in av.KERNELS.items():
+        assert torch.equal(fn(q, k, v, 2), plain(q, k, v, 2)), name
+    assert [getattr(f, c) for f, c in counts] == before
+
+
+def test_shapes_the_group_kernel_cannot_take_raise():
+    odd_heads = torch.zeros(2, 5, 48)
+    with pytest.raises(ValueError, match="even head count"):
+        av.attention_group_heads(odd_heads, odd_heads, odd_heads, 3)
+    ten = torch.zeros(2, 5, 160)
+    with pytest.raises(ValueError, match="no block of 5 heads"):
+        av.attention_group_heads(ten, ten, ten, 10)
+    odd_batch = torch.zeros(3, 5, 32)
+    with pytest.raises(ValueError, match="even batch"):
+        av.attention_group_rows(odd_batch, odd_batch, odd_batch, 2)
+    with pytest.raises(ValueError, match="one \\[B, T, D\\] shape"):
+        av.attention_v4(odd_batch, odd_batch[:, :4], odd_batch, 2)
+
+
+@pytest.mark.parametrize("probe,labels", [
+    ("bench_attn_variants", ("v2", "v3")), ("bench_attn_variants2", ("v4", "v5")),
+    ("bench_attn_variants3", ("v6",)), ("bench_split_attn", ("split-key",)),
+])
+def test_probe_main_runs_on_the_cpu(probe, labels, capsys):
+    import importlib
+
+    mod = importlib.import_module(f"bayesvlm_tpu_torch.probes.{probe}")
+    argv = ["--device", "cpu", "--batch", "2", "--seq", "17", "--heads", "4",
+            "--head-dim", "16"]
+    assert mod.main(argv) == 0
+    text = capsys.readouterr().out
+    for label in labels:
+        assert f"max |base - {label}| =" in text
+        assert f"{label} (" in text
+    # no time off the card
+    assert "not measured" in text and "TFLOP/s" not in text
+
+
+# -- the kernels on the card ---------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+# kernel vs plain on the card, chip_smoke.py's tolerance for #1: a p flip
+# and an output flip can stack in bf16; fp32 is summation order only,
+# but for the bf16 scores of BF16_SCORES (a flip of a score's rounding)
+_CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
+_COUNTS = {"attention_v2": (av.attention_v2, "launches"),
+           "attention_v3": (av.attention_v2, "launches_v3"),
+           "attention_v4": (av.attention_v4, "launches"),
+           "attention_group_heads": (av.attention_group_heads, "launches"),
+           "attention_group_rows": (av.attention_group_rows, "launches")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(av.KERNELS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,H,Dh", [(17, 2, 16), (50, 12, 64), (257, 16, 64),
+                                    (257, 16, 80)])
+def test_kernel_matches_plain_on_card(cuda, name, dtype, T, H, Dh):
+    gen = torch.Generator(device=cuda).manual_seed(T + H)
+    q, k, v = (torch.randn(4, T, H * Dh, generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    fn, plain = av.KERNELS[name]
+    owner, count = _COUNTS[name]
+    before = getattr(owner, count)
+    out = fn(q, k, v, H)
+    torch.cuda.synchronize()
+    assert getattr(owner, count) == before + 1
+    tol = _CARD_TOL[torch.bfloat16 if name in av.BF16_SCORES else dtype]
+    ref = plain(q, k, v, H).float()
+    torch.testing.assert_close(out.float(), ref, rtol=tol, atol=tol)
+    assert float((out.float() - ref).abs().mean()) <= av.MEAN_TOL.get(name, 1.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [2, 4, 8, 12, 16])
+def test_group_heads_at_every_block_width_on_card(cuda, H):
+    # H / 2 = 1, 2, 4, 6, 8 heads a block: every instantiation of v5
+    q, k, v = (torch.randn(2, 50, H * 16, device=cuda) for _ in range(3))
+    torch.testing.assert_close(av.attention_group_heads(q, k, v, H),
+                               fused_attention_reference(q, k, v, H),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_group_kernels_equal_one_block_on_card(cuda):
+    # the same function, the same order of every sum: equal bit for bit
+    from bayesvlm_tpu_torch.models.attention import fused_attention
+
+    q, k, v = (torch.randn(4, 257, 1024, device=cuda).bfloat16() for _ in range(3))
+    base = fused_attention(q, k, v, 16)
+    assert torch.equal(av.attention_group_heads(q, k, v, 16), base)
+    assert torch.equal(av.attention_group_rows(q, k, v, 16), base)
+
+
+@pytest.mark.cuda
+def test_block_resources_on_card(cuda):
+    # T=257, Dh=64: v2 and v6 take #1's 104,208 B (two blocks an SM); the
+    # bf16 score tile of v4 69,256 B (three); v5's eight heads one block
+    want = {"attention_v2": (104208, 2), "attention_v3": (104208, 2),
+            "attention_v4": (69256, 3), "attention_group_rows": (104208, 2),
+            "attention_group_heads": (120848, 1)}
+    for name, (smem, blocks) in want.items():
+        assert av.block_resources(name, 80, 257, 16, 64, torch.bfloat16) == (
+            smem, blocks), name
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_cannot_take(cuda):
+    big = torch.zeros(2, 4096, 64, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        av.attention_v2(big, big, big, 1)
+    half = torch.zeros(2, 17, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        av.attention_v4(half, half, half, 1)
+    odd = torch.zeros(3, 17, 64, device=cuda)
+    with pytest.raises(ValueError, match="even batch"):
+        av.attention_group_rows(odd, odd, odd, 1)

@@ -246,6 +246,23 @@ def test_kernel_matches_plain_on_card(cuda, use_int8, n_p, n_t, c, k):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("use_int8", [False, True])
+@pytest.mark.parametrize("n_p,n_t,c,k", [(41, 23, 13, 400), (37, 29, 7, 1000)])
+def test_streamed_kernel_matches_plain_on_card(cuda, use_int8, n_p, n_t, c, k):
+    """K past the resident block's shared memory (288 bf16 / 576 int8 on
+    an H100): the streamed instantiation, 1e-4 of each row sum. K = 1000
+    ends in a partial 128-byte chunk (bf16) and in one (int8)."""
+    a, b = _card_probs(cuda, n_p, k, c, 7), _card_probs(cuda, n_t, k, c, 8)
+    before = joint_xlogy_rowsums.launches, joint_xlogy_rowsums.launches_int8
+    out = joint_xlogy_rowsums(a, b, k, use_int8=use_int8)
+    torch.cuda.synchronize()
+    after = joint_xlogy_rowsums.launches, joint_xlogy_rowsums.launches_int8
+    assert after == (before[0] + (not use_int8), before[1] + use_int8)
+    ref = joint_xlogy_rowsums_reference(a, b, k, use_int8=use_int8)
+    assert bool(((out - ref).abs() <= 1e-4 * ref.abs()).all())
+
+
+@pytest.mark.cuda
 def test_kernel_takes_strided_and_bf16_operands(cuda):
     a, b = _card_probs(cuda, 19, 100, 9, 3), _card_probs(cuda, 11, 100, 9, 4)
     out = joint_xlogy_rowsums(a, b, 100)
@@ -260,9 +277,6 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     a = torch.rand(10, 100, device=cuda)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         joint_xlogy_rowsums(a.half(), a.half(), 100)
-    with pytest.raises(ValueError, match="shared memory"):
-        joint_xlogy_rowsums(torch.rand(10, 400, device=cuda),
-                            torch.rand(10, 400, device=cuda), 400)
     with pytest.raises(ValueError, match="two devices"):
         joint_xlogy_rowsums(a, a.cpu(), 100)
 

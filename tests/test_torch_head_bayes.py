@@ -128,6 +128,26 @@ def test_probit_and_map_softmax_match_jax():
                                rtol=1e-5, atol=1e-7)
 
 
+def test_probit_softmax_takes_the_diagonal_of_a_full_covariance():
+    # an [N, C, C] var with N = C (where broadcasting it as elementwise
+    # would give a wrong-shaped result instead of an error): JAX reads its
+    # diagonal (bayesvlm_tpu/types.py `_diag_var`), and so must the port
+    rng = np.random.default_rng(6)
+    n = c = 5
+    mean = rng.normal(size=(n, c)).astype(np.float32) * 3
+    root = rng.normal(size=(n, c, c)).astype(np.float32)
+    var = root @ root.transpose(0, 2, 1) + 0.1 * np.eye(c, dtype=np.float32)
+    ref = JaxProbabilisticLogits(mean=jnp.asarray(mean), var=jnp.asarray(var))
+    out = ProbabilisticLogits(torch.from_numpy(mean), torch.from_numpy(var))
+    got = out.probit_softmax().numpy()
+    assert got.shape == (n, c)
+    np.testing.assert_allclose(got, np.asarray(ref.softmax(num_samples=0)),
+                               rtol=1e-5, atol=1e-7)
+    diag = ProbabilisticLogits(torch.from_numpy(mean),
+                               torch.from_numpy(np.diagonal(var, axis1=1, axis2=2).copy()))
+    np.testing.assert_allclose(got, diag.probit_softmax().numpy(), rtol=1e-6, atol=0)
+
+
 def test_mc_softmax_matches_jax_in_distribution():
     # different generators: compare estimates. Each entry averages S
     # softmax samples in [0, 1], so its std is at most 0.5/sqrt(S); with

@@ -294,3 +294,60 @@ def test_int8_predict_matches_jax(int8_vlms, vlms):
     _, float_vlm = vlms
     assert not torch.allclose(float_vlm.encode_images(imgs).embeds,
                               tvlm.encode_images(imgs).embeds, atol=1e-5)
+
+
+# -- the trained head (head.json) -------------------------------------------------
+
+
+@pytest.mark.parametrize("model", ["tiny-clip", "tiny-siglip"])
+def test_head_json_gives_jax_head_and_probs(model, tmp_path):
+    """One tree written both ways with a trained head (scale 2.5, bias
+    -3.0) away from the defaults: the JAX layout as
+    scripts/convert_weights.py writes it (flax msgpack + head.json), the
+    port's through bridge.save_weights. Both packages' loaders give the
+    same head (CLIP keeps no bias) and the same probabilities; without
+    head.json the port keeps the family's default head."""
+    import json
+
+    from flax import serialization
+
+    from bayesvlm_tpu_torch.models.encoders import DEFAULT_LOGIT_BIAS, DEFAULT_LOGIT_SCALE
+
+    cfg = CONFIGS_BY_NAME[model]
+    j_img, j_txt, _ = jax_load_model(model, dtype=jnp.float32, seed=3)
+    jax_dir, port_dir = tmp_path / "jax", tmp_path / "port"
+    jax_dir.mkdir()
+    for name, tower in (("vision", j_img), ("text", j_txt)):
+        (jax_dir / f"{name}.msgpack").write_bytes(
+            serialization.msgpack_serialize(_np_tree(tower.params)))
+    (jax_dir / "head.json").write_text(json.dumps({"logit_scale": 2.5,
+                                                   "logit_bias": -3.0}))
+    save_weights(port_dir, _np_tree(j_img.params), _np_tree(j_txt.params),
+                 logit_scale=2.5, logit_bias=-3.0)
+    assert json.loads((port_dir / "head.json").read_text()) == {
+        "logit_scale": 2.5, "logit_bias": -3.0}
+
+    bias = -3.0 if cfg.family == "siglip" else 0.0
+    _, _, j_head = jax_load_model(model, weights_dir=str(jax_dir), dtype=jnp.float32)
+    _, _, t_head = load_model(model, weights_dir=port_dir, dtype=torch.float32,
+                              device="cpu")
+    assert float(j_head.logit_scale) == float(t_head.logit_scale) == 2.5
+    assert float(j_head.logit_bias) == float(t_head.logit_bias) == bias
+
+    hdir = save_synthetic_hessians(tmp_path / "hessians", cfg, seed=0)
+    jvlm = JaxProbabilisticVLM.from_pretrained(
+        model, str(hdir), weights_dir=str(jax_dir), dtype="fp32", mesh=None,
+        prior_num_steps=50).set_class_prompts(PROMPTS)
+    tvlm = ProbabilisticVLM.from_pretrained(
+        model, str(hdir), weights_dir=str(port_dir), dtype="fp32", device="cpu",
+        prior_num_steps=50).set_class_prompts(PROMPTS)
+    imgs = _pixels(n=4, seed=2, size=cfg.vision.image_size)
+    np.testing.assert_allclose(tvlm.predict(imgs).numpy(), np.asarray(jvlm.predict(imgs)),
+                               rtol=1e-4, atol=1e-5)
+
+    # a directory without head.json (as written before the file was added)
+    bare = save_weights(tmp_path / "bare", _np_tree(j_img.params), _np_tree(j_txt.params))
+    assert not (bare / "head.json").exists()
+    _, _, d_head = load_model(model, weights_dir=bare, dtype=torch.float32, device="cpu")
+    assert float(d_head.logit_scale) == pytest.approx(DEFAULT_LOGIT_SCALE[cfg.family])
+    assert float(d_head.logit_bias) == pytest.approx(DEFAULT_LOGIT_BIAS[cfg.family])
