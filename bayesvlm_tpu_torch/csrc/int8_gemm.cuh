@@ -1,7 +1,8 @@
 // W8A8 int8 building blocks shared by csrc/mlp_int8.cu and
 // csrc/linear_int8.cu (each includes this header and is its own library).
-// Its cp.async, ldmatrix and mma helpers (mma_bf16 too) also serve
-// csrc/xlogy_rowsum.cu and csrc/bf16_gemm.cuh.
+// Its cp.async, ldmatrix (and ldmatrix.trans) and mma helpers (mma_bf16
+// too) also serve csrc/xlogy_rowsum.cu, csrc/bf16_gemm.cuh,
+// csrc/packed_heads.cu and csrc/tile_gemm.cu.
 //
 //   quant_rows_kernel  per-row symmetric absmax int8 quantize of [M, K],
 //                      optionally after an fp32 LayerNorm; one block a row
@@ -179,6 +180,17 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const int8_t* p) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// the same four matrices transposed: each lane receives, in r[q], the
+// b16 elements (row 2 (lane % 4), column lane / 4) and (row 2 (lane % 4)
+// + 1, column lane / 4) of matrix q. From a row-major [k][n] b16 tile
+// this gives mma.sync's col-major B fragment (k pairs of one column n).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const int8_t* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
 }

@@ -1,4 +1,6 @@
-"""The TPU attention-schedule probes of `scripts/dev/`, ported to the card.
+"""The TPU probes of `scripts/dev/`, ported to the card.
+
+The attention-schedule probes (this module's harness):
 
 Each probe module (`bench_attn_variants`, `bench_attn_variants2`,
 `bench_attn_variants3`, `bench_split_attn`) is run as
@@ -12,7 +14,14 @@ and against its own plain version, then times #1, each variant and its
 plain version with CUDA events (best of REPS runs of N_ITER launches, a
 tenth of that for the plain versions), beside the bound and
 `F.scaled_dot_product_attention` (timed only; the port never calls it).
-This module holds what the probes share.
+This module holds what they share; `card` holds what every probe
+shares (peaks, bound, CUDA-event timing).
+
+The packed-head and GEMM probes (`probe_packed_heads`, `bench_int8_mxu`,
+`bench_int8_sweep`, `bench_int4_mxu`; kernels in `packed_heads` and
+`tile_gemm`) carry their own. Every probe module has the same entry:
+`parse_args(argv)`, `run(args)` (the numbers; each kernel's under
+`["kernels"][name]`), `report(results)` and `main(argv)`.
 
 `--device cpu` runs the plain versions at a tiny shape for the tests:
 the checks run, no time is measured ("not measured").
@@ -27,13 +36,13 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from bayesvlm_tpu_torch.probes import card
+from bayesvlm_tpu_torch.probes.card import device_ms
+from bayesvlm_tpu_torch.probes.card import fmt_ms as _ms
+
 # the scripts' shape and timing (scripts/dev/bench_attn_variants.py:35-37)
 B, T, H, DH = 80, 257, 16, 64
 N_ITER, REPS = 50, 5
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and the tensor
-# cores' bf16 operations/s
-HBM_BYTES_S = 3.35e12
-PEAK_BF16_OPS_S = 989e12
 # the scripts' dtype
 DTYPE = torch.bfloat16
 # kernel vs plain, as chip_smoke.py holds #1 in bf16: both round p and the
@@ -76,36 +85,13 @@ def inputs(args) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
                  .to(args.device, DTYPE) for _ in range(3))
 
 
-def device_ms(fn, device: torch.device, iters: int, reps: int) -> Optional[float]:
-    """Best of `reps` CUDA-event timings of `iters` launches of fn, in ms a
-    launch, after one warm-up call; None off the card."""
-    if device.type != "cuda":
-        return None
-    fn()
-    best = math.inf
-    for _ in range(reps):
-        torch.cuda.synchronize(device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize(device)
-        best = min(best, start.elapsed_time(end) / iters)
-    return best
-
-
 def bound(args) -> dict:
     """The least time the card could take: q, k, v read and o written once
     over the memory rate, against 4 B H T^2 Dh operations over the tensor
     cores' bf16 rate."""
     nbytes = 4 * args.batch * args.seq * args.heads * args.head_dim * DTYPE.itemsize
     flops = 4 * args.batch * args.heads * args.seq ** 2 * args.head_dim
-    times = {"bytes": nbytes / HBM_BYTES_S * 1e3,
-             "operations": flops / PEAK_BF16_OPS_S * 1e3}
-    by = max(times, key=times.get)
-    return {"bound_ms": times[by], "bound_by": by, "bytes": nbytes, "flops": flops}
+    return {**card.bound(nbytes, flops, "bf16"), "bytes": nbytes, "flops": flops}
 
 
 def _max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -158,11 +144,12 @@ def run(variants: Variants, args) -> dict:
     out["sdpa_ms"] = device_ms(lambda: F.scaled_dot_product_attention(*heads), device,
                                N_ITER, REPS)
     out.update(bound(args))
+    # each kernel's numbers under its name, as every probe gives them
+    out["kernels"] = {kernel: dict(out["variants"][label], library_ms=out["sdpa_ms"],
+                                   base_ms=out["base_ms"], bound_ms=out["bound_ms"],
+                                   bound_by=out["bound_by"])
+                      for label, (_, _, kernel, _) in variants.items() if kernel is not None}
     return out
-
-
-def _ms(x: Optional[float]) -> str:
-    return "not measured" if x is None else f"{x:.4f} ms"
 
 
 def report(variants: Variants, results: dict) -> int:
@@ -189,7 +176,21 @@ def report(variants: Variants, results: dict) -> int:
     return 0
 
 
-def main(variants: Variants, argv, description: str) -> int:
-    """A probe's command line: parse, run, print."""
-    args = parse_args(argv, description)
-    return report(variants, run(variants, args))
+def entry_points(variants: Variants, description: str):
+    """A probe module's `parse_args(argv)`, `run(args)`, `report(results)`
+    and `main(argv)`: the entry every probe module has (the packed-head
+    and GEMM probes define theirs)."""
+
+    def probe_parse_args(argv=None) -> argparse.Namespace:
+        return parse_args(argv, description)
+
+    def probe_run(args) -> dict:
+        return run(variants, args)
+
+    def probe_report(results: dict) -> int:
+        return report(variants, results)
+
+    def probe_main(argv=None) -> int:
+        return probe_report(probe_run(probe_parse_args(argv)))
+
+    return probe_parse_args, probe_run, probe_report, probe_main

@@ -29,9 +29,7 @@ VARIANTS = {
                          "attention_v3", "v2 + no max subtract, probe only"),
 }
 
-
-def main(argv=None) -> int:
-    return probes.main(VARIANTS, argv, __doc__)
+parse_args, run, report, main = probes.entry_points(VARIANTS, __doc__)
 
 
 if __name__ == "__main__":

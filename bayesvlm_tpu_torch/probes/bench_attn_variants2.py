@@ -32,9 +32,7 @@ VARIANTS = {
                          "attention_group_heads", "H/2 heads a block"),
 }
 
-
-def main(argv=None) -> int:
-    return probes.main(VARIANTS, argv, __doc__)
+parse_args, run, report, main = probes.entry_points(VARIANTS, __doc__)
 
 
 if __name__ == "__main__":

@@ -24,9 +24,7 @@ VARIANTS = {
                                 "keys split at 128 floor(T/128)"),
 }
 
-
-def main(argv=None) -> int:
-    return probes.main(VARIANTS, argv, __doc__)
+parse_args, run, report, main = probes.entry_points(VARIANTS, __doc__)
 
 
 if __name__ == "__main__":

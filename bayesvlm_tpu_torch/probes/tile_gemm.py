@@ -1,0 +1,329 @@
+"""The GEMM probes' kernel (csrc/tile_gemm.cu) and its plain PyTorch
+version: C[M, N] = A[M, K] . B[K, N] with the raw accumulator as output,
+B row-major [K, N] as scripts/dev/bench_int8_mxu.py, bench_int8_sweep.py
+and bench_int4_mxu.py lay it out (their shared `make_matmul` body).
+
+- `matmul(a, b, tile)`: bf16 x bf16 -> fp32, or int8 x int8 -> int32.
+- `matmul_s4(a, b_packed)`: s4 x s4 -> int32 (a packed, uint8) or
+  s8 x s4 -> int32 (a int8, the weight-only int4 case). s4 values are
+  packed two a byte along K, the lower k in the low nibble, two's
+  complement (`pack_s4`, `unpack_s4`): A as [M, K/2], B as [K/2, N]. No
+  torch int4 dtype is used.
+
+`TILES` are the kernel's 8 block tiles (the sweep's); bf16 and int8 take
+any of them, the s4 kinds the default (tile 0). CUDA tensors launch the
+kernel or raise; CPU tensors run the plain version; nothing falls back.
+Each launch is counted on its wrapper: `matmul.launches` (bf16),
+`matmul.launches_s8`, `matmul_s4.launches` (s4 x s4),
+`matmul_s4.launches_s8s4`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import functools
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from bayesvlm_tpu_torch import kernels
+from bayesvlm_tpu_torch.probes import card
+
+# csrc/tile_gemm.cu Kind
+BF16, S8, S4, S8S4 = 0, 1, 2, 3
+KIND_NAMES = {BF16: "bf16", S8: "s8", S4: "s4", S8S4: "s8s4"}
+# K must be a multiple of one mma step's depth
+DEPTH = {BF16: 16, S8: 32, S4: 64, S8S4: 32}
+# the probes' shape (the scripts' M, K, N), and a tiny one for the CPU
+M, K, N = 16384, 1024, 4096
+CPU_SHAPE = (64, 256, 128)
+# timing: best of REPS CUDA-event runs of N_ITER launches (PLAIN_ITER for
+# the plain versions)
+N_ITER, REPS, PLAIN_ITER = 20, 3, 2
+# bf16 kernel vs plain: both sum fp32 products of the same bf16 values, in
+# another order: a few fp32 ulps of the largest partial sums
+BF16_TOL = 1e-5
+# the mma each kind runs (csrc/tile_gemm.cu; ptxas for sm_90a takes the s4 one)
+MMA = {BF16: "mma.sync m16n8k16 bf16", S8: "mma.sync m16n8k32 s8",
+       S4: "mma.sync m16n8k64 s4", S8S4: "mma.sync m16n8k32 s8 (B's nibbles unpacked)"}
+
+
+class Tile(NamedTuple):
+    """A block tile: BM x BN outputs, `warps` warps, a `stages`-deep
+    cp.async ring (csrc/tile_gemm.cu BVT_TILES, in the same order)."""
+
+    bm: int
+    bn: int
+    warps: int
+    stages: int
+
+    def __str__(self) -> str:
+        return f"{self.bm}x{self.bn}/{self.warps}w/{self.stages}st"
+
+
+TILES = (Tile(128, 128, 8, 4), Tile(128, 128, 8, 3), Tile(128, 128, 8, 2),
+         Tile(64, 128, 4, 4), Tile(128, 256, 8, 3), Tile(256, 128, 8, 3),
+         Tile(64, 256, 4, 4), Tile(256, 128, 8, 4))
+DEFAULT_TILE = TILES[0]
+
+
+def pack_s4(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """int values in [-8, 7] -> uint8 with two a byte along `dim` (of even
+    length): element 2i in the low nibble, 2i+1 in the high one."""
+    if x.shape[dim] % 2:
+        raise ValueError(f"pack_s4: dim {dim} has odd length {x.shape[dim]}")
+    if x.numel() and (int(x.min()) < -8 or int(x.max()) > 7):
+        raise ValueError("pack_s4 takes values in [-8, 7]")
+    x = x.to(torch.int16).movedim(dim, -1)
+    lo, hi = x[..., 0::2] & 0xF, x[..., 1::2] & 0xF
+    return (lo | (hi << 4)).to(torch.uint8).movedim(-1, dim).contiguous()
+
+
+def unpack_s4(p: torch.Tensor, dim: int) -> torch.Tensor:
+    """`pack_s4`'s inverse: uint8 -> int8 values in [-8, 7], twice as long
+    along `dim`."""
+    x = p.to(torch.int16).movedim(dim, -1)
+    nib = torch.stack([x & 0xF, x >> 4], dim=-1).flatten(-2)
+    return (nib - ((nib & 8) << 1)).to(torch.int8).movedim(-1, dim).contiguous()
+
+
+def matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain product: bf16 -> fp32 (a fp32 product of the bf16 values);
+    integers -> the exact int32 sum (int64 on the CPU; on the card the
+    float64 product, exact while K 127^2 < 2^53, since torch has no CUDA
+    integer matmul and float32 is exact only while K 127^2 < 2^24)."""
+    if a.dtype == torch.bfloat16:
+        return a.float() @ b.float()
+    if a.device.type == "cpu":
+        return (a.long() @ b.long()).to(torch.int32)
+    return (a.double() @ b.double()).to(torch.int32)
+
+
+def matmul_s4_reference(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
+    """The plain product of the widened values: a unpacked along K when it
+    is packed (uint8), b unpacked along K."""
+    if a.dtype == torch.uint8:
+        a = unpack_s4(a, 1)
+    return matmul_reference(a, unpack_s4(b_packed, 0))
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = kernels.load("tile_gemm")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bvt_tile_gemm.argtypes = [i, i, p, p, p, i, i, i, p]
+    lib.bvt_tile_gemm.restype = ctypes.c_int
+    lib.bvt_tile_gemm_describe.argtypes = [i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.bvt_tile_gemm_describe.restype = ctypes.c_int
+    lib.bvt_tile_gemm_blocks_per_sm.argtypes = [i, i]
+    lib.bvt_tile_gemm_blocks_per_sm.restype = ctypes.c_int
+    return lib
+
+
+def _tile_index(tile: Tile, kind: int) -> int:
+    if tile not in TILES:
+        raise ValueError(f"no tile {tile}: the kernel is built for {TILES}")
+    index = TILES.index(tile)
+    if kind in (S4, S8S4) and index != 0:
+        raise ValueError(f"the {KIND_NAMES[kind]} kernel is built for the default tile "
+                         f"{DEFAULT_TILE} only")
+    return index
+
+
+def _launch(kind: int, tile: Tile, a: torch.Tensor, b: torch.Tensor, Mr: int, Nr: int,
+            Kr: int, out_dtype: torch.dtype) -> torch.Tensor:
+    index = _tile_index(tile, kind)
+    if Kr % DEPTH[kind]:
+        raise ValueError(f"{KIND_NAMES[kind]} GEMM: K = {Kr} is not a multiple of "
+                         f"{DEPTH[kind]} (one mma step)")
+    if Nr % 16:
+        raise ValueError(f"GEMM: N = {Nr} is not a multiple of 16 (16-byte B rows)")
+    if a.device != b.device:
+        raise ValueError("GEMM: a and b must be on one device")
+    if a.device.type != "cuda":
+        raise ValueError(f"no GEMM kernel for device {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("the GEMM kernel needs contiguous operands")
+    c = torch.empty(Mr, Nr, dtype=out_dtype, device=a.device)
+    lib = _library()
+    with torch.cuda.device(a.device):
+        err = lib.bvt_tile_gemm(kind, index, a.data_ptr(), b.data_ptr(), c.data_ptr(), Mr,
+                                Nr, Kr, torch.cuda.current_stream(a.device).cuda_stream)
+    kernels.check(lib, err, f"{KIND_NAMES[kind]} GEMM kernel")
+    return c
+
+
+def _shapes(a: torch.Tensor, b: torch.Tensor, ka: int, kb: int, what: str):
+    if a.dim() != 2 or b.dim() != 2 or ka != kb:
+        raise ValueError(f"{what}: a [M, K] and b [K, N] do not match: "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, tile: Tile = DEFAULT_TILE) -> torch.Tensor:
+    """a [M, K] . b [K, N]: bf16 -> fp32, int8 -> int32. Counts in
+    `matmul.launches` (bf16) and `matmul.launches_s8`."""
+    _shapes(a, b, a.shape[-1], b.shape[0], "matmul")
+    if a.dtype != b.dtype or a.dtype not in (torch.bfloat16, torch.int8):
+        raise ValueError(f"matmul takes bf16 x bf16 or int8 x int8, not {a.dtype} x "
+                         f"{b.dtype}")
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return matmul_reference(a, b)
+    kind = BF16 if a.dtype == torch.bfloat16 else S8
+    c = _launch(kind, tile, a, b, a.shape[0], b.shape[1], a.shape[1],
+                torch.float32 if kind == BF16 else torch.int32)
+    if kind == BF16:
+        matmul.launches += 1
+    else:
+        matmul.launches_s8 += 1
+    return c
+
+
+def matmul_s4(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
+    """s4 x s4 (a packed uint8 [M, K/2]) or s8 x s4 (a int8 [M, K]) times
+    b packed uint8 [K/2, N] -> int32 [M, N], at the default tile. Counts in
+    `matmul_s4.launches` (s4 x s4) and `matmul_s4.launches_s8s4`."""
+    if b_packed.dtype != torch.uint8 or a.dtype not in (torch.uint8, torch.int8):
+        raise ValueError(f"matmul_s4 takes a packed s4 (uint8) or int8 a and a packed "
+                         f"s4 (uint8) b, not {a.dtype} x {b_packed.dtype}")
+    kind = S4 if a.dtype == torch.uint8 else S8S4
+    Kr = a.shape[-1] * (2 if kind == S4 else 1)
+    _shapes(a, b_packed, Kr, 2 * b_packed.shape[0], "matmul_s4")
+    if a.device.type == "cpu" and b_packed.device.type == "cpu":
+        return matmul_s4_reference(a, b_packed)
+    c = _launch(kind, DEFAULT_TILE, a, b_packed, a.shape[0], b_packed.shape[1], Kr,
+                torch.int32)
+    if kind == S4:
+        matmul_s4.launches += 1
+    else:
+        matmul_s4.launches_s8s4 += 1
+    return c
+
+
+matmul.launches = 0
+matmul.launches_s8 = 0
+matmul_s4.launches = 0
+matmul_s4.launches_s8s4 = 0
+
+# each kernel kind's name, its count (owner, attribute) and the TPU body
+# it replaces (the pallas_call of `make_matmul`)
+KERNELS = {
+    "tile_gemm_bf16": (BF16, (matmul, "launches"), "scripts/dev/bench_int8_mxu.py:64"),
+    "tile_gemm_s8": (S8, (matmul, "launches_s8"), "scripts/dev/bench_int8_mxu.py:64"),
+    "tile_gemm_s4": (S4, (matmul_s4, "launches"), "scripts/dev/bench_int4_mxu.py:49"),
+    "tile_gemm_s8s4": (S8S4, (matmul_s4, "launches_s8s4"),
+                       "scripts/dev/bench_int4_mxu.py:49"),
+}
+
+
+def gemm_bound(Mr: int, Kr: int, Nr: int, kind: str) -> dict:
+    """The least time the card could take for C = A . B of this kind
+    ("bf16", "s8", "s4", "s8s4"): A and B read once (s4 at half a byte),
+    C (4 bytes) written once, against 2 M K N operations at the bf16 or
+    int8 rate (int4 held to the int8 rate: no published H100 int4 rate)."""
+    a_bytes = {"bf16": 2, "s8": 1, "s4": 0.5, "s8s4": 1}[kind]
+    b_bytes = {"bf16": 2, "s8": 1, "s4": 0.5, "s8s4": 0.5}[kind]
+    nbytes = Mr * Kr * a_bytes + Kr * Nr * b_bytes + Mr * Nr * 4
+    ops = 2 * Mr * Kr * Nr
+    return {**card.bound(nbytes, ops, "bf16" if kind == "bf16" else "int8"),
+            "bytes": nbytes, "ops": ops}
+
+
+def tile_resources(kind: int, tile: Tile):
+    """(shared-memory bytes, blocks an SM) of the kernel at this tile, from
+    the library's own table (which must match TILES) and the card's
+    occupancy calculator."""
+    lib = _library()
+    index = _tile_index(tile, kind)
+    out = (ctypes.c_int * 5)()
+    if lib.bvt_tile_gemm_describe(kind, index, out) != 0:
+        raise ValueError(f"the {KIND_NAMES[kind]} kernel has no tile {tile}")
+    bm, bn, threads, stages, smem = out
+    if (bm, bn, threads // 32, stages) != tuple(tile):
+        raise RuntimeError(f"TILES[{index}] = {tile} but the library's tile is "
+                           f"{bm}x{bn}/{threads // 32}w/{stages}st")
+    blocks = lib.bvt_tile_gemm_blocks_per_sm(kind, index)
+    if blocks < 0:
+        kernels.check(lib, -blocks, "GEMM occupancy")
+    return smem, blocks
+
+
+# -- what the three GEMM probes share ------------------------------------------
+
+
+def parse_args(argv, description: str) -> argparse.Namespace:
+    """--device: cuda (the default) runs at the scripts' shape, cpu at
+    CPU_SHAPE (`probe_shape`)."""
+    p = argparse.ArgumentParser(description=description.splitlines()[0])
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def probe_shape(device: str):
+    """(M, K, N): the scripts' on the card, CPU_SHAPE on the CPU."""
+    return CPU_SHAPE if device == "cpu" else (M, K, N)
+
+
+def library_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """bf16 x bf16 -> fp32 in one PyTorch call, the bf16 kernel's library
+    yardstick (timed only; the port never calls it): cuBLAS through
+    `torch.mm(a, b, out_dtype=torch.float32)`, the same function. PyTorch
+    has no CPU version of it; there the fp32 product of the same values
+    stands in."""
+    if a.device.type == "cpu":
+        return a.float() @ b.float()
+    return torch.mm(a, b, out_dtype=torch.float32)
+
+
+def draw(rng, low: int, high: int, shape, device) -> torch.Tensor:
+    """rng.integers(low, high, shape) as int8 on `device`, as the scripts
+    draw their operands."""
+    return torch.from_numpy(rng.integers(low, high, size=shape).astype("int8")).to(device)
+
+
+def check_exact(name: str, out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """An integer kernel must equal its plain version; raises if not."""
+    if not torch.equal(out, ref):
+        bad = int((out != ref).sum())
+        raise RuntimeError(f"{name} differs from its plain version in {bad} of "
+                           f"{ref.numel()} sums")
+    return {"max_abs_err": 0.0}
+
+
+def check_bf16(name: str, out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """The bf16 kernel within BF16_TOL of max |plain|; raises if not."""
+    err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+    if err > BF16_TOL * scale:
+        raise RuntimeError(f"{name} disagrees with its plain version: max |d| {err:.3e} "
+                           f"(tol {BF16_TOL} x max |ref| = {BF16_TOL * scale:.3e})")
+    return {"max_abs_err": err, "max_abs_ref": scale}
+
+
+def measure(fn: Callable, plain: Callable, library: Optional[Callable], device,
+            shape, kind: str, kind_code: int, tile: Tile,
+            reference: Optional[Callable] = None) -> dict:
+    """A kernel's times beside its plain version's, the library call's
+    (one PyTorch call of the same function, or None), a reference
+    product's (another function, timed for reference only; None if not
+    given), its bound, its rate, its tile, its mma and its tile's shared
+    memory and blocks an SM (None off the card)."""
+    r = {"ms": card.device_ms(fn, device, N_ITER, REPS),
+         "plain_ms": card.device_ms(plain, device, PLAIN_ITER, REPS),
+         "library_ms": (None if library is None
+                        else card.device_ms(library, device, N_ITER, REPS)),
+         "tile": str(tile), "mma": MMA[kind_code], **gemm_bound(*shape, kind)}
+    if reference is not None:
+        r["reference_ms"] = card.device_ms(reference, device, N_ITER, REPS)
+    r["tops"] = None if r["ms"] is None else r["ops"] / r["ms"] / 1e9
+    r["smem_bytes"], r["blocks_per_sm"] = (tile_resources(kind_code, tile)
+                                           if device.type == "cuda" else (None, None))
+    return r
+
+
+def rate(r: dict) -> str:
+    return "" if r["ms"] is None else f" = {r['tops']:.1f} TOP/s"
+
+
+def block_note(r: dict) -> str:
+    return ("" if r["smem_bytes"] is None else
+            f"  [{r['smem_bytes']} B shared memory, {r['blocks_per_sm']} blocks/SM]")

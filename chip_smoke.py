@@ -8,8 +8,9 @@ Phases (any failure raises and exits non-zero, without the result line):
   2. build: compiles every kernel of the paths (csrc/attention.cu,
      csrc/attention_block.cu, csrc/attention_variants.cu,
      csrc/mlp_int8.cu, csrc/linear_int8.cu, csrc/xlogy_rowsum.cu,
-     csrc/smith_head.cu; nvcc, sm_90a, one process each, all started
-     together) from this checkout, with each one's time;
+     csrc/smith_head.cu, csrc/packed_heads.cu, csrc/tile_gemm.cu; nvcc,
+     sm_90a, one process each, all started together) from this checkout,
+     with each one's time;
   3. attention kernel vs plain at the ViT-L/14 shape (B=64, T=257, H=16,
      Dh=64) and the ViT-B/32 shape (T=50, H=12), bf16 and fp32, with
      errors and CUDA-event times; F.scaled_dot_product_attention timed
@@ -86,17 +87,28 @@ Phases (any failure raises and exits non-zero, without the result line):
   10. the attention-schedule probes (bayesvlm_tpu_torch/probes,
      csrc/attention_variants.cu): v2, v3, v4, v5 (H/2 heads a block) and
      v6 (2 batch rows a block) vs plain at the probes' shape (B=80,
-     T=257, H=16, Dh=64) and a ragged T=50, H=12, bf16 and fp32; then
-     the probes' entry point, each probe's main logic (probes.run on its
-     variants: the check against #1 and against plain, CUDA-event times
-     beside #1, the bound and SDPA), with every count set to 0 just
-     before and read just after;
+     T=257, H=16, Dh=64) and a ragged T=50, H=12, bf16 and fp32;
+  10b. the packed-head and GEMM probe kernels (csrc/packed_heads.cu,
+     csrc/tile_gemm.cu) vs plain: qk scores and p . v, per head and
+     packed, at B=80, T=257, H=16 and a ragged B=3, T=50, H=12 (qk rtol =
+     atol = 1e-4; pv one bf16 ulp and a mean |d| limit that a single bf16
+     rounding of p must exceed, both means printed); the GEMM at the
+     probes' M, K, N = 16384, 1024, 4096 and a ragged 1000 x 128 x 1008
+     (s8, s4 x s4, s8 x s4 exact; bf16 within 1e-5 of max |ref|); then
+     the probes' entry points, each probe module's run and report (the
+     attention probes: the check against #1 and against plain,
+     CUDA-event times beside #1, the bound and SDPA; probe_packed_heads,
+     bench_int8_mxu, bench_int8_sweep (all 8 tiles) and bench_int4_mxu:
+     their checks, then times beside the bound, plain and the library
+     call of the same function where there is one: torch.baddbmm (fp32
+     out) for qk, torch.mm (fp32 out) for the bf16 GEMM, torch._int_mm
+     for s8), with every count set to 0 just before and read just after;
   11. prints the kernels line, then the result line
      {"ok": true, "device": {...}} last.
 
 Each path's launch counts are set to 0 just before it and read just
-after; the launches of phases 3, 4, 5, 5b and 10's comparisons are not
-counted.
+after; the launches of phases 3, 4, 5, 5b, 10's and 10b's comparisons
+are not counted.
 """
 
 from __future__ import annotations
@@ -195,17 +207,43 @@ ZS_MODEL, ZS_IMAGES, ZS_CLASSES, ZS_BATCH, ZS_IMAGE_SIZE = (
     "siglip-large", 2048, 100, 64, 256)
 # EPIG past the resident block's shared memory: the streamed instantiation
 EPIG_LONG_POOL, EPIG_LONG_TARG, EPIG_LONG_K = 1000, 500, 400
-# the attention-schedule probes: each kernel, the probe that runs it, its
-# label there and the TPU body it replaces
-PROBE_KERNELS = {
-    "attention_v2": ("bench_attn_variants", "v2", "bench_attn_variants.py:45"),
-    "attention_v3": ("bench_attn_variants", "v3", "bench_attn_variants.py:45"),
-    "attention_v4": ("bench_attn_variants2", "v4", "bench_attn_variants2.py:46"),
-    "attention_group_heads": ("bench_attn_variants2", "v5", "bench_attn_variants2.py:68"),
-    "attention_group_rows": ("bench_attn_variants3", "v6", "bench_attn_variants3.py:37"),
-}
+# the probes of scripts/dev/, each run through its module's run and report
 PROBES = ("bench_attn_variants", "bench_attn_variants2", "bench_attn_variants3",
-          "bench_split_attn")
+          "bench_split_attn", "probe_packed_heads", "bench_int8_mxu", "bench_int8_sweep",
+          "bench_int4_mxu")
+# each probe kernel: the probe whose run gives its line, its source under
+# bayesvlm_tpu_torch/csrc/ and the TPU body it replaces (under scripts/dev/)
+PROBE_KERNELS = {
+    "attention_v2": ("bench_attn_variants", "attention_variants.cu",
+                     "bench_attn_variants.py:45"),
+    "attention_v3": ("bench_attn_variants", "attention_variants.cu",
+                     "bench_attn_variants.py:45"),
+    "attention_v4": ("bench_attn_variants2", "attention_variants.cu",
+                     "bench_attn_variants2.py:46"),
+    "attention_group_heads": ("bench_attn_variants2", "attention_variants.cu",
+                              "bench_attn_variants2.py:68"),
+    "attention_group_rows": ("bench_attn_variants3", "attention_variants.cu",
+                             "bench_attn_variants3.py:37"),
+    "qk_scores": ("probe_packed_heads", "packed_heads.cu", "probe_packed_heads.py:46"),
+    "qk_scores_packed": ("probe_packed_heads", "packed_heads.cu",
+                         "probe_packed_heads.py:58"),
+    "pv": ("probe_packed_heads", "packed_heads.cu", "probe_packed_heads.py:86"),
+    "pv_packed": ("probe_packed_heads", "packed_heads.cu", "probe_packed_heads.py:97"),
+    "tile_gemm_bf16": ("bench_int8_mxu", "tile_gemm.cu", "bench_int8_mxu.py:64"),
+    "tile_gemm_s8": ("bench_int8_mxu", "tile_gemm.cu", "bench_int8_mxu.py:64"),
+    "tile_gemm_s4": ("bench_int4_mxu", "tile_gemm.cu", "bench_int4_mxu.py:49"),
+    "tile_gemm_s8s4": ("bench_int4_mxu", "tile_gemm.cu", "bench_int4_mxu.py:49"),
+}
+# what a probe kernel's line carries beside the contract's keys, where its
+# probe gives it (reference_ms: a product of another function, timed for
+# reference only)
+PROBE_EXTRAS = ("smem_bytes", "blocks_per_sm", "base_ms", "vs_base", "tops", "tile", "mma",
+                "yardstick", "reference_ms")
+# the packed-head kernels at the probe's shape and a ragged one (B, T, H)
+PACKED_SHAPES = {"probe": (80, 257, 16), "ragged": (3, 50, 12)}
+# the GEMM at the probes' shape and a ragged one (M, K, N); K a multiple
+# of the s4 mma's depth, N of 16
+GEMM_SHAPES = {"probe": (16384, 1024, 4096), "ragged": (1000, 128, 1008)}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -272,7 +310,8 @@ def phase_build(kernels, modules) -> None:
         print(f"build: {kernels.library_path(name).name} {took}")
     print(f"build: {len(seconds)} kernels in {wall:.2f} s wall (in parallel)")
     check(set(seconds) == {"attention", "attention_block", "attention_variants",
-                           "mlp_int8", "linear_int8", "xlogy_rowsum", "smith_head"},
+                           "mlp_int8", "linear_int8", "xlogy_rowsum", "smith_head",
+                           "packed_heads", "tile_gemm"},
           f"kernel sources {sorted(seconds)}")
     for module in modules:
         module._library()
@@ -1175,27 +1214,95 @@ def phase_probes_vs_plain(torch, attention, av) -> None:
                       f"{where}: the mean tolerance does not pin the score rounding")
 
 
-def phase_probes(torch, counters) -> dict:
-    """The probes' entry point: each probe's main logic (probes.run on its
-    variants at the scripts' shape, then its report), every count set to 0
-    just before and read just after."""
-    import importlib
+def phase_packed_heads_vs_plain(torch, ph) -> None:
+    """qk and pv, per head and packed, vs plain: qk at 1e-4; pv within one
+    bf16 ulp (ph.PV_TOL) and a mean |d| limit (ph.PV_MEAN_RTOL of the
+    mean |plain|), which a single bf16 rounding of p must exceed."""
+    print("packed-head probe kernels (csrc/packed_heads.cu) vs plain:")
+    for label, (B, T, H) in PACKED_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+        q, k, v = (torch.randn(B, T, H * 64, generator=gen, device="cuda").bfloat16()
+                   for _ in range(3))
+        p = torch.randn(B, H, T, T, generator=gen, device="cuda")
+        operands = {"qk_scores": (q, k), "qk_scores_packed": (q, k), "pv": (p, v),
+                    "pv_packed": (ph.pack_pairs(p).contiguous(), v)}
+        for name, (fn, plain, _, _) in ph.KERNELS.items():
+            x, y = operands[name]
+            out, ref = fn(x, y, H), plain(x, y, H)
+            torch.cuda.synchronize()
+            where = f"{name} {label} B={B} T={T} H={H}"
+            if name.startswith("qk"):
+                err = (out - ref).abs()
+                worst = float((err / (1e-4 + 1e-4 * ref.abs())).max())
+                print(f"  {where}: max_abs_err={float(err.max()):.3e} (rtol = atol = "
+                      f"1e-4, worst/bound={worst:.3f})")
+                check(worst <= 1.0, f"{where} disagrees with plain")
+                continue
+            r = ph.pv_check(out, ref)
+            # the same product from p rounded once to bf16
+            rounded = plain(x.to(torch.bfloat16).float(), y, H)
+            mean_rounded = float((rounded.float() - ref.float()).abs().mean())
+            print(f"  {where}: max_abs_err={r['max_abs_err']:.3e} (tol {ph.PV_TOL:.3e} abs "
+                  f"+ rel, worst/bound={r['worst']:.3f}); mean |d| kernel "
+                  f"{r['mean_abs_err']:.3e}, one bf16 rounding of p {mean_rounded:.3e}; "
+                  f"mean tol {r['mean_tol']:.3e}")
+            check(mean_rounded > r["mean_tol"],
+                  f"{where}: the mean tolerance does not pin the fp32 products")
 
-    from bayesvlm_tpu_torch import probes
+
+def phase_gemm_vs_plain(torch, tg) -> None:
+    """The GEMM kinds vs plain at the default tile (bf16 and s8 at every
+    tile at the probe shape): s8, s4 x s4 and s8 x s4 exact, bf16 within
+    tg.BF16_TOL of max |ref|."""
+    print("GEMM probe kernels (csrc/tile_gemm.cu) vs plain:")
+    for label, (Mr, Kr, Nr) in GEMM_SHAPES.items():
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+
+        def ints(lo, hi, *shape):
+            return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                                 dtype=torch.int8)
+
+        a8, b8 = ints(-127, 127, Mr, Kr), ints(-127, 127, Kr, Nr)
+        a4, b4 = ints(-8, 8, Mr, Kr), ints(-8, 8, Kr, Nr)
+        a16 = torch.randn(Mr, Kr, generator=gen, device="cuda").bfloat16()
+        b16 = torch.randn(Kr, Nr, generator=gen, device="cuda").bfloat16()
+        ref8, ref16 = tg.matmul_reference(a8, b8), tg.matmul_reference(a16, b16)
+        tiles = tg.TILES if label == "probe" else (tg.DEFAULT_TILE,)
+        where = f"{label} M={Mr} K={Kr} N={Nr}"
+        for tile in tiles:
+            tg.check_exact(f"s8 {where} tile {tile}", tg.matmul(a8, b8, tile), ref8)
+            r = tg.check_bf16(f"bf16 {where} tile {tile}", tg.matmul(a16, b16, tile),
+                              ref16)
+            print(f"  s8 and bf16 {where} tile {tile}: s8 exact, bf16 max_abs_err="
+                  f"{r['max_abs_err']:.3e} (tol {tg.BF16_TOL} x {r['max_abs_ref']:.3e})")
+        b4p = tg.pack_s4(b4, 0)
+        tg.check_exact(f"s4 x s4 {where}", tg.matmul_s4(tg.pack_s4(a4, 1), b4p),
+                       tg.matmul_reference(a4, b4))
+        tg.check_exact(f"s8 x s4 {where}", tg.matmul_s4(a8, b4p),
+                       tg.matmul_reference(a8, b4))
+        print(f"  s4 x s4 and s8 x s4 {where}: exact ({tg.MMA[tg.S4]}; "
+              f"{tg.MMA[tg.S8S4]})")
+
+
+def phase_probes(torch, counters) -> dict:
+    """The probes' entry point: each probe's main logic (its module's run
+    at the scripts' shape, then its report), every count set to 0 just
+    before and read just after."""
+    import importlib
 
     for c in counters.values():
         c.launches = 0
     results = {}
     for name in PROBES:
         mod = importlib.import_module(f"bayesvlm_tpu_torch.probes.{name}")
-        args = probes.parse_args([], mod.__doc__)
         print(f"probe {name}:")
-        results[name] = probes.run(mod.VARIANTS, args)
-        probes.report(mod.VARIANTS, results[name])
+        results[name] = mod.run(mod.parse_args([]))
+        mod.report(results[name])
     torch.cuda.synchronize()
     launches = {n: c.launches for n, c in counters.items()}
     print(f"probes path launches={launches}")
-    ran = ("attention", "attention_split", *PROBE_KERNELS)
+    # probe_packed_heads times #1 and #3 as its yardsticks
+    ran = ("attention", "attention_split", "attention_packed", *PROBE_KERNELS)
     check(all(launches[n] > 0 for n in ran), f"a probe kernel did not run: {launches}")
     check(all(launches[n] == 0 for n in launches if n not in ran),
           f"the probes launched another kernel: {launches}")
@@ -1203,17 +1310,19 @@ def phase_probes(torch, counters) -> dict:
 
 
 def _probe_entries(probe_path: dict) -> list:
+    """Each probe kernel's line, from its probe's numbers; the GEMMs that
+    the sweep also runs carry its tiles."""
+    results = probe_path["results"]
+    swept = results["bench_int8_sweep"]["kernels"]
     entries = []
-    for name, (probe, label, replaces) in PROBE_KERNELS.items():
-        res = probe_path["results"][probe]
-        r = dict(res["variants"][label], bound_ms=res["bound_ms"],
-                 bound_by=res["bound_by"])
-        entries.append(dict(
-            _entry(name, "bayesvlm_tpu_torch/csrc/attention_variants.cu",
-                   f"scripts/dev/{replaces}",
-                   probe_path["launches"][name], r, res["sdpa_ms"]),
-            smem_bytes=r["smem_bytes"], blocks_per_sm=r["blocks_per_sm"],
-            base_ms=res["base_ms"], vs_base=r["vs_base"]))
+    for name, (probe, source, replaces) in PROBE_KERNELS.items():
+        r = results[probe]["kernels"][name]
+        e = _entry(name, f"bayesvlm_tpu_torch/csrc/{source}", f"scripts/dev/{replaces}",
+                   probe_path["launches"][name], r, r["library_ms"])
+        e.update((k, r[k]) for k in PROBE_EXTRAS if k in r)
+        if name in swept:
+            e.update(swept[name], also_replaces="scripts/dev/bench_int8_sweep.py:53")
+        entries.append(e)
     return entries
 
 
@@ -1237,11 +1346,14 @@ def main() -> int:
         TINY_SIGLIP_CONFIG,
     )
     from bayesvlm_tpu_torch.probes import attention_variants as av
+    from bayesvlm_tpu_torch.probes import packed_heads as ph
+    from bayesvlm_tpu_torch.probes import tile_gemm as tg
     from bayesvlm_tpu_torch.probforward import kernels as smith_head
     from bayesvlm_tpu_torch.select import epig_joint
     from bayesvlm_tpu_torch.utils import get_image_size
 
-    phase_build(kernels, (attention, av, mlp_int8, linear_int8, epig_joint, smith_head))
+    phase_build(kernels, (attention, av, ph, tg, mlp_int8, linear_int8, epig_joint,
+                          smith_head))
     attention._block_library()
     fa = attention.fused_attention
     counters = {"attention": fa,
@@ -1255,7 +1367,15 @@ def main() -> int:
                 "attention_v3": _Count(av.attention_v2, "launches_v3"),
                 "attention_v4": av.attention_v4,
                 "attention_group_heads": av.attention_group_heads,
-                "attention_group_rows": av.attention_group_rows}
+                "attention_group_rows": av.attention_group_rows,
+                "qk_scores": ph.qk_scores,
+                "qk_scores_packed": _Count(ph.qk_scores, "launches_packed"),
+                "pv": ph.pv,
+                "pv_packed": _Count(ph.pv, "launches_packed"),
+                "tile_gemm_bf16": tg.matmul,
+                "tile_gemm_s8": _Count(tg.matmul, "launches_s8"),
+                "tile_gemm_s4": tg.matmul_s4,
+                "tile_gemm_s8s4": _Count(tg.matmul_s4, "launches_s8s4")}
     attn = phase_attention_vs_plain(torch, attention)
     sched_launches = phase_schedule_paths(torch, attention, counters)
     block = phase_block_vs_plain(torch, attention)
@@ -1294,6 +1414,8 @@ def main() -> int:
         phase_tiny_reference(torch, attention, str(save_synthetic_hessians(
             tiny_siglip, TINY_SIGLIP_CONFIG, SEED)), "tiny-siglip", ("default",))
     phase_probes_vs_plain(torch, attention, av)
+    phase_packed_heads_vs_plain(torch, ph)
+    phase_gemm_vs_plain(torch, tg)
     probe_path = phase_probes(torch, all_counters)
 
     qkv, out_proj = int8["linear_int8 qkv"], int8["linear_int8 out_proj"]

@@ -240,6 +240,26 @@ def test_probe_main_runs_on_the_cpu(probe, labels, capsys):
     assert "not measured" in text and "TFLOP/s" not in text
 
 
+@pytest.mark.parametrize("probe,kernels", [
+    ("bench_attn_variants", {"attention_v2", "attention_v3"}),
+    ("bench_attn_variants2", {"attention_v4", "attention_group_heads"}),
+    ("bench_attn_variants3", {"attention_group_rows"}), ("bench_split_attn", set()),
+])
+def test_probe_run_gives_each_kernel_under_its_name(probe, kernels, capsys):
+    # every probe module has one entry (parse_args, run, report, main) and
+    # gives each kernel's numbers under ["kernels"][name], as the
+    # packed-head and GEMM probes do
+    import importlib
+
+    mod = importlib.import_module(f"bayesvlm_tpu_torch.probes.{probe}")
+    results = mod.run(mod.parse_args(["--device", "cpu", "--batch", "2", "--seq", "17",
+                                      "--heads", "4", "--head-dim", "16"]))
+    assert set(results["kernels"]) == kernels
+    for r in results["kernels"].values():
+        assert {"max_abs_err", "vs_base", "bound_ms", "bound_by", "library_ms"} <= set(r)
+    assert mod.report(results) == 0
+
+
 # -- the kernels on the card ---------------------------------------------------
 
 

@@ -1,0 +1,310 @@
+"""The GEMM probes (`bayesvlm_tpu_torch.probes.tile_gemm`, `bench_int8_mxu`,
+`bench_int8_sweep`, `bench_int4_mxu`) against the TPU body they share,
+`make_matmul` of scripts/dev/bench_int8_mxu.py, bench_int8_sweep.py and
+bench_int4_mxu.py, run on the CPU under `pltpu.force_tpu_interpret_mode()`
+(their `pallas_call` has no interpret flag); the s4 packing; the probes'
+command lines on the CPU; and each CUDA kernel against its plain version
+on the card (marked `cuda`, skipped without a GPU).
+
+s4 x s4 is held to the int32 dot of the widened values, the script's own
+gate (bench_int4_mxu.py:108-114): XLA:CPU's HLO verifier refuses the JAX
+kernel on two int4 operands ("does not support custom element sizes on
+non-sub-byte types"), with or without forced interpret mode.
+
+The scripts cannot be imported (they set the JAX compilation cache at
+import), so `make_matmul` is lifted out of each file with `ast` and
+executed with a tiny M, K, N. JAX is imported inside the parity tests, so
+that the `cuda` tests also run where JAX is not installed:
+    python -m pytest --noconftest -m cuda tests/test_torch_gemm_probes.py
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from bayesvlm_tpu_torch.probes import tile_gemm as tg
+
+DEV = Path(__file__).resolve().parent.parent / "scripts" / "dev"
+# the lifted bodies' shape and tile: 2 x 2 x 2 grid steps
+M, K, N = 64, 256, 128
+TM, TN, TK = 32, 64, 128
+# bf16: both sum fp32 products of the same bf16 values, in another order
+BF16_TOL = 1e-5
+
+
+def _make_matmul(script: str):
+    """make_matmul of scripts/dev/<script>, with M, K, N set small."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+
+    path = DEV / script
+    tree = ast.parse(path.read_text())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == "make_matmul")
+    ns = dict(jax=jax, jnp=jnp, pl=pl, pltpu=pltpu, M=M, K=K, N=N)
+    exec(compile(ast.Module(body=[fn], type_ignores=[]), str(path), "exec"), ns)
+    return ns["make_matmul"]
+
+
+def _interpret(mm, *args):
+    from jax.experimental.pallas import tpu as pltpu
+
+    with pltpu.force_tpu_interpret_mode():
+        return np.asarray(mm(*args))
+
+
+def _operands(seed):
+    rng = np.random.default_rng(seed)
+    a8 = rng.integers(-127, 127, size=(M, K)).astype(np.int8)
+    b8 = rng.integers(-127, 127, size=(K, N)).astype(np.int8)
+    a16 = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).bfloat16()
+    b16 = torch.from_numpy(rng.normal(size=(K, N)).astype(np.float32)).bfloat16()
+    return a8, b8, a16, b16
+
+
+def _call(script, in_name, acc_name):
+    import jax.numpy as jnp
+
+    make = _make_matmul(script)
+    in_dt, acc_dt = getattr(jnp, in_name), getattr(jnp, acc_name)
+    if script == "bench_int8_sweep.py":
+        return make(in_dt, acc_dt, TM, TN, TK)
+    return make(in_dt, acc_dt, TM=TM, TN=TN, TK=TK)
+
+
+@pytest.mark.parametrize("script", ["bench_int8_mxu.py", "bench_int8_sweep.py"])
+def test_s8_matches_jax_body_exactly(script):
+    import jax.numpy as jnp
+
+    a8, b8, _, _ = _operands(seed=1)
+    ref = _interpret(_call(script, "int8", "int32"), jnp.asarray(a8), jnp.asarray(b8))
+    out = tg.matmul(torch.from_numpy(a8), torch.from_numpy(b8))
+    assert out.dtype == torch.int32 and out.device.type == "cpu"
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("script", ["bench_int8_mxu.py", "bench_int8_sweep.py"])
+def test_bf16_matches_jax_body(script):
+    import jax.numpy as jnp
+
+    _, _, a16, b16 = _operands(seed=2)
+    ref = _interpret(_call(script, "bfloat16", "float32"),
+                     jnp.asarray(a16.float().numpy(), jnp.bfloat16),
+                     jnp.asarray(b16.float().numpy(), jnp.bfloat16))
+    out = tg.matmul(a16, b16)
+    assert out.dtype == torch.float32
+    assert np.abs(out.numpy() - ref).max() <= BF16_TOL * np.abs(ref).max()
+
+
+def test_s8_by_s4_matches_jax_body_exactly():
+    # bench_int4_mxu.py:117-127: int8 activations x int4 weights
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(3)
+    a8 = rng.integers(-127, 127, size=(M, K)).astype(np.int8)
+    b4 = rng.integers(-7, 8, size=(K, N)).astype(np.int8)
+    make = _make_matmul("bench_int4_mxu.py")
+    ref = _interpret(make(jnp.int32, TM=TM, TN=TN, TK=TK), jnp.asarray(a8),
+                     jnp.asarray(b4, jnp.int4))
+    out = tg.matmul_s4(torch.from_numpy(a8), tg.pack_s4(torch.from_numpy(b4), 0))
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def test_s4_by_s4_matches_the_widened_int32_dot():
+    # the script's own gate; XLA:CPU refuses the JAX kernel here (above)
+    rng = np.random.default_rng(0)
+    a4 = rng.integers(-7, 8, size=(M, K))
+    b4 = rng.integers(-7, 8, size=(K, N))
+    ref = a4.astype(np.int32) @ b4.astype(np.int32)
+    out = tg.matmul_s4(tg.pack_s4(torch.from_numpy(a4).to(torch.int8), 1),
+                       tg.pack_s4(torch.from_numpy(b4).to(torch.int8), 0))
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+def test_pack_s4_round_trip_and_signs(dim):
+    x = torch.arange(-8, 8, dtype=torch.int8).repeat(4, 2)  # [4, 32]: every value
+    x = x if dim == 1 else x.t().contiguous()
+    p = tg.pack_s4(x, dim)
+    assert p.dtype == torch.uint8 and p.shape[dim] == x.shape[dim] // 2
+    assert torch.equal(tg.unpack_s4(p, dim), x)
+
+
+def test_pack_s4_nibble_order():
+    # element 2i in the low nibble, 2i+1 in the high one, two's complement
+    x = torch.tensor([[1, -1, -8, 7, 0, -2]], dtype=torch.int8)
+    assert tg.pack_s4(x, 1).tolist() == [[0xF1, 0x78, 0xE0]]
+    assert tg.pack_s4(x.t(), 0).t().tolist() == [[0xF1, 0x78, 0xE0]]
+
+
+def test_pack_s4_refuses_what_it_cannot_pack():
+    with pytest.raises(ValueError, match="odd length"):
+        tg.pack_s4(torch.zeros(3, 4, dtype=torch.int8), 0)
+    with pytest.raises(ValueError, match=r"\[-8, 7\]"):
+        tg.pack_s4(torch.full((2, 2), 8, dtype=torch.int8), 0)
+
+
+def test_wrappers_refuse_what_the_kernel_cannot_take():
+    a8 = torch.zeros(4, 64, dtype=torch.int8)
+    with pytest.raises(ValueError, match="do not match"):
+        tg.matmul(a8, torch.zeros(32, 16, dtype=torch.int8))
+    with pytest.raises(ValueError, match="bf16 x bf16 or int8 x int8"):
+        tg.matmul(a8, torch.zeros(64, 16, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="packed s4"):
+        tg.matmul_s4(a8, torch.zeros(32, 16, dtype=torch.int8))
+    with pytest.raises(ValueError, match="do not match"):
+        tg.matmul_s4(a8, torch.zeros(16, 16, dtype=torch.uint8))
+    # what only a launch checks, reached through tensors that are not on
+    # the CPU (meta tensors hold no data)
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="not a multiple of 32"):
+        tg.matmul(torch.zeros(4, 48, dtype=torch.int8, device=meta),
+                  torch.zeros(48, 16, dtype=torch.int8, device=meta))
+    with pytest.raises(ValueError, match="not a multiple of 64"):
+        tg.matmul_s4(torch.zeros(4, 16, dtype=torch.uint8, device=meta),
+                     torch.zeros(16, 16, dtype=torch.uint8, device=meta))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tg.matmul(torch.zeros(4, 64, dtype=torch.int8, device=meta),
+                  torch.zeros(64, 24, dtype=torch.int8, device=meta))
+    with pytest.raises(ValueError, match="no tile"):
+        tg.matmul(torch.zeros(4, 64, dtype=torch.int8, device=meta),
+                  torch.zeros(64, 16, dtype=torch.int8, device=meta), tg.Tile(1, 2, 3, 4))
+    with pytest.raises(ValueError, match="no GEMM kernel for device meta"):
+        tg.matmul(torch.zeros(4, 64, dtype=torch.int8, device=meta),
+                  torch.zeros(64, 16, dtype=torch.int8, device=meta))
+
+
+def test_cpu_path_is_the_plain_version_and_counts_nothing():
+    a8, b8, a16, b16 = _operands(seed=4)
+    a8, b8 = torch.from_numpy(a8), torch.from_numpy(b8)
+    b4 = tg.pack_s4(torch.randint(-8, 8, (K, N), dtype=torch.int8), 0)
+    before = [getattr(*count) for _, count, _ in tg.KERNELS.values()]
+    assert torch.equal(tg.matmul(a8, b8), tg.matmul_reference(a8, b8))
+    assert torch.equal(tg.matmul(a16, b16), tg.matmul_reference(a16, b16))
+    assert torch.equal(tg.matmul_s4(a8, b4), tg.matmul_s4_reference(a8, b4))
+    assert [getattr(*count) for _, count, _ in tg.KERNELS.values()] == before
+
+
+def test_bounds_at_the_probe_shape():
+    # the int32 output's bytes bound s8, s4 and s8 x s4; bf16 its operations:
+    # the int8/bf16 ratio the card allows is 1.61x, not the peaks' 2x
+    b = {kind: tg.gemm_bound(tg.M, tg.K, tg.N, kind) for kind in ("bf16", "s8", "s4", "s8s4")}
+    assert b["bf16"]["bound_by"] == "operations" and abs(b["bf16"]["bound_ms"] - 0.139) < 1e-3
+    assert all(b[k]["bound_by"] == "bytes" for k in ("s8", "s4", "s8s4"))
+    assert abs(b["s8"]["bound_ms"] - 0.0864) < 1e-4
+    assert abs(b["s4"]["bound_ms"] - 0.0833) < 1e-4
+    assert round(b["bf16"]["bound_ms"] / b["s8"]["bound_ms"], 2) == 1.61
+
+
+def test_device_alone_chooses_the_shape():
+    assert tg.probe_shape("cpu") == tg.CPU_SHAPE
+    assert tg.probe_shape("cuda") == (tg.M, tg.K, tg.N) == (16384, 1024, 4096)
+    assert tg.parse_args([], "probe").device == "cuda"
+    with pytest.raises(SystemExit):
+        tg.parse_args(["--m", "64"], "probe")
+
+
+def test_library_stand_in_on_the_cpu_is_the_fp32_product():
+    # torch.mm(a, b, out_dtype=torch.float32) has no CPU version; the
+    # sweep's gate takes the fp32 product of the same values there
+    _, _, a16, b16 = _operands(seed=5)
+    assert torch.equal(tg.library_bf16(a16, b16), tg.matmul_reference(a16, b16))
+
+
+@pytest.mark.parametrize("probe,lines", [
+    ("bench_int8_mxu", ("tile bf16xbf16->fp32:", "tile int8xint8->int32:",
+                        "int8/bf16 kernel-vs-kernel speedup: not measured")),
+    ("bench_int8_sweep", ("correctness: int8 exact", "tile s8 256x128/8w/4st:",
+                          "int8/bf16 best-vs-best: not measured")),
+    ("bench_int4_mxu", ("s4 x s4 kernel runs: mma.sync m16n8k64 s4",
+                        "int4xint4->int32 correctness vs int32 dot: EXACT",
+                        "int8xint4->int32 correctness vs int32 dot: EXACT")),
+])
+def test_probe_main_runs_on_the_cpu(probe, lines, capsys):
+    import importlib
+
+    mod = importlib.import_module(f"bayesvlm_tpu_torch.probes.{probe}")
+    assert mod.main(["--device", "cpu"]) == 0
+    text = capsys.readouterr().out
+    for line in lines:
+        assert line in text
+    # no time off the card
+    assert "not measured" in text and "TOP/s" not in text
+
+
+# -- the kernels on the card ---------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _card_operands(Mr, Kr, Nr, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    a8 = torch.randint(-127, 127, (Mr, Kr), generator=gen, device=device, dtype=torch.int8)
+    b8 = torch.randint(-127, 127, (Kr, Nr), generator=gen, device=device, dtype=torch.int8)
+    a16 = torch.randn(Mr, Kr, generator=gen, device=device).bfloat16()
+    b16 = torch.randn(Kr, Nr, generator=gen, device=device).bfloat16()
+    return a8, b8, a16, b16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", tg.TILES, ids=str)
+@pytest.mark.parametrize("Mr,Kr,Nr", [(1000, 96, 1008), (256, 1024, 512), (1, 32, 16)])
+def test_gemm_matches_plain_on_card(cuda, tile, Mr, Kr, Nr):
+    a8, b8, a16, b16 = _card_operands(Mr, Kr, Nr, cuda)
+    before = (tg.matmul.launches, tg.matmul.launches_s8)
+    assert torch.equal(tg.matmul(a8, b8, tile), tg.matmul_reference(a8, b8))
+    ref = tg.matmul_reference(a16, b16)
+    out = tg.matmul(a16, b16, tile)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= BF16_TOL * float(ref.abs().max())
+    assert (tg.matmul.launches, tg.matmul.launches_s8) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Mr,Kr,Nr", [(1000, 128, 1008), (512, 1024, 256), (3, 64, 16)])
+def test_s4_kinds_match_plain_on_card(cuda, Mr, Kr, Nr):
+    gen = torch.Generator(device=cuda).manual_seed(Mr)
+    a4 = torch.randint(-8, 8, (Mr, Kr), generator=gen, device=cuda, dtype=torch.int8)
+    b4 = torch.randint(-8, 8, (Kr, Nr), generator=gen, device=cuda, dtype=torch.int8)
+    a8 = torch.randint(-128, 128, (Mr, Kr), generator=gen, device=cuda, dtype=torch.int8)
+    b4p = tg.pack_s4(b4, 0)
+    before = (tg.matmul_s4.launches, tg.matmul_s4.launches_s8s4)
+    assert torch.equal(tg.matmul_s4(tg.pack_s4(a4, 1), b4p), tg.matmul_reference(a4, b4))
+    assert torch.equal(tg.matmul_s4(a8, b4p), tg.matmul_reference(a8, b4))
+    assert (tg.matmul_s4.launches, tg.matmul_s4.launches_s8s4) == (before[0] + 1,
+                                                                   before[1] + 1)
+
+
+@pytest.mark.cuda
+def test_tile_table_matches_the_library_on_card(cuda):
+    # tile_resources raises if the library's tile differs from TILES
+    for tile in tg.TILES:
+        for kind in (tg.BF16, tg.S8):
+            smem, blocks = tg.tile_resources(kind, tile)
+            assert smem <= 227 * 1024 and blocks >= 1, (kind, tile)
+    for kind in (tg.S4, tg.S8S4):
+        assert tg.tile_resources(kind, tg.DEFAULT_TILE)[1] >= 1
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_what_it_cannot_take_on_card(cuda):
+    a = torch.zeros(4, 48, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="not a multiple of 32"):
+        tg.matmul(a, torch.zeros(48, 16, dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        tg.matmul(torch.zeros(64, 4, dtype=torch.int8, device=cuda).t(),
+                  torch.zeros(64, 16, dtype=torch.int8, device=cuda))
+    with pytest.raises(ValueError, match="one device"):
+        tg.matmul(torch.zeros(4, 64, dtype=torch.int8, device=cuda),
+                  torch.zeros(64, 16, dtype=torch.int8))
