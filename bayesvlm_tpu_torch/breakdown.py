@@ -36,7 +36,7 @@ LANES = {"bf16": ({}, {}), "int8": ({"mlp_int8": True, "attn_int8": True}, {}),
          "block": ({}, {"attn_pallas_block": True})}
 # kernel name -> group; the first pattern that matches wins
 GROUPS = (
-    ("attention kernel (mha_kernel)", r"mha_kernel"),
+    ("attention kernel (mha_mma_kernel, mha_kernel)", r"mha_mma_kernel|mha_kernel"),
     ("block GEMMs (gemm_bf16_kernel)", r"gemm_bf16_kernel"),
     ("block LayerNorm (ln_rows_kernel)", r"ln_rows_kernel"),
     ("int8 GEMMs (gemm_s8_kernel)", r"gemm_s8_kernel"),

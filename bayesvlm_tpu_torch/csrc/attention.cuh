@@ -1,6 +1,7 @@
-// Fused non-causal multi-head self-attention: the kernel shared by
-// csrc/attention.cu (its three schedules) and csrc/attention_block.cu
-// (the attention core of the whole pre-LN sublayer).
+// Fused non-causal multi-head self-attention: the CUDA-core body of the
+// kernel shared by csrc/attention.cu (its three schedules) and
+// csrc/attention_block.cu (the attention core of the whole pre-LN
+// sublayer), and of the probes in csrc/attention_variants.cu.
 //
 // Replaces the TPU kernels `_mha_kernel`, `_mha_split_kernel` and
 // `_mha_packed_kernel` of bayesvlm_tpu/models/attention_pallas.py (called
@@ -16,6 +17,11 @@
 //
 // on packed-head q, k, v, o: [B, T, H*Dh] (head h is the column slice
 // h*Dh .. h*Dh+Dh-1). The [B, H, T, T] scores never reach device memory.
+//
+// Which inputs take this body: fp32 (all three schedules) and the bf16
+// packed pair. bf16 one-block and split-key run on the tensor cores, in
+// the body of csrc/attention_mma.cuh, whose launcher picks the body for
+// every (dtype, schedule).
 //
 // Design (first, simple version). One block of 256 threads per (query
 // tile of BQ=64 rows, head or head pair, batch row):
@@ -59,8 +65,9 @@
 // What the design does about it: scores stay in shared memory (no HBM
 // round trip), the smem layouts are padded so every warp-wide load is
 // conflict-free or a broadcast, and two blocks fit on one SM at T=257
-// (one for the packed pair). The next step is mma.sync / wgmma on bf16
-// operands for the two dots.
+// (one for the packed pair). bf16 one-block and split-key took the next
+// step, mma.sync on bf16 operands (csrc/attention_mma.cuh); fp32 cannot
+// (the tensor cores would round it to TF32).
 //
 // The ragged edge (T = 257 or 50 is no multiple of 64) is masked here:
 // query rows >= T are computed on zeros and never written, keys >= T
@@ -345,41 +352,6 @@ inline int smem_optin() {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   return err == cudaSuccess ? optin : -static_cast<int>(err);
-}
-
-template <typename T, int HD, int S>
-cudaError_t launch_mha(const T* q, const T* k, const T* v, T* o, int B, int seq,
-                       int heads, float scale, cudaStream_t stream) {
-  constexpr int NH = heads_per_block(S);
-  if (heads % NH != 0) return cudaErrorInvalidValue;
-  const long bytes = smem_floats(S, seq, HD) * (long)sizeof(float);
-  const int optin = smem_optin();
-  if (optin < 0) return static_cast<cudaError_t>(-optin);
-  if (bytes > optin) return cudaErrorInvalidValue;
-  // above 48 KB a launch is refused unless the kernel opted in
-  cudaError_t err = cudaFuncSetAttribute(
-      mha_kernel<T, HD, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((seq + BQ - 1) / BQ, heads / NH, B);
-  mha_kernel<T, HD, S><<<grid, NT, bytes, stream>>>(q, k, v, o, seq, heads, scale);
-  return cudaGetLastError();
-}
-
-// head dims: the tiny test towers (16), CLIP B/L and SigLIP (64), CLIP H (80)
-template <typename T, int S>
-cudaError_t launch_head_dim(const void* q, const void* k, const void* v, void* o,
-                            int B, int seq, int heads, int head_dim, float scale,
-                            cudaStream_t stream) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  T* ot = static_cast<T*>(o);
-  switch (head_dim) {
-    case 16: return launch_mha<T, 16, S>(qt, kt, vt, ot, B, seq, heads, scale, stream);
-    case 64: return launch_mha<T, 64, S>(qt, kt, vt, ot, B, seq, heads, scale, stream);
-    case 80: return launch_mha<T, 80, S>(qt, kt, vt, ot, B, seq, heads, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace bvt_attn

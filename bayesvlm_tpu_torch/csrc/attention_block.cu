@@ -12,7 +12,9 @@
 //   2. q, k, v = h . W^T accumulated in fp32, plus the compute-dtype bias
 //      in fp32, each rounded ONCE (the per-op lane rounds the product and
 //      then the bias add);
-//   3. the attention core of csrc/attention.cuh (one-block schedule);
+//   3. the attention core (one-block schedule): in bf16 the tensor-core
+//      body of csrc/attention_mma.cuh, in fp32 the CUDA-core body of
+//      csrc/attention.cuh;
 //   4. the out-projection the same way as 2;
 //   5. x + out: two compute-dtype values summed in fp32, rounded once.
 //
@@ -27,7 +29,8 @@
 //   gemm (QKV)        h [M, D] . [Wq; Wk; Wv]^T + bias, N = 3D, written as
 //                     contiguous q, k, v (csrc/bf16_gemm.cuh; the three
 //                     weights are read in place, no concatenated copy);
-//   mha_kernel        the attention core, scores in shared memory;
+//   attention core    launch_head_dim<T, kOneBlock> (attention_mma.cuh):
+//                     mha_mma_kernel in bf16, mha_kernel in fp32;
 //   gemm (out-proj)   a . Wo^T + bo, then + x, rounded once more.
 // h, q, k, v and the attention output go through device memory: 5 x M x
 // D values, 168 MB written and read again per layer at ViT-L, B=64 in
@@ -38,14 +41,16 @@
 // T^2 * Dh = 17.3 G): 1.553e11 operations, 0.157 ms at 989 TFLOP/s,
 // against 75.8 MB read and written by the function (x, out, the four
 // weights), 0.023 ms: the operations. This version stays above both:
-// the products run on mma.sync (not wgmma) fed by ldmatrix, and the
-// attention core on the CUDA cores.
+// the four products run on mma.sync (not wgmma) fed by ldmatrix, and so
+// does the bf16 attention core (two sweeps over the keys, the second
+// Q.K^T recomputed; attention_mma.cuh); h, q, k, v and the attention
+// output make a round trip through device memory.
 //
 // Built by bayesvlm_tpu_torch/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and called through the plain C interface at the bottom (ctypes).
 
-#include "attention.cuh"
+#include "attention_mma.cuh"
 #include "bf16_gemm.cuh"
 
 namespace {

@@ -1,0 +1,465 @@
+// The tensor-core body of the attention kernel (bf16 one-block and
+// split-key), and the launcher that picks a body for every (dtype,
+// schedule) of csrc/attention.cu and csrc/attention_block.cu.
+//
+// Replaces, for bf16 inputs, the TPU kernels `_mha_kernel` and
+// `_mha_split_kernel` of bayesvlm_tpu/models/attention_pallas.py, with
+// their rounding points (attention_pallas.py:199-222, csrc/attention.cuh):
+//
+//   s = (q_h . k_h^T) accumulated in fp32, then * scale
+//   p = exp(s - max) / sum in fp32, rounded to bf16
+//   o = p . v accumulated in fp32, rounded to bf16
+//
+// In bf16 both products are bf16 x bf16 with fp32 sums, which is what
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 computes: only the order of
+// the fp32 sums differs from the plain version. fp32 inputs (the tensor
+// cores would round them to TF32) and the packed-pair schedule keep the
+// CUDA-core body of csrc/attention.cuh, as do the probes of
+// csrc/attention_variants.cu.
+//
+// Design. One block of 4 warps per (64-row query tile, head, batch row);
+// each warp owns 16 query rows.
+//   - Each warp reads its Q rows once, straight from device memory into
+//     its mma A fragments (4-byte pairs, Dh/16 k-steps), and keeps them in
+//     registers for the block: Q takes no shared memory.
+//   - K and V pass through a ring of MSTAGES stages of two 64-row tiles in
+//     shared memory, filled by 16-byte cp.async copies, so that the next
+//     stage's copy runs while this stage's mma do. Rows at or past T are
+//     zero-filled by the copy's src-size operand (a p of 0 times a stale
+//     NaN would be NaN).
+//   - Shared-memory rows are padded by 16 bytes (2 Dh + 16 bytes a row),
+//     so the 8 rows of 16 bytes an ldmatrix phase reads fall in 32
+//     distinct banks for Dh = 16, 64 and 80 alike: no swizzle needed.
+//   - The exact softmax needs each row's max and sum before any p is
+//     rounded, and keeps no score tile: the keys are swept twice.
+//     Sweep 1 computes S = Q.K^T tile by tile (two K tiles a stage, so
+//     half as many barriers) and keeps each row's running max and its
+//     sum of exp(s - max), rescaled when the max grows; a row's four quad
+//     lanes combine by __shfl_xor_sync. Sweep 2 computes S again (a K and
+//     a V tile a stage), forms p from the final max and sum, rounds p to
+//     bf16 once and feeds it straight from the S accumulators as the A
+//     operand of O += P.V (the m16n8k16 C fragments of two 8-key tiles
+//     are the A fragment of one 16-key step); V's B fragments come from
+//     ldmatrix.trans. The second Q.K^T costs 2 B H T^2 Dh more
+//     operations; in return shared memory holds no score tile (36 KB a
+//     block at Dh = 64, whatever T) and T is not bounded by shared
+//     memory. Keeping a whole score row in registers (FlashAttention-2's
+//     online softmax) would round p before the row's final sum is known.
+//   - exp and the division are the fast forms: exp(x) = __expf(x) (ex2 of
+//     x * log2 e, a few fp32 ulps) and p = e * (1 / l) with one
+//     correctly rounded reciprocal a row. Against expf and a true division
+//     each p moves by a few fp32 ulps, far inside one bf16 ulp, and on an
+//     H100 the exact forms cost the kernel much of its time. s = acc *
+//     scale and s - max stay explicit __fmul_rn / __fsub_rn, so that nvcc
+//     does not contract them into one FMA that would skip the rounding of
+//     s. Keys at or past T get -inf before the max.
+//   - The ragged edge: 16-key groups past T skip their mma and exps, and
+//     a warp whose 16 rows all lie past T only copies; a query tile of a
+//     few rows (T = 257) still holds a block through every key.
+//   - Registers: the one-block instantiation is built for 4 blocks an SM
+//     (128 registers a thread, no spill at Dh = 16, 64, 80), 16 warps to
+//     hide the mma, shuffle and barrier latencies; fewer blocks, or more
+//     with spills, were slower on an H100.
+//   - Split-key (`_mha_split_kernel`): t_main = 128 floor(T / 128); the
+//     main tiles are whole (no key there is masked), the remainder's
+//     tiles are masked and summed into a second O accumulator, and the
+//     output is main + rest added in fp32 and rounded once. The caller
+//     takes one-block when t_main or the remainder is 0.
+//   - The output is rounded to bf16 and written from the accumulators:
+//     the four lanes of a quad write 16 contiguous bytes of one row.
+//
+// What bounds it on an H100 at ViT-L/14, B=64, T=257, H=16, Dh=64: the
+// function moves 135 MB (0.040 ms at 3.35 TB/s) and does 17.3 G
+// operations (0.018 ms at the bf16 rate). This body does 1.5 times those
+// operations (the second Q.K^T) on mma.sync, not wgmma; two exps a score
+// (sweep 1's sum, sweep 2's p) on the MUFU units, 16 an SM a clock
+// (about 0.04 ms); and each block reads its head's K twice and V once
+// from L2 (5 query tiles a head at T=257). With 16 warps an SM it is
+// bound by latency (each step's chain of ldmatrix, mma, shuffles and the
+// block's barrier), not by any one of those rates.
+//
+// Needs 16-byte aligned q, k, v, o (the wrapper checks) and a head dim
+// that is a multiple of 16.
+
+#pragma once
+
+#include <type_traits>
+
+#include "attention.cuh"
+#include "int8_gemm.cuh"
+
+namespace bvt_attn {
+
+constexpr int MW = 4;                 // warps of a tensor-core block
+constexpr int MT = 32 * MW;           // its threads
+constexpr int MQ = 16 * MW;           // its query rows (one 16-row mma tile a warp)
+constexpr int MK = 64;                // keys of a K or V tile
+constexpr int MSTAGES = 2;            // ring depth: stages of two tiles
+static_assert(MQ == BQ, "both bodies tile the queries alike (one grid)");
+// blocks an SM each instantiation is built for (__launch_bounds__: the
+// registers a thread); the split-key one holds a second O accumulator
+constexpr int kMinBlocksOneBlock = 4;
+constexpr int kMinBlocksSplit = 3;
+
+// shared-memory row stride of a K or V tile row (bytes): 16 bytes of
+// padding put the 8 rows an ldmatrix phase reads in 32 distinct banks
+__host__ __device__ constexpr int mma_row_bytes(int HD) { return 2 * HD + 16; }
+
+// dynamic shared memory of a tensor-core block: MSTAGES stages of two
+// 64-row tiles (two K tiles in sweep 1, a K and a V tile in sweep 2);
+// independent of T
+__host__ __device__ constexpr long mma_smem_bytes(int HD) {
+  return (long)MSTAGES * 2 * MK * mma_row_bytes(HD);
+}
+
+// rows r0 .. r0+63 of the head's HD columns (at `base`, row stride D) of
+// a bf16 k or v into dst (row stride mma_row_bytes(HD)), 16 bytes a
+// cp.async; rows at or past seq are zero-filled (nothing is read)
+template <int HD>
+__device__ __forceinline__ void load_rows_async(int8_t* dst, const __nv_bfloat16* src,
+                                                long base, long D, int r0, int seq) {
+  constexpr int CH = HD / 8;          // 16-byte chunks of a row
+  constexpr int RB = mma_row_bytes(HD);
+  static_assert(64 * CH % MT == 0, "every thread copies as many chunks");
+#pragma unroll
+  for (int i = 0; i < 64 * CH / MT; ++i) {
+    const int c = threadIdx.x + i * MT;
+    const int r = c / CH, ch = c % CH;
+    const bool ok = r0 + r < seq;
+    bvt_int8::cp_async16(dst + r * RB + ch * 16,
+                         src + base + (long)(ok ? r0 + r : 0) * D + ch * 8, ok ? 16 : 0);
+  }
+}
+
+// the m16n8k16 A fragments of the warp's 16 query rows row0 .. row0+15
+// (HD/16 k-steps), read straight from device memory in 4-byte pairs: the
+// lane's rows g and g+8, columns 16kk + 2t (+1) and 16kk + 8 + 2t (+1);
+// rows at or past seq are zero
+template <int HD>
+__device__ __forceinline__ void load_q_frags(uint32_t (&qf)[HD / 16][4],
+                                             const __nv_bfloat16* q, long base, long D,
+                                             int row0, int seq, int g, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + g + 8 * h;
+    const bool ok = row < seq;
+    const uint32_t* src =
+        reinterpret_cast<const uint32_t*>(q + base + (long)(ok ? row : 0) * D);
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      qf[kk][h] = ok ? __ldg(src + 8 * kk + t) : 0u;
+      qf[kk][2 + h] = ok ? __ldg(src + 8 * kk + 4 + t) : 0u;
+    }
+  }
+}
+
+// s (16 query rows x 64 keys: eight 8-key mma tiles) = (Q . K^T) * scale
+// from the Q A fragments and the K tile ks, keys at or past nvalid set to
+// -inf; 16-key groups at or past nvalid run no mma and are never read
+template <int HD>
+__device__ __forceinline__ void qk_mma(float (&s)[8][4], const uint32_t (&qf)[HD / 16][4],
+                                       const int8_t* ks, int koff, int nvalid,
+                                       float scale, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int jp = 0; jp < 4; ++jp) {
+    if (16 * jp >= nvalid) continue;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      // K rows are the "col" B operand as stored: no .trans; r[0..1]
+      // serve keys 16 jp .. +7, r[2..3] keys 16 jp + 8 .. +15
+      uint32_t r[4];
+      bvt_int8::ldmatrix_x4(r, ks + 16 * jp * mma_row_bytes(HD) + kk * 32 + koff);
+      bvt_int8::mma_bf16(s[2 * jp], qf[kk], r);
+      bvt_int8::mma_bf16(s[2 * jp + 1], qf[kk], r + 2);
+    }
+  }
+  // the lane's accumulator e of tile j: row g + 8 (e / 2), key 8j + 2t + e % 2
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = __fmul_rn(s[j][e], scale);
+      if (nvalid < MK && 8 * j + 2 * t + (e & 1) >= nvalid) s[j][e] = -INFINITY;
+    }
+}
+
+// sweep 1 over one key tile: the running max m and this lane's part of
+// the sum l of exp(s - m) of rows g (index 0) and g+8 (1); m is shared by
+// the quad (__shfl_xor_sync), l is summed over it after the last tile
+__device__ __forceinline__ void running_max_sum(const float (&s)[8][4], float (&m)[2],
+                                                float (&l)[2], int nvalid) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (8 * (j & ~1) >= nvalid) continue;
+    mx[0] = fmaxf(mx[0], fmaxf(s[j][0], s[j][1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mn = fmaxf(m[r], mx[r]);  // finite: the tile's first key is valid
+    l[r] *= __expf(__fsub_rn(m[r], mn));
+    m[r] = mn;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (8 * (j & ~1) >= nvalid) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) l[e / 2] += __expf(__fsub_rn(s[j][e], m[e / 2]));
+  }
+}
+
+// acc (16 rows x HD columns: HD/8 mma tiles) += round_bf16(p) . V, with
+// p = exp(s - m) * (1 / l) formed from the S accumulators (rows g and g+8
+// of the lane: m[0], rl[0] and m[1], rl[1]) and fed as A fragments
+template <int HD>
+__device__ __forceinline__ void pv_mma(float (&acc)[HD / 8][4], const float (&s)[8][4],
+                                       const float (&m)[2], const float (&rl)[2],
+                                       const int8_t* vs, int voff, int nvalid) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (16 * kk >= nvalid) continue;
+    // A of the 16-key step kk: {row g, keys 2t..}, {row g+8, keys 2t..},
+    // {row g, keys 8+2t..}, {row g+8, keys 8+2t..} = the C fragments of
+    // the 8-key tiles 2kk and 2kk+1
+    uint32_t a[4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float* c = s[2 * kk + h] + 2 * r;
+        const __nv_bfloat162 p2 = __floats2bfloat162_rn(
+            __fmul_rn(__expf(__fsub_rn(c[0], m[r])), rl[r]),
+            __fmul_rn(__expf(__fsub_rn(c[1], m[r])), rl[r]));
+        a[2 * h + r] = *reinterpret_cast<const uint32_t*>(&p2);
+      }
+#pragma unroll
+    for (int np = 0; np < HD / 16; ++np) {
+      // V rows are keys: .trans gives the "col" B fragments of output
+      // columns 16 np .. +7 (r[0..1]) and 16 np + 8 .. +15 (r[2..3])
+      uint32_t r[4];
+      bvt_int8::ldmatrix_x4_trans(r, vs + 16 * kk * mma_row_bytes(HD) + np * 32 + voff);
+      bvt_int8::mma_bf16(acc[2 * np], a, r);
+      bvt_int8::mma_bf16(acc[2 * np + 1], a, r + 2);
+    }
+  }
+}
+
+// grid: (ceil(seq / MQ), heads, B)
+template <int HD, int S>
+__global__ void
+__launch_bounds__(MT, S == kSplitKey ? kMinBlocksSplit : kMinBlocksOneBlock)
+mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+               int seq, int heads, float scale) {
+  static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
+  static_assert(S == kOneBlock || S == kSplitKey, "one head a block");
+  constexpr int RB = mma_row_bytes(HD);
+  constexpr int TILE = MK * RB;       // bytes of one K or V tile
+  constexpr int NO = HD / 8;          // 8-column output tiles
+  constexpr bool kSplit = S == kSplitKey;
+  // (named apart from the other headers' extern shared arrays)
+  extern __shared__ __align__(16) int8_t attn_mma_smem[];
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t = lane % 4;    // fragment row group, lane in quad
+  const int lq = lane / 8, lr = lane % 8;  // ldmatrix matrix and row of this lane
+  // trans-B (V): matrices (keys 0-7, d 0-7), (8-15, 0-7), (0-7, 8-15),
+  // (8-15, 8-15); B (K): (keys 0-7, d 0-7), (0-7, 8-15), (8-15, 0-7),
+  // (8-15, 8-15)
+  const int voff = (lr + (lq & 1) * 8) * RB + (lq >> 1) * 16;
+  const int koff = (lr + (lq >> 1) * 8) * RB + (lq & 1) * 16;
+  const int q0 = blockIdx.x * MQ;
+  const long D = (long)heads * HD;
+  const long base = (long)blockIdx.z * seq * D + (long)blockIdx.y * HD;
+  const int nt = (seq + MK - 1) / MK;      // key tiles
+  const int n1 = (nt + 1) / 2;             // sweep-1 steps: two K tiles each
+  const int t_main = kSplit ? seq / kSplitTile * kSplitTile : 0;
+  const bool active = q0 + 16 * warp < seq;  // warp-uniform
+
+  // step i < n1: sweep 1 over K tiles 2i and 2i+1; step n1 + i: sweep 2
+  // over K and V tile i. Stage step % MSTAGES holds a step's two tiles.
+  auto fetch = [&](int step) {
+    int8_t* st = attn_mma_smem + (step % MSTAGES) * 2 * TILE;
+    if (step < n1) {
+      load_rows_async<HD>(st, k, base, D, 2 * step * MK, seq);
+      if (2 * step + 1 < nt)
+        load_rows_async<HD>(st + TILE, k, base, D, (2 * step + 1) * MK, seq);
+    } else {
+      load_rows_async<HD>(st, k, base, D, (step - n1) * MK, seq);
+      load_rows_async<HD>(st + TILE, v, base, D, (step - n1) * MK, seq);
+    }
+  };
+  // one commit group a step (empty past the end), so that step i's group
+  // is complete once MSTAGES - 2 are pending
+#pragma unroll
+  for (int s = 0; s < MSTAGES - 1; ++s) {
+    if (s < n1 + nt) fetch(s);
+    bvt_int8::cp_async_commit();
+  }
+
+  uint32_t qf[HD / 16][4];
+  if (active) load_q_frags<HD>(qf, q, base, D, q0 + 16 * warp, seq, g, t);
+  float m[2] = {-INFINITY, -INFINITY};  // rows g, g+8: running max, then final
+  float l[2] = {0.f, 0.f};              // this lane's part of the sum, then all
+  float rl[2] = {0.f, 0.f};             // 1 / l, after sweep 1
+  float acc[NO][4], rest[kSplit ? NO : 1][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = rest[kSplit ? j : 0][e] = 0.f;
+
+  for (int step = 0; step < n1 + nt; ++step) {
+    bvt_int8::cp_async_wait<MSTAGES - 2>();
+    __syncthreads();
+    // refill the stage read in step - 1: every thread is past it
+    if (step + MSTAGES - 1 < n1 + nt) fetch(step + MSTAGES - 1);
+    bvt_int8::cp_async_commit();
+    if (!active) continue;
+    const int8_t* st = attn_mma_smem + (step % MSTAGES) * 2 * TILE;
+    float s[8][4];
+    if (step < n1) {
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int tile = 2 * step + u;
+        if (tile >= nt) break;
+        const int nvalid = min(MK, seq - tile * MK);
+        qk_mma<HD>(s, qf, st + u * TILE, koff, nvalid, scale, t);
+        running_max_sum(s, m, l, nvalid);
+      }
+      if (step == n1 - 1) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+          rl[r] = __frcp_rn(l[r]);
+        }
+      }
+      continue;
+    }
+    const int j0 = (step - n1) * MK;
+    const int nvalid = min(MK, seq - j0);
+    qk_mma<HD>(s, qf, st, koff, nvalid, scale, t);
+    if constexpr (kSplit) {
+      if (j0 >= t_main) {
+        pv_mma<HD>(rest, s, m, rl, st + TILE, voff, nvalid);
+        continue;
+      }
+    }
+    pv_mma<HD>(acc, s, m, rl, st + TILE, voff, nvalid);
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + g + 8 * h;
+    if (row >= seq) continue;
+    __nv_bfloat16* orow = o + base + (long)row * D;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      float x0 = acc[j][2 * h], x1 = acc[j][2 * h + 1];
+      if constexpr (kSplit) {
+        x0 = __fadd_rn(x0, rest[j][2 * h]);
+        x1 = __fadd_rn(x1, rest[j][2 * h + 1]);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+          __floats2bfloat162_rn(x0, x1);
+    }
+  }
+}
+
+// -- the launcher: one body for each (dtype, schedule, head dim) -----------
+
+// bf16 one-block and split-key run on the tensor cores; fp32 and the
+// packed pair keep the CUDA-core body of attention.cuh
+template <typename T, int S>
+__host__ __device__ constexpr bool uses_mma() {
+  return std::is_same<T, __nv_bfloat16>::value && S != kPackedPair;
+}
+
+template <typename T>
+using AttnFn = void (*)(const T*, const T*, const T*, T*, int, int, float);
+
+// the kernel a launch takes, its threads and its dynamic shared memory
+template <typename T>
+struct Plan {
+  AttnFn<T> fn = nullptr;
+  int threads = 0;
+  long bytes = 0;
+};
+
+template <typename T, int HD, int S>
+Plan<T> plan_head_dim(int seq) {
+  Plan<T> p;
+  if constexpr (uses_mma<T, S>()) {
+    p.fn = mha_mma_kernel<HD, S>;
+    p.threads = MT;
+    p.bytes = mma_smem_bytes(HD);
+  } else {
+    p.fn = mha_kernel<T, HD, S>;
+    p.threads = NT;
+    p.bytes = smem_floats(S, seq, HD) * (long)sizeof(float);
+  }
+  return p;
+}
+
+// head dims: the tiny test towers (16), CLIP B/L and SigLIP (64), CLIP H (80)
+template <typename T, int S>
+Plan<T> plan(int head_dim, int seq) {
+  switch (head_dim) {
+    case 16: return plan_head_dim<T, 16, S>(seq);
+    case 64: return plan_head_dim<T, 64, S>(seq);
+    case 80: return plan_head_dim<T, 80, S>(seq);
+    default: return Plan<T>();
+  }
+}
+
+// the plan's kernel opted in to its shared memory, or an error
+template <typename T>
+cudaError_t prepare(const Plan<T>& p) {
+  if (p.fn == nullptr) return cudaErrorInvalidValue;
+  const int optin = smem_optin();
+  if (optin < 0) return static_cast<cudaError_t>(-optin);
+  if (p.bytes > optin) return cudaErrorInvalidValue;
+  // above 48 KB a launch is refused unless the kernel opted in
+  return cudaFuncSetAttribute(p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)p.bytes);
+}
+
+template <typename T, int S>
+cudaError_t launch_head_dim(const void* q, const void* k, const void* v, void* o,
+                            int B, int seq, int heads, int head_dim, float scale,
+                            cudaStream_t stream) {
+  constexpr int NH = heads_per_block(S);
+  if (heads % NH != 0) return cudaErrorInvalidValue;
+  const Plan<T> p = plan<T, S>(head_dim, seq);
+  const cudaError_t err = prepare(p);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + BQ - 1) / BQ, heads / NH, B);
+  p.fn<<<grid, p.threads, p.bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), seq, heads, scale);
+  return cudaGetLastError();
+}
+
+// registers a thread and blocks an SM of the kernel a launch takes
+template <typename T, int S>
+cudaError_t occupancy(int head_dim, int seq, int* regs, int* blocks) {
+  const Plan<T> p = plan<T, S>(head_dim, seq);
+  cudaError_t err = prepare(p);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, p.fn);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, p.fn, p.threads,
+                                                        (size_t)p.bytes);
+  if (err == cudaSuccess) *regs = attr.numRegs;
+  return err;
+}
+
+}  // namespace bvt_attn

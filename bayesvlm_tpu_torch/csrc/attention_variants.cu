@@ -1,7 +1,8 @@
 // The attention-schedule probes of scripts/dev/, as Hopper kernels: three
 // templates that each change one thing of the one-block attention kernel
-// (#1, csrc/attention.cuh), so that a probe times that one change on the
-// card. Packed-head q, k, v, o: [B, T, H*Dh], fp32 or bf16, Dh 16, 64, 80.
+// (#1) as its CUDA-core body (csrc/attention.cuh) computes it, so that a
+// probe times that one change on the card; the probes time them beside
+// #1 as it runs in bf16, on the tensor cores (csrc/attention_mma.cuh). Packed-head q, k, v, o: [B, T, H*Dh], fp32 or bf16, Dh 16, 64, 80.
 //
 // (a) mha_v2_kernel<T, HD, kSubtractMax> replaces `_kernel_v2`
 //     (scripts/dev/bench_attn_variants.py:45; v3 is kSubtractMax =
@@ -46,10 +47,12 @@
 //     leaves 16 columns idle). K/V are staged for all NG groups at once,
 //     in tiles of 64 / NG keys (at least 16): v6 needs #1's 104,208 B
 //     (two blocks an SM), v5 120,848 B (one). The score dots, softmax
-//     and p . v run in #1's order, so the result equals #1's bit for bit.
+//     and p . v run in #1's order, so the result equals that of #1's
+//     CUDA-core body (what fp32 launches) bit for bit.
 //
-// What bounds them on an H100: as #1, all dots run as fp32 FMAs on the
-// CUDA cores fed from shared memory, far from the tensor cores; at the
+// What bounds them on an H100: as #1's CUDA-core body, all dots run as
+// fp32 FMAs on the CUDA cores fed from shared memory, far from the
+// tensor cores (bf16 #1 runs on them: csrc/attention_mma.cuh); at the
 // probes' B=80, T=257, H=16, Dh=64 the function moves 168.4 MB (0.050 ms
 // at 3.35 TB/s) and does 21.65 G operations (0.022 ms at the bf16 tensor
 // rate). Each probe asks how much one change to #1 moves that.

@@ -2,7 +2,7 @@
 // csrc/linear_int8.cu (each includes this header and is its own library).
 // Its cp.async, ldmatrix (and ldmatrix.trans) and mma helpers (mma_bf16
 // too) also serve csrc/xlogy_rowsum.cu, csrc/bf16_gemm.cuh,
-// csrc/packed_heads.cu and csrc/tile_gemm.cu.
+// csrc/attention_mma.cuh, csrc/packed_heads.cu and csrc/tile_gemm.cu.
 //
 //   quant_rows_kernel  per-row symmetric absmax int8 quantize of [M, K],
 //                      optionally after an fp32 LayerNorm; one block a row

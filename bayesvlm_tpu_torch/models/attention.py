@@ -14,7 +14,10 @@ how each schedule walks the keys and heads).
 and each projection rounded once (csrc/attention_block.cu).
 
 - CUDA tensors launch the hand-written kernels or raise; nothing falls
-  back to the plain version on the card.
+  back to the plain version on the card. bf16 one-block and split-key
+  run the tensor-core body (`csrc/attention_mma.cuh`); fp32 and the
+  packed pair the CUDA-core body (`csrc/attention.cuh`).
+  `kernel_resources` reports what a launch takes.
 - CPU tensors run `fused_attention_reference` /
   `fused_attention_block_reference`, the same math in plain PyTorch. The
   tests and chip_smoke.py hold the kernels against them.
@@ -77,10 +80,15 @@ def _library() -> ctypes.CDLL:
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.bvt_attention.restype = ctypes.c_int
-    lib.bvt_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    i, ip = ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.bvt_attention_smem_bytes.argtypes = [i, i, i, i]
     lib.bvt_attention_smem_bytes.restype = ctypes.c_long
     lib.bvt_attention_smem_limit.argtypes = []
-    lib.bvt_attention_smem_limit.restype = ctypes.c_int
+    lib.bvt_attention_smem_limit.restype = i
+    lib.bvt_attention_uses_mma.argtypes = [i, i]
+    lib.bvt_attention_uses_mma.restype = i
+    lib.bvt_attention_occupancy.argtypes = [i, i, i, i, ip, ip]
+    lib.bvt_attention_occupancy.restype = i
     return lib
 
 
@@ -94,12 +102,49 @@ def _check_kernel_operands(tensors, dtype, head_dim: int, what: str) -> None:
         raise ValueError(f"{what} needs contiguous operands")
 
 
-def _check_smem(lib, T: int, head_dim: int, schedule: int) -> None:
-    smem = lib.bvt_attention_smem_bytes(T, head_dim, schedule)
-    budget = lib.bvt_attention_smem_limit()
+@functools.lru_cache(maxsize=256)
+def _tensor_core_body(device_index: int, T: int, head_dim: int, dtype,
+                      schedule: int) -> bool:
+    """Whether (dtype, schedule) launches the tensor-core body. Raises when
+    the body it launches cannot take T on the card: the CUDA-core body
+    keeps all T scores in shared memory, the tensor-core body a fixed
+    amount whatever T. Cached, so that a launch at a shape seen before
+    makes no query."""
+    lib, code = _library(), _DTYPE_CODES[dtype]
+    with torch.cuda.device(device_index):
+        budget = lib.bvt_attention_smem_limit()
+    smem = lib.bvt_attention_smem_bytes(T, head_dim, code, schedule)
     if smem > budget:
         raise ValueError(f"T={T} needs {smem} bytes of shared memory for "
                          f"its scores; the card allows {budget} per block")
+    return lib.bvt_attention_uses_mma(code, schedule) == 1
+
+
+def kernel_resources(T: int, head_dim: int, dtype, schedule: int = ONE_BLOCK,
+                     device=None) -> dict:
+    """What a launch of the attention kernel at (T, head_dim, dtype,
+    schedule) takes on the card: its body ("mma": the tensor-core body of
+    csrc/attention_mma.cuh, "simt": the CUDA-core body of attention.cuh),
+    dynamic shared memory a block, registers a thread and blocks an SM
+    (the occupancy calculator)."""
+    lib, code = _library(), _DTYPE_CODES[dtype]
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device):
+        err = lib.bvt_attention_occupancy(T, head_dim, code, schedule,
+                                          ctypes.byref(regs), ctypes.byref(blocks))
+    kernels.check(lib, err, "attention occupancy query")
+    return {"body": "mma" if lib.bvt_attention_uses_mma(code, schedule) == 1 else "simt",
+            "smem_bytes": lib.bvt_attention_smem_bytes(T, head_dim, code, schedule),
+            "registers": regs.value, "blocks_per_sm": blocks.value}
+
+
+def schedule_for(T: int, split_key: bool = False, packed_heads: bool = False) -> int:
+    """The schedule `fused_attention` launches for T keys: split-key only
+    when T has a remainder past a nonzero multiple of 128, as in JAX."""
+    t_main = T // SPLIT_TILE * SPLIT_TILE
+    if packed_heads:
+        return PACKED_PAIR
+    return SPLIT_KEY if split_key and 0 < t_main < T else ONE_BLOCK
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -112,7 +157,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     remainder past a multiple of 128 (otherwise the one-block schedule,
     as in JAX). CPU tensors take the plain version; CUDA tensors launch
     the kernel, counting the launch in `fused_attention.launches` (one
-    block), `.launches_split` or `.launches_packed`, or raise."""
+    block), `.launches_split` or `.launches_packed`, or raise. In bf16
+    the one-block and split-key schedules run on the tensor cores and
+    need 16-byte aligned operands."""
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         # the kernels tile q, k and v from q's length: cross-attention with
         # Tq != Tk (the SigLIP probe) takes the caller's plain path
@@ -138,17 +185,17 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B > 65535 or num_heads > 65535:
         raise ValueError("attention kernel grid takes at most 65535 batch rows "
                          "and heads")
-    t_main = T // SPLIT_TILE * SPLIT_TILE
-    if packed_heads:
-        schedule, count = PACKED_PAIR, "launches_packed"
-    elif split_key and 0 < t_main < T:
-        schedule, count = SPLIT_KEY, "launches_split"
-    else:
-        schedule, count = ONE_BLOCK, "launches"
+    schedule = schedule_for(T, split_key, packed_heads)
+    count = {ONE_BLOCK: "launches", SPLIT_KEY: "launches_split",
+             PACKED_PAIR: "launches_packed"}[schedule]
+    # the tensor-core body copies rows in 16-byte pieces (cp.async); o is a
+    # fresh allocation
+    if (_tensor_core_body(q.device.index, T, Dh, q.dtype, schedule)
+            and any(t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError("attention kernel needs 16-byte aligned operands")
     lib = _library()
     o = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        _check_smem(lib, T, Dh, schedule)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.bvt_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                 o.data_ptr(), B, T, num_heads, Dh,
@@ -248,6 +295,7 @@ def fused_attention_block(x: torch.Tensor, ln_weight, ln_bias, wq, bq, wk, bk,
         raise ValueError(f"attention block kernel needs D a multiple of 8, not {D}")
     if B > 65535:
         raise ValueError("attention block kernel takes at most 65535 batch rows")
+    _tensor_core_body(x.device.index, T, Dh, x.dtype, ONE_BLOCK)  # the core takes T
     ln_w, ln_b = ln_weight.float().contiguous(), ln_bias.float().contiguous()
     M = B * T
     h = torch.empty(M, D, device=x.device, dtype=x.dtype)
@@ -258,7 +306,6 @@ def fused_attention_block(x: torch.Tensor, ln_weight, ln_bias, wq, bq, wk, bk,
         raise ValueError("attention block kernel needs 16-byte aligned weights")
     lib = _block_library()
     with torch.cuda.device(x.device):
-        _check_smem(_library(), T, Dh, ONE_BLOCK)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.bvt_attention_block(
             x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), ln_eps,

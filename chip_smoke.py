@@ -17,15 +17,20 @@ Phases (any failure raises and exits non-zero, without the result line):
      beside it as the yardstick (library_ms; the port never calls it).
      The same for the split-key and packed-pair schedules at ViT-L/14
      (bf16, fp32) and packed at T=50, and one-block at SigLIP's T=256
-     (no class token, no remainder row); at T=50 split_key takes the
-     one-block schedule (its count is the one that moves). Then each
-     schedule's entry point, fused_attention(..., split_key=True) and
+     (no class token, no remainder row) and, bf16, at ViT-L/14 at 336 px
+     (T=577); at T=50 split_key takes the one-block schedule (its count
+     is the one that moves). Beside each time: the body the launch took
+     (bf16 one-block and split-key the tensor-core body, "mma"; fp32 and
+     the packed pair the CUDA-core body, "simt"), its shared memory a
+     block, registers a thread and blocks an SM. Then each schedule's
+     entry point, fused_attention(..., split_key=True) and
      (..., packed_heads=True), driven once with every count set to 0;
   3b. the attention sublayer kernel chain (fused_attention_block) vs
      plain at the ViT-L/14 sublayer (B=64, T=257, D=1024, H=16), bf16 and
      fp32, and a ragged small shape; beside it, for reference only (no
      single PyTorch call computes the sublayer), the chain F.layer_norm
-     -> F.linear (QKV) -> SDPA -> F.linear -> add;
+     -> F.linear (QKV) -> SDPA -> F.linear -> add; and the body, shared
+     memory, registers and blocks an SM of its attention core;
   4. int8 kernels vs plain at the ViT-L/14 shapes in bf16 (M = 64*257):
      mlp_int8 plain and fused pre-LN (D=1024, F=4096, tanh-GELU), once
      with 4-bit weights; linear_int8 for the fused QKV (N=3072, three
@@ -103,8 +108,9 @@ Phases (any failure raises and exits non-zero, without the result line):
      call of the same function where there is one: torch.baddbmm (fp32
      out) for qk, torch.mm (fp32 out) for the bf16 GEMM, torch._int_mm
      for s8), with every count set to 0 just before and read just after;
-  11. prints the kernels line, then the result line
-     {"ok": true, "device": {...}} last.
+  11. prints the kernels line (the attention entries with the body they
+     launched, their shared memory, registers and blocks an SM), then the
+     result line {"ok": true, "device": {...}} last.
 
 Each path's launch counts are set to 0 just before it and read just
 after; the launches of phases 3, 4, 5, 5b, 10's and 10b's comparisons
@@ -239,6 +245,12 @@ PROBE_KERNELS = {
 # reference only)
 PROBE_EXTRAS = ("smem_bytes", "blocks_per_sm", "base_ms", "vs_base", "tops", "tile", "mma",
                 "yardstick", "reference_ms")
+# the body of each kernel source other than the attention kernel (which
+# reports its own per launch): "mma" where its products run on the tensor
+# cores (mma.sync), "simt" where they run as fp32 FMAs on the CUDA cores
+SOURCE_BODY = {"attention_block.cu": "mma", "attention_variants.cu": "simt",
+               "mlp_int8.cu": "mma", "linear_int8.cu": "mma", "xlogy_rowsum.cu": "mma",
+               "smith_head.cu": "simt", "packed_heads.cu": "mma", "tile_gemm.cu": "mma"}
 # the packed-head kernels at the probe's shape and a ragged one (B, T, H)
 PACKED_SHAPES = {"probe": (80, 257, 16), "ragged": (3, 50, 12)}
 # the GEMM at the probes' shape and a ragged one (M, K, N); K a multiple
@@ -340,14 +352,17 @@ def _attention_case(torch, attention, label: str, B: int, T: int, H: int, Dh: in
     # 4 B H T^2 Dh operations (no padded keys, no zero blocks)
     b = bound(4 * B * T * H * Dh * q.element_size(), 4 * B * H * T * T * Dh, dname)
     max_err = float(err.max())
+    res = attention.kernel_resources(T, Dh, dtype, attention.schedule_for(T, **schedule))
     print(f"attention {label} vs plain {dname} B={B} T={T} H={H} Dh={Dh}: "
           f"max_abs_err={max_err:.3e} (tol {tol:.3e} abs + rel, worst/bound="
           f"{worst:.3f}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"sdpa_ms={library_ms:.4f} bound_ms={b['bound_ms']:.4f} ({b['bound_by']})")
+          f"sdpa_ms={library_ms:.4f} bound_ms={b['bound_ms']:.4f} ({b['bound_by']})"
+          f"\n  body {res['body']}: {res['smem_bytes']} B shared memory, "
+          f"{res['registers']} registers a thread, {res['blocks_per_sm']} blocks/SM")
     check(worst <= 1.0, f"{label} {dname} attention kernel disagrees with plain "
                         f"(max_abs_err {max_err})")
     return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                **b)
+                **b, **res)
 
 
 def phase_attention_vs_plain(torch, attention) -> dict:
@@ -367,6 +382,10 @@ def phase_attention_vs_plain(torch, attention) -> dict:
     results[("vit-b/32", "bf16", "packed_heads")] = _attention_case(
         torch, attention, "packed_heads vit-b/32", *shapes["vit-b/32"], "bf16",
         packed_heads=True)
+    # ViT-L/14 at 336 px: T=577, past what the CUDA-core body's bf16 score
+    # tile held at its speed (the tensor-core body takes any T)
+    results[("vit-l/14-336", "bf16")] = _attention_case(
+        torch, attention, "one-block vit-l/14-336", BATCH, 577, 16, 64, "bf16")
     # T=50 has no 128-key main block: split_key takes the one-block
     # schedule, as in JAX, and counts there
     fa = attention.fused_attention
@@ -441,6 +460,7 @@ def phase_block_vs_plain(torch, attention) -> dict:
             if label == "ragged":
                 continue
             r["ms"], r["plain_ms"] = cuda_ms(torch, run), cuda_ms(torch, plain, iters=5)
+            r["core"] = attention.kernel_resources(T, D // H, dtype)
             # yardstick (reference only): the cuBLAS / SDPA chain on the same
             # tensors, the QKV weights concatenated once outside the timing
             wqkv, bqkv = torch.cat(ws[:3]), torch.cat(bs[:3])
@@ -463,7 +483,7 @@ def phase_block_vs_plain(torch, attention) -> dict:
             print(f"  kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                   f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); yardstick "
                   f"(reference only) LN -> F.linear QKV -> SDPA -> F.linear -> add "
-                  f"{r['chain_ms']:.4f} ms")
+                  f"{r['chain_ms']:.4f} ms; attention core: {r['core']}")
             results[dname] = r
     return results
 
@@ -1327,10 +1347,17 @@ def _probe_entries(probe_path: dict) -> list:
 
 
 def _entry(name, source, replaces, launches, r, library_ms):
+    """A kernel's entry of the kernels line: its times, error, bound and
+    launches, and the body it launched (the attention kernel's from
+    kernel_resources, with its shared memory, registers and blocks an SM;
+    the other sources' from SOURCE_BODY)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches, **{k: r[k] for k in keys},
-            "library_ms": library_ms}
+    e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+         "launches": launches, **{k: r[k] for k in keys},
+         "library_ms": library_ms,
+         "body": r.get("body") or SOURCE_BODY[source.rsplit("/", 1)[-1]]}
+    e.update((k, r[k]) for k in ("smem_bytes", "registers", "blocks_per_sm") if k in r)
+    return e
 
 
 def main() -> int:
@@ -1433,11 +1460,19 @@ def main() -> int:
     mlp_entry["yardsticks"] = int8["mlp_int8 yardsticks"]
     split, packed = attn[("vit-l/14", "bf16", "split_key")], attn[
         ("vit-l/14", "bf16", "packed_heads")]
+    # #1's row is the main path's shape (ViT-L/14, bf16); its other bf16
+    # shapes beside it
+    one_block = _entry("fused_attention", "bayesvlm_tpu_torch/csrc/attention.cu",
+                       "bayesvlm_tpu/models/attention_pallas.py:199",
+                       bf16_launches["attention"], attn[("vit-l/14", "bf16")],
+                       attn[("vit-l/14", "bf16")]["library_ms"])
+    one_block["shapes"] = {
+        shape: {k: attn[(shape, "bf16")][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "body",
+            "smem_bytes", "registers", "blocks_per_sm")}
+        for shape in ("siglip-l/16", "vit-b/32", "vit-l/14-336")}
     print(json.dumps({"kernels": [
-        _entry("fused_attention", "bayesvlm_tpu_torch/csrc/attention.cu",
-               "bayesvlm_tpu/models/attention_pallas.py:199",
-               bf16_launches["attention"], attn[("vit-l/14", "bf16")],
-               attn[("vit-l/14", "bf16")]["library_ms"]),
+        one_block,
         _entry("fused_attention_split", "bayesvlm_tpu_torch/csrc/attention.cu",
                "bayesvlm_tpu/models/attention_pallas.py:53",
                sched_launches["attention_split"], split, split["library_ms"]),
@@ -1447,7 +1482,7 @@ def main() -> int:
         dict(_entry("fused_attention_block", "bayesvlm_tpu_torch/csrc/attention_block.cu",
                     "bayesvlm_tpu/models/attention_pallas.py:225",
                     block_launches["attention_block"], block["bf16"], None),
-             chain_ms=block["bf16"]["chain_ms"]),
+             chain_ms=block["bf16"]["chain_ms"], core=block["bf16"]["core"]),
         mlp_entry,
         linear_entry,
         dict(_entry("xlogy_rowsum", "bayesvlm_tpu_torch/csrc/xlogy_rowsum.cu",

@@ -3,7 +3,8 @@ against the JAX package's Pallas kernels (one-block, split-key and
 packed-pair schedules), run in interpret mode on the CPU as
 tests/test_pallas_attention.py runs them; plus the CUDA kernel's three
 schedules against the plain version on the card (marked `cuda`, skipped
-without a GPU).
+without a GPU): the tensor-core body (bf16 one-block and split-key,
+csrc/attention_mma.cuh) and the CUDA-core body (fp32, the packed pair).
 
 JAX is imported inside the parity tests, so that the `cuda` tests also
 run where JAX is not installed:
@@ -15,8 +16,13 @@ import pytest
 import torch
 
 from bayesvlm_tpu_torch.models.attention import (
+    ONE_BLOCK,
+    PACKED_PAIR,
+    SPLIT_KEY,
     fused_attention,
     fused_attention_reference,
+    kernel_resources,
+    schedule_for,
 )
 
 
@@ -96,6 +102,19 @@ def test_packed_heads_rejects_an_odd_head_count():
                              np.float32, packed_heads=True)
 
 
+@pytest.mark.parametrize("T,split_key,packed_heads,want", [
+    (257, True, False, SPLIT_KEY), (129, True, False, SPLIT_KEY),
+    (256, True, False, ONE_BLOCK),   # no remainder past 128 floor(T/128)
+    (50, True, False, ONE_BLOCK),    # no 128-key main block
+    (257, False, False, ONE_BLOCK), (257, True, True, PACKED_PAIR),
+])
+def test_schedule_for_splits_only_with_a_main_block_and_a_remainder(
+        T, split_key, packed_heads, want):
+    # the JAX package's rule (attention_pallas.fused_attention), which
+    # chip_smoke.py also reads to name the body a launch takes
+    assert schedule_for(T, split_key, packed_heads) == want
+
+
 def test_cpu_path_is_the_plain_version_and_counts_nothing():
     q, k, v = (torch.from_numpy(x) for x in _qkv(2, 17, 32, seed=0))
     counts = ("launches", "launches_split", "launches_packed")
@@ -142,11 +161,18 @@ _TOL = {torch.float32: 1e-4, torch.bfloat16: 2**-6}
     (17, 2, 16, 1.0), (50, 12, 64, 1.0), (257, 16, 64, 1.0), (257, 16, 80, 1.0),
     (257, 16, 64, 8.0),  # scores of a few hundred: the softmax must subtract the max
     (256, 16, 64, 1.0),  # SigLIP-L/16: no class token, no row past the 128-key tiles
+    # T around the 64-key tiles and 16-key groups of the tensor-core body,
+    # and ViT-L/14 at 336 px (577)
+    *[(T, 4, Dh, spread) for T in (1, 17, 50, 63, 64, 65, 128, 256, 257, 577)
+      for Dh in (16, 64, 80) for spread in (1.0, 8.0)],
 ])
 def test_kernel_matches_plain_on_card(cuda, dtype, T, H, Dh, spread):
     gen = torch.Generator(device=cuda).manual_seed(T)
     q, k, v = ((torch.randn(4, T, H * Dh, generator=gen, device=cuda) * s)
                .to(dtype) for s in (spread, spread, 1.0))
+    # bf16 takes the tensor-core body, fp32 the CUDA-core one
+    body = "mma" if dtype == torch.bfloat16 else "simt"
+    assert kernel_resources(T, Dh, dtype)["body"] == body
     before = fused_attention.launches
     out = fused_attention(q, k, v, H)
     torch.cuda.synchronize()
@@ -163,6 +189,8 @@ def test_kernel_matches_plain_on_card(cuda, dtype, T, H, Dh, spread):
     ("split_key", 255, 2, 80), ("split_key", 257, 16, 64),
     ("packed_heads", 29, 2, 16), ("packed_heads", 50, 12, 64),
     ("packed_heads", 131, 4, 80), ("packed_heads", 257, 16, 64),
+    # one or two masked remainder tiles (r = 1, 72, 127, 1) at every head dim
+    *[("split_key", T, 4, Dh) for T in (129, 200, 255, 257) for Dh in (16, 64, 80)],
 ])
 def test_schedule_matches_plain_on_card(cuda, dtype, schedule, T, H, Dh):
     gen = torch.Generator(device=cuda).manual_seed(T + H)
@@ -208,3 +236,81 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     x = torch.zeros(1, 64, 17, device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fused_attention(x, x, x, 1)
+
+
+# -- the tensor-core body (bf16 one-block and split-key) ----------------------
+
+
+def _card_qkv(device, B, T, H, Dh, spread=1.0, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [(torch.randn(B, T, H * Dh, generator=gen, device=device) * s)
+            .to(torch.bfloat16) for s in (spread, spread, 1.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,schedule", [(50, {}), (257, {}), (200, {"split_key": True}),
+                                        (257, {"split_key": True})])
+def test_tensor_core_body_reads_nothing_past_the_last_row(cuda, T, schedule):
+    # q, k, v at the front of buffers whose tails are NaN: a key row read
+    # past T (or a V row not zero-filled) gives p = 0 times NaN = NaN
+    B, H, Dh = 2, 4, 64
+    n = B * T * H * Dh
+    views = []
+    for x in _card_qkv(cuda, B, T, H, Dh, seed=T):
+        buf = torch.full((n + 128 * H * Dh,), float("nan"), device=cuda,
+                         dtype=torch.bfloat16)
+        views.append(buf[:n].view(B, T, H * Dh))
+        views[-1].copy_(x)
+    out = fused_attention(*views, H, **schedule)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+    tol = _TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(),
+                               fused_attention_reference(*views, H).float(),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_tensor_core_body_takes_what_the_score_tile_could_not(cuda):
+    # T=1024: the CUDA-core body's scores need 312,832 B of shared memory
+    # (refused, as fp32 still is); the tensor-core body a fixed 36,864 B
+    q, k, v = _card_qkv(cuda, 1, 1024, 2, 64, seed=1)
+    assert kernel_resources(1024, 64, torch.bfloat16)["smem_bytes"] == 36864
+    out = fused_attention(q, k, v, 2)
+    torch.cuda.synchronize()
+    tol = _TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(),
+                               fused_attention_reference(q, k, v, 2).float(),
+                               rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_attention(q.float(), k.float(), v.float(), 2)
+
+
+@pytest.mark.cuda
+def test_tensor_core_body_refuses_unaligned_operands(cuda):
+    buf = torch.zeros(17 * 64 + 1, device=cuda, dtype=torch.bfloat16)
+    x = buf[1:].view(1, 17, 64)  # contiguous, 2 bytes past an aligned start
+    with pytest.raises(ValueError, match="aligned"):
+        fused_attention(x, x, x, 1)
+    # the CUDA-core body reads elements: fp32 at a 4-byte offset runs
+    f = torch.randn(17 * 64 + 1, device=cuda)[1:].view(1, 17, 64)
+    torch.testing.assert_close(fused_attention(f, f, f, 1),
+                               fused_attention_reference(f, f, f, 1),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_kernel_resources_name_the_body_on_card(cuda):
+    # two stages of two 64-row tiles, rows of 2 Dh + 16 bytes, whatever T
+    for T, Dh, smem in ((257, 64, 36864), (4096, 64, 36864), (50, 16, 12288),
+                        (257, 80, 45056)):
+        for schedule in (ONE_BLOCK, SPLIT_KEY):
+            r = kernel_resources(T, Dh, torch.bfloat16, schedule)
+            assert (r["body"], r["smem_bytes"]) == ("mma", smem)
+            assert r["registers"] > 0 and r["blocks_per_sm"] >= 1
+    # fp32 and the packed pair keep the CUDA-core body (its T scores:
+    # 104,208 B at T=257, Dh=64)
+    r = kernel_resources(257, 64, torch.float32)
+    assert (r["body"], r["smem_bytes"]) == ("simt", 104208)
+    assert r["blocks_per_sm"] >= 1
+    assert kernel_resources(257, 64, torch.bfloat16, PACKED_PAIR)["body"] == "simt"

@@ -297,6 +297,27 @@ def test_kernel_matches_plain_on_card(cuda, dtype, B, T, D, H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,H", [(2, 577, 1024, 16), (1, 1024, 128, 2)])
+def test_bf16_core_takes_long_sequences_on_card(cuda, B, T, D, H):
+    # bf16: the core is the tensor-core body, whose shared memory does not
+    # grow with T (ViT-L/14 at 336 px, T=577; T=1024, which the CUDA-core
+    # body's score tile could not take and fp32 still cannot)
+    x, ln_w, ln_b, ws, bs = _case(B, T, D, seed=T)
+    ln = (torch.from_numpy(ln_w).to(cuda), torch.from_numpy(ln_b).to(cuda))
+    args = (torch.from_numpy(x).to(cuda, torch.bfloat16), *ln,
+            *_port_args(ws, bs, torch.bfloat16, cuda))
+    out = fused_attention_block(*args, num_heads=H)
+    torch.cuda.synchronize()
+    ref = fused_attention_block_reference(*args, num_heads=H)
+    tol = _TOL[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if T == 1024:
+        with pytest.raises(ValueError, match="shared memory"):
+            fused_attention_block(torch.from_numpy(x).to(cuda), *ln,
+                                  *_port_args(ws, bs, torch.float32, cuda), num_heads=H)
+
+
+@pytest.mark.cuda
 def test_block_lane_tower_on_card_matches_cpu(cuda, tmp_path):
     """tiny-clip fp32 through the block lane on the card against the same
     tower on the CPU: one kernel launch per layer."""
