@@ -1,6 +1,7 @@
 // The tensor-core body of the attention kernel (bf16 one-block and
-// split-key), and the launcher that picks a body for every (dtype,
-// schedule) of csrc/attention.cu and csrc/attention_block.cu.
+// split-key, and the bf16 group kernels v5 and v6 of the attention
+// probes), and the launcher that picks a body for every (dtype, schedule)
+// of csrc/attention.cu and csrc/attention_block.cu.
 //
 // Replaces, for bf16 inputs, the TPU kernels `_mha_kernel` and
 // `_mha_split_kernel` of bayesvlm_tpu/models/attention_pallas.py, with
@@ -14,7 +15,7 @@
 // mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 computes: only the order of
 // the fp32 sums differs from the plain version. fp32 inputs (the tensor
 // cores would round them to TF32) and the packed-pair schedule keep the
-// CUDA-core body of csrc/attention.cuh, as do the probes of
+// CUDA-core body of csrc/attention.cuh, as do the probes v2-v4 of
 // csrc/attention_variants.cu.
 //
 // Design. One block of 4 warps per (64-row query tile, head, batch row);
@@ -67,6 +68,12 @@
 //     takes one-block when t_main or the remainder is 0.
 //   - The output is rounded to bf16 and written from the accumulators:
 //     the four lanes of a quad write 16 contiguous bytes of one row.
+//   - Groups (NH heads x NR batch rows a block; #1 and #2 are NH = NR =
+//     1): the block walks its groups in turn over one step loop, so the
+//     ring's copies for the next group's first steps overlap this group's
+//     last; each group's state starts afresh and its output is written
+//     at its last step. Each warp computes for its (head, row) exactly
+//     what a one-group warp does: the same bits.
 //
 // What bounds it on an H100 at ViT-L/14, B=64, T=257, H=16, Dh=64: the
 // function moves 135 MB (0.040 ms at 3.35 TB/s) and does 17.3 G
@@ -251,8 +258,12 @@ __device__ __forceinline__ void pv_mma(float (&acc)[HD / 8][4], const float (&s)
   }
 }
 
-// grid: (ceil(seq / MQ), heads, B)
-template <int HD, int S>
+// grid: (ceil(seq / MQ), heads / NH, B / NR). The block walks its NG =
+// NH * NR (head, batch row) groups in turn, group gi = r * NH + h being
+// batch row blockIdx.z * NR + r and head blockIdx.y * NH + h; #1 and #2
+// are NH = NR = 1, and the attention probes' v5 (NH = H / 2) and v6
+// (NR = 2) take the same body (csrc/attention_variants.cu note (c)).
+template <int HD, int S, int NH = 1, int NR = 1>
 __global__ void
 __launch_bounds__(MT, S == kSplitKey ? kMinBlocksSplit : kMinBlocksOneBlock)
 mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -260,6 +271,8 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
                int seq, int heads, float scale) {
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
   static_assert(S == kOneBlock || S == kSplitKey, "one head a block");
+  constexpr int NG = NH * NR;
+  static_assert(NG >= 1 && (S == kOneBlock || NG == 1), "split-key takes one group");
   constexpr int RB = mma_row_bytes(HD);
   constexpr int TILE = MK * RB;       // bytes of one K or V tile
   constexpr int NO = HD / 8;          // 8-column output tiles
@@ -277,16 +290,26 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   const int koff = (lr + (lq >> 1) * 8) * RB + (lq & 1) * 16;
   const int q0 = blockIdx.x * MQ;
   const long D = (long)heads * HD;
-  const long base = (long)blockIdx.z * seq * D + (long)blockIdx.y * HD;
+  // the element offset of group gi's rows and head columns
+  auto group_base = [&](int gi) {
+    return (long)(blockIdx.z * NR + gi / NH) * seq * D +
+           (long)(blockIdx.y * NH + gi % NH) * HD;
+  };
   const int nt = (seq + MK - 1) / MK;      // key tiles
   const int n1 = (nt + 1) / 2;             // sweep-1 steps: two K tiles each
+  const int per = n1 + nt;                 // steps of one group
   const int t_main = kSplit ? seq / kSplitTile * kSplitTile : 0;
   const bool active = q0 + 16 * warp < seq;  // warp-uniform
 
-  // step i < n1: sweep 1 over K tiles 2i and 2i+1; step n1 + i: sweep 2
-  // over K and V tile i. Stage step % MSTAGES holds a step's two tiles.
-  auto fetch = [&](int step) {
-    int8_t* st = attn_mma_smem + (step % MSTAGES) * 2 * TILE;
+  // global step s is step s % per of group s / per: step i < n1 sweeps 1
+  // over K tiles 2i and 2i+1, step n1 + i sweeps 2 over K and V tile i.
+  // Stage s % MSTAGES holds a step's two tiles, so the ring runs on across
+  // a group boundary: the next group's first tiles are copied while this
+  // group's last step computes.
+  auto fetch = [&](int gs) {
+    const int gi = NG == 1 ? 0 : gs / per, step = gs - gi * per;
+    const long base = group_base(gi);
+    int8_t* st = attn_mma_smem + (gs % MSTAGES) * 2 * TILE;
     if (step < n1) {
       load_rows_async<HD>(st, k, base, D, 2 * step * MK, seq);
       if (2 * step + 1 < nt)
@@ -300,12 +323,12 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   // is complete once MSTAGES - 2 are pending
 #pragma unroll
   for (int s = 0; s < MSTAGES - 1; ++s) {
-    if (s < n1 + nt) fetch(s);
+    if (s < NG * per) fetch(s);
     bvt_int8::cp_async_commit();
   }
 
   uint32_t qf[HD / 16][4];
-  if (active) load_q_frags<HD>(qf, q, base, D, q0 + 16 * warp, seq, g, t);
+  if (active) load_q_frags<HD>(qf, q, group_base(0), D, q0 + 16 * warp, seq, g, t);
   float m[2] = {-INFINITY, -INFINITY};  // rows g, g+8: running max, then final
   float l[2] = {0.f, 0.f};              // this lane's part of the sum, then all
   float rl[2] = {0.f, 0.f};             // 1 / l, after sweep 1
@@ -315,14 +338,37 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = rest[kSplit ? j : 0][e] = 0.f;
 
-  for (int step = 0; step < n1 + nt; ++step) {
+  // the group's output rows, rounded to bf16 from the accumulators: the
+  // four lanes of a quad write 16 contiguous bytes of one row
+  auto store = [&](int gi) {
+    const long base = group_base(gi);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + 16 * warp + g + 8 * h;
+      if (row >= seq) continue;
+      __nv_bfloat16* orow = o + base + (long)row * D;
+#pragma unroll
+      for (int j = 0; j < NO; ++j) {
+        float x0 = acc[j][2 * h], x1 = acc[j][2 * h + 1];
+        if constexpr (kSplit) {
+          x0 = __fadd_rn(x0, rest[j][2 * h]);
+          x1 = __fadd_rn(x1, rest[j][2 * h + 1]);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(x0, x1);
+      }
+    }
+  };
+
+  for (int gs = 0; gs < NG * per; ++gs) {
     bvt_int8::cp_async_wait<MSTAGES - 2>();
     __syncthreads();
-    // refill the stage read in step - 1: every thread is past it
-    if (step + MSTAGES - 1 < n1 + nt) fetch(step + MSTAGES - 1);
+    // refill the stage read in step gs - 1: every thread is past it
+    if (gs + MSTAGES - 1 < NG * per) fetch(gs + MSTAGES - 1);
     bvt_int8::cp_async_commit();
     if (!active) continue;
-    const int8_t* st = attn_mma_smem + (step % MSTAGES) * 2 * TILE;
+    const int gi = NG == 1 ? 0 : gs / per, step = gs - gi * per;
+    const int8_t* st = attn_mma_smem + (gs % MSTAGES) * 2 * TILE;
     float s[8][4];
     if (step < n1) {
 #pragma unroll
@@ -353,25 +399,24 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
       }
     }
     pv_mma<HD>(acc, s, m, rl, st + TILE, voff, nvalid);
-  }
-
-  if (!active) return;
+    if constexpr (NG > 1) {
+      // a group's last step: its output, then the next group's state from
+      // scratch and its Q fragments (their load runs under the next
+      // step's barrier)
+      if (step == per - 1 && gi < NG - 1) {
+        store(gi);
+        m[0] = m[1] = -INFINITY;
+        l[0] = l[1] = rl[0] = rl[1] = 0.f;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + 16 * warp + g + 8 * h;
-    if (row >= seq) continue;
-    __nv_bfloat16* orow = o + base + (long)row * D;
+        for (int j = 0; j < NO; ++j)
 #pragma unroll
-    for (int j = 0; j < NO; ++j) {
-      float x0 = acc[j][2 * h], x1 = acc[j][2 * h + 1];
-      if constexpr (kSplit) {
-        x0 = __fadd_rn(x0, rest[j][2 * h]);
-        x1 = __fadd_rn(x1, rest[j][2 * h + 1]);
+          for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        load_q_frags<HD>(qf, q, group_base(gi + 1), D, q0 + 16 * warp, seq, g, t);
       }
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
-          __floats2bfloat162_rn(x0, x1);
     }
   }
+
+  if (active) store(NG - 1);
 }
 
 // -- the launcher: one body for each (dtype, schedule, head dim) -----------
@@ -420,9 +465,10 @@ Plan<T> plan(int head_dim, int seq) {
   }
 }
 
-// the plan's kernel opted in to its shared memory, or an error
-template <typename T>
-cudaError_t prepare(const Plan<T>& p) {
+// the plan's kernel opted in to its shared memory, or an error (a plan:
+// fn, threads, bytes; also the attention probes' plans)
+template <typename P>
+cudaError_t prepare(const P& p) {
   if (p.fn == nullptr) return cudaErrorInvalidValue;
   const int optin = smem_optin();
   if (optin < 0) return static_cast<cudaError_t>(-optin);
@@ -448,10 +494,9 @@ cudaError_t launch_head_dim(const void* q, const void* k, const void* v, void* o
   return cudaGetLastError();
 }
 
-// registers a thread and blocks an SM of the kernel a launch takes
-template <typename T, int S>
-cudaError_t occupancy(int head_dim, int seq, int* regs, int* blocks) {
-  const Plan<T> p = plan<T, S>(head_dim, seq);
+// registers a thread and blocks an SM of a plan's kernel
+template <typename P>
+cudaError_t plan_occupancy(const P& p, int* regs, int* blocks) {
   cudaError_t err = prepare(p);
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, p.fn);
@@ -460,6 +505,12 @@ cudaError_t occupancy(int head_dim, int seq, int* regs, int* blocks) {
                                                         (size_t)p.bytes);
   if (err == cudaSuccess) *regs = attr.numRegs;
   return err;
+}
+
+// registers a thread and blocks an SM of the kernel a launch takes
+template <typename T, int S>
+cudaError_t occupancy(int head_dim, int seq, int* regs, int* blocks) {
+  return plan_occupancy(plan<T, S>(head_dim, seq), regs, blocks);
 }
 
 }  // namespace bvt_attn

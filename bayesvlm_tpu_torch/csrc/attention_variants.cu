@@ -1,8 +1,10 @@
-// The attention-schedule probes of scripts/dev/, as Hopper kernels: three
-// templates that each change one thing of the one-block attention kernel
-// (#1) as its CUDA-core body (csrc/attention.cuh) computes it, so that a
-// probe times that one change on the card; the probes time them beside
-// #1 as it runs in bf16, on the tensor cores (csrc/attention_mma.cuh). Packed-head q, k, v, o: [B, T, H*Dh], fp32 or bf16, Dh 16, 64, 80.
+// The attention-schedule probes of scripts/dev/, as Hopper kernels: each
+// changes one thing of the one-block attention kernel (#1), so that a
+// probe times that one change on the card beside #1 as it runs in bf16,
+// on the tensor cores (csrc/attention_mma.cuh). v2, v3 and v4 change #1's
+// CUDA-core body (csrc/attention.cuh); v5 and v6 keep #1's function and
+// body and change only the work one block holds. Packed-head q, k, v, o:
+// [B, T, H*Dh], fp32 or bf16, Dh 16, 64, 80.
 //
 // (a) mha_v2_kernel<T, HD, kSubtractMax> replaces `_kernel_v2`
 //     (scripts/dev/bench_attn_variants.py:45; v3 is kSubtractMax =
@@ -33,29 +35,44 @@
 //     one). For fp32 inputs p is fp32: that instantiation keeps an fp32
 //     tile and holds the bf16-rounded scores in it.
 //
-// (c) mha_group_kernel<T, HD, NH, NR> replaces `_kernel_v5`
-//     (bench_attn_variants2.py:68: a (B, 2) grid, H/2 heads a program)
-//     with NH = H/2, NR = 1, and `_kernel_v6` (bench_attn_variants3.py:37:
-//     2 batch rows a program) with NH = 1, NR = 2. Both compute exactly
-//     #1's function (`_mha_kernel`, attention_pallas.py:199-222); only
-//     the work one block holds differs: NG = NH * NR (head, batch row)
-//     groups. The TPU kept [NG, T, T] fp32 scores in VMEM; at BQ = 64 and
-//     NH = 8 the tiles alone would take 559 KB here. So the block keeps
-//     #1's one [T][68] fp32 tile and shrinks its query tile: its 64
-//     columns are NG groups of BQ = 4 floor(16 / NG) query rows (v5: 8,
-//     v6: 32), and a thread's 4 rows always lie in one group (NG = 6
-//     leaves 16 columns idle). K/V are staged for all NG groups at once,
-//     in tiles of 64 / NG keys (at least 16): v6 needs #1's 104,208 B
-//     (two blocks an SM), v5 120,848 B (one). The score dots, softmax
-//     and p . v run in #1's order, so the result equals that of #1's
-//     CUDA-core body (what fp32 launches) bit for bit.
+// (c) The group kernels replace `_kernel_v5` (bench_attn_variants2.py:68:
+//     a (B, 2) grid, H/2 heads a program) with NH = H/2, NR = 1, and
+//     `_kernel_v6` (bench_attn_variants3.py:37: 2 batch rows a program)
+//     with NH = 1, NR = 2. Both compute exactly #1's function
+//     (`_mha_kernel`, attention_pallas.py:199-222); only the work one
+//     block holds differs: NG = NH * NR (head, batch row) groups, where
+//     the TPU kept [NG, T, T] fp32 scores in VMEM.
+//     bf16 takes #1's own tensor-core body, mha_mma_kernel<HD, kOneBlock,
+//     NH, NR> of attention_mma.cuh: a block of 4 warps and one 64-row
+//     query tile walks its NG groups in turn, each with #1's two sweeps
+//     over the keys (Q fragments in registers, running max and sum, then
+//     p rounded to bf16 once and P.V), with no score tile: 36,864 B at
+//     Dh = 64 whatever T and NG, so any T runs. The step loop is indexed
+//     over all NG groups, so the cp.async ring runs on across a group
+//     boundary: the next group's first K tiles are in flight while this
+//     group's last P.V step computes, and its Q fragments load under the
+//     next barrier. Each warp does for its (head, row) exactly what a #1
+//     warp does, so the result equals bf16 #1 bit for bit.
+//     fp32 keeps mha_group_kernel<T, HD, NH, NR>, on #1's CUDA-core body
+//     (the tensor cores would round fp32 to TF32): #1's one [T][68] fp32
+//     score tile, whose 64 columns are NG groups of BQ = 4 floor(16 / NG)
+//     query rows (v5: 8, v6: 32; a thread's 4 rows lie in one group, NG =
+//     6 leaves 16 columns idle), K/V staged for all NG groups at once in
+//     tiles of 64 / NG keys (at least 16): v6 takes 104,208 B at T = 257
+//     (two blocks an SM), v5 120,848 B (one). Its dots, softmax and p . v
+//     run in the order of #1's CUDA-core body, so it equals fp32 #1 bit
+//     for bit.
 //
-// What bounds them on an H100: as #1's CUDA-core body, all dots run as
-// fp32 FMAs on the CUDA cores fed from shared memory, far from the
-// tensor cores (bf16 #1 runs on them: csrc/attention_mma.cuh); at the
-// probes' B=80, T=257, H=16, Dh=64 the function moves 168.4 MB (0.050 ms
-// at 3.35 TB/s) and does 21.65 G operations (0.022 ms at the bf16 tensor
-// rate). Each probe asks how much one change to #1 moves that.
+// What bounds them on an H100 at the probes' B=80, T=257, H=16, Dh=64:
+// the function moves 168.4 MB (0.050 ms at 3.35 TB/s) and does 21.65 G
+// operations (0.022 ms at the bf16 tensor rate). v2-v4 and the fp32 group
+// kernel run all dots as fp32 FMAs on the CUDA cores fed from shared
+// memory, far from either bound. The bf16 group kernels are bound as #1
+// is, by latency (each step's chain of cp.async wait and barrier,
+// ldmatrix, mma, shuffles and exps); what they change is the grid: with
+// 132 SMs x 4 blocks, #1 launches 6,400 blocks (12.1 waves), v6 3,200
+// (6.06) and v5 800 (1.52), each block's pipeline running on through its
+// groups. Each probe asks how much its change to #1 moves the time.
 //
 // Built by bayesvlm_tpu_torch/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -63,7 +80,9 @@
 
 #include <stdint.h>
 
-#include "attention.cuh"
+#include <type_traits>
+
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -430,31 +449,45 @@ mha_group_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T>
 using KernelFn = void (*)(const T*, const T*, const T*, T*, int, int, float);
 
-// the kernel of one variant and its block shape: query rows a block
-// (grid x), heads and batch rows a block (grid y, z), dynamic smem bytes
+// the kernel of one variant and its block shape: threads, query rows a
+// block (grid x), heads and batch rows a block (grid y, z), dynamic smem
+// bytes, and whether it is the tensor-core body
 template <typename T>
-struct Plan {
+struct VariantPlan {
   KernelFn<T> fn = nullptr;
+  int threads = NT;
   int bq = BQ, nh = 1, nr = 1;
   long bytes = 0;
+  bool mma = false;
 };
 
+// bf16: the tensor-core body of attention_mma.cuh walking NH * NR groups;
+// fp32: the CUDA-core group kernel (the tensor cores would round fp32 to
+// TF32)
 template <typename T, int HD, int NH, int NR>
-Plan<T> group_plan(int seq) {
-  Plan<T> p;
-  p.fn = mha_group_kernel<T, HD, NH, NR>;
-  p.bq = group_bq(NH * NR);
+VariantPlan<T> group_plan(int seq) {
+  VariantPlan<T> p;
   p.nh = NH;
   p.nr = NR;
-  p.bytes = group_smem_floats(NH * NR, seq, HD) * (long)sizeof(float);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    p.fn = mha_mma_kernel<HD, kOneBlock, NH, NR>;
+    p.threads = MT;
+    p.bq = MQ;
+    p.bytes = mma_smem_bytes(HD);
+    p.mma = true;
+  } else {
+    p.fn = mha_group_kernel<T, HD, NH, NR>;
+    p.bq = group_bq(NH * NR);
+    p.bytes = group_smem_floats(NH * NR, seq, HD) * (long)sizeof(float);
+  }
   return p;
 }
 
 // heads a block of the group kernel for v5 (NR = 1): H / 2 for H in
 // {2, 4, 8, 12, 16}; v6 takes NH = 1, NR = 2
 template <typename T, int HD>
-Plan<T> plan_head_dim(int variant, int seq, int nh, int nr) {
-  Plan<T> p;
+VariantPlan<T> variant_plan_head_dim(int variant, int seq, int nh, int nr) {
+  VariantPlan<T> p;
   const long head = (long)(BQ + BK) * (HD + 1) * sizeof(float) + PARTS * BQ * sizeof(float);
   switch (variant) {
     case kV2: p.fn = mha_v2_kernel<T, HD, true>; break;
@@ -481,51 +514,35 @@ Plan<T> plan_head_dim(int variant, int seq, int nh, int nr) {
 }
 
 template <typename T>
-Plan<T> plan(int variant, int seq, int head_dim, int nh, int nr) {
+VariantPlan<T> variant_plan(int variant, int seq, int head_dim, int nh, int nr) {
   switch (head_dim) {
-    case 16: return plan_head_dim<T, 16>(variant, seq, nh, nr);
-    case 64: return plan_head_dim<T, 64>(variant, seq, nh, nr);
-    case 80: return plan_head_dim<T, 80>(variant, seq, nh, nr);
-    default: return Plan<T>();
+    case 16: return variant_plan_head_dim<T, 16>(variant, seq, nh, nr);
+    case 64: return variant_plan_head_dim<T, 64>(variant, seq, nh, nr);
+    case 80: return variant_plan_head_dim<T, 80>(variant, seq, nh, nr);
+    default: return VariantPlan<T>();
   }
-}
-
-// the plan's kernel opted in to its shared memory, or an error
-template <typename T>
-cudaError_t prepare(const Plan<T>& p) {
-  if (p.fn == nullptr) return cudaErrorInvalidValue;
-  const int optin = smem_optin();
-  if (optin < 0) return static_cast<cudaError_t>(-optin);
-  if (p.bytes > optin) return cudaErrorInvalidValue;
-  // above 48 KB a launch is refused unless the kernel opted in
-  return cudaFuncSetAttribute(p.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)p.bytes);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int seq,
            int heads, int head_dim, float scale, int variant, int nh, int nr,
            cudaStream_t stream) {
-  const Plan<T> p = plan<T>(variant, seq, head_dim, nh, nr);
+  const VariantPlan<T> p = variant_plan<T>(variant, seq, head_dim, nh, nr);
   cudaError_t err = prepare(p);
   if (err != cudaSuccess) return err;
   if (heads % p.nh != 0 || B % p.nr != 0) return cudaErrorInvalidValue;
   const dim3 grid((seq + p.bq - 1) / p.bq, heads / p.nh, B / p.nr);
   const KernelFn<T> fn = p.fn;
-  fn<<<grid, NT, p.bytes, stream>>>(
+  fn<<<grid, p.threads, p.bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), seq, heads, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-int blocks_per_sm(int variant, int seq, int head_dim, int nh, int nr) {
-  const Plan<T> p = plan<T>(variant, seq, head_dim, nh, nr);
-  cudaError_t err = prepare(p);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, p.fn, NT, p.bytes);
-  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+int variant_occupancy(int variant, int seq, int head_dim, int nh, int nr, int* regs,
+                      int* blocks) {
+  return plan_occupancy(variant_plan<T>(variant, seq, head_dim, nh, nr), regs, blocks);
 }
 
 }  // namespace
@@ -540,16 +557,29 @@ extern "C" {
 // kernel)
 long bvt_attn_variant_smem_bytes(int variant, int seq, int head_dim, int dtype, int nh,
                                  int nr) {
-  return dtype == 1 ? plan<__nv_bfloat16>(variant, seq, head_dim, nh, nr).bytes
-                    : plan<float>(variant, seq, head_dim, nh, nr).bytes;
+  return dtype == 1 ? variant_plan<__nv_bfloat16>(variant, seq, head_dim, nh, nr).bytes
+                    : variant_plan<float>(variant, seq, head_dim, nh, nr).bytes;
 }
 
-// blocks of the kernel one SM holds at once (the occupancy calculator),
-// or a negative cudaError_t
-int bvt_attn_variant_blocks_per_sm(int variant, int seq, int head_dim, int dtype, int nh,
-                                   int nr) {
-  return dtype == 1 ? blocks_per_sm<__nv_bfloat16>(variant, seq, head_dim, nh, nr)
-                    : blocks_per_sm<float>(variant, seq, head_dim, nh, nr);
+// 1 when the launch takes the tensor-core body (the bf16 group kernel), 0
+// the CUDA-core one, -1 for no such kernel
+int bvt_attn_variant_uses_mma(int variant, int head_dim, int dtype, int nh, int nr) {
+  if (dtype == 1) {
+    const VariantPlan<__nv_bfloat16> p =
+        variant_plan<__nv_bfloat16>(variant, 0, head_dim, nh, nr);
+    return p.fn == nullptr ? -1 : (int)p.mma;
+  }
+  return variant_plan<float>(variant, 0, head_dim, nh, nr).fn == nullptr ? -1 : 0;
+}
+
+// registers a thread and blocks an SM (the occupancy calculator) of the
+// kernel a launch takes. Returns a cudaError_t (0 = both written).
+int bvt_attn_variant_occupancy(int variant, int seq, int head_dim, int dtype, int nh,
+                               int nr, int* regs, int* blocks_per_sm) {
+  return dtype == 1 ? variant_occupancy<__nv_bfloat16>(variant, seq, head_dim, nh, nr,
+                                                       regs, blocks_per_sm)
+                    : variant_occupancy<float>(variant, seq, head_dim, nh, nr, regs,
+                                               blocks_per_sm);
 }
 
 // the most dynamic shared memory a block of the current device may opt
@@ -559,7 +589,8 @@ int bvt_attn_variant_smem_limit(void) {
   return optin < 0 ? -1 : optin;
 }
 
-// scale: 1/sqrt(head_dim). Returns a cudaError_t (0 = launched).
+// scale: 1/sqrt(head_dim); q, k, v, o 16-byte aligned for the
+// tensor-core body. Returns a cudaError_t (0 = launched).
 int bvt_attn_variant(const void* q, const void* k, const void* v, void* o, int B,
                      int seq, int heads, int head_dim, int dtype, float scale,
                      int variant, int nh, int nr, void* stream) {

@@ -55,8 +55,9 @@ TOL = 2.0 ** -6
 class Variant(NamedTuple):
     """One timed variant of a probe: the kernel's wrapper and its plain
     version, each called as fn(q, k, v, num_heads); the kernel's name in
-    `attention_variants.KERNELS` (for its shared memory and blocks an
-    SM), None for a kernel of `models.attention`; what it changes."""
+    `attention_variants.KERNELS` (for its body, shared memory, registers
+    and blocks an SM), None for a kernel of `models.attention`; what it
+    changes."""
 
     fn: Callable
     plain: Callable
@@ -126,11 +127,12 @@ def run(variants: Variants, args) -> dict:
             raise RuntimeError(f"{label} strays from its plain version: mean |d| "
                                f"{float(err.mean()):.3e} (tol {MEAN_TOL[kernel]:.0e})")
         out["variants"][label] = r = {"vs_base": _max_abs(ob, o),
-                                      "max_abs_err": _max_abs(o, ref),
-                                      "smem_bytes": None, "blocks_per_sm": None}
+                                      "max_abs_err": _max_abs(o, ref), "body": None,
+                                      "smem_bytes": None, "registers": None,
+                                      "blocks_per_sm": None}
         if kernel is not None and device.type == "cuda":
-            r["smem_bytes"], r["blocks_per_sm"] = block_resources(
-                kernel, args.batch, args.seq, nh, args.head_dim, q.dtype)
+            r.update(block_resources(kernel, args.batch, args.seq, nh, args.head_dim,
+                                     q.dtype))
 
     def time(fn, iters=N_ITER):
         return device_ms(lambda: fn(q, k, v, nh), device, iters, REPS)
@@ -168,7 +170,8 @@ def report(variants: Variants, results: dict) -> int:
     print(f"base (#1 one-block): {_ms(results['base_ms'])}{rate(results['base_ms'])}")
     for label, r in results["variants"].items():
         block = ("" if r["smem_bytes"] is None else
-                 f"  [{r['smem_bytes']} B shared memory, {r['blocks_per_sm']} blocks/SM]")
+                 f"  [body {r['body']}: {r['smem_bytes']} B shared memory, "
+                 f"{r['registers']} registers, {r['blocks_per_sm']} blocks/SM]")
         print(f"{label} ({variants[label].what}): {_ms(r['ms'])}{rate(r['ms'])}  "
               f"base {_ms(results['base_ms'])}  plain {_ms(r['plain_ms'])}  bound "
               f"{results['bound_ms']:.4g} ms ({results['bound_by']})  SDPA "

@@ -17,11 +17,17 @@ H*Dh]`, fp32 or bf16, head dims 16, 64 and 80:
 - `attention_group_heads` ports `_kernel_v5` (bench_attn_variants2.py):
   H / GROUPS heads a block; `attention_group_rows` ports `_kernel_v6`
   (bench_attn_variants3.py): ROWS batch rows a block. Both compute #1's
-  function, so their plain version is `fused_attention_reference`.
+  function, so their plain version is `fused_attention_reference`. In
+  bf16 they run #1's tensor-core body, a block walking its (head, batch
+  row) groups in turn, and equal bf16 #1 bit for bit; in fp32 a
+  CUDA-core group kernel equal to fp32 #1 bit for bit (`block_resources`
+  reports the body a launch takes).
 
-CUDA tensors launch the kernel or raise; CPU tensors run the plain
-version; nothing falls back. Each launch is counted on its wrapper
-(`.launches`; v3 in `attention_v2.launches_v3`).
+v2, v3 and v4 change #1's CUDA-core body and keep all T scores of a
+block in shared memory: a T past the card's shared memory raises. CUDA
+tensors launch the kernel or raise; CPU tensors run the plain version;
+nothing falls back. Each launch is counted on its wrapper (`.launches`;
+v3 in `attention_v2.launches_v3`).
 """
 
 from __future__ import annotations
@@ -106,8 +112,11 @@ def _library() -> ctypes.CDLL:
     lib.bvt_attn_variant.restype = ctypes.c_int
     lib.bvt_attn_variant_smem_bytes.argtypes = [i, i, i, i, i, i]
     lib.bvt_attn_variant_smem_bytes.restype = ctypes.c_long
-    lib.bvt_attn_variant_blocks_per_sm.argtypes = [i, i, i, i, i, i]
-    lib.bvt_attn_variant_blocks_per_sm.restype = ctypes.c_int
+    lib.bvt_attn_variant_uses_mma.argtypes = [i, i, i, i, i]
+    lib.bvt_attn_variant_uses_mma.restype = i
+    ip = ctypes.POINTER(i)
+    lib.bvt_attn_variant_occupancy.argtypes = [i, i, i, i, i, i, ip, ip]
+    lib.bvt_attn_variant_occupancy.restype = i
     lib.bvt_attn_variant_smem_limit.argtypes = []
     lib.bvt_attn_variant_smem_limit.restype = ctypes.c_int
     return lib
@@ -164,13 +173,21 @@ def _run(name: str, q, k, v, num_heads: int, plain):
                          f"batch blocks")
     lib = _library()
     args = (VARIANTS[name], T, Dh, _DTYPE_CODES[q.dtype], nh, nr)
-    o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
+    if lib.bvt_attn_variant_uses_mma(args[0], Dh, args[3], nh, nr) == 1:
+        # the tensor-core body copies rows in 16-byte pieces (cp.async); o
+        # is a fresh allocation
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError(f"{name} kernel needs 16-byte aligned operands")
+    else:
+        # a CUDA-core body keeps the block's T scores in shared memory
         smem = lib.bvt_attn_variant_smem_bytes(*args)
-        budget = lib.bvt_attn_variant_smem_limit()
+        with torch.cuda.device(q.device):
+            budget = lib.bvt_attn_variant_smem_limit()
         if smem > budget:
             raise ValueError(f"{name}: T={T} needs {smem} bytes of shared memory "
                              f"for its scores; the card allows {budget} per block")
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.bvt_attn_variant(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                    o.data_ptr(), B, T, num_heads, Dh, args[3],
@@ -241,13 +258,18 @@ KERNELS = {
 
 
 def block_resources(name: str, batch: int, seq: int, num_heads: int,
-                    head_dim: int, dtype: torch.dtype):
-    """(shared-memory bytes, blocks an SM) of the kernel `name` (a key of
-    KERNELS) at this shape, from the card's occupancy calculator."""
+                    head_dim: int, dtype: torch.dtype) -> dict:
+    """What a launch of the kernel `name` (a key of KERNELS) at this shape
+    takes on the card: its body ("mma" or "simt", as the kernel library
+    reports it), dynamic shared memory a block, registers a thread and
+    blocks an SM (the occupancy calculator)."""
     nh, nr = _block_shape(name, num_heads, batch)
     lib = _library()
     args = (VARIANTS[name], seq, head_dim, _DTYPE_CODES[dtype], nh, nr)
-    blocks = lib.bvt_attn_variant_blocks_per_sm(*args)
-    if blocks < 0:
-        kernels.check(lib, -blocks, f"{name} occupancy")
-    return lib.bvt_attn_variant_smem_bytes(*args), blocks
+    regs, blocks = ctypes.c_int(), ctypes.c_int()
+    err = lib.bvt_attn_variant_occupancy(*args, ctypes.byref(regs), ctypes.byref(blocks))
+    kernels.check(lib, err, f"{name} occupancy query")
+    mma = lib.bvt_attn_variant_uses_mma(args[0], head_dim, args[3], nh, nr)
+    return {"body": "mma" if mma == 1 else "simt",
+            "smem_bytes": lib.bvt_attn_variant_smem_bytes(*args),
+            "registers": regs.value, "blocks_per_sm": blocks.value}

@@ -5,9 +5,9 @@ scores, one head a block) against
   v4  bf16 score tile: the scaled scores rounded to bf16 before an fp32
       softmax (half the tile's shared memory: three blocks an SM at
       T=257 instead of two; csrc/attention_variants.cu template (b))
-  v5  H/2 heads a block (the script's grid (B, 2)), #1's function; the
-      query tile shrinks to 8 rows so that the fp32 scores of 8 heads
-      fit (template (c))
+  v5  H/2 heads a block (the script's grid (B, 2)), #1's function: in
+      bf16 #1's tensor-core body walking its 8 heads in turn, one 64-row
+      query tile and no score tile (csrc/attention_variants.cu note (c))
 
 at B=80, T=257, H=16, Dh=64, bf16.
 Run: python -m bayesvlm_tpu_torch.probes.bench_attn_variants2

@@ -3,8 +3,9 @@ scripts/dev/bench_attn_variants3.py: the one-block kernel #1 (one batch
 row a block) against
 
   v6  two batch rows a block (half the blocks: the per-block overhead),
-      #1's function; the query tile shrinks to 32 rows a row so that both
-      rows' fp32 scores fit (csrc/attention_variants.cu template (c))
+      #1's function: in bf16 #1's tensor-core body walking both rows in
+      turn, its K/V ring running on across them
+      (csrc/attention_variants.cu note (c))
 
 at B=80, T=257, H=16, Dh=64, bf16. An odd batch raises (the script's
 grid B // 2 would leave the last row unwritten).

@@ -92,7 +92,9 @@ Phases (any failure raises and exits non-zero, without the result line):
   10. the attention-schedule probes (bayesvlm_tpu_torch/probes,
      csrc/attention_variants.cu): v2, v3, v4, v5 (H/2 heads a block) and
      v6 (2 batch rows a block) vs plain at the probes' shape (B=80,
-     T=257, H=16, Dh=64) and a ragged T=50, H=12, bf16 and fp32;
+     T=257, H=16, Dh=64) and a ragged T=50, H=12, bf16 and fp32; v5 and
+     v6 also equal to #1 of their dtype bit for bit, with the body each
+     took (bf16 the tensor-core body, fp32 the CUDA-core body);
   10b. the packed-head and GEMM probe kernels (csrc/packed_heads.cu,
      csrc/tile_gemm.cu) vs plain: qk scores and p . v, per head and
      packed, at B=80, T=257, H=16 and a ragged B=3, T=50, H=12 (qk rtol =
@@ -108,9 +110,9 @@ Phases (any failure raises and exits non-zero, without the result line):
      call of the same function where there is one: torch.baddbmm (fp32
      out) for qk, torch.mm (fp32 out) for the bf16 GEMM, torch._int_mm
      for s8), with every count set to 0 just before and read just after;
-  11. prints the kernels line (the attention entries with the body they
-     launched, their shared memory, registers and blocks an SM), then the
-     result line {"ok": true, "device": {...}} last.
+  11. prints the kernels line (the attention and probe entries with the
+     body they launched, their shared memory, registers and blocks an
+     SM), then the result line {"ok": true, "device": {...}} last.
 
 Each path's launch counts are set to 0 just before it and read just
 after; the launches of phases 3, 4, 5, 5b, 10's and 10b's comparisons
@@ -245,12 +247,13 @@ PROBE_KERNELS = {
 # reference only)
 PROBE_EXTRAS = ("smem_bytes", "blocks_per_sm", "base_ms", "vs_base", "tops", "tile", "mma",
                 "yardstick", "reference_ms")
-# the body of each kernel source other than the attention kernel (which
-# reports its own per launch): "mma" where its products run on the tensor
-# cores (mma.sync), "simt" where they run as fp32 FMAs on the CUDA cores
-SOURCE_BODY = {"attention_block.cu": "mma", "attention_variants.cu": "simt",
-               "mlp_int8.cu": "mma", "linear_int8.cu": "mma", "xlogy_rowsum.cu": "mma",
-               "smith_head.cu": "simt", "packed_heads.cu": "mma", "tile_gemm.cu": "mma"}
+# the body of each kernel source other than the attention kernel and the
+# attention probes (which report their own per launch): "mma" where its
+# products run on the tensor cores (mma.sync), "simt" where they run as
+# fp32 FMAs on the CUDA cores
+SOURCE_BODY = {"attention_block.cu": "mma", "mlp_int8.cu": "mma", "linear_int8.cu": "mma",
+               "xlogy_rowsum.cu": "mma", "smith_head.cu": "simt", "packed_heads.cu": "mma",
+               "tile_gemm.cu": "mma"}
 # the packed-head kernels at the probe's shape and a ragged one (B, T, H)
 PACKED_SHAPES = {"probe": (80, 257, 16), "ragged": (3, 50, 12)}
 # the GEMM at the probes' shape and a ragged one (M, K, N); K a multiple
@@ -1200,7 +1203,9 @@ def phase_probes_vs_plain(torch, attention, av) -> None:
     """Each probe kernel vs its plain version at the probes' shape and a
     ragged one, bf16 and fp32 (v4's scores are bf16 in both: the bf16
     tolerance for the max, and av.MEAN_TOL for the mean, which #1's
-    function, v4 without its rounding, must exceed)."""
+    function, v4 without its rounding, must exceed); the group kernels
+    (v5, v6) also equal to #1 in the same dtype bit for bit, each with
+    the body its launch took."""
     shapes = {"probe": (80, 257, 16, 64), "ragged": (BATCH, 50, 12, 64)}
     print("attention-schedule probe kernels (csrc/attention_variants.cu) vs plain:")
     for label, (B, T, H, Dh) in shapes.items():
@@ -1209,9 +1214,20 @@ def phase_probes_vs_plain(torch, attention, av) -> None:
             gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
             q, k, v = (torch.randn(B, T, H * Dh, generator=gen, device="cuda").to(dtype)
                        for _ in range(3))
+            base = attention.fused_attention(q, k, v, H)
             for name, (fn, plain) in av.KERNELS.items():
                 out, ref = fn(q, k, v, H), plain(q, k, v, H)
                 torch.cuda.synchronize()
+                if av.VARIANTS[name] == av.GROUP:
+                    res = av.block_resources(name, B, T, H, Dh, dtype)
+                    check(res["body"] == ("mma" if dname == "bf16" else "simt"),
+                          f"{name} {dname} took the {res['body']} body")
+                    same = torch.equal(out, base)
+                    print(f"  {name} {label} T={T} H={H} {dname}: body {res['body']} "
+                          f"({res['smem_bytes']} B, {res['registers']} registers, "
+                          f"{res['blocks_per_sm']} blocks/SM); equal to #1 bit for bit: "
+                          f"{same}")
+                    check(same, f"{name} {label} {dname} differs from #1")
                 tol = KERNEL_TOL["bf16" if name in av.BF16_SCORES else dname]
                 err = (out.float() - ref.float()).abs()
                 worst = float((err / (tol + tol * ref.float().abs())).max())
@@ -1349,8 +1365,9 @@ def _probe_entries(probe_path: dict) -> list:
 def _entry(name, source, replaces, launches, r, library_ms):
     """A kernel's entry of the kernels line: its times, error, bound and
     launches, and the body it launched (the attention kernel's from
-    kernel_resources, with its shared memory, registers and blocks an SM;
-    the other sources' from SOURCE_BODY)."""
+    kernel_resources and the attention probes' from block_resources, with
+    their shared memory, registers and blocks an SM; the other sources'
+    from SOURCE_BODY)."""
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
          "launches": launches, **{k: r[k] for k in keys},

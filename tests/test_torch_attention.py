@@ -308,6 +308,9 @@ def test_kernel_resources_name_the_body_on_card(cuda):
             r = kernel_resources(T, Dh, torch.bfloat16, schedule)
             assert (r["body"], r["smem_bytes"]) == ("mma", smem)
             assert r["registers"] > 0 and r["blocks_per_sm"] >= 1
+    # one-block is built for 4 blocks an SM: 128 registers a thread
+    r = kernel_resources(257, 64, torch.bfloat16)
+    assert (r["registers"], r["blocks_per_sm"]) == (128, 4)
     # fp32 and the packed pair keep the CUDA-core body (its T scores:
     # 104,208 B at T=257, Dh=64)
     r = kernel_resources(257, 64, torch.float32)

@@ -156,10 +156,11 @@ def test_v4_check_pins_the_score_rounding(dtype, B, T, H):
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
-@pytest.mark.parametrize("B,T,H", SHAPES)
+@pytest.mark.parametrize("B,T,H", SHAPES + [(2, 17, 8), (2, 17, 12), (2, 17, 16)])
 def test_v5_matches_jax_probe(dtype, B, T, H):
     # bench_attn_variants2.py:97-124: grid (B, GROUPS), HG = H / 2 heads a
-    # program (1 and 2 here), each writing its own lane range
+    # program (1, 2, 4, 6 and 8 here: every block width the kernel is
+    # built for), each writing its own lane range
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
     from jax.experimental.pallas import tpu as pltpu
@@ -303,43 +304,72 @@ def test_kernel_matches_plain_on_card(cuda, name, dtype, T, H, Dh):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("H", [2, 4, 8, 12, 16])
-def test_group_heads_at_every_block_width_on_card(cuda, H):
-    # H / 2 = 1, 2, 4, 6, 8 heads a block: every instantiation of v5
-    q, k, v = (torch.randn(2, 50, H * 16, device=cuda) for _ in range(3))
-    torch.testing.assert_close(av.attention_group_heads(q, k, v, H),
-                               fused_attention_reference(q, k, v, H),
-                               rtol=1e-4, atol=1e-4)
+def test_group_heads_at_every_block_width_on_card(cuda, dtype, H):
+    # H / 2 = 1, 2, 4, 6, 8 heads a block: every instantiation of v5; each
+    # equal to #1 of its dtype bit for bit (bf16: the tensor-core body)
+    from bayesvlm_tpu_torch.models.attention import fused_attention
+
+    q, k, v = (torch.randn(2, 50, H * 16, device=cuda).to(dtype) for _ in range(3))
+    out = av.attention_group_heads(q, k, v, H)
+    assert torch.equal(out, fused_attention(q, k, v, H))
+    torch.testing.assert_close(out.float(), fused_attention_reference(q, k, v, H).float(),
+                               rtol=_CARD_TOL[dtype], atol=_CARD_TOL[dtype])
 
 
 @pytest.mark.cuda
-def test_group_kernels_equal_one_block_on_card(cuda):
-    # the same function, the same order of every sum as #1's CUDA-core
-    # body, which fp32 still launches: equal bit for bit. bf16 #1 runs on
-    # the tensor cores (other fp32 sums): within the bf16 tolerance
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,Dh", [(17, 16), (50, 64), (257, 64), (257, 80), (50, 80)])
+def test_group_kernels_equal_one_block_on_card(cuda, dtype, T, Dh):
+    # the same function, each warp (bf16: the tensor-core body) or thread
+    # (fp32: the CUDA-core body) summing in #1's order: equal bit for bit
     from bayesvlm_tpu_torch.models.attention import fused_attention
 
-    q, k, v = (torch.randn(4, 257, 1024, device=cuda) for _ in range(3))
+    gen = torch.Generator(device=cuda).manual_seed(T + Dh)
+    q, k, v = (torch.randn(4, T, 16 * Dh, generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
     base = fused_attention(q, k, v, 16)
     assert torch.equal(av.attention_group_heads(q, k, v, 16), base)
     assert torch.equal(av.attention_group_rows(q, k, v, 16), base)
-    q, k, v = (t.bfloat16() for t in (q, k, v))
-    base = fused_attention(q, k, v, 16).float()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["attention_group_heads", "attention_group_rows"])
+def test_group_kernels_take_long_sequences_in_bf16_on_card(cuda, name):
+    # T=1024: the fp32 group kernel's score tile would pass the card's
+    # shared memory; the tensor-core body keeps no score tile
+    gen = torch.Generator(device=cuda).manual_seed(1024)
+    q, k, v = (torch.randn(2, 1024, 16 * 64, generator=gen, device=cuda).bfloat16()
+               for _ in range(3))
+    fn, plain = av.KERNELS[name]
     tol = _CARD_TOL[torch.bfloat16]
-    for group in (av.attention_group_heads, av.attention_group_rows):
-        torch.testing.assert_close(group(q, k, v, 16).float(), base, rtol=tol, atol=tol)
+    torch.testing.assert_close(fn(q, k, v, 16).float(), plain(q, k, v, 16).float(),
+                               rtol=tol, atol=tol)
+    with pytest.raises(ValueError, match="shared memory"):
+        fn(q.float(), k.float(), v.float(), 16)
 
 
 @pytest.mark.cuda
 def test_block_resources_on_card(cuda):
-    # T=257, Dh=64: v2 and v6 take #1's 104,208 B (two blocks an SM); the
-    # bf16 score tile of v4 69,256 B (three); v5's eight heads one block
-    want = {"attention_v2": (104208, 2), "attention_v3": (104208, 2),
-            "attention_v4": (69256, 3), "attention_group_rows": (104208, 2),
-            "attention_group_heads": (120848, 1)}
-    for name, (smem, blocks) in want.items():
-        assert av.block_resources(name, 80, 257, 16, 64, torch.bfloat16) == (
-            smem, blocks), name
+    # T=257, Dh=64. fp32: v2 and v6 take #1's 104,208 B (two blocks an
+    # SM), v5's eight heads 120,848 B (one). bf16: the bf16 score tile of
+    # v4 69,256 B (three); v5 and v6 the tensor-core body's two stages of
+    # two 64-row tiles, 36,864 B whatever T and the groups
+    want = {torch.float32: {"attention_v2": (104208, 2), "attention_v3": (104208, 2),
+                            "attention_group_rows": (104208, 2),
+                            "attention_group_heads": (120848, 1)},
+            torch.bfloat16: {"attention_v2": (104208, 2), "attention_v3": (104208, 2),
+                             "attention_v4": (69256, 3)}}
+    for dtype, kernels in want.items():
+        for name, (smem, blocks) in kernels.items():
+            r = av.block_resources(name, 80, 257, 16, 64, dtype)
+            assert (r["body"], r["smem_bytes"], r["blocks_per_sm"]) == (
+                "simt", smem, blocks), (name, dtype)
+    for name in ("attention_group_heads", "attention_group_rows"):
+        r = av.block_resources(name, 80, 257, 16, 64, torch.bfloat16)
+        assert (r["body"], r["smem_bytes"]) == ("mma", 36864), name
+        assert r["blocks_per_sm"] >= 3 and r["registers"] > 0, name
 
 
 @pytest.mark.cuda
@@ -353,3 +383,8 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
     odd = torch.zeros(3, 17, 64, device=cuda)
     with pytest.raises(ValueError, match="even batch"):
         av.attention_group_rows(odd, odd, odd, 1)
+    # the tensor-core body copies 16-byte pieces
+    off = torch.zeros(2 * 17 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(
+        2, 17, 64)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        av.attention_group_rows(off, off, off, 1)
