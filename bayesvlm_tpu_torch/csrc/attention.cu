@@ -3,13 +3,15 @@
 // (`_mha_split_kernel`) and packed-pair (`_mha_packed_kernel`) of
 // bayesvlm_tpu/models/attention_pallas.py.
 //
-// Two bodies compute it. bf16 one-block and split-key run both products
-// on the tensor cores (mma.sync m16n8k16, K and V staged by cp.async, two
-// sweeps over the keys for an exact softmax without a score tile):
+// Two bodies compute it. bf16 runs all three schedules with both
+// products on the tensor cores (mma.sync m16n8k16, K and V staged by
+// cp.async, two sweeps over the keys for an exact softmax without a score
+// tile; the packed pair as one block of two heads side by side):
 // csrc/attention_mma.cuh, which says what bounds it and how the design
-// meets it. fp32 inputs and the packed pair keep the CUDA-core body with
-// the whole score tile in shared memory: csrc/attention.cuh. The
-// rounding points, which both keep, are in attention.cuh.
+// meets it. fp32 inputs keep the CUDA-core body with the whole score tile
+// in shared memory (the tensor cores would round them to TF32):
+// csrc/attention.cuh. The rounding points, which both keep, are in
+// attention.cuh.
 //
 // Built by bayesvlm_tpu_torch/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -51,8 +53,7 @@ long smem_bytes(int schedule, int head_dim, int seq) {
 
 template <typename T>
 int mma_body(int schedule) {
-  return by_schedule(schedule, -1,
-                     [](auto s) { return (int)uses_mma<T, decltype(s)::value>(); });
+  return by_schedule(schedule, -1, [](auto) { return (int)uses_mma<T>(); });
 }
 
 template <typename T>

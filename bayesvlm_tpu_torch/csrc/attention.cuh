@@ -1,7 +1,7 @@
 // Fused non-causal multi-head self-attention: the CUDA-core body of the
 // kernel shared by csrc/attention.cu (its three schedules) and
 // csrc/attention_block.cu (the attention core of the whole pre-LN
-// sublayer), and of the probes in csrc/attention_variants.cu.
+// sublayer), and of the fp32 probes in csrc/attention_variants.cu.
 //
 // Replaces the TPU kernels `_mha_kernel`, `_mha_split_kernel` and
 // `_mha_packed_kernel` of bayesvlm_tpu/models/attention_pallas.py (called
@@ -18,10 +18,9 @@
 // on packed-head q, k, v, o: [B, T, H*Dh] (head h is the column slice
 // h*Dh .. h*Dh+Dh-1). The [B, H, T, T] scores never reach device memory.
 //
-// Which inputs take this body: fp32 (all three schedules) and the bf16
-// packed pair. bf16 one-block and split-key run on the tensor cores, in
-// the body of csrc/attention_mma.cuh, whose launcher picks the body for
-// every (dtype, schedule).
+// Which inputs take this body: fp32 (all three schedules). bf16 runs all
+// three on the tensor cores, in the body of csrc/attention_mma.cuh, whose
+// launcher picks the body for every (dtype, schedule).
 //
 // Design (first, simple version). One block of 256 threads per (query
 // tile of BQ=64 rows, head or head pair, batch row):
@@ -53,8 +52,8 @@
 //                max and a normaliser per head segment. The TPU's
 //                block-diagonal K'/V' contribute exact zeros off the
 //                diagonal; here those products are not computed. The
-//                score tile doubles: at T=257, Dh=64 the block takes 203
-//                KB of shared memory, one block per SM.
+//                score tile doubles: at T=257, Dh=64 the fp32 block takes
+//                203 KB of shared memory, one block per SM.
 //
 // What bounds it on an H100: all dot products run as fp32 FMAs on the
 // CUDA cores, each fed by shared-memory loads (8 loads per 16 FMAs in
@@ -65,9 +64,9 @@
 // What the design does about it: scores stay in shared memory (no HBM
 // round trip), the smem layouts are padded so every warp-wide load is
 // conflict-free or a broadcast, and two blocks fit on one SM at T=257
-// (one for the packed pair). bf16 one-block and split-key took the next
-// step, mma.sync on bf16 operands (csrc/attention_mma.cuh); fp32 cannot
-// (the tensor cores would round it to TF32).
+// (one for the packed pair). bf16 took the next step, mma.sync on bf16
+// operands (csrc/attention_mma.cuh); fp32 cannot (the tensor cores would
+// round it to TF32).
 //
 // The ragged edge (T = 257 or 50 is no multiple of 64) is masked here:
 // query rows >= T are computed on zeros and never written, keys >= T
@@ -130,8 +129,9 @@ __device__ __forceinline__ void load_kv(float* kv, const T* __restrict__ src,
 
 // fp32 scores of the BQ query rows against keys j0 .. j0+BK-1 of one
 // head (qs and kv point at the head's first column, row stride HP),
-// scaled after the dot, into the head's key-major score tile st
-template <int HD, int HP, bool kChecked>
+// scaled after the dot (then rounded to bf16 with kBf16Scores, the probe
+// v4 in fp32), into the head's key-major score tile st
+template <int HD, int HP, bool kChecked, bool kBf16Scores = false>
 __device__ __forceinline__ void qk_tile(const float* qs, const float* kv, float* st,
                                         int j0, int seq, float scale) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -152,9 +152,14 @@ __device__ __forceinline__ void qk_tile(const float* qs, const float* kv, float*
   for (int c = 0; c < 4; ++c) {
     const int j = j0 + tx + 16 * c;
     if (!kChecked || j < seq) {
-      *reinterpret_cast<float4*>(&st[j * SP + ty * 4]) =
-          make_float4(acc[0][c] * scale, acc[1][c] * scale,
-                      acc[2][c] * scale, acc[3][c] * scale);
+      float4 x = make_float4(acc[0][c] * scale, acc[1][c] * scale,
+                             acc[2][c] * scale, acc[3][c] * scale);
+      if constexpr (kBf16Scores)
+        x = make_float4(__bfloat162float(__float2bfloat16_rn(x.x)),
+                        __bfloat162float(__float2bfloat16_rn(x.y)),
+                        __bfloat162float(__float2bfloat16_rn(x.z)),
+                        __bfloat162float(__float2bfloat16_rn(x.w)));
+      *reinterpret_cast<float4*>(&st[j * SP + ty * 4]) = x;
     }
   }
 }
@@ -239,13 +244,15 @@ __device__ __forceinline__ void pv_tile(const float* st, const float* kv,
   }
 }
 
-// grid: (ceil(seq / BQ), heads / heads_per_block(S), B)
-template <typename T, int HD, int S>
+// grid: (ceil(seq / BQ), heads / heads_per_block(S), B); kBf16Scores
+// (one-block only) rounds the scaled scores to bf16, the probe v4
+template <typename T, int HD, int S, bool kBf16Scores = false>
 __global__ void __launch_bounds__(NT)
 mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
            const T* __restrict__ v, T* __restrict__ o, int seq, int heads,
            float scale) {
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
+  static_assert(!kBf16Scores || S == kOneBlock, "bf16 scores: one-block only");
   constexpr int NH = heads_per_block(S);
   constexpr int W = NH * HD;      // columns of q, k, v one block reads
   constexpr int HP = W + 1;
@@ -292,8 +299,8 @@ mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
 #pragma unroll
       for (int h = 0; h < NH; ++h)
-        qk_tile<HD, HP, true>(qs + h * HD, kv + h * HD, st + (long)h * seq * SP, j0,
-                              seq, scale);
+        qk_tile<HD, HP, true, kBf16Scores>(qs + h * HD, kv + h * HD,
+                                           st + (long)h * seq * SP, j0, seq, scale);
     }
   }
   __syncthreads();

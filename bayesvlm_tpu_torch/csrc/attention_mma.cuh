@@ -1,11 +1,12 @@
-// The tensor-core body of the attention kernel (bf16 one-block and
-// split-key, and the bf16 group kernels v5 and v6 of the attention
-// probes), and the launcher that picks a body for every (dtype, schedule)
-// of csrc/attention.cu and csrc/attention_block.cu.
+// The tensor-core body of the attention kernel (bf16 one-block,
+// split-key and packed-pair, and the bf16 probe kernels v4, v5 and v6 of
+// csrc/attention_variants.cu), and the launcher that picks a body for
+// every (dtype, schedule) of csrc/attention.cu and csrc/attention_block.cu.
 //
-// Replaces, for bf16 inputs, the TPU kernels `_mha_kernel` and
-// `_mha_split_kernel` of bayesvlm_tpu/models/attention_pallas.py, with
-// their rounding points (attention_pallas.py:199-222, csrc/attention.cuh):
+// Replaces, for bf16 inputs, the TPU kernels `_mha_kernel`,
+// `_mha_split_kernel` and `_mha_packed_kernel` of
+// bayesvlm_tpu/models/attention_pallas.py, with their rounding points
+// (attention_pallas.py:199-222, csrc/attention.cuh):
 //
 //   s = (q_h . k_h^T) accumulated in fp32, then * scale
 //   p = exp(s - max) / sum in fp32, rounded to bf16
@@ -13,10 +14,9 @@
 //
 // In bf16 both products are bf16 x bf16 with fp32 sums, which is what
 // mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 computes: only the order of
-// the fp32 sums differs from the plain version. fp32 inputs (the tensor
-// cores would round them to TF32) and the packed-pair schedule keep the
-// CUDA-core body of csrc/attention.cuh, as do the probes v2-v4 of
-// csrc/attention_variants.cu.
+// the fp32 sums differs from the plain version. fp32 inputs keep the
+// CUDA-core body of csrc/attention.cuh (the tensor cores would round them
+// to TF32), as do the probes v2 and v3 of csrc/attention_variants.cu.
 //
 // Design. One block of 4 warps per (64-row query tile, head, batch row);
 // each warp owns 16 query rows.
@@ -74,6 +74,32 @@
 //     last; each group's state starts afresh and its output is written
 //     at its last step. Each warp computes for its (head, row) exactly
 //     what a one-group warp does: the same bits.
+//   - Heads side by side (NP; the packed pair, `_mha_packed_kernel`, is
+//     NP = 2): a block of NP x 4 warps, warps 4i .. 4i+3 doing head i of
+//     the NP contiguous heads exactly as a #1 block's warps do, so the
+//     output equals #1's bit for bit. The TPU filled its 128 lanes with
+//     two Dh = 64 heads through block-diagonal K'/V' (half of each
+//     product exact zeros) and a softmax segmented per head; on Hopper
+//     Dh = 64 already fills the mma's k-steps, so the pair is the block
+//     owning the heads' NP Dh contiguous columns: one ring holds both
+//     heads' K and V rows (rows of 2 NP Dh + 16 bytes, whose 8-row
+//     ldmatrix phases still fall in 32 distinct banks at Dh = 16, 64,
+//     80). Each 4-warp half copies and reads only its head's columns and
+//     meets only at its own named barrier (bar.sync 1 + half, 128
+//     threads): a block-wide barrier, tying every warp to the slowest of
+//     8, made the pair 1.11x #1 on an H100, the halves' own barriers
+//     1.06-1.08x (a block still retires with its slower half; timed by
+//     probes/compare_builds.py). At Dh = 64 that is 69,632 B and 2 blocks
+//     of 8 warps an SM (at most 128 registers; 8 bytes spilled at Dh =
+//     80): #1's 16 warps an SM and its wave count, where walking the pair
+//     in turn (NH = 2) halves the blocks and lengthens each (1.06-1.10x
+//     #1, never ahead of side by side).
+//   - bf16 scores (kBf16Scores, the probe v4, `_kernel_v4`): each score
+//     is rounded to bf16 after the scale, before the -inf mask, in both
+//     sweeps alike, so sweep 1's max and sum describe exactly the scores
+//     sweep 2 turns into p. A key pair's two scores take one packed
+//     conversion (cvt.rn.bf16x2.f32) and two unpacking ops: 1.06-1.07x #1
+//     on an H100, where one conversion a score was 1.11x.
 //
 // What bounds it on an H100 at ViT-L/14, B=64, T=257, H=16, Dh=64: the
 // function moves 135 MB (0.040 ms at 3.35 TB/s) and does 17.3 G
@@ -104,33 +130,39 @@ constexpr int MK = 64;                // keys of a K or V tile
 constexpr int MSTAGES = 2;            // ring depth: stages of two tiles
 static_assert(MQ == BQ, "both bodies tile the queries alike (one grid)");
 // blocks an SM each instantiation is built for (__launch_bounds__: the
-// registers a thread); the split-key one holds a second O accumulator
+// registers a thread); the split-key one holds a second O accumulator,
+// and NP heads side by side make a block NP times as wide
 constexpr int kMinBlocksOneBlock = 4;
 constexpr int kMinBlocksSplit = 3;
-
-// shared-memory row stride of a K or V tile row (bytes): 16 bytes of
-// padding put the 8 rows an ldmatrix phase reads in 32 distinct banks
-__host__ __device__ constexpr int mma_row_bytes(int HD) { return 2 * HD + 16; }
-
-// dynamic shared memory of a tensor-core block: MSTAGES stages of two
-// 64-row tiles (two K tiles in sweep 1, a K and a V tile in sweep 2);
-// independent of T
-__host__ __device__ constexpr long mma_smem_bytes(int HD) {
-  return (long)MSTAGES * 2 * MK * mma_row_bytes(HD);
+__host__ __device__ constexpr int mma_min_blocks(int S, int NP) {
+  return S == kSplitKey ? kMinBlocksSplit : kMinBlocksOneBlock / NP;
 }
 
-// rows r0 .. r0+63 of the head's HD columns (at `base`, row stride D) of
-// a bf16 k or v into dst (row stride mma_row_bytes(HD)), 16 bytes a
-// cp.async; rows at or past seq are zero-filled (nothing is read)
-template <int HD>
+// shared-memory row stride of a K or V tile row of W columns (bytes):
+// 16 bytes of padding put the 8 rows an ldmatrix phase reads in 32
+// distinct banks
+__host__ __device__ constexpr int mma_row_bytes(int W) { return 2 * W + 16; }
+
+// dynamic shared memory of a tensor-core block staging W columns (NP
+// heads of HD): MSTAGES stages of two 64-row tiles (two K tiles in sweep
+// 1, a K and a V tile in sweep 2); independent of T
+__host__ __device__ constexpr long mma_smem_bytes(int W) {
+  return (long)MSTAGES * 2 * MK * mma_row_bytes(W);
+}
+
+// rows r0 .. r0+63 of the HD columns at `base` (row stride D) of a bf16 k
+// or v into dst (row stride RB bytes), 16 bytes a cp.async by MT threads
+// (tid the thread's index among them); rows at or past seq are
+// zero-filled (nothing is read)
+template <int HD, int RB>
 __device__ __forceinline__ void load_rows_async(int8_t* dst, const __nv_bfloat16* src,
-                                                long base, long D, int r0, int seq) {
+                                                long base, long D, int r0, int seq,
+                                                int tid) {
   constexpr int CH = HD / 8;          // 16-byte chunks of a row
-  constexpr int RB = mma_row_bytes(HD);
   static_assert(64 * CH % MT == 0, "every thread copies as many chunks");
 #pragma unroll
   for (int i = 0; i < 64 * CH / MT; ++i) {
-    const int c = threadIdx.x + i * MT;
+    const int c = tid + i * MT;
     const int r = c / CH, ch = c % CH;
     const bool ok = r0 + r < seq;
     bvt_int8::cp_async16(dst + r * RB + ch * 16,
@@ -161,9 +193,11 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qf)[HD / 16][4],
 }
 
 // s (16 query rows x 64 keys: eight 8-key mma tiles) = (Q . K^T) * scale
-// from the Q A fragments and the K tile ks, keys at or past nvalid set to
-// -inf; 16-key groups at or past nvalid run no mma and are never read
-template <int HD>
+// from the Q A fragments and the K tile ks (row stride RB bytes; koff
+// holds the lane's row and the head's column), rounded to bf16 with
+// kBf16Scores, keys at or past nvalid set to -inf; 16-key groups at or
+// past nvalid run no mma and are never read
+template <int HD, int RB, bool kBf16Scores>
 __device__ __forceinline__ void qk_mma(float (&s)[8][4], const uint32_t (&qf)[HD / 16][4],
                                        const int8_t* ks, int koff, int nvalid,
                                        float scale, int t) {
@@ -179,19 +213,30 @@ __device__ __forceinline__ void qk_mma(float (&s)[8][4], const uint32_t (&qf)[HD
       // K rows are the "col" B operand as stored: no .trans; r[0..1]
       // serve keys 16 jp .. +7, r[2..3] keys 16 jp + 8 .. +15
       uint32_t r[4];
-      bvt_int8::ldmatrix_x4(r, ks + 16 * jp * mma_row_bytes(HD) + kk * 32 + koff);
+      bvt_int8::ldmatrix_x4(r, ks + 16 * jp * RB + kk * 32 + koff);
       bvt_int8::mma_bf16(s[2 * jp], qf[kk], r);
       bvt_int8::mma_bf16(s[2 * jp + 1], qf[kk], r + 2);
     }
   }
   // the lane's accumulator e of tile j: row g + 8 (e / 2), key 8j + 2t + e % 2
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < 8; ++j) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[j][e] = __fmul_rn(s[j][e], scale);
-      if (nvalid < MK && 8 * j + 2 * t + (e & 1) >= nvalid) s[j][e] = -INFINITY;
+    for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], scale);
+    if constexpr (kBf16Scores) {
+      // a key pair's two scores in one conversion (cvt.rn.bf16x2.f32),
+      // the same rounding as one at a time
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const float2 r = __bfloat1622float2(__floats2bfloat162_rn(s[j][e], s[j][e + 1]));
+        s[j][e] = r.x;
+        s[j][e + 1] = r.y;
+      }
     }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (nvalid < MK && 8 * j + 2 * t + (e & 1) >= nvalid) s[j][e] = -INFINITY;
+  }
 }
 
 // sweep 1 over one key tile: the running max m and this lane's part of
@@ -224,8 +269,9 @@ __device__ __forceinline__ void running_max_sum(const float (&s)[8][4], float (&
 
 // acc (16 rows x HD columns: HD/8 mma tiles) += round_bf16(p) . V, with
 // p = exp(s - m) * (1 / l) formed from the S accumulators (rows g and g+8
-// of the lane: m[0], rl[0] and m[1], rl[1]) and fed as A fragments
-template <int HD>
+// of the lane: m[0], rl[0] and m[1], rl[1]) and fed as A fragments; V
+// tile vs of row stride RB bytes
+template <int HD, int RB>
 __device__ __forceinline__ void pv_mma(float (&acc)[HD / 8][4], const float (&s)[8][4],
                                        const float (&m)[2], const float (&rl)[2],
                                        const int8_t* vs, int voff, int nvalid) {
@@ -251,29 +297,33 @@ __device__ __forceinline__ void pv_mma(float (&acc)[HD / 8][4], const float (&s)
       // V rows are keys: .trans gives the "col" B fragments of output
       // columns 16 np .. +7 (r[0..1]) and 16 np + 8 .. +15 (r[2..3])
       uint32_t r[4];
-      bvt_int8::ldmatrix_x4_trans(r, vs + 16 * kk * mma_row_bytes(HD) + np * 32 + voff);
+      bvt_int8::ldmatrix_x4_trans(r, vs + 16 * kk * RB + np * 32 + voff);
       bvt_int8::mma_bf16(acc[2 * np], a, r);
       bvt_int8::mma_bf16(acc[2 * np + 1], a, r + 2);
     }
   }
 }
 
-// grid: (ceil(seq / MQ), heads / NH, B / NR). The block walks its NG =
-// NH * NR (head, batch row) groups in turn, group gi = r * NH + h being
-// batch row blockIdx.z * NR + r and head blockIdx.y * NH + h; #1 and #2
-// are NH = NR = 1, and the attention probes' v5 (NH = H / 2) and v6
-// (NR = 2) take the same body (csrc/attention_variants.cu note (c)).
-template <int HD, int S, int NH = 1, int NR = 1>
+// grid: (ceil(seq / MQ), heads / (NH * NP), B / NR), MT * NP threads.
+// The block walks its NG = NH * NR (head, batch row) groups in turn,
+// group gi = r * NH + h being batch row blockIdx.z * NR + r and heads
+// (blockIdx.y * NH + h) * NP .. +NP-1 side by side, warps MW i .. MW i +
+// MW - 1 doing head i of them; #1 and #2 are NH = NR = NP = 1, the packed
+// pair NP = 2, and the attention probes' v4 (kBf16Scores), v5 (NH = H /
+// 2) and v6 (NR = 2) take the same body (csrc/attention_variants.cu).
+template <int HD, int S, int NH = 1, int NR = 1, int NP = 1, bool kBf16Scores = false>
 __global__ void
-__launch_bounds__(MT, S == kSplitKey ? kMinBlocksSplit : kMinBlocksOneBlock)
+__launch_bounds__(MT * NP, mma_min_blocks(S, NP))
 mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
                int seq, int heads, float scale) {
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
-  static_assert(S == kOneBlock || S == kSplitKey, "one head a block");
+  static_assert(S == kOneBlock || S == kSplitKey, "one block a query tile");
   constexpr int NG = NH * NR;
   static_assert(NG >= 1 && (S == kOneBlock || NG == 1), "split-key takes one group");
-  constexpr int RB = mma_row_bytes(HD);
+  static_assert(NP == 1 || (NP == 2 && NG == 1 && S == kOneBlock),
+                "heads side by side: one-block, one group");
+  constexpr int RB = mma_row_bytes(NP * HD);  // a K or V tile row: NP heads
   constexpr int TILE = MK * RB;       // bytes of one K or V tile
   constexpr int NO = HD / 8;          // 8-column output tiles
   constexpr bool kSplit = S == kSplitKey;
@@ -281,42 +331,53 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   extern __shared__ __align__(16) int8_t attn_mma_smem[];
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  // the warp's head among the NP side by side, and its 16-row slice
+  const int wh = NP == 1 ? 0 : warp / MW, wr = NP == 1 ? warp : warp % MW;
+  const int ht = NP == 1 ? threadIdx.x : threadIdx.x % MT;  // thread in its half
   const int g = lane / 4, t = lane % 4;    // fragment row group, lane in quad
   const int lq = lane / 8, lr = lane % 8;  // ldmatrix matrix and row of this lane
   // trans-B (V): matrices (keys 0-7, d 0-7), (8-15, 0-7), (0-7, 8-15),
   // (8-15, 8-15); B (K): (keys 0-7, d 0-7), (0-7, 8-15), (8-15, 0-7),
-  // (8-15, 8-15)
-  const int voff = (lr + (lq & 1) * 8) * RB + (lq >> 1) * 16;
-  const int koff = (lr + (lq >> 1) * 8) * RB + (lq & 1) * 16;
+  // (8-15, 8-15); both in the warp's head's columns
+  const int voff = (lr + (lq & 1) * 8) * RB + (lq >> 1) * 16 + wh * 2 * HD;
+  const int koff = (lr + (lq >> 1) * 8) * RB + (lq & 1) * 16 + wh * 2 * HD;
   const int q0 = blockIdx.x * MQ;
   const long D = (long)heads * HD;
-  // the element offset of group gi's rows and head columns
+  // the element offset of group gi's rows and first head's columns (the
+  // warp's head: + wh * HD)
   auto group_base = [&](int gi) {
     return (long)(blockIdx.z * NR + gi / NH) * seq * D +
-           (long)(blockIdx.y * NH + gi % NH) * HD;
+           (long)((blockIdx.y * NH + gi % NH) * NP) * HD;
   };
   const int nt = (seq + MK - 1) / MK;      // key tiles
   const int n1 = (nt + 1) / 2;             // sweep-1 steps: two K tiles each
   const int per = n1 + nt;                 // steps of one group
   const int t_main = kSplit ? seq / kSplitTile * kSplitTile : 0;
-  const bool active = q0 + 16 * warp < seq;  // warp-uniform
+  const bool active = q0 + 16 * wr < seq;  // warp-uniform
+  // the ring's barrier: the block's, or the half's with heads side by side
+  auto sync = [&]() {
+    if constexpr (NP == 1)
+      __syncthreads();
+    else
+      asm volatile("bar.sync %0, %1;" ::"r"(1 + wh), "n"(MT) : "memory");
+  };
 
   // global step s is step s % per of group s / per: step i < n1 sweeps 1
   // over K tiles 2i and 2i+1, step n1 + i sweeps 2 over K and V tile i.
   // Stage s % MSTAGES holds a step's two tiles, so the ring runs on across
   // a group boundary: the next group's first tiles are copied while this
-  // group's last step computes.
+  // group's last step computes. Each half copies its own head's columns.
   auto fetch = [&](int gs) {
     const int gi = NG == 1 ? 0 : gs / per, step = gs - gi * per;
-    const long base = group_base(gi);
-    int8_t* st = attn_mma_smem + (gs % MSTAGES) * 2 * TILE;
+    const long base = group_base(gi) + wh * HD;
+    int8_t* st = attn_mma_smem + (gs % MSTAGES) * 2 * TILE + wh * 2 * HD;
     if (step < n1) {
-      load_rows_async<HD>(st, k, base, D, 2 * step * MK, seq);
+      load_rows_async<HD, RB>(st, k, base, D, 2 * step * MK, seq, ht);
       if (2 * step + 1 < nt)
-        load_rows_async<HD>(st + TILE, k, base, D, (2 * step + 1) * MK, seq);
+        load_rows_async<HD, RB>(st + TILE, k, base, D, (2 * step + 1) * MK, seq, ht);
     } else {
-      load_rows_async<HD>(st, k, base, D, (step - n1) * MK, seq);
-      load_rows_async<HD>(st + TILE, v, base, D, (step - n1) * MK, seq);
+      load_rows_async<HD, RB>(st, k, base, D, (step - n1) * MK, seq, ht);
+      load_rows_async<HD, RB>(st + TILE, v, base, D, (step - n1) * MK, seq, ht);
     }
   };
   // one commit group a step (empty past the end), so that step i's group
@@ -328,7 +389,7 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   }
 
   uint32_t qf[HD / 16][4];
-  if (active) load_q_frags<HD>(qf, q, group_base(0), D, q0 + 16 * warp, seq, g, t);
+  if (active) load_q_frags<HD>(qf, q, group_base(0) + wh * HD, D, q0 + 16 * wr, seq, g, t);
   float m[2] = {-INFINITY, -INFINITY};  // rows g, g+8: running max, then final
   float l[2] = {0.f, 0.f};              // this lane's part of the sum, then all
   float rl[2] = {0.f, 0.f};             // 1 / l, after sweep 1
@@ -341,10 +402,10 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   // the group's output rows, rounded to bf16 from the accumulators: the
   // four lanes of a quad write 16 contiguous bytes of one row
   auto store = [&](int gi) {
-    const long base = group_base(gi);
+    const long base = group_base(gi) + wh * HD;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int row = q0 + 16 * warp + g + 8 * h;
+      const int row = q0 + 16 * wr + g + 8 * h;
       if (row >= seq) continue;
       __nv_bfloat16* orow = o + base + (long)row * D;
 #pragma unroll
@@ -362,7 +423,7 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 
   for (int gs = 0; gs < NG * per; ++gs) {
     bvt_int8::cp_async_wait<MSTAGES - 2>();
-    __syncthreads();
+    sync();
     // refill the stage read in step gs - 1: every thread is past it
     if (gs + MSTAGES - 1 < NG * per) fetch(gs + MSTAGES - 1);
     bvt_int8::cp_async_commit();
@@ -376,7 +437,7 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
         const int tile = 2 * step + u;
         if (tile >= nt) break;
         const int nvalid = min(MK, seq - tile * MK);
-        qk_mma<HD>(s, qf, st + u * TILE, koff, nvalid, scale, t);
+        qk_mma<HD, RB, kBf16Scores>(s, qf, st + u * TILE, koff, nvalid, scale, t);
         running_max_sum(s, m, l, nvalid);
       }
       if (step == n1 - 1) {
@@ -391,14 +452,14 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     }
     const int j0 = (step - n1) * MK;
     const int nvalid = min(MK, seq - j0);
-    qk_mma<HD>(s, qf, st, koff, nvalid, scale, t);
+    qk_mma<HD, RB, kBf16Scores>(s, qf, st, koff, nvalid, scale, t);
     if constexpr (kSplit) {
       if (j0 >= t_main) {
-        pv_mma<HD>(rest, s, m, rl, st + TILE, voff, nvalid);
+        pv_mma<HD, RB>(rest, s, m, rl, st + TILE, voff, nvalid);
         continue;
       }
     }
-    pv_mma<HD>(acc, s, m, rl, st + TILE, voff, nvalid);
+    pv_mma<HD, RB>(acc, s, m, rl, st + TILE, voff, nvalid);
     if constexpr (NG > 1) {
       // a group's last step: its output, then the next group's state from
       // scratch and its Q fragments (their load runs under the next
@@ -411,7 +472,8 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
         for (int j = 0; j < NO; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-        load_q_frags<HD>(qf, q, group_base(gi + 1), D, q0 + 16 * warp, seq, g, t);
+        load_q_frags<HD>(qf, q, group_base(gi + 1) + wh * HD, D, q0 + 16 * wr, seq, g,
+                         t);
       }
     }
   }
@@ -421,31 +483,37 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
 
 // -- the launcher: one body for each (dtype, schedule, head dim) -----------
 
-// bf16 one-block and split-key run on the tensor cores; fp32 and the
-// packed pair keep the CUDA-core body of attention.cuh
-template <typename T, int S>
+// bf16 runs every schedule on the tensor cores; fp32 keeps the CUDA-core
+// body of attention.cuh (the tensor cores would round it to TF32)
+template <typename T>
 __host__ __device__ constexpr bool uses_mma() {
-  return std::is_same<T, __nv_bfloat16>::value && S != kPackedPair;
+  return std::is_same<T, __nv_bfloat16>::value;
 }
 
 template <typename T>
 using AttnFn = void (*)(const T*, const T*, const T*, T*, int, int, float);
 
-// the kernel a launch takes, its threads and its dynamic shared memory
+// the kernel a launch takes, its threads, the heads a block serves (grid
+// y: heads / heads) and its dynamic shared memory
 template <typename T>
 struct Plan {
   AttnFn<T> fn = nullptr;
   int threads = 0;
+  int heads = 1;
   long bytes = 0;
 };
 
+// the packed pair on the tensor cores: the one-block body with its two
+// heads side by side (NP = 2)
 template <typename T, int HD, int S>
 Plan<T> plan_head_dim(int seq) {
   Plan<T> p;
-  if constexpr (uses_mma<T, S>()) {
-    p.fn = mha_mma_kernel<HD, S>;
-    p.threads = MT;
-    p.bytes = mma_smem_bytes(HD);
+  p.heads = heads_per_block(S);
+  if constexpr (uses_mma<T>()) {
+    constexpr int NP = heads_per_block(S);
+    p.fn = mha_mma_kernel<HD, S == kSplitKey ? kSplitKey : kOneBlock, 1, 1, NP>;
+    p.threads = MT * NP;
+    p.bytes = mma_smem_bytes(NP * HD);
   } else {
     p.fn = mha_kernel<T, HD, S>;
     p.threads = NT;
@@ -482,12 +550,11 @@ template <typename T, int S>
 cudaError_t launch_head_dim(const void* q, const void* k, const void* v, void* o,
                             int B, int seq, int heads, int head_dim, float scale,
                             cudaStream_t stream) {
-  constexpr int NH = heads_per_block(S);
-  if (heads % NH != 0) return cudaErrorInvalidValue;
   const Plan<T> p = plan<T, S>(head_dim, seq);
   const cudaError_t err = prepare(p);
   if (err != cudaSuccess) return err;
-  const dim3 grid((seq + BQ - 1) / BQ, heads / NH, B);
+  if (heads % p.heads != 0) return cudaErrorInvalidValue;
+  const dim3 grid((seq + BQ - 1) / BQ, heads / p.heads, B);
   p.fn<<<grid, p.threads, p.bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), seq, heads, scale);

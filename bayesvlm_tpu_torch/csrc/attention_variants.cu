@@ -1,10 +1,11 @@
 // The attention-schedule probes of scripts/dev/, as Hopper kernels: each
 // changes one thing of the one-block attention kernel (#1), so that a
 // probe times that one change on the card beside #1 as it runs in bf16,
-// on the tensor cores (csrc/attention_mma.cuh). v2, v3 and v4 change #1's
-// CUDA-core body (csrc/attention.cuh); v5 and v6 keep #1's function and
-// body and change only the work one block holds. Packed-head q, k, v, o:
-// [B, T, H*Dh], fp32 or bf16, Dh 16, 64, 80.
+// on the tensor cores (csrc/attention_mma.cuh). v2 and v3 change #1's
+// CUDA-core body (csrc/attention.cuh); v4 changes #1's function (bf16
+// scores) on #1's own bodies; v5 and v6 keep #1's function and body and
+// change only the work one block holds. Packed-head q, k, v, o: [B, T,
+// H*Dh], fp32 or bf16, Dh 16, 64, 80.
 //
 // (a) mha_v2_kernel<T, HD, kSubtractMax> replaces `_kernel_v2`
 //     (scripts/dev/bench_attn_variants.py:45; v3 is kSubtractMax =
@@ -22,18 +23,19 @@
 //     and two barriers where v2 has two passes and four. The layout is
 //     #1's: 104,208 B at T = 257, Dh = 64, two blocks an SM.
 //
-// (b) mha_v4_kernel<T, HD> replaces `_kernel_v4`
-//     (scripts/dev/bench_attn_variants2.py:46):
+// (b) v4 replaces `_kernel_v4` (scripts/dev/bench_attn_variants2.py:46):
 //       s = round_bf16(fp32(q . k) * scale)   bf16 whatever the input dtype
 //       p = round_in(exp(s - max) / sum)      fp32 softmax of the bf16 s
 //       o = round_out(fp32 sum p . v)
-//     For bf16 inputs the score tile is bf16 [T][BQ + 4]: 69,256 B at
-//     T = 257 instead of 104,208, three blocks an SM instead of two (the
-//     probe's question on this card). p is written back into the tile,
-//     where a bf16 p fits; the unrounded e does not, so the sum pass and
-//     the write pass each take the exp (two exps an element where #1 has
-//     one). For fp32 inputs p is fp32: that instantiation keeps an fp32
-//     tile and holds the bf16-rounded scores in it.
+//     On the TPU the bf16 scores halved the VMEM score block. bf16 takes
+//     #1's tensor-core body, mha_mma_kernel<HD, kOneBlock, 1, 1, 1, true>,
+//     which keeps no score tile: each score is rounded to bf16 after the
+//     scale in both sweeps over the keys (two conversions a score a
+//     sweep), so the probe asks what the rounding costs on the body that
+//     runs; 36,864 B at Dh = 64, 4 blocks an SM, any T. fp32 takes #1's
+//     CUDA-core body with the rounding in its score pass, mha_kernel<float,
+//     HD, kOneBlock, true>: #1's layout, an fp32 tile holding the
+//     bf16-rounded scores, 104,208 B at T = 257.
 //
 // (c) The group kernels replace `_kernel_v5` (bench_attn_variants2.py:68:
 //     a (B, 2) grid, H/2 heads a program) with NH = H/2, NR = 1, and
@@ -65,14 +67,15 @@
 //
 // What bounds them on an H100 at the probes' B=80, T=257, H=16, Dh=64:
 // the function moves 168.4 MB (0.050 ms at 3.35 TB/s) and does 21.65 G
-// operations (0.022 ms at the bf16 tensor rate). v2-v4 and the fp32 group
-// kernel run all dots as fp32 FMAs on the CUDA cores fed from shared
-// memory, far from either bound. The bf16 group kernels are bound as #1
+// operations (0.022 ms at the bf16 tensor rate). v2, v3 and the fp32
+// kernels run all dots as fp32 FMAs on the CUDA cores fed from shared
+// memory, far from either bound. The bf16 v4, v5 and v6 are bound as #1
 // is, by latency (each step's chain of cp.async wait and barrier,
-// ldmatrix, mma, shuffles and exps); what they change is the grid: with
-// 132 SMs x 4 blocks, #1 launches 6,400 blocks (12.1 waves), v6 3,200
-// (6.06) and v5 800 (1.52), each block's pipeline running on through its
-// groups. Each probe asks how much its change to #1 moves the time.
+// ldmatrix, mma, shuffles and exps): v4 adds conversions to that chain;
+// v5 and v6 change the grid: with 132 SMs x 4 blocks, #1 launches 6,400
+// blocks (12.1 waves), v6 3,200 (6.06) and v5 800 (1.52), each block's
+// pipeline running on through its groups. Each probe asks how much its
+// change to #1 moves the time.
 //
 // Built by bayesvlm_tpu_torch/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -172,161 +175,6 @@ mha_v2_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < TN; ++c)
         o[base + t * D + tx + 16 * c] = from_f<T>(__fdiv_rn(acc[r][c], den));
-    }
-  }
-}
-
-// -- (b) v4 ---------------------------------------------------------------
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// four consecutive score-tile values (8 or 16 bytes, aligned)
-__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c,
-                                       float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b), hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&lo);
-  u.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-// score tile element type: bf16 for bf16 inputs, fp32 (holding bf16
-// values) for fp32 inputs, whose p stays fp32
-template <typename T> struct V4Tile { using type = float; };
-template <> struct V4Tile<__nv_bfloat16> { using type = __nv_bfloat16; };
-
-// qk_tile with the scaled score rounded to bf16 and stored as ST
-template <int HD, int HP, typename ST>
-__device__ __forceinline__ void qk_tile_v4(const float* qs, const float* kv, ST* st,
-                                           int j0, int seq, float scale) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-#pragma unroll 8
-  for (int d = 0; d < HD; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) a[r] = qs[(ty * 4 + r) * HP + d];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) b[c] = kv[(tx + 16 * c) * HP + d];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
-  }
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int j = j0 + tx + 16 * c;
-    if (j < seq)
-      store4(&st[j * SP + ty * 4], round_bf16(acc[0][c] * scale),
-             round_bf16(acc[1][c] * scale), round_bf16(acc[2][c] * scale),
-             round_bf16(acc[3][c] * scale));
-  }
-}
-
-// exact fp32 softmax of the tile's scores, p = round_in(exp(s - m) / sum)
-// written back in place; the exp is taken again in the write pass
-template <typename T, typename ST>
-__device__ __forceinline__ void softmax_v4(ST* st, int n, float* red) {
-  const int i = threadIdx.x % BQ, part = threadIdx.x / BQ;
-  float m = -INFINITY;
-  for (int j = part; j < n; j += PARTS) m = fmaxf(m, to_f(st[j * SP + i]));
-  red[part * BQ + i] = m;
-  __syncthreads();
-  m = red[i];
-#pragma unroll
-  for (int p = 1; p < PARTS; ++p) m = fmaxf(m, red[p * BQ + i]);
-  float s = 0.f;
-  for (int j = part; j < n; j += PARTS) s += expf(to_f(st[j * SP + i]) - m);
-  __syncthreads();  // every thread has read the maxima
-  red[part * BQ + i] = s;
-  __syncthreads();
-  s = red[i];
-#pragma unroll
-  for (int p = 1; p < PARTS; ++p) s += red[p * BQ + i];
-  for (int j = part; j < n; j += PARTS)
-    st[j * SP + i] = from_f<ST>(to_f(from_f<T>(expf(to_f(st[j * SP + i]) - m) / s)));
-}
-
-// pv_tile reading p from an ST tile
-template <int HD, int HP, typename ST>
-__device__ __forceinline__ void pv_tile_v4(const ST* st, const float* kv,
-                                           float (&acc)[4][HD / 16], int j0, int jn) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int j = 0; j < jn; ++j) {
-    const float4 p = load4(&st[(j0 + j) * SP + ty * 4]);
-#pragma unroll
-    for (int c = 0; c < HD / 16; ++c) {
-      const float x = kv[j * HP + tx + 16 * c];
-      acc[0][c] = fmaf(p.x, x, acc[0][c]);
-      acc[1][c] = fmaf(p.y, x, acc[1][c]);
-      acc[2][c] = fmaf(p.z, x, acc[2][c]);
-      acc[3][c] = fmaf(p.w, x, acc[3][c]);
-    }
-  }
-}
-
-// grid: (ceil(seq / BQ), heads, B)
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT)
-mha_v4_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int seq, int heads,
-              float scale) {
-  static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
-  using ST = typename V4Tile<T>::type;
-  constexpr int HP = HD + 1, TN = HD / 16;
-  extern __shared__ float attn_smem[];
-  float* qs = attn_smem;           // [BQ][HP]
-  float* kv = qs + BQ * HP;        // [BK][HP]
-  float* red = kv + BK * HP;       // [PARTS][BQ]
-  ST* st = reinterpret_cast<ST*>(red + PARTS * BQ);  // [seq][SP]; 16-byte aligned
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int q0 = blockIdx.x * BQ;
-  const long D = (long)heads * HD;
-  const long base = (long)blockIdx.z * seq * D + (long)blockIdx.y * HD;
-
-  for (int idx = tid; idx < BQ * HD; idx += NT) {
-    const int i = idx / HD, d = idx % HD;
-    const int t = q0 + i;
-    qs[i * HP + d] = t < seq ? to_f(q[base + t * D + d]) : 0.f;
-  }
-  for (int j0 = 0; j0 < seq; j0 += BK) {
-    __syncthreads();
-    load_kv<T, HD, true>(kv, k, base, D, j0, seq);
-    __syncthreads();
-    qk_tile_v4<HD, HP>(qs, kv, st, j0, seq, scale);
-  }
-  __syncthreads();
-  softmax_v4<T>(st, seq, red);
-
-  float acc[4][TN] = {};
-  for (int j0 = 0; j0 < seq; j0 += BK) {
-    __syncthreads();
-    load_kv<T, HD, true>(kv, v, base, D, j0, seq);
-    __syncthreads();
-    pv_tile_v4<HD, HP>(st, kv, acc, j0, min(BK, seq - j0));
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int t = q0 + ty * 4 + r;
-    if (t < seq) {
-#pragma unroll
-      for (int c = 0; c < TN; ++c) o[base + t * D + tx + 16 * c] = from_f<T>(acc[r][c]);
     }
   }
 }
@@ -483,8 +331,9 @@ VariantPlan<T> group_plan(int seq) {
   return p;
 }
 
-// heads a block of the group kernel for v5 (NR = 1): H / 2 for H in
-// {2, 4, 8, 12, 16}; v6 takes NH = 1, NR = 2
+// bf16 v4 takes #1's tensor-core body with bf16 scores, fp32 v4 #1's
+// CUDA-core body with them; heads a block of the group kernel for v5 (NR
+// = 1): H / 2 for H in {2, 4, 8, 12, 16}; v6 takes NH = 1, NR = 2
 template <typename T, int HD>
 VariantPlan<T> variant_plan_head_dim(int variant, int seq, int nh, int nr) {
   VariantPlan<T> p;
@@ -493,9 +342,17 @@ VariantPlan<T> variant_plan_head_dim(int variant, int seq, int nh, int nr) {
     case kV2: p.fn = mha_v2_kernel<T, HD, true>; break;
     case kV3: p.fn = mha_v2_kernel<T, HD, false>; break;
     case kV4:
-      p.fn = mha_v4_kernel<T, HD>;
-      p.bytes = head + (long)seq * SP * sizeof(typename V4Tile<T>::type);
-      return p;
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        p.fn = mha_mma_kernel<HD, kOneBlock, 1, 1, 1, true>;
+        p.threads = MT;
+        p.bq = MQ;
+        p.bytes = mma_smem_bytes(HD);
+        p.mma = true;
+        return p;
+      } else {
+        p.fn = mha_kernel<T, HD, kOneBlock, true>;
+        break;
+      }
     case kGroup:
       if (nr == 2 && nh == 1) return group_plan<T, HD, 1, 2>(seq);
       if (nr != 1) return p;
@@ -509,7 +366,7 @@ VariantPlan<T> variant_plan_head_dim(int variant, int seq, int nh, int nr) {
       }
     default: return p;
   }
-  p.bytes = head + (long)seq * SP * sizeof(float);  // v2, v3: #1's layout
+  p.bytes = head + (long)seq * SP * sizeof(float);  // v2, v3, fp32 v4: #1's layout
   return p;
 }
 
@@ -561,8 +418,8 @@ long bvt_attn_variant_smem_bytes(int variant, int seq, int head_dim, int dtype, 
                     : variant_plan<float>(variant, seq, head_dim, nh, nr).bytes;
 }
 
-// 1 when the launch takes the tensor-core body (the bf16 group kernel), 0
-// the CUDA-core one, -1 for no such kernel
+// 1 when the launch takes the tensor-core body (bf16 v4, v5, v6), 0 the
+// CUDA-core one, -1 for no such kernel
 int bvt_attn_variant_uses_mma(int variant, int head_dim, int dtype, int nh, int nr) {
   if (dtype == 1) {
     const VariantPlan<__nv_bfloat16> p =

@@ -14,10 +14,11 @@ how each schedule walks the keys and heads).
 and each projection rounded once (csrc/attention_block.cu).
 
 - CUDA tensors launch the hand-written kernels or raise; nothing falls
-  back to the plain version on the card. bf16 one-block and split-key
-  run the tensor-core body (`csrc/attention_mma.cuh`); fp32 and the
-  packed pair the CUDA-core body (`csrc/attention.cuh`).
-  `kernel_resources` reports what a launch takes.
+  back to the plain version on the card. bf16 runs all three schedules
+  on the tensor-core body (`csrc/attention_mma.cuh`; the packed pair as
+  one block of two heads side by side, equal to one-block bit for bit);
+  fp32 the CUDA-core body (`csrc/attention.cuh`). `kernel_resources`
+  reports what a launch takes.
 - CPU tensors run `fused_attention_reference` /
   `fused_attention_block_reference`, the same math in plain PyTorch. The
   tests and chip_smoke.py hold the kernels against them.
@@ -158,8 +159,8 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     as in JAX). CPU tensors take the plain version; CUDA tensors launch
     the kernel, counting the launch in `fused_attention.launches` (one
     block), `.launches_split` or `.launches_packed`, or raise. In bf16
-    the one-block and split-key schedules run on the tensor cores and
-    need 16-byte aligned operands."""
+    every schedule runs on the tensor cores and needs 16-byte aligned
+    operands."""
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         # the kernels tile q, k and v from q's length: cross-attention with
         # Tq != Tk (the SigLIP probe) takes the caller's plain path

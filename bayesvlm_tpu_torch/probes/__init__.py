@@ -25,6 +25,11 @@ The packed-head and GEMM probes (`probe_packed_heads`, `bench_int8_mxu`,
 
 `--device cpu` runs the plain versions at a tiny shape for the tests:
 the checks run, no time is measured ("not measured").
+
+`compare_builds` is no port of a script: it builds the bf16 attention
+kernels of two `csrc/` trees (a parent commit's and this one) and times
+them in turns on the card, so that a redesign is measured against what
+it replaces in one run.
 """
 
 from __future__ import annotations

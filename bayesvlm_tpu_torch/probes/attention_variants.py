@@ -13,7 +13,9 @@ H*Dh]`, fp32 or bf16, head dims 16, 64 and 80:
   scores small, as the probe's N(0, 1) inputs do).
 - `attention_v4` ports `_kernel_v4` (bench_attn_variants2.py): the
   scaled scores rounded to bf16 (whatever the input dtype), then #1's
-  fp32 softmax from them.
+  fp32 softmax from them. It runs #1's own bodies with that rounding
+  added: in bf16 the tensor-core body (no score tile, any T), in fp32
+  the CUDA-core body (an fp32 tile of the rounded scores).
 - `attention_group_heads` ports `_kernel_v5` (bench_attn_variants2.py):
   H / GROUPS heads a block; `attention_group_rows` ports `_kernel_v6`
   (bench_attn_variants3.py): ROWS batch rows a block. Both compute #1's
@@ -23,11 +25,12 @@ H*Dh]`, fp32 or bf16, head dims 16, 64 and 80:
   CUDA-core group kernel equal to fp32 #1 bit for bit (`block_resources`
   reports the body a launch takes).
 
-v2, v3 and v4 change #1's CUDA-core body and keep all T scores of a
-block in shared memory: a T past the card's shared memory raises. CUDA
-tensors launch the kernel or raise; CPU tensors run the plain version;
-nothing falls back. Each launch is counted on its wrapper (`.launches`;
-v3 in `attention_v2.launches_v3`).
+v2 and v3 change #1's CUDA-core body, and every fp32 kernel runs a
+CUDA-core body: those keep all T scores of a block in shared memory, and
+a T past the card's shared memory raises. CUDA tensors launch the kernel
+or raise; CPU tensors run the plain version; nothing falls back. Each
+launch is counted on its wrapper (`.launches`; v3 in
+`attention_v2.launches_v3`).
 """
 
 from __future__ import annotations

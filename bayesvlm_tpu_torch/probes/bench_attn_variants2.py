@@ -2,9 +2,10 @@
 scripts/dev/bench_attn_variants2.py: the one-block kernel #1 (fp32
 scores, one head a block) against
 
-  v4  bf16 score tile: the scaled scores rounded to bf16 before an fp32
-      softmax (half the tile's shared memory: three blocks an SM at
-      T=257 instead of two; csrc/attention_variants.cu template (b))
+  v4  bf16 scores: the scaled scores rounded to bf16 before an fp32
+      softmax (on the TPU half the score block's VMEM); in bf16 #1's
+      tensor-core body with that rounding in both sweeps, so the probe
+      times what the rounding costs (csrc/attention_variants.cu note (b))
   v5  H/2 heads a block (the script's grid (B, 2)), #1's function: in
       bf16 #1's tensor-core body walking its 8 heads in turn, one 64-row
       query tile and no score tile (csrc/attention_variants.cu note (c))
@@ -27,7 +28,7 @@ from bayesvlm_tpu_torch.probes.attention_variants import (
 
 VARIANTS = {
     "v4": probes.Variant(attention_v4, attention_v4_reference, "attention_v4",
-                         "bf16 score tile"),
+                         "bf16 scores"),
     "v5": probes.Variant(attention_group_heads, fused_attention_reference,
                          "attention_group_heads", "H/2 heads a block"),
 }

@@ -17,14 +17,19 @@ Phases (any failure raises and exits non-zero, without the result line):
      beside it as the yardstick (library_ms; the port never calls it).
      The same for the split-key and packed-pair schedules at ViT-L/14
      (bf16, fp32) and packed at T=50, and one-block at SigLIP's T=256
-     (no class token, no remainder row) and, bf16, at ViT-L/14 at 336 px
-     (T=577); at T=50 split_key takes the one-block schedule (its count
-     is the one that moves). Beside each time: the body the launch took
-     (bf16 one-block and split-key the tensor-core body, "mma"; fp32 and
-     the packed pair the CUDA-core body, "simt"), its shared memory a
-     block, registers a thread and blocks an SM. Then each schedule's
-     entry point, fused_attention(..., split_key=True) and
-     (..., packed_heads=True), driven once with every count set to 0;
+     (no class token, no remainder row) and, bf16, one-block and packed
+     at ViT-L/14 at 336 px (T=577) and packed at T=1024; at T=50
+     split_key takes the one-block schedule (its count is the one that
+     moves). bf16 packed must equal bf16 one-block bit for bit at every
+     shape. Beside each time: the body the launch took (bf16 every
+     schedule the tensor-core body, "mma"; fp32 the CUDA-core body,
+     "simt"), its shared memory a block, registers a thread and blocks
+     an SM. Then, at ViT-L/14 bf16, the shipped packed pair (two heads
+     side by side in a block) timed in turns beside the in-turn design
+     (two heads walked in turn, the probes' group kernel at 2 heads a
+     block) and one-block. Then each schedule's entry point,
+     fused_attention(..., split_key=True) and (..., packed_heads=True),
+     driven once with every count set to 0;
   3b. the attention sublayer kernel chain (fused_attention_block) vs
      plain at the ViT-L/14 sublayer (B=64, T=257, D=1024, H=16), bf16 and
      fp32, and a ragged small shape; beside it, for reference only (no
@@ -93,8 +98,9 @@ Phases (any failure raises and exits non-zero, without the result line):
      csrc/attention_variants.cu): v2, v3, v4, v5 (H/2 heads a block) and
      v6 (2 batch rows a block) vs plain at the probes' shape (B=80,
      T=257, H=16, Dh=64) and a ragged T=50, H=12, bf16 and fp32; v5 and
-     v6 also equal to #1 of their dtype bit for bit, with the body each
-     took (bf16 the tensor-core body, fp32 the CUDA-core body);
+     v6 also equal to #1 of their dtype bit for bit; v4, v5 and v6 with
+     the body each took (bf16 the tensor-core body, fp32 the CUDA-core
+     body);
   10b. the packed-head and GEMM probe kernels (csrc/packed_heads.cu,
      csrc/tile_gemm.cu) vs plain: qk scores and p . v, per head and
      packed, at B=80, T=257, H=16 and a ragged B=3, T=50, H=12 (qk rtol =
@@ -122,6 +128,7 @@ are not counted.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -344,6 +351,11 @@ def _attention_case(torch, attention, label: str, B: int, T: int, H: int, Dh: in
     out = attention.fused_attention(q, k, v, H, **schedule)
     ref = attention.fused_attention_reference(q, k, v, H)
     torch.cuda.synchronize()
+    if schedule.get("packed_heads") and dname == "bf16":
+        # each warp of the pair does a one-block warp's work for its head
+        same = torch.equal(out, attention.fused_attention(q, k, v, H))
+        print(f"attention {label} bf16 equal to one-block bit for bit: {same}")
+        check(same, f"{label} bf16 packed pair differs from one-block")
     err = (out.float() - ref.float()).abs()
     tol = KERNEL_TOL[dname]
     worst = float((err / (tol + tol * ref.float().abs())).max())
@@ -386,9 +398,16 @@ def phase_attention_vs_plain(torch, attention) -> dict:
         torch, attention, "packed_heads vit-b/32", *shapes["vit-b/32"], "bf16",
         packed_heads=True)
     # ViT-L/14 at 336 px: T=577, past what the CUDA-core body's bf16 score
-    # tile held at its speed (the tensor-core body takes any T)
+    # tile held at its speed (the tensor-core body takes any T); the
+    # packed pair there, and at T=1024, past what its two score tiles held
     results[("vit-l/14-336", "bf16")] = _attention_case(
         torch, attention, "one-block vit-l/14-336", BATCH, 577, 16, 64, "bf16")
+    results[("vit-l/14-336", "bf16", "packed_heads")] = _attention_case(
+        torch, attention, "packed_heads vit-l/14-336", BATCH, 577, 16, 64, "bf16",
+        packed_heads=True)
+    results[("t1024", "bf16", "packed_heads")] = _attention_case(
+        torch, attention, "packed_heads T=1024", 16, 1024, 16, 64, "bf16",
+        packed_heads=True)
     # T=50 has no 128-key main block: split_key takes the one-block
     # schedule, as in JAX, and counts there
     fa = attention.fused_attention
@@ -400,6 +419,48 @@ def phase_attention_vs_plain(torch, attention) -> dict:
           f"one-block launches +{moved[0]}, split-key +{moved[1]}")
     check(moved[0] > 0 and moved[1] == 0, "split_key at T=50 must run one-block")
     return results
+
+
+def phase_packed_pair_designs(torch, attention, av) -> dict:
+    """The packed pair's two tensor-core designs at ViT-L/14 bf16, timed
+    in turns (side, in turn, #1, #1, in turn, side; each the best of its
+    two): the shipped one, two heads side by side in a block of 8 warps
+    (fused_attention(..., packed_heads=True)), and two heads walked in
+    turn by a block of 4 warps (mha_mma_kernel<64, kOneBlock, 2, 1>, the
+    probes' group kernel at 2 heads a block, launched through the probe
+    library for this timing only). Both must equal #1 bit for bit."""
+    from bayesvlm_tpu_torch import kernels
+
+    B, T, H, Dh = BATCH, 257, 16, 64
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    q, k, v = (torch.randn(B, T, H * Dh, generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    lib = av._library()
+    o = torch.empty_like(q)
+
+    def in_turn():
+        err = lib.bvt_attn_variant(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                   B, T, H, Dh, 1, 1.0 / math.sqrt(Dh), av.GROUP, 2, 1,
+                                   torch.cuda.current_stream().cuda_stream)
+        kernels.check(lib, err, "in-turn packed pair")
+        return o
+
+    designs = {"side_by_side": lambda: attention.fused_attention(q, k, v, H,
+                                                                 packed_heads=True),
+               "in_turn": in_turn,
+               "one_block": lambda: attention.fused_attention(q, k, v, H)}
+    base = designs["one_block"]()
+    for name in ("side_by_side", "in_turn"):
+        same = torch.equal(designs[name](), base)
+        check(same, f"packed pair {name} differs from one-block")
+    ms = {name: math.inf for name in designs}
+    for name in ("side_by_side", "in_turn", "one_block", "one_block", "in_turn",
+                 "side_by_side"):
+        ms[name] = min(ms[name], cuda_ms(torch, designs[name], iters=50))
+    print(f"packed pair designs B={B} T={T} H={H} Dh={Dh} bf16 (both equal to one-block "
+          f"bit for bit): side by side {ms['side_by_side']:.4f} ms (shipped), in turn "
+          f"{ms['in_turn']:.4f} ms, one-block {ms['one_block']:.4f} ms")
+    return ms
 
 
 def phase_schedule_paths(torch, attention, counters) -> dict:
@@ -1204,8 +1265,8 @@ def phase_probes_vs_plain(torch, attention, av) -> None:
     ragged one, bf16 and fp32 (v4's scores are bf16 in both: the bf16
     tolerance for the max, and av.MEAN_TOL for the mean, which #1's
     function, v4 without its rounding, must exceed); the group kernels
-    (v5, v6) also equal to #1 in the same dtype bit for bit, each with
-    the body its launch took."""
+    (v5, v6) also equal to #1 in the same dtype bit for bit; v4, v5 and
+    v6 each with the body its launch took."""
     shapes = {"probe": (80, 257, 16, 64), "ragged": (BATCH, 50, 12, 64)}
     print("attention-schedule probe kernels (csrc/attention_variants.cu) vs plain:")
     for label, (B, T, H, Dh) in shapes.items():
@@ -1218,15 +1279,16 @@ def phase_probes_vs_plain(torch, attention, av) -> None:
             for name, (fn, plain) in av.KERNELS.items():
                 out, ref = fn(q, k, v, H), plain(q, k, v, H)
                 torch.cuda.synchronize()
-                if av.VARIANTS[name] == av.GROUP:
+                if av.VARIANTS[name] in (av.GROUP, av.V4):
                     res = av.block_resources(name, B, T, H, Dh, dtype)
                     check(res["body"] == ("mma" if dname == "bf16" else "simt"),
                           f"{name} {dname} took the {res['body']} body")
-                    same = torch.equal(out, base)
                     print(f"  {name} {label} T={T} H={H} {dname}: body {res['body']} "
                           f"({res['smem_bytes']} B, {res['registers']} registers, "
-                          f"{res['blocks_per_sm']} blocks/SM); equal to #1 bit for bit: "
-                          f"{same}")
+                          f"{res['blocks_per_sm']} blocks/SM)")
+                if av.VARIANTS[name] == av.GROUP:
+                    same = torch.equal(out, base)
+                    print(f"  {name} {label} {dname}: equal to #1 bit for bit: {same}")
                     check(same, f"{name} {label} {dname} differs from #1")
                 tol = KERNEL_TOL["bf16" if name in av.BF16_SCORES else dname]
                 err = (out.float() - ref.float()).abs()
@@ -1421,6 +1483,7 @@ def main() -> int:
                 "tile_gemm_s4": tg.matmul_s4,
                 "tile_gemm_s8s4": _Count(tg.matmul_s4, "launches_s8s4")}
     attn = phase_attention_vs_plain(torch, attention)
+    pair_designs = phase_packed_pair_designs(torch, attention, av)
     sched_launches = phase_schedule_paths(torch, attention, counters)
     block = phase_block_vs_plain(torch, attention)
     int8 = phase_int8_vs_plain(torch, mlp_int8, linear_int8)
@@ -1483,19 +1546,24 @@ def main() -> int:
                        "bayesvlm_tpu/models/attention_pallas.py:199",
                        bf16_launches["attention"], attn[("vit-l/14", "bf16")],
                        attn[("vit-l/14", "bf16")]["library_ms"])
-    one_block["shapes"] = {
-        shape: {k: attn[(shape, "bf16")][k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "body",
-            "smem_bytes", "registers", "blocks_per_sm")}
-        for shape in ("siglip-l/16", "vit-b/32", "vit-l/14-336")}
+    shape_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "body", "smem_bytes", "registers", "blocks_per_sm")
+    one_block["shapes"] = {shape: {k: attn[(shape, "bf16")][k] for k in shape_keys}
+                           for shape in ("siglip-l/16", "vit-b/32", "vit-l/14-336")}
     print(json.dumps({"kernels": [
         one_block,
         _entry("fused_attention_split", "bayesvlm_tpu_torch/csrc/attention.cu",
                "bayesvlm_tpu/models/attention_pallas.py:53",
                sched_launches["attention_split"], split, split["library_ms"]),
-        _entry("fused_attention_packed", "bayesvlm_tpu_torch/csrc/attention.cu",
-               "bayesvlm_tpu/models/attention_pallas.py:132",
-               sched_launches["attention_packed"], packed, packed["library_ms"]),
+        # beside it: #1 in the same phase, and the in-turn design timed in
+        # turns with the shipped one and #1
+        dict(_entry("fused_attention_packed", "bayesvlm_tpu_torch/csrc/attention.cu",
+                    "bayesvlm_tpu/models/attention_pallas.py:132",
+                    sched_launches["attention_packed"], packed, packed["library_ms"]),
+             base_ms=attn[("vit-l/14", "bf16")]["ms"], designs_ms=pair_designs,
+             shapes={shape: {k: attn[(shape, "bf16", "packed_heads")][k]
+                             for k in shape_keys}
+                     for shape in ("vit-b/32", "vit-l/14-336", "t1024")}),
         dict(_entry("fused_attention_block", "bayesvlm_tpu_torch/csrc/attention_block.cu",
                     "bayesvlm_tpu/models/attention_pallas.py:225",
                     block_launches["attention_block"], block["bf16"], None),

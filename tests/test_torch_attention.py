@@ -3,8 +3,9 @@ against the JAX package's Pallas kernels (one-block, split-key and
 packed-pair schedules), run in interpret mode on the CPU as
 tests/test_pallas_attention.py runs them; plus the CUDA kernel's three
 schedules against the plain version on the card (marked `cuda`, skipped
-without a GPU): the tensor-core body (bf16 one-block and split-key,
-csrc/attention_mma.cuh) and the CUDA-core body (fp32, the packed pair).
+without a GPU): the tensor-core body (bf16, all three schedules,
+csrc/attention_mma.cuh; the packed pair equal to one-block bit for bit)
+and the CUDA-core body (fp32).
 
 JAX is imported inside the parity tests, so that the `cuda` tests also
 run where JAX is not installed:
@@ -91,6 +92,25 @@ def test_packed_heads_matches_jax_kernel(T):
     out = fused_attention(*(torch.from_numpy(x) for x in (q, k, v)), H,
                           packed_heads=True)
     np.testing.assert_allclose(out.numpy(), ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("T", [50, 257, 400])
+def test_packed_heads_matches_jax_kernel_bf16(T):
+    # the JAX packed-pair kernel in bf16 against the port's: the same
+    # rounding points (p and the output to bf16), so an fp32 sum taken in
+    # another order moves a value by one bf16 ulp at most, the tolerance of
+    # test_matches_jax_kernel_bf16. T=400 is past what the CUDA-core body's
+    # two score tiles held; the tensor-core body takes any T
+    import jax.numpy as jnp
+
+    H = 2
+    q, k, v = _qkv(1, T, H * 16, seed=T + 7)
+    q, k, v = (np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+               for x in (q, k, v))
+    ref = _jax_fused_attention(q, k, v, H, jnp.bfloat16, packed_heads=True)
+    out = fused_attention(*(torch.from_numpy(x).bfloat16() for x in (q, k, v)), H,
+                          packed_heads=True).float()
+    np.testing.assert_allclose(out.numpy(), ref, rtol=2**-7, atol=2**-7)
 
 
 def test_packed_heads_rejects_an_odd_head_count():
@@ -226,7 +246,8 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     big = torch.zeros(1, 4096, 64, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         fused_attention(big, big, big, 1)
-    # the packed pair's two score tiles do not fit at T = 400
+    # the fp32 packed pair's two score tiles do not fit at T = 400 (bf16
+    # takes the tensor-core body, which keeps no score tile)
     pair = torch.zeros(1, 400, 128, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         fused_attention(pair, pair, pair, 2, packed_heads=True)
@@ -238,7 +259,7 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         fused_attention(x, x, x, 1)
 
 
-# -- the tensor-core body (bf16 one-block and split-key) ----------------------
+# -- the tensor-core body (bf16: one-block, split-key, packed pair) -----------
 
 
 def _card_qkv(device, B, T, H, Dh, spread=1.0, seed=0):
@@ -249,7 +270,9 @@ def _card_qkv(device, B, T, H, Dh, spread=1.0, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T,schedule", [(50, {}), (257, {}), (200, {"split_key": True}),
-                                        (257, {"split_key": True})])
+                                        (257, {"split_key": True}),
+                                        (50, {"packed_heads": True}),
+                                        (257, {"packed_heads": True})])
 def test_tensor_core_body_reads_nothing_past_the_last_row(cuda, T, schedule):
     # q, k, v at the front of buffers whose tails are NaN: a key row read
     # past T (or a V row not zero-filled) gives p = 0 times NaN = NaN
@@ -311,9 +334,34 @@ def test_kernel_resources_name_the_body_on_card(cuda):
     # one-block is built for 4 blocks an SM: 128 registers a thread
     r = kernel_resources(257, 64, torch.bfloat16)
     assert (r["registers"], r["blocks_per_sm"]) == (128, 4)
-    # fp32 and the packed pair keep the CUDA-core body (its T scores:
-    # 104,208 B at T=257, Dh=64)
+    # the packed pair: 8 warps, both heads' rows of 4 Dh + 16 bytes in one
+    # ring, built for 2 blocks an SM (at most 128 registers, 16 warps an SM)
+    for T, Dh, smem in ((257, 64, 69632), (1024, 64, 69632), (50, 16, 20480),
+                        (257, 80, 86016)):
+        r = kernel_resources(T, Dh, torch.bfloat16, PACKED_PAIR)
+        assert (r["body"], r["smem_bytes"]) == ("mma", smem)
+    r = kernel_resources(257, 64, torch.bfloat16, PACKED_PAIR)
+    assert r["registers"] <= 128 and r["blocks_per_sm"] == 2
+    # fp32 keeps the CUDA-core body (its T scores: 104,208 B at T=257,
+    # Dh=64; the packed pair's two tiles 207,904 B)
     r = kernel_resources(257, 64, torch.float32)
     assert (r["body"], r["smem_bytes"]) == ("simt", 104208)
     assert r["blocks_per_sm"] >= 1
-    assert kernel_resources(257, 64, torch.bfloat16, PACKED_PAIR)["body"] == "simt"
+    r = kernel_resources(257, 64, torch.float32, PACKED_PAIR)
+    assert (r["body"], r["smem_bytes"]) == ("simt", 207904)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [17, 50, 257, 1024])
+@pytest.mark.parametrize("Dh", [16, 64, 80])
+@pytest.mark.parametrize("H", [2, 12, 16])
+def test_packed_pair_equals_one_block_on_card(cuda, T, Dh, H):
+    # each warp of the pair does what a one-block warp does for its head
+    # and 16 rows: the same bits, the query tile's rows past T included
+    # (none of these T is a multiple of 64 but 1024)
+    q, k, v = _card_qkv(cuda, 2, T, H, Dh, spread=4.0, seed=T + Dh + H)
+    before = fused_attention.launches_packed
+    out = fused_attention(q, k, v, H, packed_heads=True)
+    torch.cuda.synchronize()
+    assert fused_attention.launches_packed == before + 1
+    assert torch.equal(out, fused_attention(q, k, v, H))

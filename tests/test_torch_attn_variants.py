@@ -335,10 +335,11 @@ def test_group_kernels_equal_one_block_on_card(cuda, dtype, T, Dh):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["attention_group_heads", "attention_group_rows"])
+@pytest.mark.parametrize("name", ["attention_group_heads", "attention_group_rows",
+                                  "attention_v4"])
 def test_group_kernels_take_long_sequences_in_bf16_on_card(cuda, name):
-    # T=1024: the fp32 group kernel's score tile would pass the card's
-    # shared memory; the tensor-core body keeps no score tile
+    # T=1024: an fp32 kernel's score tile would pass the card's shared
+    # memory; the tensor-core body (bf16 v4, v5, v6) keeps no score tile
     gen = torch.Generator(device=cuda).manual_seed(1024)
     q, k, v = (torch.randn(2, 1024, 16 * 64, generator=gen, device=cuda).bfloat16()
                for _ in range(3))
@@ -352,15 +353,15 @@ def test_group_kernels_take_long_sequences_in_bf16_on_card(cuda, name):
 
 @pytest.mark.cuda
 def test_block_resources_on_card(cuda):
-    # T=257, Dh=64. fp32: v2 and v6 take #1's 104,208 B (two blocks an
-    # SM), v5's eight heads 120,848 B (one). bf16: the bf16 score tile of
-    # v4 69,256 B (three); v5 and v6 the tensor-core body's two stages of
+    # T=257, Dh=64. fp32: v2, v4 and v6 take #1's 104,208 B (two blocks
+    # an SM), v5's eight heads 120,848 B (one). bf16: v2 and v3 #1's
+    # CUDA-core layout; v4, v5 and v6 the tensor-core body's two stages of
     # two 64-row tiles, 36,864 B whatever T and the groups
     want = {torch.float32: {"attention_v2": (104208, 2), "attention_v3": (104208, 2),
+                            "attention_v4": (104208, 2),
                             "attention_group_rows": (104208, 2),
                             "attention_group_heads": (120848, 1)},
-            torch.bfloat16: {"attention_v2": (104208, 2), "attention_v3": (104208, 2),
-                             "attention_v4": (69256, 3)}}
+            torch.bfloat16: {"attention_v2": (104208, 2), "attention_v3": (104208, 2)}}
     for dtype, kernels in want.items():
         for name, (smem, blocks) in kernels.items():
             r = av.block_resources(name, 80, 257, 16, 64, dtype)
@@ -370,6 +371,24 @@ def test_block_resources_on_card(cuda):
         r = av.block_resources(name, 80, 257, 16, 64, torch.bfloat16)
         assert (r["body"], r["smem_bytes"]) == ("mma", 36864), name
         assert r["blocks_per_sm"] >= 3 and r["registers"] > 0, name
+    # v4 is #1's one-block instantiation with bf16 scores: #1's 128
+    # registers and 4 blocks an SM
+    r = av.block_resources("attention_v4", 80, 257, 16, 64, torch.bfloat16)
+    assert (r["body"], r["smem_bytes"], r["registers"], r["blocks_per_sm"]) == (
+        "mma", 36864, 128, 4)
+
+
+def test_compare_builds_has_no_cpu_mode(tmp_path):
+    # the two-tree comparison times kernels on the card only: without a
+    # CUDA device it raises before it builds anything
+    from bayesvlm_tpu_torch.probes import compare_builds
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    args = compare_builds.parse_args(["--a", str(tmp_path), "--b", str(tmp_path)])
+    assert (args.a, args.b) == (tmp_path, tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compare_builds.run(args)
 
 
 @pytest.mark.cuda
