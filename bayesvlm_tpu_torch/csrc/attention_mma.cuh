@@ -1,5 +1,5 @@
 // The tensor-core body of the attention kernel (bf16 one-block,
-// split-key and packed-pair, and the bf16 probe kernels v4, v5 and v6 of
+// split-key and packed-pair, and the bf16 probe kernels v2-v6 of
 // csrc/attention_variants.cu), and the launcher that picks a body for
 // every (dtype, schedule) of csrc/attention.cu and csrc/attention_block.cu.
 //
@@ -15,8 +15,8 @@
 // In bf16 both products are bf16 x bf16 with fp32 sums, which is what
 // mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 computes: only the order of
 // the fp32 sums differs from the plain version. fp32 inputs keep the
-// CUDA-core body of csrc/attention.cuh (the tensor cores would round them
-// to TF32), as do the probes v2 and v3 of csrc/attention_variants.cu.
+// CUDA-core bodies of csrc/attention.cuh and csrc/attention_variants.cu
+// (the tensor cores would round them to TF32).
 //
 // Design. One block of 4 warps per (64-row query tile, head, batch row);
 // each warp owns 16 query rows.
@@ -94,12 +94,26 @@
 //     80): #1's 16 warps an SM and its wave count, where walking the pair
 //     in turn (NH = 2) halves the blocks and lengthens each (1.06-1.10x
 //     #1, never ahead of side by side).
-//   - bf16 scores (kBf16Scores, the probe v4, `_kernel_v4`): each score
+//   - bf16 scores (kFnBf16Scores, the probe v4, `_kernel_v4`): each score
 //     is rounded to bf16 after the scale, before the -inf mask, in both
 //     sweeps alike, so sweep 1's max and sum describe exactly the scores
 //     sweep 2 turns into p. A key pair's two scores take one packed
 //     conversion (cvt.rn.bf16x2.f32) and two unpacking ops: 1.06-1.07x #1
 //     on an H100, where one conversion a score was 1.11x.
+//   - Deferred normalisation (kFnDeferred, the probe v2, `_kernel_v2`;
+//     kFnDeferredNoMax, v3, the same without the max): q is scaled and
+//     rounded to bf16 as its fragments are read (qs = round(q * scale),
+//     two products and one packed conversion a pair), so S = Qs.K^T takes
+//     no scale; p = round(e) is unnormalised, each lane adds the unrounded
+//     e to its rows' sums, the quad sums them after the last key, and the
+//     output is round(acc / den), a true division. v2's sweep 1 keeps only
+//     each lane's running max (no exp; the quad combines once, after the
+//     last tile); sweep 2 takes e = exp(s - max), its sum and P.V. v3 has
+//     no max and sweeps once: a step is a K and a V tile, e = exp(s), its
+//     sum and P.V, nt steps where #1 takes n1 + nt. On an H100 at B=80,
+//     T=257, H=16, Dh=64: v2 0.86-0.87x #1 (sweep 1 without its exps and
+//     shuffles), v3 0.59-0.61x, so the max sweep costs 0.26-0.27 of #1;
+//     at most 128 registers, no spill at Dh = 16, 64, 80.
 //
 // What bounds it on an H100 at ViT-L/14, B=64, T=257, H=16, Dh=64: the
 // function moves 135 MB (0.040 ms at 3.35 TB/s) and does 17.3 G
@@ -128,6 +142,11 @@ constexpr int MT = 32 * MW;           // its threads
 constexpr int MQ = 16 * MW;           // its query rows (one 16-row mma tile a warp)
 constexpr int MK = 64;                // keys of a K or V tile
 constexpr int MSTAGES = 2;            // ring depth: stages of two tiles
+// the function an instantiation computes (its parameter F): #1's exact
+// softmax; v4's scores rounded to bf16; v2's deferred normalisation; v3,
+// v2 without the max
+enum Function { kFnExact = 0, kFnBf16Scores = 1, kFnDeferred = 2, kFnDeferredNoMax = 3 };
+__host__ __device__ constexpr bool deferred(int F) { return F >= kFnDeferred; }
 static_assert(MQ == BQ, "both bodies tile the queries alike (one grid)");
 // blocks an SM each instantiation is built for (__launch_bounds__: the
 // registers a thread); the split-key one holds a second O accumulator,
@@ -170,14 +189,24 @@ __device__ __forceinline__ void load_rows_async(int8_t* dst, const __nv_bfloat16
   }
 }
 
+// a bf16 pair times scale, each product rounded to bf16 once:
+// round_bf16(fp32(q) * scale), as `_kernel_v2` scales q
+__device__ __forceinline__ uint32_t scale_pair(uint32_t w, float scale) {
+  const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  const __nv_bfloat162 r = __floats2bfloat162_rn(__fmul_rn(x.x, scale), __fmul_rn(x.y, scale));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
 // the m16n8k16 A fragments of the warp's 16 query rows row0 .. row0+15
 // (HD/16 k-steps), read straight from device memory in 4-byte pairs: the
 // lane's rows g and g+8, columns 16kk + 2t (+1) and 16kk + 8 + 2t (+1);
-// rows at or past seq are zero
-template <int HD>
+// rows at or past seq are zero; with kScaleQ each element is scaled and
+// rounded as it is read (scale_pair)
+template <int HD, bool kScaleQ = false>
 __device__ __forceinline__ void load_q_frags(uint32_t (&qf)[HD / 16][4],
                                              const __nv_bfloat16* q, long base, long D,
-                                             int row0, int seq, int g, int t) {
+                                             int row0, int seq, int g, int t,
+                                             float scale = 1.f) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = row0 + g + 8 * h;
@@ -188,16 +217,21 @@ __device__ __forceinline__ void load_q_frags(uint32_t (&qf)[HD / 16][4],
     for (int kk = 0; kk < HD / 16; ++kk) {
       qf[kk][h] = ok ? __ldg(src + 8 * kk + t) : 0u;
       qf[kk][2 + h] = ok ? __ldg(src + 8 * kk + 4 + t) : 0u;
+      if constexpr (kScaleQ) {
+        qf[kk][h] = scale_pair(qf[kk][h], scale);
+        qf[kk][2 + h] = scale_pair(qf[kk][2 + h], scale);
+      }
     }
   }
 }
 
 // s (16 query rows x 64 keys: eight 8-key mma tiles) = (Q . K^T) * scale
 // from the Q A fragments and the K tile ks (row stride RB bytes; koff
-// holds the lane's row and the head's column), rounded to bf16 with
-// kBf16Scores, keys at or past nvalid set to -inf; 16-key groups at or
-// past nvalid run no mma and are never read
-template <int HD, int RB, bool kBf16Scores>
+// holds the lane's row and the head's column), rounded to bf16 for
+// kFnBf16Scores, with no scale for the deferred functions (their Q
+// fragments hold it), keys at or past nvalid set to -inf; 16-key groups
+// at or past nvalid run no mma and are never read
+template <int HD, int RB, int F>
 __device__ __forceinline__ void qk_mma(float (&s)[8][4], const uint32_t (&qf)[HD / 16][4],
                                        const int8_t* ks, int koff, int nvalid,
                                        float scale, int t) {
@@ -221,9 +255,11 @@ __device__ __forceinline__ void qk_mma(float (&s)[8][4], const uint32_t (&qf)[HD
   // the lane's accumulator e of tile j: row g + 8 (e / 2), key 8j + 2t + e % 2
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
+    if constexpr (!deferred(F)) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], scale);
-    if constexpr (kBf16Scores) {
+      for (int e = 0; e < 4; ++e) s[j][e] = __fmul_rn(s[j][e], scale);
+    }
+    if constexpr (F == kFnBf16Scores) {
       // a key pair's two scores in one conversion (cvt.rn.bf16x2.f32),
       // the same rounding as one at a time
 #pragma unroll
@@ -267,14 +303,30 @@ __device__ __forceinline__ void running_max_sum(const float (&s)[8][4], float (&
   }
 }
 
-// acc (16 rows x HD columns: HD/8 mma tiles) += round_bf16(p) . V, with
-// p = exp(s - m) * (1 / l) formed from the S accumulators (rows g and g+8
-// of the lane: m[0], rl[0] and m[1], rl[1]) and fed as A fragments; V
-// tile vs of row stride RB bytes
-template <int HD, int RB>
+// v2's sweep 1 over one key tile: this lane's running max of rows g
+// (index 0) and g+8 (1), with no exp; the quad combines after the last
+// tile
+__device__ __forceinline__ void running_max(const float (&s)[8][4], float (&m)[2],
+                                            int nvalid) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (8 * (j & ~1) >= nvalid) continue;
+    m[0] = fmaxf(m[0], fmaxf(s[j][0], s[j][1]));
+    m[1] = fmaxf(m[1], fmaxf(s[j][2], s[j][3]));
+  }
+}
+
+// acc (16 rows x HD columns: HD/8 mma tiles) += round_bf16(p) . V, with p
+// formed from the S accumulators (rows g and g+8 of the lane: index 0 and
+// 1) and fed as A fragments; V tile vs of row stride RB bytes. Exact
+// functions: p = exp(s - m) * rl (rl = 1 / l). Deferred ones: p = e =
+// exp(s - m) (kFnDeferredNoMax: exp(s)), unnormalised, each unrounded e
+// added to this lane's row sum l
+template <int HD, int RB, int F>
 __device__ __forceinline__ void pv_mma(float (&acc)[HD / 8][4], const float (&s)[8][4],
                                        const float (&m)[2], const float (&rl)[2],
-                                       const int8_t* vs, int voff, int nvalid) {
+                                       float (&l)[2], const int8_t* vs, int voff,
+                                       int nvalid) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     if (16 * kk >= nvalid) continue;
@@ -287,10 +339,18 @@ __device__ __forceinline__ void pv_mma(float (&acc)[HD / 8][4], const float (&s)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const float* c = s[2 * kk + h] + 2 * r;
-        const __nv_bfloat162 p2 = __floats2bfloat162_rn(
-            __fmul_rn(__expf(__fsub_rn(c[0], m[r])), rl[r]),
-            __fmul_rn(__expf(__fsub_rn(c[1], m[r])), rl[r]));
-        a[2 * h + r] = *reinterpret_cast<const uint32_t*>(&p2);
+        if constexpr (deferred(F)) {
+          const float e0 = __expf(F == kFnDeferred ? __fsub_rn(c[0], m[r]) : c[0]);
+          const float e1 = __expf(F == kFnDeferred ? __fsub_rn(c[1], m[r]) : c[1]);
+          l[r] += e0 + e1;
+          const __nv_bfloat162 p2 = __floats2bfloat162_rn(e0, e1);
+          a[2 * h + r] = *reinterpret_cast<const uint32_t*>(&p2);
+        } else {
+          const __nv_bfloat162 p2 = __floats2bfloat162_rn(
+              __fmul_rn(__expf(__fsub_rn(c[0], m[r])), rl[r]),
+              __fmul_rn(__expf(__fsub_rn(c[1], m[r])), rl[r]));
+          a[2 * h + r] = *reinterpret_cast<const uint32_t*>(&p2);
+        }
       }
 #pragma unroll
     for (int np = 0; np < HD / 16; ++np) {
@@ -309,9 +369,10 @@ __device__ __forceinline__ void pv_mma(float (&acc)[HD / 8][4], const float (&s)
 // group gi = r * NH + h being batch row blockIdx.z * NR + r and heads
 // (blockIdx.y * NH + h) * NP .. +NP-1 side by side, warps MW i .. MW i +
 // MW - 1 doing head i of them; #1 and #2 are NH = NR = NP = 1, the packed
-// pair NP = 2, and the attention probes' v4 (kBf16Scores), v5 (NH = H /
-// 2) and v6 (NR = 2) take the same body (csrc/attention_variants.cu).
-template <int HD, int S, int NH = 1, int NR = 1, int NP = 1, bool kBf16Scores = false>
+// pair NP = 2, and the attention probes' v2 (F = kFnDeferred), v3
+// (kFnDeferredNoMax), v4 (kFnBf16Scores), v5 (NH = H / 2) and v6 (NR = 2)
+// take the same body (csrc/attention_variants.cu).
+template <int HD, int S, int NH = 1, int NR = 1, int NP = 1, int F = kFnExact>
 __global__ void
 __launch_bounds__(MT * NP, mma_min_blocks(S, NP))
 mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
@@ -323,6 +384,7 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   static_assert(NG >= 1 && (S == kOneBlock || NG == 1), "split-key takes one group");
   static_assert(NP == 1 || (NP == 2 && NG == 1 && S == kOneBlock),
                 "heads side by side: one-block, one group");
+  static_assert(F >= kFnExact && F <= kFnDeferredNoMax, "no such function");
   constexpr int RB = mma_row_bytes(NP * HD);  // a K or V tile row: NP heads
   constexpr int TILE = MK * RB;       // bytes of one K or V tile
   constexpr int NO = HD / 8;          // 8-column output tiles
@@ -350,7 +412,8 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
            (long)((blockIdx.y * NH + gi % NH) * NP) * HD;
   };
   const int nt = (seq + MK - 1) / MK;      // key tiles
-  const int n1 = (nt + 1) / 2;             // sweep-1 steps: two K tiles each
+  // sweep-1 steps, two K tiles each (v3 has no max: no sweep 1)
+  const int n1 = F == kFnDeferredNoMax ? 0 : (nt + 1) / 2;
   const int per = n1 + nt;                 // steps of one group
   const int t_main = kSplit ? seq / kSplitTile * kSplitTile : 0;
   const bool active = q0 + 16 * wr < seq;  // warp-uniform
@@ -389,7 +452,9 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   }
 
   uint32_t qf[HD / 16][4];
-  if (active) load_q_frags<HD>(qf, q, group_base(0) + wh * HD, D, q0 + 16 * wr, seq, g, t);
+  if (active)
+    load_q_frags<HD, deferred(F)>(qf, q, group_base(0) + wh * HD, D, q0 + 16 * wr, seq, g,
+                                  t, scale);
   float m[2] = {-INFINITY, -INFINITY};  // rows g, g+8: running max, then final
   float l[2] = {0.f, 0.f};              // this lane's part of the sum, then all
   float rl[2] = {0.f, 0.f};             // 1 / l, after sweep 1
@@ -402,6 +467,14 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   // the group's output rows, rounded to bf16 from the accumulators: the
   // four lanes of a quad write 16 contiguous bytes of one row
   auto store = [&](int gi) {
+    if constexpr (deferred(F)) {
+      // the quad's row sums of the unrounded e: o = acc / den
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
+    }
     const long base = group_base(gi) + wh * HD;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -414,6 +487,10 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
         if constexpr (kSplit) {
           x0 = __fadd_rn(x0, rest[j][2 * h]);
           x1 = __fadd_rn(x1, rest[j][2 * h + 1]);
+        }
+        if constexpr (deferred(F)) {
+          x0 = __fdiv_rn(x0, l[h]);
+          x1 = __fdiv_rn(x1, l[h]);
         }
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j + 2 * t) =
             __floats2bfloat162_rn(x0, x1);
@@ -437,29 +514,37 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
         const int tile = 2 * step + u;
         if (tile >= nt) break;
         const int nvalid = min(MK, seq - tile * MK);
-        qk_mma<HD, RB, kBf16Scores>(s, qf, st + u * TILE, koff, nvalid, scale, t);
-        running_max_sum(s, m, l, nvalid);
+        qk_mma<HD, RB, F>(s, qf, st + u * TILE, koff, nvalid, scale, t);
+        if constexpr (deferred(F))
+          running_max(s, m, nvalid);
+        else
+          running_max_sum(s, m, l, nvalid);
       }
       if (step == n1 - 1) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-          l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-          rl[r] = __frcp_rn(l[r]);
+          if constexpr (deferred(F)) {
+            m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+            m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+          } else {
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+            rl[r] = __frcp_rn(l[r]);
+          }
         }
       }
       continue;
     }
     const int j0 = (step - n1) * MK;
     const int nvalid = min(MK, seq - j0);
-    qk_mma<HD, RB, kBf16Scores>(s, qf, st, koff, nvalid, scale, t);
+    qk_mma<HD, RB, F>(s, qf, st, koff, nvalid, scale, t);
     if constexpr (kSplit) {
       if (j0 >= t_main) {
-        pv_mma<HD, RB>(rest, s, m, rl, st + TILE, voff, nvalid);
+        pv_mma<HD, RB, F>(rest, s, m, rl, l, st + TILE, voff, nvalid);
         continue;
       }
     }
-    pv_mma<HD, RB>(acc, s, m, rl, st + TILE, voff, nvalid);
+    pv_mma<HD, RB, F>(acc, s, m, rl, l, st + TILE, voff, nvalid);
     if constexpr (NG > 1) {
       // a group's last step: its output, then the next group's state from
       // scratch and its Q fragments (their load runs under the next
@@ -472,8 +557,8 @@ mha_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
         for (int j = 0; j < NO; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-        load_q_frags<HD>(qf, q, group_base(gi + 1) + wh * HD, D, q0 + 16 * wr, seq, g,
-                         t);
+        load_q_frags<HD, deferred(F)>(qf, q, group_base(gi + 1) + wh * HD, D, q0 + 16 * wr,
+                                      seq, g, t, scale);
       }
     }
   }

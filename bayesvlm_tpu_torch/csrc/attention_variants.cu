@@ -1,41 +1,47 @@
 // The attention-schedule probes of scripts/dev/, as Hopper kernels: each
 // changes one thing of the one-block attention kernel (#1), so that a
 // probe times that one change on the card beside #1 as it runs in bf16,
-// on the tensor cores (csrc/attention_mma.cuh). v2 and v3 change #1's
-// CUDA-core body (csrc/attention.cuh); v4 changes #1's function (bf16
-// scores) on #1's own bodies; v5 and v6 keep #1's function and body and
+// on the tensor cores (csrc/attention_mma.cuh). v2, v3 and v4 change #1's
+// function on #1's own bodies; v5 and v6 keep #1's function and body and
 // change only the work one block holds. Packed-head q, k, v, o: [B, T,
 // H*Dh], fp32 or bf16, Dh 16, 64, 80.
 //
-// (a) mha_v2_kernel<T, HD, kSubtractMax> replaces `_kernel_v2`
-//     (scripts/dev/bench_attn_variants.py:45; v3 is kSubtractMax =
-//     false, the script's subtract_max=False). Its function, per head:
+// (a) v2 replaces `_kernel_v2` (scripts/dev/bench_attn_variants.py:45;
+//     v3 is the script's subtract_max=False). Its function, per head:
 //       qs = round_in(fp32(q) * scale)       the scale moves into q
 //       s  = fp32 sum qs . k                 no scale after the dot
 //       e  = exp(s - max_row s)              v3: exp(s)
 //       den = fp32 sum of the UNROUNDED e
 //       p  = round_in(e)                     unnormalised
 //       o  = round_out(fp32(sum p . v) / den)   a true division
-//     On Hopper the scale is applied as the Q tile is loaded; the softmax
-//     pass writes round(e) and keeps the row sums, so #1's third pass over
-//     the [T, BQ] score tile (the normalisation) becomes one division per
-//     output element. v3 also drops the max pass: one pass over the tile
-//     and two barriers where v2 has two passes and four. The layout is
-//     #1's: 104,208 B at T = 257, Dh = 64, two blocks an SM.
+//     bf16 takes #1's tensor-core body, mha_mma_kernel<HD, kOneBlock, 1, 1,
+//     1, kFnDeferred> (v3: kFnDeferredNoMax): Q's fragments are scaled and
+//     rounded as they are read, so the Q.K^T takes no scale; p = round(e)
+//     feeds P.V straight from the S accumulators while each lane sums the
+//     unrounded e, and the output is one division an element. v2 sweeps
+//     the keys twice, the first for the row max alone (no exp); v3 has no
+//     max and sweeps once, where #1 sweeps twice. 36,864 B at Dh = 64, 4
+//     blocks an SM, any T; 0.86-0.87x and 0.59-0.61x #1 on an H100 (the
+//     CUDA-core body they replace took 5.2-5.4x #1). fp32 keeps mha_v2_kernel<T, HD, kSubtractMax>
+//     on #1's CUDA-core layout (the tensor cores would round fp32 to
+//     TF32): the scale applied as the Q tile is loaded, a softmax pass
+//     writing round(e) and the row sums, so #1's normalisation pass over
+//     the [T, BQ] score tile becomes one division an output element;
+//     104,208 B at T = 257, Dh = 64, two blocks an SM.
 //
 // (b) v4 replaces `_kernel_v4` (scripts/dev/bench_attn_variants2.py:46):
 //       s = round_bf16(fp32(q . k) * scale)   bf16 whatever the input dtype
 //       p = round_in(exp(s - max) / sum)      fp32 softmax of the bf16 s
 //       o = round_out(fp32 sum p . v)
 //     On the TPU the bf16 scores halved the VMEM score block. bf16 takes
-//     #1's tensor-core body, mha_mma_kernel<HD, kOneBlock, 1, 1, 1, true>,
-//     which keeps no score tile: each score is rounded to bf16 after the
-//     scale in both sweeps over the keys (two conversions a score a
-//     sweep), so the probe asks what the rounding costs on the body that
-//     runs; 36,864 B at Dh = 64, 4 blocks an SM, any T. fp32 takes #1's
-//     CUDA-core body with the rounding in its score pass, mha_kernel<float,
-//     HD, kOneBlock, true>: #1's layout, an fp32 tile holding the
-//     bf16-rounded scores, 104,208 B at T = 257.
+//     #1's tensor-core body, mha_mma_kernel<HD, kOneBlock, 1, 1, 1,
+//     kFnBf16Scores>, which keeps no score tile: each score is rounded to
+//     bf16 after the scale in both sweeps over the keys (one packed
+//     conversion a key pair a sweep), so the probe asks what the rounding
+//     costs on the body that runs; 36,864 B at Dh = 64, 4 blocks an SM,
+//     any T. fp32 takes #1's CUDA-core body with the rounding in its score
+//     pass, mha_kernel<float, HD, kOneBlock, true>: #1's layout, an fp32
+//     tile holding the bf16-rounded scores, 104,208 B at T = 257.
 //
 // (c) The group kernels replace `_kernel_v5` (bench_attn_variants2.py:68:
 //     a (B, 2) grid, H/2 heads a program) with NH = H/2, NR = 1, and
@@ -67,15 +73,16 @@
 //
 // What bounds them on an H100 at the probes' B=80, T=257, H=16, Dh=64:
 // the function moves 168.4 MB (0.050 ms at 3.35 TB/s) and does 21.65 G
-// operations (0.022 ms at the bf16 tensor rate). v2, v3 and the fp32
-// kernels run all dots as fp32 FMAs on the CUDA cores fed from shared
-// memory, far from either bound. The bf16 v4, v5 and v6 are bound as #1
-// is, by latency (each step's chain of cp.async wait and barrier,
-// ldmatrix, mma, shuffles and exps): v4 adds conversions to that chain;
-// v5 and v6 change the grid: with 132 SMs x 4 blocks, #1 launches 6,400
-// blocks (12.1 waves), v6 3,200 (6.06) and v5 800 (1.52), each block's
-// pipeline running on through its groups. Each probe asks how much its
-// change to #1 moves the time.
+// operations (0.022 ms at the bf16 tensor rate). The fp32 kernels run
+// all dots as fp32 FMAs on the CUDA cores fed from shared memory, far
+// from either bound. The bf16 kernels are bound as #1 is, by latency
+// (each step's chain of cp.async wait and barrier, ldmatrix, mma,
+// shuffles and exps): v4 adds conversions to that chain; v2 drops sweep
+// 1's exps and shuffles, v3 sweep 1 itself (5 steps a block where #1
+// takes 8 at T = 257); v5 and v6 change the grid: with 132 SMs x 4
+// blocks, #1 launches 6,400 blocks (12.1 waves), v6 3,200 (6.06) and v5
+// 800 (1.52), each block's pipeline running on through its groups. Each
+// probe asks how much its change to #1 moves the time.
 //
 // Built by bayesvlm_tpu_torch/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -309,65 +316,78 @@ struct VariantPlan {
   bool mma = false;
 };
 
-// bf16: the tensor-core body of attention_mma.cuh walking NH * NR groups;
-// fp32: the CUDA-core group kernel (the tensor cores would round fp32 to
-// TF32)
-template <typename T, int HD, int NH, int NR>
-VariantPlan<T> group_plan(int seq) {
+// bf16 on the tensor-core body of attention_mma.cuh computing the function
+// F with NH * NR groups a block: 4 warps, a 64-row query tile and the
+// ring's shared memory, whatever T
+template <typename T, int HD, int NH, int NR, int F>
+VariantPlan<T> mma_plan() {
   VariantPlan<T> p;
+  p.fn = mha_mma_kernel<HD, kOneBlock, NH, NR, 1, F>;
+  p.threads = MT;
+  p.bq = MQ;
   p.nh = NH;
   p.nr = NR;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    p.fn = mha_mma_kernel<HD, kOneBlock, NH, NR>;
-    p.threads = MT;
-    p.bq = MQ;
-    p.bytes = mma_smem_bytes(HD);
-    p.mma = true;
-  } else {
-    p.fn = mha_group_kernel<T, HD, NH, NR>;
-    p.bq = group_bq(NH * NR);
-    p.bytes = group_smem_floats(NH * NR, seq, HD) * (long)sizeof(float);
-  }
+  p.bytes = mma_smem_bytes(HD);
+  p.mma = true;
   return p;
 }
 
-// bf16 v4 takes #1's tensor-core body with bf16 scores, fp32 v4 #1's
-// CUDA-core body with them; heads a block of the group kernel for v5 (NR
-// = 1): H / 2 for H in {2, 4, 8, 12, 16}; v6 takes NH = 1, NR = 2
+// bf16: the tensor-core body walking NH * NR groups; fp32: the CUDA-core
+// group kernel (the tensor cores would round fp32 to TF32)
+template <typename T, int HD, int NH, int NR>
+VariantPlan<T> group_plan(int seq) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return mma_plan<T, HD, NH, NR, kFnExact>();
+  } else {
+    VariantPlan<T> p;
+    p.fn = mha_group_kernel<T, HD, NH, NR>;
+    p.bq = group_bq(NH * NR);
+    p.nh = NH;
+    p.nr = NR;
+    p.bytes = group_smem_floats(NH * NR, seq, HD) * (long)sizeof(float);
+    return p;
+  }
+}
+
+// bf16 v2, v3 and v4 take #1's tensor-core body computing their function;
+// fp32 v2 and v3 mha_v2_kernel, fp32 v4 #1's CUDA-core body with bf16
+// scores. Heads a block of the group kernel for v5 (NR = 1): H / 2 for H
+// in {2, 4, 8, 12, 16}; v6 takes NH = 1, NR = 2
 template <typename T, int HD>
 VariantPlan<T> variant_plan_head_dim(int variant, int seq, int nh, int nr) {
-  VariantPlan<T> p;
-  const long head = (long)(BQ + BK) * (HD + 1) * sizeof(float) + PARTS * BQ * sizeof(float);
-  switch (variant) {
-    case kV2: p.fn = mha_v2_kernel<T, HD, true>; break;
-    case kV3: p.fn = mha_v2_kernel<T, HD, false>; break;
-    case kV4:
-      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-        p.fn = mha_mma_kernel<HD, kOneBlock, 1, 1, 1, true>;
-        p.threads = MT;
-        p.bq = MQ;
-        p.bytes = mma_smem_bytes(HD);
-        p.mma = true;
-        return p;
-      } else {
-        p.fn = mha_kernel<T, HD, kOneBlock, true>;
-        break;
-      }
-    case kGroup:
-      if (nr == 2 && nh == 1) return group_plan<T, HD, 1, 2>(seq);
-      if (nr != 1) return p;
-      switch (nh) {
-        case 1: return group_plan<T, HD, 1, 1>(seq);
-        case 2: return group_plan<T, HD, 2, 1>(seq);
-        case 4: return group_plan<T, HD, 4, 1>(seq);
-        case 6: return group_plan<T, HD, 6, 1>(seq);
-        case 8: return group_plan<T, HD, 8, 1>(seq);
-        default: return p;
-      }
-    default: return p;
+  if (variant == kGroup) {
+    if (nr == 2 && nh == 1) return group_plan<T, HD, 1, 2>(seq);
+    if (nr != 1) return VariantPlan<T>();
+    switch (nh) {
+      case 1: return group_plan<T, HD, 1, 1>(seq);
+      case 2: return group_plan<T, HD, 2, 1>(seq);
+      case 4: return group_plan<T, HD, 4, 1>(seq);
+      case 6: return group_plan<T, HD, 6, 1>(seq);
+      case 8: return group_plan<T, HD, 8, 1>(seq);
+      default: return VariantPlan<T>();
+    }
   }
-  p.bytes = head + (long)seq * SP * sizeof(float);  // v2, v3, fp32 v4: #1's layout
-  return p;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    switch (variant) {
+      case kV2: return mma_plan<T, HD, 1, 1, kFnDeferred>();
+      case kV3: return mma_plan<T, HD, 1, 1, kFnDeferredNoMax>();
+      case kV4: return mma_plan<T, HD, 1, 1, kFnBf16Scores>();
+      default: return VariantPlan<T>();
+    }
+  } else {
+    VariantPlan<T> p;
+    switch (variant) {
+      case kV2: p.fn = mha_v2_kernel<T, HD, true>; break;
+      case kV3: p.fn = mha_v2_kernel<T, HD, false>; break;
+      case kV4: p.fn = mha_kernel<T, HD, kOneBlock, true>; break;
+      default: return p;
+    }
+    // #1's CUDA-core layout: the Q and K/V tiles, the reductions, and the
+    // block's [T][SP] fp32 score tile
+    p.bytes = (long)(BQ + BK) * (HD + 1) * sizeof(float) + PARTS * BQ * sizeof(float) +
+              (long)seq * SP * sizeof(float);
+    return p;
+  }
 }
 
 template <typename T>
@@ -418,8 +438,8 @@ long bvt_attn_variant_smem_bytes(int variant, int seq, int head_dim, int dtype, 
                     : variant_plan<float>(variant, seq, head_dim, nh, nr).bytes;
 }
 
-// 1 when the launch takes the tensor-core body (bf16 v4, v5, v6), 0 the
-// CUDA-core one, -1 for no such kernel
+// 1 when the launch takes the tensor-core body (every bf16 variant), 0 the
+// CUDA-core one (fp32), -1 for no such kernel
 int bvt_attn_variant_uses_mma(int variant, int head_dim, int dtype, int nh, int nr) {
   if (dtype == 1) {
     const VariantPlan<__nv_bfloat16> p =

@@ -10,7 +10,10 @@ H*Dh]`, fp32 or bf16, head dims 16, 64 and 80:
   unnormalised (`p = round(e)`), and the p . v output divided by the
   fp32 row sums of the unrounded e. `subtract_max=False` is the script's
   v3, which also drops the max (an unsafe-numerics cost probe: keep the
-  scores small, as the probe's N(0, 1) inputs do).
+  scores small, as the probe's N(0, 1) inputs do). In bf16 both run
+  #1's tensor-core body with that function (v2 two sweeps over the keys,
+  the first for the max alone; v3 one sweep), in fp32 a CUDA-core body
+  with #1's score tile.
 - `attention_v4` ports `_kernel_v4` (bench_attn_variants2.py): the
   scaled scores rounded to bf16 (whatever the input dtype), then #1's
   fp32 softmax from them. It runs #1's own bodies with that rounding
@@ -25,10 +28,11 @@ H*Dh]`, fp32 or bf16, head dims 16, 64 and 80:
   CUDA-core group kernel equal to fp32 #1 bit for bit (`block_resources`
   reports the body a launch takes).
 
-v2 and v3 change #1's CUDA-core body, and every fp32 kernel runs a
-CUDA-core body: those keep all T scores of a block in shared memory, and
-a T past the card's shared memory raises. CUDA tensors launch the kernel
-or raise; CPU tensors run the plain version; nothing falls back. Each
+Every bf16 kernel runs the tensor-core body, which keeps no score tile
+(any T; 16-byte aligned operands). Every fp32 kernel runs a CUDA-core
+body: those keep all T scores of a block in shared memory, and a T past
+the card's shared memory raises. CUDA tensors launch the kernel or
+raise; CPU tensors run the plain version; nothing falls back. Each
 launch is counted on its wrapper (`.launches`; v3 in
 `attention_v2.launches_v3`).
 """
@@ -61,12 +65,14 @@ GROUP_HEADS = (1, 2, 4, 6, 8)
 # |d| is held to the bf16 tolerance in fp32 too
 BF16_SCORES = ("attention_v4",)
 # mean |kernel - plain| limits, which pin the rounding the max cannot: a
-# flipped score rounding is sparse (one score in thousands, moving one
-# (row, head) output vector), while leaving the rounding out moves every
+# flipped rounding is sparse (one value in thousands, moving one (row,
+# head) output vector), while leaving the rounding out moves every
 # output, by a mean |d| some thousand times that of the flips. The limit
-# lies between (tests/test_torch_attn_variants.py shows #1's function
-# fails it; chip_smoke.py prints both means on the card).
-MEAN_TOL = {"attention_v4": 1e-5}
+# lies between (tests/test_torch_attn_variants.py shows that #1's
+# function fails v4's, and v2 without its rounding of q * scale, which
+# is exact at Dh = 16 and 64 and not at Dh = 80, fails v2's;
+# chip_smoke.py prints the means on the card).
+MEAN_TOL = {"attention_v2": 1e-5, "attention_v3": 1e-5, "attention_v4": 1e-5}
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """The bf16 attention kernels of two source trees, side by side on the card.
 
-    python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR
+    python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR [--changed v2 v3]
 
 Each DIR is a `csrc/` directory (this package's, or one unpacked from
 another commit with `git archive`). Its `attention.cu` and
@@ -13,9 +13,12 @@ same tree. Then each is timed with CUDA events in turns (a, b, b, a, b,
 a, a, b; ITERS launches a turn), and the best and the median of each
 tree's turns are printed, with the card's name and power limit.
 
-Kernels: #1 one-block, #2 split-key, #3 the packed pair, v4 (bf16
-scores), v5 (H/2 heads a block), v6 (2 batch rows a block), and the pair
-walked in turn (the group kernel at 2 heads a block).
+Kernels: #1 one-block, #2 split-key, #3 the packed pair, v2 (deferred
+normalisation), v3 (v2 without the max), v4 (bf16 scores), v5 (H/2
+heads a block), v6 (2 batch rows a block), and the pair walked in turn
+(the group kernel at 2 heads a block). `--changed` names the kernels
+whose bits the change means to move: the printout marks them, and the
+exit code is 1 when any other kernel of b differs from a's.
 
 There is no CPU mode: without a card and nvcc it raises.
 """
@@ -41,9 +44,10 @@ ITERS = 100
 TURNS = ("a", "b", "b", "a", "b", "a", "a", "b")
 # (library, schedule or variant, nh, nr) of each kernel; nh = 0: H / 2
 ONE_BLOCK, SPLIT_KEY, PACKED_PAIR = 0, 1, 2
-V4, GROUP = 2, 3
+V2, V3, V4, GROUP = 0, 1, 2, 3
 KINDS = {"#1": ("attention", ONE_BLOCK, 1, 1), "#2": ("attention", SPLIT_KEY, 1, 1),
-         "#3": ("attention", PACKED_PAIR, 1, 1), "v4": ("variants", V4, 1, 1),
+         "#3": ("attention", PACKED_PAIR, 1, 1), "v2": ("variants", V2, 1, 1),
+         "v3": ("variants", V3, 1, 1), "v4": ("variants", V4, 1, 1),
          "v5": ("variants", GROUP, 0, 1), "v6": ("variants", GROUP, 1, 2),
          "pair in turn": ("variants", GROUP, 2, 1)}
 
@@ -52,6 +56,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--a", required=True, type=Path, help="the first csrc/ directory")
     p.add_argument("--b", required=True, type=Path, help="the second csrc/ directory")
+    p.add_argument("--changed", nargs="*", default=[], choices=sorted(KINDS),
+                   help="kernels whose bits b means to change")
     return p.parse_args(argv)
 
 
@@ -109,11 +115,12 @@ def cuda_ms(fn) -> float:
 
 
 def run(args) -> dict:
-    """Bits and times of every kernel of both trees at every shape."""
+    """Bits and times of every kernel of both trees at every shape
+    (`["shapes"][label][kind]`), and the kernels named as changed."""
     if not torch.cuda.is_available():
         raise RuntimeError("compare_builds times kernels on the card: no CUDA device")
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = {}
+    out = {"changed": list(args.changed), "shapes": {}}
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
         trees = {}
         for tag in ("a", "b"):
@@ -129,7 +136,7 @@ def run(args) -> dict:
             for call in calls.values():
                 call()
             torch.cuda.synchronize()
-            out[label] = rows = {}
+            out["shapes"][label] = rows = {}
             for kind in KINDS:
                 times = {"a": [], "b": []}
                 for tag in TURNS:
@@ -148,14 +155,19 @@ def report(results: dict) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(f"card: {smi.stdout.strip()}")
-    for label, rows in results.items():
+    changed = set(results["changed"])
+    for label, rows in results["shapes"].items():
         print(f"{label}, bf16 (best / median of {len(TURNS) // 2} turns of {ITERS}):")
         for kind, r in rows.items():
+            note = " (changed kernel: its bits may differ)" if kind in changed else ""
             print(f"  {kind:13s} a {r['a_ms']:.4f} / {r['a_median_ms']:.4f} ms, "
                   f"b {r['b_ms']:.4f} / {r['b_median_ms']:.4f} ms (b/a "
-                  f"{r['b_ms'] / r['a_ms']:.3f}); b equals a: {r['b_equals_a']}; "
+                  f"{r['b_ms'] / r['a_ms']:.3f}); b equals a: {r['b_equals_a']}{note}; "
                   f"equal to #1: a {r['a_equals_1']}, b {r['b_equals_1']}")
-    return 0
+    same = all(r["b_equals_a"] for rows in results["shapes"].values()
+               for kind, r in rows.items() if kind not in changed)
+    print(f"every kernel not named as changed equals a bit for bit: {same}")
+    return 0 if same else 1
 
 
 def main(argv=None) -> int:

@@ -15,7 +15,9 @@ is accepted for the JAX CLI's flags and changes nothing (the mesh path
 is not ported). `--weights_dir` is a directory of the port's `vision.pt`
 / `text.pt` (models/bridge.py), or none for seeded random towers; the HF
 tokenizer (`--tokenizer_dir`) and the file-backed datasets are not
-ported yet: the registered dataset is `synthetic`.
+ported yet: the registered dataset is `synthetic`. A name outside
+`SUPPORTED_DATASETS`, the JAX CLI's list, is refused before anything is
+loaded, as the JAX CLI refuses it.
 """
 
 from __future__ import annotations
@@ -27,6 +29,15 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+# the datasets the CLI takes: the JAX CLI's list (scripts/zeroshot.py)
+SUPPORTED_DATASETS = [
+    "flowers102", "food101", "stanfordcars", "eurosat", "cifar100", "dtd",
+    "synthetic",
+    "imagenet-val-wds", "imagenet-100", "imagenet-50",
+    "imagenet-r", "imagenet-sketch",
+]
+
 
 def run(
     dataset: str,
@@ -50,7 +61,11 @@ def run(
     `seconds` of each step (host clock, the card synchronised at each
     step's end). `dataset_overrides` go to the datamodule's constructor
     (`DataModuleFactory.create(dataset, **overrides)`, e.g. the synthetic
-    module's `image_size`, `num_test`, `num_classes`)."""
+    module's `image_size`, `num_test`, `num_classes`). Raises
+    ValueError for a dataset outside SUPPORTED_DATASETS before it loads
+    anything."""
+    if dataset not in SUPPORTED_DATASETS:
+        raise ValueError(f"Invalid dataset: {dataset}, must be one of {SUPPORTED_DATASETS}")
     from bayesvlm_tpu_torch.bayes.kfac import compute_covariances
     from bayesvlm_tpu_torch.bayes.prior import optimize_prior_precision
     from bayesvlm_tpu_torch.data.factory import DataModuleFactory

@@ -111,21 +111,56 @@ def _close_v4(out, ref):
 
 
 SHAPES = [(2, 17, 2), (4, 50, 4)]  # B, T, H at Dh = 16
+# v2 also at Dh = 80, where the scale 1/sqrt(80) that moves into q is no
+# power of two: q * scale is rounded to bf16 (the kernel does it on Q's
+# fragments), where at Dh = 16 it is exact
+V2_SHAPES = [(*s, 16) for s in SHAPES] + [(2, 17, 2, 80)]
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("subtract_max", [True, False])
-@pytest.mark.parametrize("B,T,H", SHAPES)
-def test_v2_matches_jax_probe(dtype, subtract_max, B, T, H):
+@pytest.mark.parametrize("B,T,H,Dh", V2_SHAPES, ids=[
+    "-".join(map(str, s[:3])) + ("" if s[3] == 16 else f"-dh{s[3]}") for s in V2_SHAPES])
+def test_v2_matches_jax_probe(dtype, subtract_max, B, T, H, Dh):
     # v3 is the same body with subtract_max=False (an unsafe probe: the
     # N(0, 1) inputs keep exp(s) small)
-    xs = _qkv(B, T, H, 16, dtype, seed=T + H)
+    xs = _qkv(B, T, H, Dh, dtype, seed=T + H)
     body = _lift("bench_attn_variants.py", "_kernel_v2")
-    ref = _jax_one_row_program(body, xs, dtype, H, 16, "float32",
+    ref = _jax_one_row_program(body, xs, dtype, H, Dh, "float32",
                                subtract_max=subtract_max)
     out = _port(functools.partial(av.attention_v2, subtract_max=subtract_max), xs,
                 dtype, H)
     _close(out, ref, dtype)
+    mean = float(np.abs(out - ref).mean())
+    assert mean <= av.MEAN_TOL["attention_v2"], f"mean |d| {mean:.3e}"
+
+
+def _v2_unrounded_q(q, k, v, num_heads, subtract_max=True):
+    """v2 with q * scale left in fp32: the function the kernel would
+    compute if it skipped the rounding of Q's fragments."""
+    import math
+
+    Dh = q.shape[-1] // num_heads
+    qs = q.float() * (1.0 / math.sqrt(Dh))
+    s = av._heads(qs, num_heads) @ av._heads(k, num_heads).float().transpose(-1, -2)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True) if subtract_max else s)
+    o = e.to(q.dtype).float() @ av._heads(v, num_heads).float()
+    return av._merge(o / e.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+@pytest.mark.parametrize("subtract_max", [True, False])
+def test_v2_check_pins_the_q_rounding(subtract_max):
+    # bf16 at Dh = 80: leaving out the rounding of q * scale stays within
+    # the max tolerance but moves every output, and fails the mean limit
+    # that the port meets
+    xs = _qkv(2, 17, 2, 80, "bf16", seed=19)
+    body = _lift("bench_attn_variants.py", "_kernel_v2")
+    ref = _jax_one_row_program(body, xs, "bf16", 2, 80, "float32",
+                               subtract_max=subtract_max)
+    unrounded = _port(functools.partial(_v2_unrounded_q, subtract_max=subtract_max), xs,
+                      "bf16", 2)
+    _close(unrounded, ref, "bf16")
+    assert np.abs(unrounded - ref).mean() > 10 * av.MEAN_TOL["attention_v2"]
 
 
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
@@ -336,10 +371,10 @@ def test_group_kernels_equal_one_block_on_card(cuda, dtype, T, Dh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["attention_group_heads", "attention_group_rows",
-                                  "attention_v4"])
+                                  "attention_v2", "attention_v3", "attention_v4"])
 def test_group_kernels_take_long_sequences_in_bf16_on_card(cuda, name):
     # T=1024: an fp32 kernel's score tile would pass the card's shared
-    # memory; the tensor-core body (bf16 v4, v5, v6) keeps no score tile
+    # memory; the tensor-core body (bf16 v2-v6) keeps no score tile
     gen = torch.Generator(device=cuda).manual_seed(1024)
     q, k, v = (torch.randn(2, 1024, 16 * 64, generator=gen, device=cuda).bfloat16()
                for _ in range(3))
@@ -354,19 +389,16 @@ def test_group_kernels_take_long_sequences_in_bf16_on_card(cuda, name):
 @pytest.mark.cuda
 def test_block_resources_on_card(cuda):
     # T=257, Dh=64. fp32: v2, v4 and v6 take #1's 104,208 B (two blocks
-    # an SM), v5's eight heads 120,848 B (one). bf16: v2 and v3 #1's
-    # CUDA-core layout; v4, v5 and v6 the tensor-core body's two stages of
-    # two 64-row tiles, 36,864 B whatever T and the groups
-    want = {torch.float32: {"attention_v2": (104208, 2), "attention_v3": (104208, 2),
-                            "attention_v4": (104208, 2),
-                            "attention_group_rows": (104208, 2),
-                            "attention_group_heads": (120848, 1)},
-            torch.bfloat16: {"attention_v2": (104208, 2), "attention_v3": (104208, 2)}}
-    for dtype, kernels in want.items():
-        for name, (smem, blocks) in kernels.items():
-            r = av.block_resources(name, 80, 257, 16, 64, dtype)
-            assert (r["body"], r["smem_bytes"], r["blocks_per_sm"]) == (
-                "simt", smem, blocks), (name, dtype)
+    # an SM), v5's eight heads 120,848 B (one). bf16: every kernel the
+    # tensor-core body's two stages of two 64-row tiles, 36,864 B whatever
+    # T and the groups
+    want = {"attention_v2": (104208, 2), "attention_v3": (104208, 2),
+            "attention_v4": (104208, 2), "attention_group_rows": (104208, 2),
+            "attention_group_heads": (120848, 1)}
+    for name, (smem, blocks) in want.items():
+        r = av.block_resources(name, 80, 257, 16, 64, torch.float32)
+        assert (r["body"], r["smem_bytes"], r["blocks_per_sm"]) == (
+            "simt", smem, blocks), name
     for name in ("attention_group_heads", "attention_group_rows"):
         r = av.block_resources(name, 80, 257, 16, 64, torch.bfloat16)
         assert (r["body"], r["smem_bytes"]) == ("mma", 36864), name
@@ -376,6 +408,12 @@ def test_block_resources_on_card(cuda):
     r = av.block_resources("attention_v4", 80, 257, 16, 64, torch.bfloat16)
     assert (r["body"], r["smem_bytes"], r["registers"], r["blocks_per_sm"]) == (
         "mma", 36864, 128, 4)
+    # v2 and v3 are #1's one-block instantiation with the deferred
+    # normalisation, built for 4 blocks an SM (at most 128 registers)
+    for name in ("attention_v2", "attention_v3"):
+        r = av.block_resources(name, 80, 257, 16, 64, torch.bfloat16)
+        assert (r["body"], r["smem_bytes"], r["blocks_per_sm"]) == ("mma", 36864, 4), name
+        assert 0 < r["registers"] <= 128, name
 
 
 def test_compare_builds_has_no_cpu_mode(tmp_path):
@@ -407,3 +445,5 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
         2, 17, 64)
     with pytest.raises(ValueError, match="16-byte aligned"):
         av.attention_group_rows(off, off, off, 1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        av.attention_v2(off, off, off, 1)

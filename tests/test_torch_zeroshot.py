@@ -440,3 +440,61 @@ def test_main_returns_the_metrics_and_exposes_last_info(monkeypatch):
         metrics=(0.5, 1.5, 0.1), info=info, probs=None))
     assert zeroshot.main("synthetic", "h") == (0.5, 1.5, 0.1)
     assert zeroshot.main.last_info == info
+
+
+class _Loaded(Exception):
+    """Raised by a stubbed loader: the CLI got past its dataset check."""
+
+
+def _stub_loaders(monkeypatch) -> list:
+    """Both CLIs' dataset, factor and tower loaders replaced by stubs that
+    record their name and raise _Loaded; returns the record."""
+    import bayesvlm_tpu.data.factory as jax_factory
+    import bayesvlm_tpu.io.artifacts as jax_artifacts
+    import bayesvlm_tpu.models as jax_models
+    import bayesvlm_tpu_torch.data.factory as factory
+    import bayesvlm_tpu_torch.io.artifacts as artifacts
+    import bayesvlm_tpu_torch.models.encoders as encoders
+
+    loaded = []
+
+    def stub(name):
+        def load(*args, **kwargs):
+            loaded.append(name)
+            raise _Loaded(name)
+        return load
+
+    for mod, attr in [(jax_factory, "DataModuleFactory"), (jax_artifacts, "load_hessians"),
+                      (jax_models, "load_model"), (factory, "DataModuleFactory"),
+                      (artifacts, "load_hessians"), (encoders, "load_model")]:
+        monkeypatch.setattr(mod, attr, stub(f"{mod.__name__}.{attr}"))
+    return loaded
+
+
+@pytest.mark.parametrize("dataset", ["sun397", "oxfordpets", "nonsense"])
+def test_both_clis_refuse_a_dataset_outside_the_list(dataset, monkeypatch, tmp_path):
+    # sun397 and oxfordpets are in the JAX data registry but not in the
+    # CLI's list: both CLIs refuse them first, with one message, before
+    # any dataset, factor or tower is loaded
+    loaded = _stub_loaders(monkeypatch)
+    kw = dict(dataset=dataset, hessian_dir=str(tmp_path), model_str="tiny-clip",
+              dtype="fp32")
+    with pytest.raises(ValueError, match="Invalid dataset"):
+        jax_zeroshot.main(**kw, use_mesh=False)
+    with pytest.raises(ValueError, match="Invalid dataset"):
+        zeroshot.main(**kw, device="cpu")
+    assert loaded == []
+
+
+def test_both_clis_take_synthetic_past_the_check(monkeypatch, tmp_path):
+    # the same list in both, and a listed name goes on to the datamodule
+    assert zeroshot.SUPPORTED_DATASETS == jax_zeroshot.SUPPORTED_DATASETS
+    loaded = _stub_loaders(monkeypatch)
+    kw = dict(dataset="synthetic", hessian_dir=str(tmp_path), model_str="tiny-clip",
+              dtype="fp32")
+    with pytest.raises(_Loaded):
+        jax_zeroshot.main(**kw, use_mesh=False)
+    with pytest.raises(_Loaded):
+        zeroshot.main(**kw, device="cpu")
+    assert loaded == ["bayesvlm_tpu.data.factory.DataModuleFactory",
+                      "bayesvlm_tpu_torch.data.factory.DataModuleFactory"]
