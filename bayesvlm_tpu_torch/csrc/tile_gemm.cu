@@ -1,56 +1,59 @@
 // The GEMM probes of scripts/dev/ (bench_int8_mxu.py, bench_int8_sweep.py,
-// bench_int4_mxu.py) as one templated Hopper GEMM over (operand types,
-// block tile). All three scripts share one TPU body, `make_matmul`'s
-// `kernel` (bench_int8_mxu.py:48, pallas_call :64; bench_int8_sweep.py:37,
-// :53; bench_int4_mxu.py:33, :49): a tiled
+// bench_int4_mxu.py) as Hopper GEMMs over (operand types, block tile). All
+// three scripts share one TPU body, `make_matmul`'s `kernel`
+// (bench_int8_mxu.py:48, pallas_call :64; bench_int8_sweep.py:37, :53;
+// bench_int4_mxu.py:33, :49): a tiled
 //
 //   C[M, N] = A[M, K] . B[K, N]      B row-major [K, N], as the scripts lay it out
 //
-// with the raw accumulator as output. Four kinds:
-//   kBF16  bf16 x bf16 -> fp32     mma.sync m16n8k16
-//   kS8    s8 x s8 -> s32          mma.sync m16n8k32 (exact)
-//   kS4    s4 x s4 -> s32          mma.sync m16n8k64 s4
+// with the raw accumulator as output. Four kinds, two bodies:
+//   kBF16  bf16 x bf16 -> fp32     wgmma m64nNk16 (wgmma_gemm.cuh)
+//   kS8    s8 x s8 -> s32          wgmma m64nNk32 (exact; wgmma_gemm.cuh)
+//   kS4    s4 x s4 -> s32          mma.sync m16n8k64 s4 (tile_gemm_kernel below)
 //   kS8S4  s8 x s4 -> s32          B's nibbles unpacked to s8 in registers,
-//                                  m16n8k32 (weight-only int4)
+//                                  mma.sync m16n8k32 (weight-only int4)
 // s4 operands are packed two a byte along K, the lower k in the low
 // nibble (two's complement): A as [M, K/2] bytes, B as [K/2, N] bytes.
 //
-// The s4 mma: ptxas for sm_90a (the CUDA 12 toolkit on an H100 machine)
-// takes `mma.sync.aligned.m16n8k64.row.col.s32.s4.s4.s32` without a word,
-// so kS4 runs it (the alternative, both operands unpacked to s8 in
-// registers for m16n8k32, is what kS8S4 does to B). On the card it runs
-// far below the s8 rate (PERF.md).
+// bf16 and s8: the warp-specialised persistent wgmma GEMM of
+// wgmma_gemm.cuh (a producer warp's TMA loads into an mbarrier ring, two
+// consumer warpgroups, TMA-stored epilogue), at 8 configurations (BM x
+// BN, ring depth, the consumers sharing each tile or taking whole tiles
+// in turn; BVT_TILES). bf16 reads B [K, N] as it lies (MN-major). wgmma
+// takes 8-bit operands K-major only, so the s8 call first lays B out as
+// B^T [N, K] with transpose_s8_kernel, into stream-ordered scratch of
+// this library's own pool, and the GEMM reads that (~8 MB moved at the
+// probe shape). Every kind takes B [K, N] at the C interface.
 //
-// Design. A block of NT = 32 x WARPS_M x WARPS_N threads owns a BM x BN
-// output tile; each warp a (BM / WARPS_M) x (BN / WARPS_N) piece of
-// 16 x 8 mma tiles. K is walked 64 bytes of A a row per stage through a
-// ring of STAGES shared-memory stages filled by cp.async (16 bytes a
-// thread, zero-filled past the edges of M, N and K), one barrier a stage,
-// as csrc/int8_gemm.cuh's GEMM (whose cp.async, ldmatrix and mma helpers
-// are reused here; its gemm_s8_kernel takes W as [N, K] and has a
-// dequant epilogue, so it is not this function). A reaches its fragments
-// through ldmatrix (rows padded to 80 bytes). B is [K, N]: its
-// fragments need k-consecutive values of one column n.
-//   - bf16: ldmatrix.trans from the row-major tile (rows padded by 16
-//     bytes, so an 8-row phase hits 32 banks).
-//   - 8- and 4-bit: sm_90 has no ldmatrix.trans for 8-bit elements, so
-//     each lane reads 32-bit words of 4 consecutive columns from 4 (s8,
-//     s4) or 2 (s8 x s4: 2 nibbles a byte) consecutive k rows and
-//     transposes the 4 x 4 bytes with prmt (`__byte_perm`) in registers.
-//     The word's 4 columns go to the 4 mma tiles of a 32-column group, so
-//     mma tile j's column c is the group's column 4c + j; that permutation
-//     is undone in the epilogue, where a lane then holds 8 consecutive
-//     columns of a row and stores them as two 16-byte vectors. The stage
-//     rows are not padded but XOR-swizzled by 16-byte chunk (chunk ^ 2
-//     ((row / rows-a-lane) % 4)), so the 32 lanes of a word load hit 32
-//     banks.
-//   - s8 x s4: each nibble is
-//     sign-extended to a byte with `__vsub4` ((x ^ 8) - 8 a byte) and the
-//     bytes interleaved with prmt, so the s8 mma sees the exact values.
-// Edges: M and N are masked (zero-filled loads, stores skipped); K must
-// be a multiple of one mma step's depth (16 bf16, 32 s8, 64 s4) and N of
-// 16, so a 16-byte chunk lies wholly inside or outside the operands, and
-// the wrapper raises otherwise.
+// s4 and s8 x s4: the mma.sync design of csrc/int8_gemm.cuh (whose
+// cp.async, ldmatrix and mma helpers are reused here), at one tile. A
+// block of NT = 32 x WARPS_M x WARPS_N threads owns a BM x BN output tile;
+// each warp a (BM / WARPS_M) x (BN / WARPS_N) piece of 16 x 8 mma tiles. K
+// is walked 64 bytes of A a row per stage through a ring of STAGES
+// shared-memory stages filled by cp.async (16 bytes a thread, zero-filled
+// past the edges of M, N and K), one barrier a stage. A reaches its
+// fragments through ldmatrix (rows padded to 80 bytes). B is [K, N]: its
+// fragments need k-consecutive values of one column n, and sm_90 has no
+// ldmatrix.trans for 8-bit elements, so each lane reads 32-bit words of 4
+// consecutive columns from 4 (s4) or 2 (s8 x s4: 2 nibbles a byte)
+// consecutive k rows and transposes the 4 x 4 bytes with prmt
+// (`__byte_perm`) in registers. The word's 4 columns go to the 4 mma tiles
+// of a 32-column group, so mma tile j's column c is the group's column
+// 4c + j; that permutation is undone in the epilogue, where a lane then
+// holds 8 consecutive columns of a row and stores them as two 16-byte
+// vectors. The stage rows are not padded but XOR-swizzled by 16-byte
+// chunk (chunk ^ 2 ((row / rows-a-lane) % 4)), so the 32 lanes of a word
+// load hit 32 banks. s8 x s4: each nibble is sign-extended to a byte with
+// `__vsub4` ((x ^ 8) - 8 a byte) and the bytes interleaved with prmt, so
+// the s8 mma sees the exact values. ptxas for sm_90a takes
+// `mma.sync.aligned.m16n8k64.row.col.s32.s4.s4.s32` without a word; on
+// the card it runs far below the s8 rate (PERF.md).
+//
+// Edges: K must be a multiple of one mma step's depth (16 bf16, 32 s8,
+// 64 s4) and N of 16; every operand 16-byte aligned with rows a multiple
+// of 16 bytes apart (the TMA's rule, and cp.async's 16-byte chunks); the
+// wrapper raises otherwise. M and N are masked (zero-filled loads, clipped
+// or skipped stores); the wgmma body also zero-fills K past its end.
 //
 // What bounds it on an H100 at the probes' M, K, N = 16384, 1024, 4096:
 // bf16 the operations (137.4 G at 989 TFLOP/s: 0.139 ms; bytes 0.093);
@@ -64,7 +67,10 @@
 
 #include <stdint.h>
 
+#include <mutex>
+
 #include "int8_gemm.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -72,31 +78,19 @@ using bvt_int8::cp_async16;
 using bvt_int8::cp_async_commit;
 using bvt_int8::cp_async_wait;
 using bvt_int8::ldmatrix_x4;
-using bvt_int8::ldmatrix_x4_trans;
-using bvt_int8::mma_bf16;
 using bvt_int8::mma_s8;
 
 enum Kind { kBF16 = 0, kS8 = 1, kS4 = 2, kS8S4 = 3 };
-enum BMode { kBTrans = 0, kBBytes = 1, kBNibbles = 2 };
+enum BMode { kBBytes = 1, kBNibbles = 2 };
 
 constexpr int AKB = 64;        // A bytes a row per stage
 constexpr int SA = AKB + 16;   // A shared-memory row stride (bytes)
 
 template <int KIND> struct Traits;
-// a_num / a_den: A bytes per k; b_k_per_row: k values per B row; b_elem:
-// B bytes per column; step_a: A bytes per mma step; step_b: B rows per mma
-// step; rows_a_lane (8- and 4-bit B): B rows one lane reads per fragment
+// (the s4 kinds) a_num / a_den: A bytes per k; b_k_per_row: k values per
+// B row; b_elem: B bytes per column; step_a: A bytes per mma step; step_b:
+// B rows per mma step; rows_a_lane: B rows one lane reads per fragment
 // register
-template <> struct Traits<kBF16> {
-  static constexpr int a_num = 2, a_den = 1, b_k_per_row = 1, b_elem = 2;
-  static constexpr int step_a = 32, step_b = 16, b_mode = kBTrans;
-  using Acc = float;
-};
-template <> struct Traits<kS8> {
-  static constexpr int a_num = 1, a_den = 1, b_k_per_row = 1, b_elem = 1;
-  static constexpr int step_a = 32, step_b = 32, b_mode = kBBytes, rows_a_lane = 4;
-  using Acc = int;
-};
 template <> struct Traits<kS4> {
   static constexpr int a_num = 1, a_den = 2, b_k_per_row = 2, b_elem = 1;
   static constexpr int step_a = 32, step_b = 32, b_mode = kBBytes, rows_a_lane = 4;
@@ -121,9 +115,7 @@ __device__ __forceinline__ void mma_s4(int* c, const uint32_t* a, const uint32_t
 template <int KIND>
 __device__ __forceinline__ void mma(typename Traits<KIND>::Acc* c, const uint32_t* a,
                                     const uint32_t* b) {
-  if constexpr (KIND == kBF16) {
-    mma_bf16(c, a, b);
-  } else if constexpr (KIND == kS4) {
+  if constexpr (KIND == kS4) {
     mma_s4(c, a, b);
   } else {
     mma_s8(c, a, b);
@@ -163,13 +155,12 @@ struct Gemm {
   static constexpr int MT = WM / 16, NTL = WN / 8;          // mma tiles a warp
   static constexpr int kSteps = AKB / Tr::step_a;           // mma steps a stage
   static constexpr int kBRows = Tr::step_b * kSteps;        // B rows a stage
-  static constexpr bool kSwizzle = Tr::b_mode != kBTrans;
-  static constexpr int kBRowB = BN * Tr::b_elem + (kSwizzle ? 0 : 16);
+  static constexpr int kBRowB = BN * Tr::b_elem;
   static constexpr int kBChunks = BN * Tr::b_elem / 16;
   static constexpr int kStage = BM * SA + kBRows * kBRowB;
   static constexpr int kSmem = STAGES * kStage;
   static_assert(WM % 16 == 0 && WN % 32 == 0, "warp piece: 16-row, 32-column multiples");
-  static_assert(!kSwizzle || kBChunks % 8 == 0, "the swizzle needs 128-byte B rows");
+  static_assert(kBChunks % 8 == 0, "the swizzle needs 128-byte B rows");
 };
 
 template <int KIND, int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
@@ -204,12 +195,8 @@ tile_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
       const int gr = kt * G::kBRows + r;
       const long gcol = (long)n0 * Tr::b_elem + cc * 16;
       const bool ok = gr < b_rows && gcol < b_rowb;
-      int8_t* dst;
-      if constexpr (G::kSwizzle)
-        dst = bs + b_swizzle<G::kBRowB, Tr::rows_a_lane>(r, cc);
-      else
-        dst = bs + r * G::kBRowB + cc * 16;
-      cp_async16(dst, ok ? b + (long)gr * b_rowb + gcol : b, ok ? 16 : 0);
+      cp_async16(bs + b_swizzle<G::kBRowB, Tr::rows_a_lane>(r, cc),
+                 ok ? b + (long)gr * b_rowb + gcol : b, ok ? 16 : 0);
     }
   };
 
@@ -244,58 +231,41 @@ tile_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 #pragma unroll
       for (int i = 0; i < G::MT; ++i)
         ldmatrix_x4(af[i], as + (wm + i * 16) * SA + ks * Tr::step_a + a_off);
-      if constexpr (Tr::b_mode == kBTrans) {
-        // matrices (k 0-7, n 0-7), (8-15, 0-7), (0-7, 8-15), (8-15, 8-15)
-        // are b0, b1 of two 8-column tiles
+      // 32-column groups: this lane's word holds columns 4g .. 4g+3 of
+      // the group, one for each of its 4 mma tiles
 #pragma unroll
-        for (int j = 0; j < G::NTL; j += 2) {
-          uint32_t r[4];
-          ldmatrix_x4_trans(r, bs + (ks * Tr::step_b + (lq & 1) * 8 + lr) * G::kBRowB +
-                                   (wn + j * 8 + (lq >> 1) * 8) * Tr::b_elem);
-          const uint32_t b0[2] = {r[0], r[1]}, b1[2] = {r[2], r[3]};
+      for (int grp = 0; grp < G::NTL / 4; ++grp) {
+        const int chunk = (wn + grp * 32 + 4 * g) >> 4, in = (4 * g) & 15;
+        uint32_t bf[2][4];
 #pragma unroll
-          for (int i = 0; i < G::MT; ++i) {
-            mma<KIND>(acc[i][j], af[i], b0);
-            mma<KIND>(acc[i][j + 1], af[i], b1);
+        for (int h = 0; h < 2; ++h) {
+          uint32_t w[4];
+          if constexpr (Tr::b_mode == kBBytes) {
+            // b_h: k rows step + 16h + 4t .. +3 (a byte each)
+            const int r0 = ks * Tr::step_b + h * 16 + 4 * t;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              w[i] = *reinterpret_cast<const uint32_t*>(
+                  bs + b_swizzle<G::kBRowB, Tr::rows_a_lane>(r0 + i, chunk) + in);
+          } else {
+            // b_h: k 16h + 4t .. +3 = packed rows step + 8h + 2t, +1
+            const int r0 = ks * Tr::step_b + h * 8 + 2 * t;
+            const uint32_t w0 = *reinterpret_cast<const uint32_t*>(
+                bs + b_swizzle<G::kBRowB, Tr::rows_a_lane>(r0, chunk) + in);
+            const uint32_t w1 = *reinterpret_cast<const uint32_t*>(
+                bs + b_swizzle<G::kBRowB, Tr::rows_a_lane>(r0 + 1, chunk) + in);
+            w[0] = low_nibbles(w0);
+            w[1] = high_nibbles(w0);
+            w[2] = low_nibbles(w1);
+            w[3] = high_nibbles(w1);
           }
+          transpose4(w, bf[h]);
         }
-      } else {
-        // 32-column groups: this lane's word holds columns 4g .. 4g+3 of
-        // the group, one for each of its 4 mma tiles
 #pragma unroll
-        for (int grp = 0; grp < G::NTL / 4; ++grp) {
-          const int chunk = (wn + grp * 32 + 4 * g) >> 4, in = (4 * g) & 15;
-          uint32_t bf[2][4];
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t bj[2] = {bf[0][j], bf[1][j]};
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            uint32_t w[4];
-            if constexpr (Tr::b_mode == kBBytes) {
-              // b_h: k rows step + 16h + 4t .. +3 (a byte each)
-              const int r0 = ks * Tr::step_b + h * 16 + 4 * t;
-#pragma unroll
-              for (int i = 0; i < 4; ++i)
-                w[i] = *reinterpret_cast<const uint32_t*>(
-                    bs + b_swizzle<G::kBRowB, Tr::rows_a_lane>(r0 + i, chunk) + in);
-            } else {
-              // b_h: k 16h + 4t .. +3 = packed rows step + 8h + 2t, +1
-              const int r0 = ks * Tr::step_b + h * 8 + 2 * t;
-              const uint32_t w0 = *reinterpret_cast<const uint32_t*>(
-                  bs + b_swizzle<G::kBRowB, Tr::rows_a_lane>(r0, chunk) + in);
-              const uint32_t w1 = *reinterpret_cast<const uint32_t*>(
-                  bs + b_swizzle<G::kBRowB, Tr::rows_a_lane>(r0 + 1, chunk) + in);
-              w[0] = low_nibbles(w0);
-              w[1] = high_nibbles(w0);
-              w[2] = low_nibbles(w1);
-              w[3] = high_nibbles(w1);
-            }
-            transpose4(w, bf[h]);
-          }
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const uint32_t bj[2] = {bf[0][j], bf[1][j]};
-#pragma unroll
-            for (int i = 0; i < G::MT; ++i) mma<KIND>(acc[i][grp * 4 + j], af[i], bj);
-          }
+          for (int i = 0; i < G::MT; ++i) mma<KIND>(acc[i][grp * 4 + j], af[i], bj);
         }
       }
     }
@@ -310,91 +280,192 @@ tile_gemm_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
     for (int h = 0; h < 2; ++h) {
       const int row = m0 + wm + i * 16 + g + h * 8;
       if (row >= M) continue;
-      if constexpr (Tr::b_mode == kBTrans) {
-        float* out = static_cast<float*>(c) + (long)row * N;
+      // mma column c of tile 4 grp + j is group column 4c + j: this lane
+      // holds columns 8t .. 8t+7 of each group (N % 16 == 0: all in or out)
+      int* out = static_cast<int*>(c) + (long)row * N;
 #pragma unroll
-        for (int j = 0; j < G::NTL; ++j) {
-          const int col = n0 + wn + j * 8 + 2 * t;  // N is even: col + 1 < N too
-          if (col < N)
-            *reinterpret_cast<float2*>(out + col) = make_float2(acc[i][j][2 * h],
-                                                                acc[i][j][2 * h + 1]);
-        }
-      } else {
-        // mma column c of tile 4 grp + j is group column 4c + j: this lane
-        // holds columns 8t .. 8t+7 of each group (N % 16 == 0: all in or out)
-        int* out = static_cast<int*>(c) + (long)row * N;
-#pragma unroll
-        for (int grp = 0; grp < G::NTL / 4; ++grp) {
-          const int col = n0 + wn + grp * 32 + 8 * t;
-          if (col >= N) continue;
-          const Acc* x0 = acc[i][grp * 4];
-          const Acc* x1 = acc[i][grp * 4 + 1];
-          const Acc* x2 = acc[i][grp * 4 + 2];
-          const Acc* x3 = acc[i][grp * 4 + 3];
-          *reinterpret_cast<int4*>(out + col) =
-              make_int4(x0[2 * h], x1[2 * h], x2[2 * h], x3[2 * h]);
-          *reinterpret_cast<int4*>(out + col + 4) =
-              make_int4(x0[2 * h + 1], x1[2 * h + 1], x2[2 * h + 1], x3[2 * h + 1]);
-        }
+      for (int grp = 0; grp < G::NTL / 4; ++grp) {
+        const int col = n0 + wn + grp * 32 + 8 * t;
+        if (col >= N) continue;
+        const Acc* x0 = acc[i][grp * 4];
+        const Acc* x1 = acc[i][grp * 4 + 1];
+        const Acc* x2 = acc[i][grp * 4 + 2];
+        const Acc* x3 = acc[i][grp * 4 + 3];
+        *reinterpret_cast<int4*>(out + col) =
+            make_int4(x0[2 * h], x1[2 * h], x2[2 * h], x3[2 * h]);
+        *reinterpret_cast<int4*>(out + col + 4) =
+            make_int4(x0[2 * h + 1], x1[2 * h + 1], x2[2 * h + 1], x3[2 * h + 1]);
       }
     }
   }
 }
 
+// -- B^T for the s8 wgmma ------------------------------------------------------
+
+// bt[N, K] = b[K, N]^T (bytes; K % 32 == 0, N % 16 == 0). A thread takes 32
+// rows of 4 columns: 32 coalesced word loads (a warp reads 128 bytes a
+// row), eight 4 x 4 byte transposes, and 32 bytes written to each of its
+// 4 rows of bt.
+__global__ void __launch_bounds__(128)
+transpose_s8_kernel(const uint32_t* __restrict__ b, uint8_t* __restrict__ bt, int K, int N) {
+  const int n4 = blockIdx.x * blockDim.x + threadIdx.x;
+  if (n4 * 4 >= N) return;
+  const int k0 = blockIdx.y * 32;
+  const int words = N / 4;
+  uint32_t w[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) w[i] = __ldg(b + (long)(k0 + i) * words + n4);
+  uint32_t col[4][8];  // col[j][g]: column 4 n4 + j, rows k0 + 4g .. + 3
+#pragma unroll
+  for (int g = 0; g < 8; ++g) {
+    uint32_t out[4];
+    transpose4(w + 4 * g, out);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) col[j][g] = out[j];
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    uint4* dst = reinterpret_cast<uint4*>(bt + (long)(4 * n4 + j) * K + k0);
+    dst[0] = make_uint4(col[j][0], col[j][1], col[j][2], col[j][3]);
+    dst[1] = make_uint4(col[j][4], col[j][5], col[j][6], col[j][7]);
+  }
+}
+
 // -- the tiles and their launch ---------------------------------------------
 
-// BM, BN, WARPS_M, WARPS_N, STAGES of the 8 block tiles (probes/tile_gemm.py
-// TILES lists the same, in the same order; tile 0 is the default)
-#define BVT_TILES(X)   \
-  X(0, 128, 128, 2, 4, 4) \
-  X(1, 128, 128, 2, 4, 3) \
-  X(2, 128, 128, 2, 4, 2) \
-  X(3, 64, 128, 1, 4, 4)  \
-  X(4, 128, 256, 2, 4, 3) \
-  X(5, 256, 128, 4, 2, 3) \
-  X(6, 64, 256, 1, 4, 4)  \
-  X(7, 256, 128, 4, 2, 4)
+// BM, BN, STAGES and schedule of the 8 wgmma configurations of bf16 and
+// s8 (384 threads: a producer and two consumer warpgroups;
+// probes/tile_gemm.py TILES lists the same, in the same order; tile 0 is
+// the default)
+#define BVT_TILES(X)                        \
+  X(0, 128, 128, 6, bvt_wgmma::kPingPong)  \
+  X(1, 128, 128, 5, bvt_wgmma::kPingPong)  \
+  X(2, 128, 128, 4, bvt_wgmma::kPingPong)  \
+  X(3, 64, 256, 4, bvt_wgmma::kPingPong)   \
+  X(4, 128, 256, 4, bvt_wgmma::kCoop)      \
+  X(5, 128, 256, 3, bvt_wgmma::kCoop)      \
+  X(6, 256, 128, 4, bvt_wgmma::kCoop)      \
+  X(7, 128, 256, 2, bvt_wgmma::kCoop)
 constexpr int kTiles = 8;
+
+// the s4 kinds' one tile: BM, BN, WARPS_M, WARPS_N, STAGES
+#define BVT_S4_TILE 128, 128, 2, 4, 4
+
+using Run = int (*)(const void*, const void*, void*, int, int, int, cudaStream_t);
 
 struct Entry {
   int bm, bn, threads, stages, smem;
+  int schedule;  // bvt_wgmma::WgSchedule, or -1 (the mma.sync kernel)
   const void* fn;
-  void (*launch)(dim3, int, cudaStream_t, const int8_t*, const int8_t*, void*, int, int,
-                 int);
+  Run run;
 };
 
 template <int KIND, int BM, int BN, int WARPS_M, int WARPS_N, int STAGES>
-Entry entry() {
+Entry mma_entry() {
   using G = Gemm<KIND, BM, BN, WARPS_M, WARPS_N, STAGES>;
-  return {BM, BN, G::kThreads, STAGES, G::kSmem,
-          reinterpret_cast<const void*>(
-              &tile_gemm_kernel<KIND, BM, BN, WARPS_M, WARPS_N, STAGES>),
-          [](dim3 grid, int smem, cudaStream_t s, const int8_t* a, const int8_t* b, void* c,
-             int M, int N, int K) {
-            tile_gemm_kernel<KIND, BM, BN, WARPS_M, WARPS_N, STAGES>
-                <<<grid, G::kThreads, smem, s>>>(a, b, c, M, N, K);
+  auto* kernel = &tile_gemm_kernel<KIND, BM, BN, WARPS_M, WARPS_N, STAGES>;
+  return {BM, BN, G::kThreads, STAGES, G::kSmem, -1, reinterpret_cast<const void*>(kernel),
+          [](const void* a, const void* b, void* c, int M, int N, int K,
+             cudaStream_t s) -> int {
+            auto* k = &tile_gemm_kernel<KIND, BM, BN, WARPS_M, WARPS_N, STAGES>;
+            // above 48 KB a launch is refused unless the kernel opted in
+            cudaError_t err =
+                cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
+            if (err != cudaSuccess || M == 0) return err;
+            const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+            if (grid.y > 65535) return cudaErrorInvalidValue;
+            k<<<grid, G::kThreads, G::kSmem, s>>>(static_cast<const int8_t*>(a),
+                                                  static_cast<const int8_t*>(b), c, M, N, K);
+            return cudaGetLastError();
           }};
+}
+
+// the pool the s8 kind's B^T scratch comes from, one a device: it keeps
+// what it has grown to between calls (release threshold: all), so a call
+// allocates nothing once it has seen its largest B
+cudaError_t scratch_pool(cudaMemPool_t* pool) {
+  constexpr int kMaxDevices = 64;
+  static cudaMemPool_t pools[kMaxDevices] = {};
+  static std::mutex mutex;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mutex);
+  if (pools[dev] == nullptr) {
+    cudaMemPoolProps props = {};
+    props.allocType = cudaMemAllocationTypePinned;
+    props.location.type = cudaMemLocationTypeDevice;
+    props.location.id = dev;
+    cudaMemPool_t p;
+    err = cudaMemPoolCreate(&p, &props);
+    if (err != cudaSuccess) return err;
+    uint64_t all = UINT64_MAX;
+    err = cudaMemPoolSetAttribute(p, cudaMemPoolAttrReleaseThreshold, &all);
+    if (err != cudaSuccess) return err;
+    pools[dev] = p;
+  }
+  *pool = pools[dev];
+  return cudaSuccess;
+}
+
+// s8: B^T [N, K] laid out from B [K, N] into stream-ordered scratch, then
+// the wgmma GEMM on it, on one stream
+template <int BM, int BN, int STAGES, int SCHED>
+int run_s8(const void* a, const void* b, void* c, int M, int N, int K, cudaStream_t stream) {
+  if (M == 0) return bvt_wgmma::wgmma_gemm<bvt_wgmma::kWgS8, BM, BN, STAGES, SCHED>(
+                  a, nullptr, c, M, N, K, stream);
+  const dim3 grid((N / 4 + 127) / 128, K / 32);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  cudaMemPool_t pool;
+  cudaError_t err = scratch_pool(&pool);
+  void* bt = nullptr;
+  if (err == cudaSuccess)
+    err = cudaMallocFromPoolAsync(&bt, static_cast<size_t>(N) * K, pool, stream);
+  if (err != cudaSuccess) return err;
+  transpose_s8_kernel<<<grid, 128, 0, stream>>>(static_cast<const uint32_t*>(b),
+                                                static_cast<uint8_t*>(bt), K, N);
+  int e = cudaGetLastError();
+  if (e == cudaSuccess)
+    e = bvt_wgmma::wgmma_gemm<bvt_wgmma::kWgS8, BM, BN, STAGES, SCHED>(a, bt, c, M, N, K,
+                                                                        stream);
+  err = cudaFreeAsync(bt, stream);
+  return e != cudaSuccess ? e : err;
+}
+
+template <int KIND, int BM, int BN, int STAGES, int SCHED>
+Entry wgmma_entry() {
+  using L = bvt_wgmma::WgLayout<KIND, BM, BN, STAGES, SCHED>;
+  Run run;
+  if constexpr (KIND == bvt_wgmma::kWgS8)
+    run = &run_s8<BM, BN, STAGES, SCHED>;
+  else
+    run = &bvt_wgmma::wgmma_gemm<KIND, BM, BN, STAGES, SCHED>;
+  return {BM, BN, bvt_wgmma::kThreads, STAGES, L::kSmem, SCHED,
+          reinterpret_cast<const void*>(
+              &bvt_wgmma::wgmma_gemm_kernel<KIND, BM, BN, STAGES, SCHED>),
+          run};
 }
 
 template <int KIND>
 Entry sweep_entry(int tile) {
   switch (tile) {
-#define BVT_CASE(i, bm, bn, wm, wn, st) \
-  case i: return entry<KIND, bm, bn, wm, wn, st>();
+#define BVT_CASE(i, bm, bn, st, sched) \
+  case i: return wgmma_entry<KIND, bm, bn, st, sched>();
     BVT_TILES(BVT_CASE)
 #undef BVT_CASE
     default: return Entry{};
   }
 }
 
-// bf16 and s8 at every tile (the sweep); s4 and s8 x s4 at tile 0 only
+// bf16 and s8 at every tile (the sweep); s4 and s8 x s4 at their one tile
 Entry lookup(int kind, int tile) {
   if (tile < 0 || tile >= kTiles) return Entry{};
   switch (kind) {
-    case kBF16: return sweep_entry<kBF16>(tile);
-    case kS8: return sweep_entry<kS8>(tile);
-    case kS4: return tile == 0 ? entry<kS4, 128, 128, 2, 4, 4>() : Entry{};
-    case kS8S4: return tile == 0 ? entry<kS8S4, 128, 128, 2, 4, 4>() : Entry{};
+    case kBF16: return sweep_entry<bvt_wgmma::kWgBF16>(tile);
+    case kS8: return sweep_entry<bvt_wgmma::kWgS8>(tile);
+    case kS4: return tile == 0 ? mma_entry<kS4, BVT_S4_TILE>() : Entry{};
+    case kS8S4: return tile == 0 ? mma_entry<kS8S4, BVT_S4_TILE>() : Entry{};
     default: return Entry{};
   }
 }
@@ -405,12 +476,6 @@ bool shape_ok(int kind, int M, int N, int K) {
   return M >= 0 && N > 0 && K > 0 && K % depth == 0 && N % 16 == 0;
 }
 
-cudaError_t prepare(const Entry& e) {
-  if (e.fn == nullptr) return cudaErrorInvalidValue;
-  // above 48 KB a launch is refused unless the kernel opted in
-  return cudaFuncSetAttribute(e.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, e.smem);
-}
-
 }  // namespace
 
 extern "C" {
@@ -418,8 +483,9 @@ extern "C" {
 // kind: 0 bf16 -> fp32, 1 s8 -> s32, 2 s4 x s4 -> s32, 3 s8 x s4 -> s32;
 // tile: 0-7 for bf16 and s8, 0 for the others
 
-// the tile's BM, BN, threads, stages and dynamic shared-memory bytes into
-// out[0..4]; returns 0, or -1 for a (kind, tile) that is not built
+// the tile's BM, BN, threads, stages, dynamic shared-memory bytes and
+// schedule (0 cooperative, 1 ping-pong, -1 the mma.sync kernel) into
+// out[0..5]; returns 0, or -1 for a (kind, tile) that is not built
 int bvt_tile_gemm_describe(int kind, int tile, int* out) {
   const Entry e = lookup(kind, tile);
   if (e.fn == nullptr) return -1;
@@ -428,6 +494,7 @@ int bvt_tile_gemm_describe(int kind, int tile, int* out) {
   out[2] = e.threads;
   out[3] = e.stages;
   out[4] = e.smem;
+  out[5] = e.schedule;
   return 0;
 }
 
@@ -435,32 +502,48 @@ int bvt_tile_gemm_describe(int kind, int tile, int* out) {
 // a negative cudaError_t
 int bvt_tile_gemm_blocks_per_sm(int kind, int tile) {
   const Entry e = lookup(kind, tile);
-  cudaError_t err = prepare(e);
+  if (e.fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err =
+      cudaFuncSetAttribute(e.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, e.smem);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, e.fn, e.threads, e.smem);
   return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
+// registers a thread of the tile's kernel at launch (cudaFuncGetAttributes;
+// the wgmma kernel's warpgroups then move to 40 and 232 with setmaxnreg),
+// or a negative cudaError_t
+int bvt_tile_gemm_registers(int kind, int tile) {
+  const Entry e = lookup(kind, tile);
+  if (e.fn == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  return bvt_wgmma::kernel_registers(e.fn);
+}
 
-// c[M, N] = a[M, K] . b[K, N] (s4: a [M, K/2], b [K/2, N] packed bytes);
-// c fp32 for bf16, int32 otherwise. Returns a cudaError_t (0 = launched).
+// c[M, N] = a[M, K] . B; c fp32 for bf16, int32 otherwise. b is B [K, N]
+// for bf16 and s8, packed [K/2, N] bytes for the s4 kinds (a [M, K/2]
+// packed for s4 x s4). Returns 0 when
+// launched (or M == 0), a cudaError_t, or a tensor-map code
+// (bvt_error_string).
 int bvt_tile_gemm(int kind, int tile, const void* a, const void* b, void* c, int M, int N,
                   int K, void* stream) {
   if (!shape_ok(kind, M, N, K)) return cudaErrorInvalidValue;
   const Entry e = lookup(kind, tile);
-  cudaError_t err = prepare(e);
-  if (err != cudaSuccess) return err;
-  if (M == 0) return cudaSuccess;
-  const dim3 grid((N + e.bn - 1) / e.bn, (M + e.bm - 1) / e.bm);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
-  e.launch(grid, e.smem, static_cast<cudaStream_t>(stream), static_cast<const int8_t*>(a),
-           static_cast<const int8_t*>(b), c, M, N, K);
-  return cudaGetLastError();
+  if (e.fn == nullptr) return cudaErrorInvalidValue;
+  return e.run(a, b, c, M, N, K, static_cast<cudaStream_t>(stream));
 }
 
 const char* bvt_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  switch (err) {
+    case bvt_wgmma::kErrNoEncoder:
+      return "cuTensorMapEncodeTiled not found (cudaGetDriverEntryPoint)";
+    case bvt_wgmma::kErrEncode:
+      return "cuTensorMapEncodeTiled refused an operand's tensor map";
+    case bvt_wgmma::kErrRegisters:
+      return "the wgmma kernel has too few registers at launch for its setmaxnreg split";
+    default:
+      return cudaGetErrorString(static_cast<cudaError_t>(err));
+  }
 }
 
 }  // extern "C"

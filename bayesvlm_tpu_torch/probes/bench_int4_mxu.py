@@ -53,7 +53,7 @@ def run(args) -> dict:
     shape = tg.probe_shape(args.device)
     a4, b4, a8 = inputs(args)
     a4p, b4p = tg.pack_s4(a4, 1), tg.pack_s4(b4, 0)
-    tile = tg.DEFAULT_TILE
+    tile = tg.S4_TILE
     b4_cm = b4.t().contiguous().t()  # cuBLASLt's B layout, the same values
     out = {"shape": dict(zip("MKN", shape)), "device": card.device_name(device),
            "mma": tg.MMA[tg.S4], "kernels": {}}

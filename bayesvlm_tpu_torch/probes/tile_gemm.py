@@ -10,12 +10,18 @@ and bench_int4_mxu.py lay it out (their shared `make_matmul` body).
   complement (`pack_s4`, `unpack_s4`): A as [M, K/2], B as [K/2, N]. No
   torch int4 dtype is used.
 
-`TILES` are the kernel's 8 block tiles (the sweep's); bf16 and int8 take
-any of them, the s4 kinds the default (tile 0). CUDA tensors launch the
-kernel or raise; CPU tensors run the plain version; nothing falls back.
-Each launch is counted on its wrapper: `matmul.launches` (bf16),
-`matmul.launches_s8`, `matmul_s4.launches` (s4 x s4),
-`matmul_s4.launches_s8s4`.
+bf16 and int8 run the warp-specialised wgmma GEMM fed by TMA
+(csrc/wgmma_gemm.cuh) at any of its 8 configurations, `TILES` (the
+sweep's); the library lays int8's B out as B^T [N, K] first, with a
+transpose kernel in the same call (wgmma reads 8-bit operands K-major
+only). Every kind hands the library B [K, N].
+The s4 kinds run the mma.sync kernel at their one tile, `S4_TILE`. Every
+operand must start 16-byte aligned with rows a multiple of 16 bytes
+apart (the TMA's rule; the wrapper raises by name, it does not copy).
+CUDA tensors launch the kernel or raise; CPU tensors run the plain
+version; nothing falls back. Each launch is counted on its wrapper:
+`matmul.launches` (bf16), `matmul.launches_s8`, `matmul_s4.launches` (s4
+x s4), `matmul_s4.launches_s8s4`.
 """
 
 from __future__ import annotations
@@ -44,28 +50,43 @@ N_ITER, REPS, PLAIN_ITER = 20, 3, 2
 # bf16 kernel vs plain: both sum fp32 products of the same bf16 values, in
 # another order: a few fp32 ulps of the largest partial sums
 BF16_TOL = 1e-5
-# the mma each kind runs (csrc/tile_gemm.cu; ptxas for sm_90a takes the s4 one)
-MMA = {BF16: "mma.sync m16n8k16 bf16", S8: "mma.sync m16n8k32 s8",
+# the product each kind runs (csrc/tile_gemm.cu; ptxas for sm_90a takes the
+# s4 mma) and its body: "wgmma" (csrc/wgmma_gemm.cuh) or "mma" (mma.sync)
+MMA = {BF16: "wgmma m64nNk16 bf16 (TMA ring)", S8: "wgmma m64nNk32 s8 (TMA ring)",
        S4: "mma.sync m16n8k64 s4", S8S4: "mma.sync m16n8k32 s8 (B's nibbles unpacked)"}
+BODY = {BF16: "wgmma", S8: "wgmma", S4: "mma", S8S4: "mma"}
+# the TMA's rule for every operand: base and row stride in 16-byte units
+ALIGN = 16
 
 
 class Tile(NamedTuple):
-    """A block tile: BM x BN outputs, `warps` warps, a `stages`-deep
-    cp.async ring (csrc/tile_gemm.cu BVT_TILES, in the same order)."""
+    """A block tile: BM x BN outputs, `warps` warps, a `stages`-deep ring
+    and a schedule. bf16 and s8: the wgmma kernel (12 warps: a producer
+    and two consumer warpgroups; a TMA ring of 128-byte K rows), its
+    consumers sharing each tile ("coop") or taking whole tiles in turn
+    ("pingpong"); csrc/tile_gemm.cu BVT_TILES, in the same order. The s4
+    kinds: the mma.sync kernel's cp.async ring, no schedule ("")."""
 
     bm: int
     bn: int
     warps: int
     stages: int
+    schedule: str = ""
 
     def __str__(self) -> str:
-        return f"{self.bm}x{self.bn}/{self.warps}w/{self.stages}st"
+        tail = f"/{self.schedule}" if self.schedule else ""
+        return f"{self.bm}x{self.bn}/{self.warps}w/{self.stages}st{tail}"
 
 
-TILES = (Tile(128, 128, 8, 4), Tile(128, 128, 8, 3), Tile(128, 128, 8, 2),
-         Tile(64, 128, 4, 4), Tile(128, 256, 8, 3), Tile(256, 128, 8, 3),
-         Tile(64, 256, 4, 4), Tile(256, 128, 8, 4))
+# the library's code of each schedule (describe's out[5])
+SCHEDULES = {"": -1, "coop": 0, "pingpong": 1}
+TILES = (Tile(128, 128, 12, 6, "pingpong"), Tile(128, 128, 12, 5, "pingpong"),
+         Tile(128, 128, 12, 4, "pingpong"), Tile(64, 256, 12, 4, "pingpong"),
+         Tile(128, 256, 12, 4, "coop"), Tile(128, 256, 12, 3, "coop"),
+         Tile(256, 128, 12, 4, "coop"), Tile(128, 256, 12, 2, "coop"))
 DEFAULT_TILE = TILES[0]
+# the s4 kinds' one tile (csrc/tile_gemm.cu BVT_S4_TILE)
+S4_TILE = Tile(128, 128, 8, 4)
 
 
 def pack_s4(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -118,22 +139,43 @@ def _library() -> ctypes.CDLL:
     lib.bvt_tile_gemm_describe.restype = ctypes.c_int
     lib.bvt_tile_gemm_blocks_per_sm.argtypes = [i, i]
     lib.bvt_tile_gemm_blocks_per_sm.restype = ctypes.c_int
+    lib.bvt_tile_gemm_registers.argtypes = [i, i]
+    lib.bvt_tile_gemm_registers.restype = ctypes.c_int
     return lib
 
 
 def _tile_index(tile: Tile, kind: int) -> int:
+    """The tile's index in the library's table of this kind: TILES for bf16
+    and s8, S4_TILE (index 0) for the s4 kinds."""
+    if kind in (S4, S8S4):
+        if tile != S4_TILE:
+            raise ValueError(f"the {KIND_NAMES[kind]} kernel is built for {S4_TILE} only")
+        return 0
     if tile not in TILES:
         raise ValueError(f"no tile {tile}: the kernel is built for {TILES}")
-    index = TILES.index(tile)
-    if kind in (S4, S8S4) and index != 0:
-        raise ValueError(f"the {KIND_NAMES[kind]} kernel is built for the default tile "
-                         f"{DEFAULT_TILE} only")
-    return index
+    return TILES.index(tile)
+
+
+def _check_operand(name: str, t: torch.Tensor) -> None:
+    """The kernels read and write whole 16-byte pieces (TMA boxes, cp.async
+    chunks): a contiguous operand whose base and row stride are multiples
+    of 16 bytes. Raises naming the operand; nothing is copied."""
+    if not t.is_contiguous():
+        raise ValueError(f"GEMM operand {name}: the kernel needs contiguous operands")
+    if t.data_ptr() % ALIGN:
+        raise ValueError(f"GEMM operand {name}: base address {t.data_ptr():#x} is not "
+                         f"{ALIGN}-byte aligned (the TMA's rule)")
+    row = t.stride(0) * t.element_size()
+    if row % ALIGN:
+        raise ValueError(f"GEMM operand {name}: rows are {row} bytes apart, not a "
+                         f"multiple of {ALIGN} (the TMA's rule)")
 
 
 def _launch(kind: int, tile: Tile, a: torch.Tensor, b: torch.Tensor, Mr: int, Nr: int,
             Kr: int, out_dtype: torch.dtype) -> torch.Tensor:
     index = _tile_index(tile, kind)
+    _check_operand("a", a)
+    _check_operand("b", b)
     if Kr % DEPTH[kind]:
         raise ValueError(f"{KIND_NAMES[kind]} GEMM: K = {Kr} is not a multiple of "
                          f"{DEPTH[kind]} (one mma step)")
@@ -143,14 +185,17 @@ def _launch(kind: int, tile: Tile, a: torch.Tensor, b: torch.Tensor, Mr: int, Nr
         raise ValueError("GEMM: a and b must be on one device")
     if a.device.type != "cuda":
         raise ValueError(f"no GEMM kernel for device {a.device}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("the GEMM kernel needs contiguous operands")
     c = torch.empty(Mr, Nr, dtype=out_dtype, device=a.device)
+    if Mr == 0:
+        return c  # nothing to launch, nothing counted
     lib = _library()
     with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.bvt_tile_gemm(kind, index, a.data_ptr(), b.data_ptr(), c.data_ptr(), Mr,
-                                Nr, Kr, torch.cuda.current_stream(a.device).cuda_stream)
+                                Nr, Kr, stream)
     kernels.check(lib, err, f"{KIND_NAMES[kind]} GEMM kernel")
+    owner, attr = COUNTS[kind]
+    setattr(owner, attr, getattr(owner, attr) + 1)
     return c
 
 
@@ -170,18 +215,13 @@ def matmul(a: torch.Tensor, b: torch.Tensor, tile: Tile = DEFAULT_TILE) -> torch
     if a.device.type == "cpu" and b.device.type == "cpu":
         return matmul_reference(a, b)
     kind = BF16 if a.dtype == torch.bfloat16 else S8
-    c = _launch(kind, tile, a, b, a.shape[0], b.shape[1], a.shape[1],
-                torch.float32 if kind == BF16 else torch.int32)
-    if kind == BF16:
-        matmul.launches += 1
-    else:
-        matmul.launches_s8 += 1
-    return c
+    return _launch(kind, tile, a, b, a.shape[0], b.shape[1], a.shape[1],
+                   torch.float32 if kind == BF16 else torch.int32)
 
 
 def matmul_s4(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
     """s4 x s4 (a packed uint8 [M, K/2]) or s8 x s4 (a int8 [M, K]) times
-    b packed uint8 [K/2, N] -> int32 [M, N], at the default tile. Counts in
+    b packed uint8 [K/2, N] -> int32 [M, N], at S4_TILE. Counts in
     `matmul_s4.launches` (s4 x s4) and `matmul_s4.launches_s8s4`."""
     if b_packed.dtype != torch.uint8 or a.dtype not in (torch.uint8, torch.int8):
         raise ValueError(f"matmul_s4 takes a packed s4 (uint8) or int8 a and a packed "
@@ -191,28 +231,25 @@ def matmul_s4(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
     _shapes(a, b_packed, Kr, 2 * b_packed.shape[0], "matmul_s4")
     if a.device.type == "cpu" and b_packed.device.type == "cpu":
         return matmul_s4_reference(a, b_packed)
-    c = _launch(kind, DEFAULT_TILE, a, b_packed, a.shape[0], b_packed.shape[1], Kr,
-                torch.int32)
-    if kind == S4:
-        matmul_s4.launches += 1
-    else:
-        matmul_s4.launches_s8s4 += 1
-    return c
+    return _launch(kind, S4_TILE, a, b_packed, a.shape[0], b_packed.shape[1], Kr,
+                   torch.int32)
 
 
 matmul.launches = 0
 matmul.launches_s8 = 0
 matmul_s4.launches = 0
 matmul_s4.launches_s8s4 = 0
+# each kind's launch count (owner, attribute), added to where it launches
+COUNTS = {BF16: (matmul, "launches"), S8: (matmul, "launches_s8"),
+          S4: (matmul_s4, "launches"), S8S4: (matmul_s4, "launches_s8s4")}
 
 # each kernel kind's name, its count (owner, attribute) and the TPU body
 # it replaces (the pallas_call of `make_matmul`)
 KERNELS = {
-    "tile_gemm_bf16": (BF16, (matmul, "launches"), "scripts/dev/bench_int8_mxu.py:64"),
-    "tile_gemm_s8": (S8, (matmul, "launches_s8"), "scripts/dev/bench_int8_mxu.py:64"),
-    "tile_gemm_s4": (S4, (matmul_s4, "launches"), "scripts/dev/bench_int4_mxu.py:49"),
-    "tile_gemm_s8s4": (S8S4, (matmul_s4, "launches_s8s4"),
-                       "scripts/dev/bench_int4_mxu.py:49"),
+    "tile_gemm_bf16": (BF16, COUNTS[BF16], "scripts/dev/bench_int8_mxu.py:64"),
+    "tile_gemm_s8": (S8, COUNTS[S8], "scripts/dev/bench_int8_mxu.py:64"),
+    "tile_gemm_s4": (S4, COUNTS[S4], "scripts/dev/bench_int4_mxu.py:49"),
+    "tile_gemm_s8s4": (S8S4, COUNTS[S8S4], "scripts/dev/bench_int4_mxu.py:49"),
 }
 
 
@@ -230,22 +267,27 @@ def gemm_bound(Mr: int, Kr: int, Nr: int, kind: str) -> dict:
 
 
 def tile_resources(kind: int, tile: Tile):
-    """(shared-memory bytes, blocks an SM) of the kernel at this tile, from
-    the library's own table (which must match TILES) and the card's
-    occupancy calculator."""
+    """(shared-memory bytes, blocks an SM, registers a thread at launch) of
+    the kernel at this tile, from the library's own table (which must
+    match TILES and S4_TILE), the card's occupancy calculator and
+    cudaFuncGetAttributes."""
     lib = _library()
     index = _tile_index(tile, kind)
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 6)()
     if lib.bvt_tile_gemm_describe(kind, index, out) != 0:
         raise ValueError(f"the {KIND_NAMES[kind]} kernel has no tile {tile}")
-    bm, bn, threads, stages, smem = out
-    if (bm, bn, threads // 32, stages) != tuple(tile):
-        raise RuntimeError(f"TILES[{index}] = {tile} but the library's tile is "
-                           f"{bm}x{bn}/{threads // 32}w/{stages}st")
+    bm, bn, threads, stages, smem, schedule = out
+    if (bm, bn, threads // 32, stages, schedule) != (*tile[:4], SCHEDULES[tile.schedule]):
+        raise RuntimeError(f"the {KIND_NAMES[kind]} kernel's tile {index} is {tile} here but "
+                           f"{bm}x{bn}/{threads // 32}w/{stages}st, schedule {schedule} in "
+                           f"the library")
     blocks = lib.bvt_tile_gemm_blocks_per_sm(kind, index)
     if blocks < 0:
         kernels.check(lib, -blocks, "GEMM occupancy")
-    return smem, blocks
+    registers = lib.bvt_tile_gemm_registers(kind, index)
+    if registers < 0:
+        kernels.check(lib, -registers, "GEMM registers")
+    return smem, blocks, registers
 
 
 # -- what the three GEMM probes share ------------------------------------------
@@ -305,18 +347,20 @@ def measure(fn: Callable, plain: Callable, library: Optional[Callable], device,
     """A kernel's times beside its plain version's, the library call's
     (one PyTorch call of the same function, or None), a reference
     product's (another function, timed for reference only; None if not
-    given), its bound, its rate, its tile, its mma and its tile's shared
-    memory and blocks an SM (None off the card)."""
+    given), its bound, its rate, its tile, its mma and body, and its
+    tile's shared memory, blocks an SM and registers (None off the
+    card)."""
     r = {"ms": card.device_ms(fn, device, N_ITER, REPS),
          "plain_ms": card.device_ms(plain, device, PLAIN_ITER, REPS),
          "library_ms": (None if library is None
                         else card.device_ms(library, device, N_ITER, REPS)),
-         "tile": str(tile), "mma": MMA[kind_code], **gemm_bound(*shape, kind)}
+         "tile": str(tile), "mma": MMA[kind_code], "body": BODY[kind_code],
+         **gemm_bound(*shape, kind)}
     if reference is not None:
         r["reference_ms"] = card.device_ms(reference, device, N_ITER, REPS)
     r["tops"] = None if r["ms"] is None else r["ops"] / r["ms"] / 1e9
-    r["smem_bytes"], r["blocks_per_sm"] = (tile_resources(kind_code, tile)
-                                           if device.type == "cuda" else (None, None))
+    r["smem_bytes"], r["blocks_per_sm"], r["registers"] = (
+        tile_resources(kind_code, tile) if device.type == "cuda" else (None, None, None))
     return r
 
 
@@ -326,4 +370,5 @@ def rate(r: dict) -> str:
 
 def block_note(r: dict) -> str:
     return ("" if r["smem_bytes"] is None else
-            f"  [{r['smem_bytes']} B shared memory, {r['blocks_per_sm']} blocks/SM]")
+            f"  [{r['smem_bytes']} B shared memory, {r['blocks_per_sm']} blocks/SM, "
+            f"{r['registers']} registers]")

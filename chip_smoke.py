@@ -106,8 +106,12 @@ Phases (any failure raises and exits non-zero, without the result line):
      packed, at B=80, T=257, H=16 and a ragged B=3, T=50, H=12 (qk rtol =
      atol = 1e-4; pv one bf16 ulp and a mean |d| limit that a single bf16
      rounding of p must exceed, both means printed); the GEMM at the
-     probes' M, K, N = 16384, 1024, 4096 and a ragged 1000 x 128 x 1008
-     (s8, s4 x s4, s8 x s4 exact; bf16 within 1e-5 of max |ref|); then
+     probes' M, K, N = 16384, 1024, 4096, a ragged 1000 x 128 x 1008 and
+     1000 x 128 x 2144 (N past the last full epilogue box) and (bf16 and
+     s8 only: K not a multiple of 64) 1000 x 96 x 1008, bf16
+     and s8 on the wgmma body at each of its 8 configurations, s4 x s4
+     and s8 x s4 on the mma.sync body (s8, s4 x s4, s8 x s4 exact; bf16
+     within 1e-5 of max |ref|); then
      the probes' entry points, each probe module's run and report (the
      attention probes: the check against #1 and against plain,
      CUDA-event times beside #1, the bound and SDPA; probe_packed_heads,
@@ -254,18 +258,21 @@ PROBE_KERNELS = {
 # reference only)
 PROBE_EXTRAS = ("smem_bytes", "blocks_per_sm", "base_ms", "vs_base", "tops", "tile", "mma",
                 "yardstick", "reference_ms")
-# the body of each kernel source other than the attention kernel and the
-# attention probes (which report their own per launch): "mma" where its
+# the body of each kernel source other than the attention kernel, the
+# attention probes and the GEMM probes (which report their own: the GEMMs
+# "wgmma" for bf16 and s8, "mma" for the s4 kinds): "mma" where its
 # products run on the tensor cores (mma.sync), "simt" where they run as
 # fp32 FMAs on the CUDA cores
 SOURCE_BODY = {"attention_block.cu": "mma", "mlp_int8.cu": "mma", "linear_int8.cu": "mma",
-               "xlogy_rowsum.cu": "mma", "smith_head.cu": "simt", "packed_heads.cu": "mma",
-               "tile_gemm.cu": "mma"}
+               "xlogy_rowsum.cu": "mma", "smith_head.cu": "simt", "packed_heads.cu": "mma"}
 # the packed-head kernels at the probe's shape and a ragged one (B, T, H)
 PACKED_SHAPES = {"probe": (80, 257, 16), "ragged": (3, 50, 12)}
-# the GEMM at the probes' shape and a ragged one (M, K, N); K a multiple
-# of the s4 mma's depth, N of 16
-GEMM_SHAPES = {"probe": (16384, 1024, 4096), "ragged": (1000, 128, 1008)}
+# the GEMM at the probes' shape and three ragged ones (M, K, N); N a
+# multiple of 16; "ragged-n" (N = 96 mod 128 and 256: the wgmma epilogue
+# skips the boxes past N); "ragged-k" (K not a multiple of a wgmma stage,
+# nor of the s4 mma's depth 64) for bf16 and s8 only
+GEMM_SHAPES = {"probe": (16384, 1024, 4096), "ragged": (1000, 128, 1008),
+               "ragged-n": (1000, 128, 2144), "ragged-k": (1000, 96, 1008)}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1357,9 +1364,9 @@ def phase_packed_heads_vs_plain(torch, ph) -> None:
 
 
 def phase_gemm_vs_plain(torch, tg) -> None:
-    """The GEMM kinds vs plain at the default tile (bf16 and s8 at every
-    tile at the probe shape): s8, s4 x s4 and s8 x s4 exact, bf16 within
-    tg.BF16_TOL of max |ref|."""
+    """The GEMM kinds vs plain, bf16 and s8 at every tile of the sweep, s4
+    x s4 and s8 x s4 at their one tile (where K is a multiple of 64): s8,
+    s4 x s4 and s8 x s4 exact, bf16 within tg.BF16_TOL of max |ref|."""
     print("GEMM probe kernels (csrc/tile_gemm.cu) vs plain:")
     for label, (Mr, Kr, Nr) in GEMM_SHAPES.items():
         gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
@@ -1373,14 +1380,15 @@ def phase_gemm_vs_plain(torch, tg) -> None:
         a16 = torch.randn(Mr, Kr, generator=gen, device="cuda").bfloat16()
         b16 = torch.randn(Kr, Nr, generator=gen, device="cuda").bfloat16()
         ref8, ref16 = tg.matmul_reference(a8, b8), tg.matmul_reference(a16, b16)
-        tiles = tg.TILES if label == "probe" else (tg.DEFAULT_TILE,)
         where = f"{label} M={Mr} K={Kr} N={Nr}"
-        for tile in tiles:
+        for tile in tg.TILES:
             tg.check_exact(f"s8 {where} tile {tile}", tg.matmul(a8, b8, tile), ref8)
             r = tg.check_bf16(f"bf16 {where} tile {tile}", tg.matmul(a16, b16, tile),
                               ref16)
             print(f"  s8 and bf16 {where} tile {tile}: s8 exact, bf16 max_abs_err="
                   f"{r['max_abs_err']:.3e} (tol {tg.BF16_TOL} x {r['max_abs_ref']:.3e})")
+        if Kr % tg.DEPTH[tg.S4]:
+            continue
         b4p = tg.pack_s4(b4, 0)
         tg.check_exact(f"s4 x s4 {where}", tg.matmul_s4(tg.pack_s4(a4, 1), b4p),
                        tg.matmul_reference(a4, b4))

@@ -220,7 +220,7 @@ def test_library_stand_in_on_the_cpu_is_the_fp32_product():
 @pytest.mark.parametrize("probe,lines", [
     ("bench_int8_mxu", ("tile bf16xbf16->fp32:", "tile int8xint8->int32:",
                         "int8/bf16 kernel-vs-kernel speedup: not measured")),
-    ("bench_int8_sweep", ("correctness: int8 exact", "tile s8 256x128/8w/4st:",
+    ("bench_int8_sweep", ("correctness: int8 exact", "tile s8 256x128/12w/4st/coop:",
                           "int8/bf16 best-vs-best: not measured")),
     ("bench_int4_mxu", ("s4 x s4 kernel runs: mma.sync m16n8k64 s4",
                         "int4xint4->int32 correctness vs int32 dot: EXACT",
@@ -236,6 +236,82 @@ def test_probe_main_runs_on_the_cpu(probe, lines, capsys):
         assert line in text
     # no time off the card
     assert "not measured" in text and "TOP/s" not in text
+
+
+def test_tiles_are_eight_wgmma_configurations_and_s4_keeps_its_own():
+    # bf16 and s8 sweep 8 distinct configurations of the wgmma kernel (a
+    # producer and two consumer warpgroups: 12 warps), both schedules: a
+    # consumer takes half a tile's rows (coop) or all of them (pingpong) in
+    # whole m64 products, at most 128 accumulators a thread, at 2-6 stages;
+    # the s4 kinds keep the mma.sync kernel's one tile
+    assert len(tg.TILES) == len(set(tg.TILES)) == 8 and tg.DEFAULT_TILE == tg.TILES[0]
+    assert {t.schedule for t in tg.TILES} == {"coop", "pingpong"}
+    for tile in tg.TILES:
+        rows = tile.bm // 2 if tile.schedule == "coop" else tile.bm
+        assert tile.warps == 12 and tile.bn in (128, 256) and rows % 64 == 0
+        assert rows // 64 * tile.bn <= 256 and 2 <= tile.stages <= 6
+    assert tg.S4_TILE == tg.Tile(128, 128, 8, 4) and tg.S4_TILE not in tg.TILES
+    assert str(tg.S4_TILE) == "128x128/8w/4st" and tg.S4_TILE.schedule == ""
+    for kind in (tg.BF16, tg.S8):
+        assert [tg._tile_index(t, kind) for t in tg.TILES] == list(range(8))
+        with pytest.raises(ValueError, match="no tile"):
+            tg._tile_index(tg.S4_TILE, kind)
+    for kind in (tg.S4, tg.S8S4):
+        assert tg._tile_index(tg.S4_TILE, kind) == 0
+        with pytest.raises(ValueError, match="built for"):
+            tg._tile_index(tg.DEFAULT_TILE, kind)
+    assert tg.BODY == {tg.BF16: "wgmma", tg.S8: "wgmma", tg.S4: "mma", tg.S8S4: "mma"}
+
+
+def _meta_view(shape, dtype, offset):
+    """A contiguous meta tensor of `shape` that starts `offset` elements
+    into its storage (meta tensors report the address it implies)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype, device="meta")[offset:].view(*shape)
+
+
+@pytest.mark.parametrize("case", ["a_base", "b_base", "a_rows", "b_rows"])
+def test_wrapper_refuses_what_the_tma_cannot_address(case, monkeypatch):
+    # every operand must start 16-byte aligned and have rows a multiple of
+    # 16 bytes apart; the wrapper raises, naming the operand, before it
+    # loads or launches anything (a stub library fails the test if reached)
+    def no_library():
+        raise AssertionError("the wrapper reached the library")
+
+    monkeypatch.setattr(tg, "_library", no_library)
+    bf16 = torch.bfloat16
+    a, b = _meta_view((4, 64), bf16, 0), _meta_view((64, 16), bf16, 0)
+    if case == "a_base":  # a view one element in: 2 bytes past an aligned base
+        a, what = _meta_view((4, 64), bf16, 1), r"operand a: base address 0x2 is not 16-byte"
+    elif case == "b_base":
+        b, what = _meta_view((64, 16), bf16, 1), r"operand b: base address 0x2 is not 16-byte"
+    elif case == "a_rows":  # K = 4 bf16: rows 8 bytes apart
+        a, b = _meta_view((4, 4), bf16, 0), _meta_view((4, 16), bf16, 0)
+        what = "operand a: rows are 8 bytes apart, not a multiple of 16"
+    else:  # N = 24 int8: B's rows 24 bytes apart
+        a, b = _meta_view((4, 64), torch.int8, 0), _meta_view((64, 24), torch.int8, 0)
+        what = "operand b: rows are 24 bytes apart, not a multiple of 16"
+    before = [getattr(*count) for _, count, _ in tg.KERNELS.values()]
+    with pytest.raises(ValueError, match=what):
+        tg.matmul(a, b)
+    # the same operands, aligned, reach the device check (no kernel for meta)
+    with pytest.raises(ValueError, match="no GEMM kernel for device meta"):
+        tg.matmul(_meta_view((4, 64), bf16, 0), _meta_view((64, 16), bf16, 0))
+    assert [getattr(*count) for _, count, _ in tg.KERNELS.values()] == before
+
+
+def test_compare_builds_gemm_has_no_cpu_mode(tmp_path, capsys):
+    # --gemm builds two trees' tile_gemm.cu and times them on the card only:
+    # without a CUDA device it raises before it builds anything
+    from bayesvlm_tpu_torch.probes import compare_builds
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    argv = ["--a", str(tmp_path), "--b", str(tmp_path), "--gemm"]
+    assert compare_builds.parse_args(argv).gemm
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compare_builds.main(argv)
+    assert capsys.readouterr().out == ""
 
 
 # -- the kernels on the card ---------------------------------------------------
@@ -288,13 +364,16 @@ def test_s4_kinds_match_plain_on_card(cuda, Mr, Kr, Nr):
 
 @pytest.mark.cuda
 def test_tile_table_matches_the_library_on_card(cuda):
-    # tile_resources raises if the library's tile differs from TILES
+    # tile_resources raises if the library's tile differs from TILES; the
+    # wgmma kernel is one persistent block an SM, and starts with the
+    # registers its setmaxnreg split needs (40 x 128 + 232 x 256)
     for tile in tg.TILES:
         for kind in (tg.BF16, tg.S8):
-            smem, blocks = tg.tile_resources(kind, tile)
-            assert smem <= 227 * 1024 and blocks >= 1, (kind, tile)
+            smem, blocks, registers = tg.tile_resources(kind, tile)
+            assert smem <= 227 * 1024 and blocks == 1, (kind, tile)
+            assert registers * 384 >= 40 * 128 + 232 * 256, (kind, tile, registers)
     for kind in (tg.S4, tg.S8S4):
-        assert tg.tile_resources(kind, tg.DEFAULT_TILE)[1] >= 1
+        assert tg.tile_resources(kind, tg.S4_TILE)[1] >= 1
 
 
 @pytest.mark.cuda
@@ -308,3 +387,90 @@ def test_kernel_refuses_what_it_cannot_take_on_card(cuda):
     with pytest.raises(ValueError, match="one device"):
         tg.matmul(torch.zeros(4, 64, dtype=torch.int8, device=cuda),
                   torch.zeros(64, 16, dtype=torch.int8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", tg.TILES, ids=str)
+@pytest.mark.parametrize("kind,Kr", [(tg.BF16, 48), (tg.S8, 96), (tg.S8, 160)])
+def test_ragged_k_matches_plain_on_card(cuda, tile, kind, Kr):
+    # K not a multiple of a stage (64 bf16, 128 s8): the TMA zero-fills the
+    # last stage past K; M and N ragged too
+    a8, b8, a16, b16 = _card_operands(333, Kr, 272, cuda, seed=Kr)
+    if kind == tg.S8:
+        assert torch.equal(tg.matmul(a8, b8, tile), tg.matmul_reference(a8, b8))
+    else:
+        ref = tg.matmul_reference(a16, b16)
+        out = tg.matmul(a16, b16, tile)
+        assert float((out - ref).abs().max()) <= BF16_TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", tg.TILES, ids=str)
+def test_s8_extremes_are_exact_on_card(cuda, tile):
+    # all -128 at K = 1024: every sum is 1024 x 16384 = 2^24, exact in int32
+    a = torch.full((256, 1024), -128, dtype=torch.int8, device=cuda)
+    b = torch.full((1024, 512), -128, dtype=torch.int8, device=cuda)
+    out = tg.matmul(a, b, tile)
+    assert out.dtype == torch.int32
+    assert bool((out == 1024 * 128 * 128).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", tg.TILES, ids=str)
+@pytest.mark.parametrize("Mr,Nr", [(128, 256), (4096, 4096)], ids=["one-tile", "waves"])
+def test_fewer_tiles_than_sms_and_many_waves_on_card(cuda, tile, Mr, Nr):
+    # one output tile for 132 SMs, and 256-1024 tiles: several per block,
+    # each of more k-blocks (K = 1024: 16 bf16, 8 s8) than the ring has
+    # stages, so a ping-pong consumer's next tile lies rounds ahead
+    a8, b8, a16, b16 = _card_operands(Mr, 1024, Nr, cuda, seed=Mr)
+    assert torch.equal(tg.matmul(a8, b8, tile), tg.matmul_reference(a8, b8))
+    ref = tg.matmul_reference(a16, b16)
+    out = tg.matmul(a16, b16, tile)
+    assert float((out - ref).abs().max()) <= BF16_TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_m_zero_launches_nothing_on_card(cuda):
+    before = [getattr(*count) for _, count, _ in tg.KERNELS.values()]
+    for dtype, out_dtype in ((torch.bfloat16, torch.float32), (torch.int8, torch.int32)):
+        out = tg.matmul(torch.zeros(0, 64, dtype=dtype, device=cuda),
+                        torch.zeros(64, 32, dtype=dtype, device=cuda))
+        assert out.shape == (0, 32) and out.dtype == out_dtype
+    assert [getattr(*count) for _, count, _ in tg.KERNELS.values()] == before
+
+
+@pytest.mark.cuda
+def test_back_to_back_shapes_on_one_stream_on_card(cuda):
+    # tensor maps and the s8 scratch are per call: two shapes queued without
+    # a synchronise in between both come out right
+    first = _card_operands(1000, 96, 1008, cuda, seed=1)
+    second = _card_operands(300, 1024, 4096, cuda, seed=2)
+    outs = [(tg.matmul(a8, b8), tg.matmul(a16, b16)) for a8, b8, a16, b16 in (first, second)]
+    torch.cuda.synchronize()
+    for (a8, b8, a16, b16), (o8, o16) in zip((first, second), outs):
+        assert torch.equal(o8, tg.matmul_reference(a8, b8))
+        ref = tg.matmul_reference(a16, b16)
+        assert float((o16 - ref).abs().max()) <= BF16_TOL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", tg.TILES, ids=str)
+@pytest.mark.parametrize("Nr", [2064, 2144], ids=["n16", "n96"])
+def test_epilogue_boxes_past_n_on_card(cuda, tile, Nr):
+    # N = 16 and 96 (mod 128 and 256): the last column block of every tile
+    # row stores 1 or 3 of its 32-column boxes and skips the rest (3 or 1
+    # at BN = 128, 7 or 5 at 256), and the next box goes on through the
+    # other buffer. One stage of K, many tiles a block and a repeated call
+    # keep the stores back to back, as at the output-bound probe shape
+    Mr = 8192
+    for kind, Kr in ((tg.S8, 128), (tg.BF16, 64)):
+        a8, b8, a16, b16 = _card_operands(Mr, Kr, Nr, cuda, seed=Nr + Kr)
+        a, b = (a8, b8) if kind == tg.S8 else (a16, b16)
+        ref = tg.matmul_reference(a, b)
+        for _ in range(10):
+            out = tg.matmul(a, b, tile)
+            if kind == tg.S8:
+                assert torch.equal(out, ref), (tile, Nr)
+            else:
+                err = float((out - ref).abs().max())
+                assert err <= BF16_TOL * float(ref.abs().max()), (tile, Nr, err)
