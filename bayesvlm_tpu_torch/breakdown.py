@@ -39,8 +39,11 @@ GROUPS = (
     ("attention kernel (mha_mma_kernel, mha_kernel)", r"mha_mma_kernel|mha_kernel"),
     ("block GEMMs (gemm_bf16_kernel)", r"gemm_bf16_kernel"),
     ("block LayerNorm (ln_rows_kernel)", r"ln_rows_kernel"),
-    ("int8 GEMMs (gemm_s8_kernel)", r"gemm_s8_kernel"),
-    ("int8 quantize (quant_rows_kernel)", r"quant_rows_kernel"),
+    # the int8 lane's products: the wgmma body with its dequantising
+    # epilogue (its raw-accumulator instantiation is the GEMM probes')
+    ("int8 GEMMs (wgmma_gemm_kernel, EpiDequant)", r"wgmma_gemm_kernel<.*EpiDequant"),
+    ("int8 quantize (quant_rows_kernel, act_quant_rows_kernel)", r"quant_rows_kernel"),
+    ("GEMM probes (wgmma_gemm_kernel, EpiRaw)", r"wgmma_gemm_kernel"),
     ("GEMMs (cuBLAS)", r"nvjet|gemm|xmma|cutlass|cublas"),
     ("H2D copy", r"Memcpy HtoD"),
     ("LayerNorm", r"layer_norm|LayerNorm"),

@@ -533,17 +533,6 @@ int bvt_tile_gemm(int kind, int tile, const void* a, const void* b, void* c, int
   return e.run(a, b, c, M, N, K, static_cast<cudaStream_t>(stream));
 }
 
-const char* bvt_error_string(int err) {
-  switch (err) {
-    case bvt_wgmma::kErrNoEncoder:
-      return "cuTensorMapEncodeTiled not found (cudaGetDriverEntryPoint)";
-    case bvt_wgmma::kErrEncode:
-      return "cuTensorMapEncodeTiled refused an operand's tensor map";
-    case bvt_wgmma::kErrRegisters:
-      return "the wgmma kernel has too few registers at launch for its setmaxnreg split";
-    default:
-      return cudaGetErrorString(static_cast<cudaError_t>(err));
-  }
-}
+const char* bvt_error_string(int err) { return bvt_wgmma::error_string(err); }
 
 }  // extern "C"

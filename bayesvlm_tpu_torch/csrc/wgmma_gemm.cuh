@@ -1,10 +1,25 @@
 // A warp-specialised, persistent Hopper GEMM: wgmma fed by TMA through
 // an mbarrier ring.
 //
-//   C[M, N] = A[M, K] . B          raw accumulator out
+//   C[M, N] = epilogue(A[M, K] . B)
 //   kWgBF16: bf16 x bf16 -> fp32, B row-major [K, N] (read MN-major)
 //   kWgS8:   s8 x s8 -> s32, B given as B^T [N, K] (wgmma reads 8-bit
-//            operands K-major only; the caller lays B out)
+//            operands K-major only; the caller lays B out, or has it so:
+//            an nn.Linear weight [N, K] is B^T)
+//
+// The epilogue is a compile-time policy (EPI):
+//   EpiRaw (the default): the raw accumulators, fp32 / s32 (the GEMM-tile
+//     probes, csrc/tile_gemm.cu);
+//   EpiDequant<Out, RESIDUAL> (s8): the W8A8 dequantisation of
+//     csrc/int8_gemm.cuh, y = ((float(h) * xs[row]) * ws[col]) + bias[col],
+//     then with RESIDUAL a residual add, in fp32 and in that order
+//     (explicit __fmul_rn / __fadd_rn), stored as Out (fp32 or bf16),
+//     optionally as N / chunk contiguous [M, chunk] blocks (a fused QKV's
+//     q, k, v). Each variant is its own instantiation: a branch per value
+//     costs registers the accumulators need. (An activation here, with
+//     each row's max |y| taken by atomics for the next quantize, was
+//     measured and left out: the accurate tanhf on a consumer's 4 warps
+//     outlasts the other consumer's mainloop; csrc/mlp_int8.cu.)
 //
 // Design (one block of 384 threads an SM, walking output tiles):
 //   - warpgroup 0 is the producer: setmaxnreg drops it to 40 registers
@@ -27,11 +42,19 @@
 //         products: besides keeping the two mainloops apart, this keeps
 //         each consumer's wait on a full barrier at most one phase ahead
 //         of it (a parity wait cannot tell phase r from r + 2).
-//   - the epilogue: each consumer writes its accumulators into two 8 KB
-//     shared-memory boxes (64 rows x 32 columns, 128-byte swizzle) in
+//   - the epilogue: each consumer writes its outputs into two 8 KB
+//     shared-memory boxes (64 rows of 128 bytes, 128-byte swizzle: 32
+//     fp32 / s32 or 64 bf16 columns, so a box row is one swizzle span) in
 //     turn, and one thread stores each box with a TMA store; the stores
 //     drain while the next products run, and the producer's loads for
-//     the next tile are already in flight.
+//     the next tile are already in flight. EpiDequant stages its tile's
+//     row scales, column scales and biases in shared memory (each
+//     consumer thread loads one of each before the tile's mainloop and
+//     stores them after it), so the epilogue holds no more than the
+//     accumulators in registers and waits on no device-memory load but the
+//     residual's; and where a box could straddle a chunk of the output (a
+//     chunk that is no multiple of the box's columns, chosen at launch)
+//     the consumer copies the box out by plain stores instead of the TMA.
 //   - tiles are walked in groups of kGroupM tile rows along M, column by
 //     column inside a group, so the blocks at work share A and B in L2.
 //   - edges: the TMA zero-fills loads past M, N and K (so K need not be
@@ -51,6 +74,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_gemm.cuh"  // the dequantising epilogue's arithmetic
+
 namespace bvt_wgmma {
 
 enum WgKind { kWgBF16 = 0, kWgS8 = 1 };
@@ -63,6 +88,31 @@ constexpr int kEpiBox = 64 * kEpiCols * 4;  // 64 rows of 128 bytes
 constexpr int kGroupM = 8;         // tile rows a raster group
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 constexpr long long kWatchdogCycles = 1LL << 34;
+
+// -- epilogue policies (see the top of the file) -------------------------------
+
+struct EpiRaw {
+  static constexpr bool kRaw = true;
+  struct Params {};
+};
+
+template <typename OutT, bool RESIDUAL>
+struct EpiDequant {
+  static constexpr bool kRaw = false;
+  static constexpr bool kResidual = RESIDUAL;
+  using Out = OutT;
+  static constexpr CUtensorMapDataType out_type =
+      sizeof(OutT) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  struct Params {
+    const float* xs;       // [M] row scales
+    const float* ws;       // [N] column scales
+    const float* bias;     // [N]
+    const OutT* residual;  // kResidual: [M, N], added last in fp32
+    OutT* out;             // N / chunk contiguous [M, chunk] blocks
+    int chunk;
+    int direct;            // boxes copied out by plain stores, not by the TMA
+  };
+};
 
 template <int KIND> struct WgTraits;
 template <> struct WgTraits<kWgBF16> {
@@ -92,6 +142,14 @@ struct WgLayout {
   // 1024: slack to align the ring to the swizzle's 1024-byte period; the
   // barriers: full and empty a stage, and two order barriers
   static constexpr int kSmem = 1024 + STAGES * kStage + kEpi + (2 * STAGES + 2) * 8;
+  // EpiDequant's staging after the barriers: a consumer's rows' scales,
+  // then its tile's column scales and biases (fp32)
+  static constexpr int kRowsC = MW * 64;
+  static constexpr int kStageFloats = kRowsC + 2 * BN;
+  template <class EPI>
+  static constexpr int smem() {
+    return kSmem + (EPI::kRaw ? 0 : 2 * kStageFloats * 4);
+  }
 };
 
 // -- PTX -----------------------------------------------------------------------
@@ -152,6 +210,15 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -360,16 +427,38 @@ __device__ __forceinline__ void tile_coords(int t, int tiles_m, int tiles_n, int
   tn = in / rows;
 }
 
+// a box's rows and columns inside [M, N], one element at a time, into
+// out's N / chunk contiguous [M, chunk] blocks (for a box that may straddle
+// a chunk): thread tid copies half of row tid / 2
+template <typename Out>
+__device__ __forceinline__ void store_box_plain(const uint8_t* buf, Out* out, int row0, int col0,
+                                                int M, int N, int chunk, int tid) {
+  constexpr int kCols = kRowBytes / static_cast<int>(sizeof(Out));
+  const int r = tid / 2, row = row0 + r;
+  if (row >= M) return;
+  for (int c = (tid % 2) * (kCols / 2); c < (tid % 2 + 1) * (kCols / 2); ++c) {
+    const int col = col0 + c;
+    if (col >= N) break;
+    const int byte = c * static_cast<int>(sizeof(Out));
+    const Out v = *reinterpret_cast<const Out*>(buf + r * kRowBytes +
+                                                (((byte >> 4) ^ (r & 7)) << 4) + (byte & 15));
+    const int k = col / chunk;
+    out[(static_cast<long>(k) * M + row) * chunk + (col - k * chunk)] = v;
+  }
+}
+
 // -- the kernel ------------------------------------------------------------------
 
 // tma_a: A [M, K] (box kBK x BM); tma_b: bf16 B [K, N] (box 64 x 64), s8
-// B^T [N, K] (box 128 x BN); tma_c: C [M, N] fp32 / s32 (box 32 x 64); all
-// in the 128-byte swizzle
-template <int KIND, int BM, int BN, int STAGES, int SCHED>
+// B^T [N, K] (box 128 x BN); tma_c: EpiRaw C [M, N] fp32 / s32 (box 32 x
+// 64), EpiDequant [N / chunk, M, chunk] of Out (box 128 bytes x 64 x 1;
+// unused with ep.direct); all in the 128-byte swizzle
+template <int KIND, int BM, int BN, int STAGES, int SCHED, class EPI = EpiRaw>
 __global__ void __launch_bounds__(kThreads, 1)
 wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                   const __grid_constant__ CUtensorMap tma_b,
-                  const __grid_constant__ CUtensorMap tma_c, int M, int N, int K) {
+                  const __grid_constant__ CUtensorMap tma_c, int M, int N, int K,
+                  const __grid_constant__ typename EPI::Params ep) {
   using L = WgLayout<KIND, BM, BN, STAGES, SCHED>;
   using Acc = typename WgTraits<KIND>::Acc;
   constexpr int kConsumers = SCHED == kCoop ? 2 : 1;  // consumers a stage
@@ -379,6 +468,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
   uint64_t* full = reinterpret_cast<uint64_t*>(epi + L::kEpi);
   uint64_t* empty = full + STAGES;
   uint64_t* order = empty + STAGES;  // kPingPong: order[c] lets consumer c run
+  float* staging = reinterpret_cast<float*>(order + 2);  // EpiDequant
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
@@ -438,7 +528,11 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
   for (int mi = 0; mi < L::MW; ++mi)
 #pragma unroll
     for (int i = 0; i < R; ++i) d[mi][i] = 0;
-  if (tid == 0) prefetch_map(&tma_c);
+  if constexpr (EPI::kRaw) {
+    if (tid == 0) prefetch_map(&tma_c);
+  } else {
+    if (tid == 0 && !ep.direct) prefetch_map(&tma_c);
+  }
   uint8_t* my_epi = epi + cw * 2 * kEpiBox;
   // the block's n-th tile is blockIdx.x + n gridDim.x; its stages are the
   // ring's n ktiles .. (n + 1) ktiles - 1
@@ -452,6 +546,20 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
     int tm, tn;
     tile_coords(blockIdx.x + n * gridDim.x, tiles_m, tiles_n, tm, tn);
     int prev = 0, it = n * ktiles;
+    // EpiDequant: this thread's share of the tile's row scale, column
+    // scales and biases, loaded now and staged after the mainloop
+    constexpr int kPerC = BN / 128;  // columns a consumer thread stages
+    float pre_x = 0.f, pre_w[kPerC], pre_b[kPerC];
+    if constexpr (!EPI::kRaw) {
+      const int row = tm * BM + m_off + tid;
+      if (tid < L::kRowsC && row < M) pre_x = ep.xs[row];
+#pragma unroll
+      for (int c = 0; c < kPerC; ++c) {
+        const int col = tn * BN + c * 128 + tid;
+        pre_w[c] = col < N ? ep.ws[col] : 0.f;
+        pre_b[c] = col < N ? ep.bias[col] : 0.f;
+      }
+    }
     // kPingPong: wait for the other consumer to hand over the mainloop
     // (its n / 2-th handover; consumer 0's first tile waits for none)
     if (SCHED == kPingPong && n > 0) mbar_wait(&order[cw], ((n - 1) / 2) & 1);
@@ -491,45 +599,128 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
 #pragma unroll
     for (int mi = 0; mi < L::MW; ++mi) fence_regs<R>(d[mi]);
 
-    // -- epilogue: 64 x 32 boxes through shared memory, TMA stores -------
+    if constexpr (EPI::kRaw) {
+      // -- EpiRaw: 64 x 32 boxes of the accumulators, TMA stores ------------
 #pragma unroll
-    for (int mi = 0; mi < L::MW; ++mi) {
-      const int row0 = tm * BM + m_off + mi * 64;
+      for (int mi = 0; mi < L::MW; ++mi) {
+        const int row0 = tm * BM + m_off + mi * 64;
 #pragma unroll
-      for (int j = 0; j < BN / kEpiCols; ++j) {
-        // a box wholly past M or N is skipped before it touches a buffer
-        // (the TMA clips the rest): every box written is stored, so the
-        // store before the last one, which read this buffer, is the one
-        // bulk_wait_read<1> waits for
-        const int col0 = tn * BN + j * kEpiCols;
-        if (row0 >= M || col0 >= N) continue;
-        uint8_t* buf = my_epi + (box++ & 1) * kEpiBox;
-        if (tid == 0) bulk_wait_read<1>();
-        named_sync(1 + cw, 128);
-        // accumulator 4 jn + 2 h + e: row 16 warp + lane / 4 + 8 h, column
-        // 8 jn + 2 (lane % 4) + e; in the box, 16-byte chunk c of row r
-        // sits at chunk c ^ (r % 8)
+        for (int j = 0; j < BN / kEpiCols; ++j) {
+          // a box wholly past M or N is skipped before it touches a buffer
+          // (the TMA clips the rest): every box written is stored, so the
+          // store before the last one, which read this buffer, is the one
+          // bulk_wait_read<1> waits for
+          const int col0 = tn * BN + j * kEpiCols;
+          if (row0 >= M || col0 >= N) continue;
+          uint8_t* buf = my_epi + (box++ & 1) * kEpiBox;
+          if (tid == 0) bulk_wait_read<1>();
+          named_sync(1 + cw, 128);
+          // accumulator 4 jn + 2 h + e: row 16 warp + lane / 4 + 8 h, column
+          // 8 jn + 2 (lane % 4) + e; in the box, 16-byte chunk c of row r
+          // sits at chunk c ^ (r % 8)
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int jn = j * 4 + q;
+          for (int q = 0; q < 4; ++q) {
+            const int jn = j * 4 + q;
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = warp * 16 + lane / 4 + 8 * h;
-            const int chunk = 2 * q + (lane % 4) / 2;
-            uint8_t* p = buf + r * 128 + ((chunk ^ (r & 7)) << 4) + (lane & 1) * 8;
-            if constexpr (KIND == kWgBF16)
-              *reinterpret_cast<float2*>(p) =
-                  make_float2(d[mi][4 * jn + 2 * h], d[mi][4 * jn + 2 * h + 1]);
-            else
-              *reinterpret_cast<int2*>(p) =
-                  make_int2(d[mi][4 * jn + 2 * h], d[mi][4 * jn + 2 * h + 1]);
+            for (int h = 0; h < 2; ++h) {
+              const int r = warp * 16 + lane / 4 + 8 * h;
+              const int chunk = 2 * q + (lane % 4) / 2;
+              uint8_t* p = buf + r * 128 + ((chunk ^ (r & 7)) << 4) + (lane & 1) * 8;
+              if constexpr (KIND == kWgBF16)
+                *reinterpret_cast<float2*>(p) =
+                    make_float2(d[mi][4 * jn + 2 * h], d[mi][4 * jn + 2 * h + 1]);
+              else
+                *reinterpret_cast<int2*>(p) =
+                    make_int2(d[mi][4 * jn + 2 * h], d[mi][4 * jn + 2 * h + 1]);
+            }
+          }
+          fence_proxy_async();
+          named_sync(1 + cw, 128);
+          if (tid == 0) {
+            tma_store_2d(&tma_c, buf, col0, row0);
+            bulk_commit();
           }
         }
-        fence_proxy_async();
-        named_sync(1 + cw, 128);
-        if (tid == 0) {
-          tma_store_2d(&tma_c, buf, col0, row0);
-          bulk_commit();
+      }
+    } else {
+      // -- EpiDequant: 64-row boxes of kCols Out columns (128-byte rows),
+      // column by column. First the tile's scales and biases go into the
+      // staging (the last reads of the previous tile's came before its last
+      // box's second barrier)
+      using Out = typename EPI::Out;
+      constexpr int kCols = kRowBytes / static_cast<int>(sizeof(Out));  // 32 fp32, 64 bf16
+      constexpr int kQ = kCols / 8;  // 8-column accumulator groups a box
+      float* st_x = staging + cw * L::kStageFloats;
+      float* st_w = st_x + L::kRowsC;
+      float* st_b = st_w + BN;
+      if (tid < L::kRowsC) st_x[tid] = pre_x;
+#pragma unroll
+      for (int c = 0; c < kPerC; ++c) {
+        st_w[c * 128 + tid] = pre_w[c];
+        st_b[c * 128 + tid] = pre_b[c];
+      }
+      named_sync(1 + cw, 128);
+      const int rl = warp * 16 + lane / 4;  // this thread's rows: rl and rl + 8
+      float xs[L::MW][2];
+#pragma unroll
+      for (int mi = 0; mi < L::MW; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) xs[mi][h] = st_x[mi * 64 + rl + 8 * h];
+#pragma unroll
+      for (int j = 0; j < BN / kCols; ++j) {
+        const int col0 = tn * BN + j * kCols;
+        if (col0 >= N) continue;
+#pragma unroll
+        for (int mi = 0; mi < L::MW; ++mi) {
+          // as EpiRaw: a box wholly past M or N is skipped before it
+          // touches a buffer, and the buffers are counted by stored boxes
+          const int row0 = tm * BM + m_off + mi * 64;
+          if (row0 >= M) continue;
+          uint8_t* buf = my_epi + (box++ & 1) * kEpiBox;
+          if (tid == 0) bulk_wait_read<1>();
+          named_sync(1 + cw, 128);
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) {
+            const int jn = j * kQ + q;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = rl + 8 * h, row = row0 + r;
+              const int col = col0 + 8 * q + 2 * (lane % 4);
+              // this pair's column scales and biases (zero past N)
+              const int c = j * kCols + 8 * q + 2 * (lane % 4);
+              const float2 w2 = *reinterpret_cast<const float2*>(st_w + c);
+              const float2 b2 = *reinterpret_cast<const float2*>(st_b + c);
+              const float wv[2] = {w2.x, w2.y}, bv[2] = {b2.x, b2.y};
+              float v[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                float y = __fadd_rn(
+                    __fmul_rn(__fmul_rn(__int2float_rn(d[mi][4 * jn + 2 * h + e]), xs[mi][h]),
+                              wv[e]),
+                    bv[e]);
+                if constexpr (EPI::kResidual) {
+                  if (row < M && col + e < N)
+                    y = __fadd_rn(
+                        y, bvt_int8::to_f(ep.residual[static_cast<long>(row) * N + col + e]));
+                }
+                v[e] = y;
+              }
+              // the pair's bytes in row r; 16-byte chunk c sits at c ^ (r % 8)
+              const int byte = (8 * q + 2 * (lane % 4)) * static_cast<int>(sizeof(Out));
+              bvt_int8::store2<Out>(
+                  reinterpret_cast<Out*>(buf + r * kRowBytes + (((byte >> 4) ^ (r & 7)) << 4) +
+                                         (byte & 15)),
+                  v[0], v[1]);
+            }
+          }
+          fence_proxy_async();
+          named_sync(1 + cw, 128);
+          if (ep.direct) {
+            store_box_plain<Out>(buf, ep.out, row0, col0, M, N, ep.chunk, tid);
+          } else if (tid == 0) {
+            tma_store_3d(&tma_c, buf, col0 % ep.chunk, row0, col0 / ep.chunk);
+            bulk_commit();
+          }
         }
       }
     }
@@ -567,22 +758,34 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// a 2D row-major tensor [outer, inner] of row_bytes-apart rows, read or
-// written in boxes of box_outer x box_inner, 128-byte swizzle, zero fill
-inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-                     uint64_t inner, uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
-                     uint32_t box_outer) {
+// a row-major tensor of 2 or 3 dimensions (dims and box innermost first;
+// byte strides of dimensions 1 and 2), 128-byte swizzle, zero fill
+inline int encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                  const uint64_t* dims, const uint64_t* strides, const uint32_t* box) {
   const EncodeTiled fn = encoder();
   if (fn == nullptr) return kErrNoEncoder;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t unit[2] = {1, 1};
+  cuuint64_t d[3], st[2];
+  cuuint32_t b[3], unit[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    if (i > 0) st[i - 1] = strides[i - 1];
+  }
   const CUresult r =
-      fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+      fn(map, type, rank, const_cast<void*>(base), d, st, b, unit,
          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
          CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+// a 2D row-major tensor [outer, inner] of row_bytes-apart rows, read or
+// written in boxes of box_outer x box_inner
+inline int encode_2d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                     uint64_t inner, uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
+                     uint32_t box_outer) {
+  const uint64_t dims[2] = {inner, outer};
+  const uint32_t box[2] = {box_inner, box_outer};
+  return encode(map, type, base, 2, dims, &row_bytes, box);
 }
 
 // a kernel's registers a thread at launch, from cudaFuncGetAttributes (or
@@ -593,23 +796,49 @@ inline int kernel_registers(const void* kernel) {
   return err == cudaSuccess ? attr.numRegs : -static_cast<int>(err);
 }
 
-// C[M, N] = A[M, K] . B on `stream`, one block an SM over the output tiles
-// (b: bf16 B [K, N]; s8 B^T [N, K]). Returns 0, a cudaError_t or one of
-// the codes above. M == 0 launches nothing.
+// the kernel opted in to its shared memory, and started with the registers
+// its warpgroups ask for: setmaxnreg only moves registers between them, so
+// with fewer a consumer would wait forever. Returns 0, a cudaError_t or
+// kErrRegisters.
+template <int KIND, int BM, int BN, int STAGES, int SCHED, class EPI>
+int prepare() {
+  using L = WgLayout<KIND, BM, BN, STAGES, SCHED>;
+  auto* kernel = wgmma_gemm_kernel<KIND, BM, BN, STAGES, SCHED, EPI>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::template smem<EPI>());
+  if (err != cudaSuccess) return err;
+  const int regs = kernel_registers(reinterpret_cast<const void*>(kernel));
+  if (regs < 0) return -regs;
+  if (regs * kThreads < 128 * kProducerRegs + 256 * kConsumerRegs) return kErrRegisters;
+  return 0;
+}
+
+// as many blocks as the card has SMs, at most one a tile
+template <int KIND, int BM, int BN, int STAGES, int SCHED, class EPI>
+int launch(const CUtensorMap& ma, const CUtensorMap& mb, const CUtensorMap& mc, int M, int N,
+           int K, const typename EPI::Params& ep, cudaStream_t stream) {
+  using L = WgLayout<KIND, BM, BN, STAGES, SCHED>;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long tiles = static_cast<long>((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
+  wgmma_gemm_kernel<KIND, BM, BN, STAGES, SCHED, EPI>
+      <<<grid, kThreads, L::template smem<EPI>(), stream>>>(ma, mb, mc, M, N, K, ep);
+  return cudaGetLastError();
+}
+
+// C[M, N] = A[M, K] . B on `stream`, the raw accumulators (b: bf16 B [K,
+// N]; s8 B^T [N, K]). Returns 0, a cudaError_t or one of the codes above.
+// M == 0 launches nothing.
 template <int KIND, int BM, int BN, int STAGES, int SCHED>
 int wgmma_gemm(const void* a, const void* b, void* c, int M, int N, int K,
                cudaStream_t stream) {
   using L = WgLayout<KIND, BM, BN, STAGES, SCHED>;
   using Tr = WgTraits<KIND>;
-  auto* kernel = wgmma_gemm_kernel<KIND, BM, BN, STAGES, SCHED>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
-  if (err != cudaSuccess) return err;
-  // setmaxnreg only moves registers between the warpgroups: the block
-  // must start with what the three ask for, or a consumer waits forever
-  const int regs = kernel_registers(reinterpret_cast<const void*>(kernel));
-  if (regs < 0) return -regs;
-  if (regs * kThreads < 128 * kProducerRegs + 256 * kConsumerRegs) return kErrRegisters;
+  const int ready = prepare<KIND, BM, BN, STAGES, SCHED, EpiRaw>();
+  if (ready != 0) return ready;
   if (M == 0) return cudaSuccess;
   CUtensorMap ma, mb, mc;
   int e = encode_2d(&ma, Tr::in_type, a, K, M, static_cast<uint64_t>(K) * Tr::elem, L::kBK,
@@ -624,15 +853,95 @@ int wgmma_gemm(const void* a, const void* b, void* c, int M, int N, int K,
   if (e == 0)
     e = encode_2d(&mc, Tr::out_type, c, N, M, static_cast<uint64_t>(N) * 4, kEpiCols, 64);
   if (e != 0) return e;
-  // as many blocks as the card has SMs, at most one a tile
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return launch<KIND, BM, BN, STAGES, SCHED, EpiRaw>(ma, mb, mc, M, N, K, {}, stream);
+}
+
+// whether a dequantising GEMM's output goes out by the TMA: the output is
+// one matrix, or its chunks are whole boxes wide, and its rows are a
+// multiple of 16 bytes apart (the TMA's rule); else by plain stores
+template <typename Out>
+bool tma_output(int N, int chunk) {
+  constexpr int kCols = kRowBytes / static_cast<int>(sizeof(Out));
+  return (chunk == N || chunk % kCols == 0) && (chunk * sizeof(Out)) % 16 == 0;
+}
+
+// the dequantising GEMMs' one configuration: ping-pong 128 x 128 tiles,
+// 5 stages (6 and the staging pass the shared-memory limit by 1,136 B)
+constexpr int kDqBM = 128, kDqBN = 128, kDqStages = 5, kDqSched = kPingPong;
+
+// out = EPI(a . w^T) on `stream`, EPI an EpiDequant: a [M, K] s8, w [N, K]
+// s8 (K a multiple of 16, both 16-byte aligned), ep as EpiDequant::Params
+// describes (ep.direct is set here, from the shape). Returns 0, a
+// cudaError_t or one of the codes above; M == 0 launches nothing.
+template <class EPI, int BM = kDqBM, int BN = kDqBN, int STAGES = kDqStages,
+          int SCHED = kDqSched>
+int wgmma_gemm_dequant(const int8_t* a, const int8_t* w, int M, int N, int K,
+                       typename EPI::Params ep, cudaStream_t stream) {
+  using Out = typename EPI::Out;
+  using L = WgLayout<kWgS8, BM, BN, STAGES, SCHED>;
+  static_assert(L::template smem<EPI>() <= 232448, "past the shared memory of a block");
+  if (K <= 0 || K % 16 != 0 || N <= 0 || ep.chunk <= 0 || N % ep.chunk != 0)
+    return cudaErrorInvalidValue;
+  const int ready = prepare<kWgS8, BM, BN, STAGES, SCHED, EPI>();
+  if (ready != 0) return ready;
+  if (M == 0) return cudaSuccess;
+  constexpr uint32_t kCols = kRowBytes / sizeof(Out);
+  ep.direct = tma_output<Out>(N, ep.chunk) ? 0 : 1;
+  CUtensorMap ma, mb, mc = {};
+  int e = encode_2d(&ma, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, K, M, static_cast<uint64_t>(K),
+                    L::kBK, BM);
+  if (e == 0)
+    e = encode_2d(&mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K, N, static_cast<uint64_t>(K),
+                  L::kBK, BN);
+  if (e == 0 && !ep.direct) {
+    // [N / chunk, M, chunk]: a box never leaves its chunk
+    const uint64_t dims[3] = {static_cast<uint64_t>(ep.chunk), static_cast<uint64_t>(M),
+                              static_cast<uint64_t>(N / ep.chunk)};
+    const uint64_t row = static_cast<uint64_t>(ep.chunk) * sizeof(Out);
+    const uint64_t strides[2] = {row, row * M};
+    const uint32_t box[3] = {kCols, 64, 1};
+    e = encode(&mc, EPI::out_type, ep.out, 3, dims, strides, box);
+  }
+  if (e != 0) return e;
+  return launch<kWgS8, BM, BN, STAGES, SCHED, EPI>(ma, mb, mc, M, N, K, ep, stream);
+}
+
+// a kernel's dynamic shared memory, blocks an SM (the occupancy
+// calculator) and registers a thread at launch into out[0..2]; returns 0 or
+// a cudaError_t
+template <class EPI, int KIND = kWgS8, int BM = kDqBM, int BN = kDqBN, int STAGES = kDqStages,
+          int SCHED = kDqSched>
+int resources(int* out) {
+  using L = WgLayout<KIND, BM, BN, STAGES, SCHED>;
+  constexpr int smem = L::template smem<EPI>();
+  const void* kernel =
+      reinterpret_cast<const void*>(wgmma_gemm_kernel<KIND, BM, BN, STAGES, SCHED, EPI>);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
+  const int regs = kernel_registers(kernel);
   if (err != cudaSuccess) return err;
-  const long tiles = static_cast<long>((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
-  kernel<<<grid, kThreads, L::kSmem, stream>>>(ma, mb, mc, M, N, K);
-  return cudaGetLastError();
+  if (regs < 0) return -regs;
+  out[0] = smem;
+  out[1] = blocks;
+  out[2] = regs;
+  return 0;
+}
+
+// the message of a code returned above
+inline const char* error_string(int err) {
+  switch (err) {
+    case kErrNoEncoder:
+      return "cuTensorMapEncodeTiled not found (cudaGetDriverEntryPoint)";
+    case kErrEncode:
+      return "cuTensorMapEncodeTiled refused an operand's tensor map";
+    case kErrRegisters:
+      return "the wgmma kernel has too few registers at launch for its setmaxnreg split";
+    default:
+      return cudaGetErrorString(static_cast<cudaError_t>(err));
+  }
 }
 
 }  // namespace bvt_wgmma

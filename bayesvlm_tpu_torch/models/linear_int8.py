@@ -7,8 +7,11 @@ per-output-channel absmax int8 weights (quantized per call, as in the
 JAX package), exact int32 products, fp32 dequant + bias, one cast to x's
 dtype. The same quantization recipe as models/mlp_int8.py.
 
-- CUDA tensors launch the hand-written kernel (csrc/linear_int8.cu) or
-  raise; nothing falls back to the plain version on the card.
+- CUDA tensors launch the hand-written kernel (csrc/linear_int8.cu: the
+  int8 product on the wgmma body of csrc/wgmma_gemm.cuh, dequant and
+  bias in its epilogue) or raise; nothing falls back to the plain version
+  on the card. `kernel_resources` reads its shared memory, blocks an SM
+  and registers, and whether an output goes out by the TMA.
 - CPU tensors run `linear_int8_reference`, the same math in plain
   PyTorch.
 
@@ -55,7 +58,30 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bvt_linear_int8.argtypes = [p, i, i, i, i, p, p, p, i, p, p, p, p]
     lib.bvt_linear_int8.restype = ctypes.c_int
+    lib.bvt_linear_int8_resources.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.bvt_linear_int8_resources.restype = ctypes.c_int
     return lib
+
+
+def kernel_resources(dtype=torch.bfloat16, N: int = 3072, chunks: int = 3,
+                     device=None) -> dict:
+    """What the kernel's GEMM takes on the card for an x of `dtype`
+    (csrc/wgmma_gemm.cuh, ping-pong 128 x 128 tiles, 5 stages): dynamic
+    shared memory a block, blocks an SM, registers a thread at launch (the
+    warpgroups then move to 40 / 232 with setmaxnreg), and whether N
+    outputs in `chunks` chunks go out by TMA stores (each chunk a whole
+    number of 128-byte epilogue boxes, or one chunk) or by plain stores."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"linear_int8 kernel takes float32 or bfloat16, not {dtype}")
+    if chunks < 1 or N % chunks:
+        raise ValueError(f"linear_int8: N={N} does not split into {chunks} chunks")
+    lib = _library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = lib.bvt_linear_int8_resources(_DTYPE_CODES[dtype], N, N // chunks, out)
+    kernels.check(lib, err, "linear_int8 resources query")
+    return {"body": "wgmma", "smem_bytes": out[0], "blocks_per_sm": out[1],
+            "registers": out[2], "tma_store": bool(out[3])}
 
 
 def linear_int8(x: torch.Tensor, w: torch.Tensor,

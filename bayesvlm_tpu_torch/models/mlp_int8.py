@@ -8,8 +8,13 @@ with the fused variant the fp32 LayerNorm before and the fp32 residual
 after (`x + fc2(act(fc1(LN(x))))`). The rounding points are the JAX
 package's (csrc/int8_gemm.cuh lists them).
 
-- CUDA tensors launch the hand-written kernel (csrc/mlp_int8.cu) or
-  raise; nothing falls back to the plain version on the card.
+- CUDA tensors launch the hand-written kernel (csrc/mlp_int8.cu: both
+  int8 products on the wgmma body of csrc/wgmma_gemm.cuh, the dequant,
+  bias and residual in its epilogue; the activation and requantize in one
+  row pass between them) or raise; nothing falls back to the plain
+  version on the card.
+  `kernel_resources` reads the GEMMs' shared memory, blocks an SM and
+  registers.
 - CPU tensors run `mlp_int8_reference`, the same math in plain PyTorch.
 
 Weights keep torch's `nn.Linear` layout: w1 [F, D], w2 [D, F], so the
@@ -137,7 +142,27 @@ def _library() -> ctypes.CDLL:
     lib.bvt_mlp_int8.argtypes = [p, i, i, i, i, p, p, f, p, p, p, p, p, p, i,
                                  p, p, p, p, p, p, p]
     lib.bvt_mlp_int8.restype = ctypes.c_int
+    lib.bvt_mlp_int8_resources.argtypes = [i, ctypes.POINTER(ctypes.c_int)]
+    lib.bvt_mlp_int8_resources.restype = ctypes.c_int
     return lib
+
+
+def kernel_resources(dtype=torch.bfloat16, device=None) -> dict:
+    """What the kernel's two GEMMs take on the card (csrc/wgmma_gemm.cuh,
+    ping-pong 128 x 128 tiles, 5 stages): dynamic shared memory a block,
+    blocks an SM (the occupancy calculator) and registers a thread at
+    launch, GEMM1's (fp32 out) and GEMM2's (x's dtype out, the larger of
+    its plain and fused variants); the warpgroups then move to 40 / 232
+    with setmaxnreg."""
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"mlp_int8 kernel takes float32 or bfloat16, not {dtype}")
+    lib = _library()
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = lib.bvt_mlp_int8_resources(_DTYPE_CODES[dtype], out)
+    kernels.check(lib, err, "mlp_int8 resources query")
+    return {"body": "wgmma", "smem_bytes": out[0], "blocks_per_sm": out[1],
+            "registers": max(out[2], out[3]), "registers_gemm": [out[2], out[3]]}
 
 
 def _ptr(t: Optional[torch.Tensor]):

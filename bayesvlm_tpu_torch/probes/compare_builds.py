@@ -1,8 +1,10 @@
 """The kernels of two source trees, side by side on the card: the bf16
-attention kernels, or (--gemm) the GEMM probes' kernels.
+attention kernels, (--gemm) the GEMM probes' kernels, or (--int8) the
+int8 lane's two kernels.
 
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR [--changed v2 v3]
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --gemm
+    python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --int8
 
 Each DIR is a `csrc/` directory (this package's, or one unpacked from
 another commit with `git archive`). Its `attention.cu` and
@@ -32,6 +34,18 @@ of max |plain|; then bf16 and s8 at each tree's tile 0 (or each index
 of --tiles, which both trees must build) are timed in the same turns.
 The exit code is 1 when s4 or s8 x s4 differ between the trees, or a
 kind is wrong in either tree.
+
+--int8: each tree's `mlp_int8.cu` and `linear_int8.cu` are built and
+called through their C interfaces, `bvt_mlp_int8` and `bvt_linear_int8`
+(the same arguments and scratch in both trees), on the same seeded
+operands at the ViT-L/14 int8 lane's shapes (M = 64 x 257, D = 1024, F =
+4096) and at a ragged M = 333, in bf16 and fp32: mlp plain, fused pre-LN
+and fused pre-LN with 4-bit weights (tanh-GELU); linear the fused QKV (N
+= 3072, three chunks) and the out-projection (N = 1024). Each output of b
+must equal a's bit for bit, and each tree's lie within the JAX package's
+flip tolerance of the plain version; at the full M both trees are timed
+in the same turns. The exit code is 1 when any output differs between the
+trees or strays from plain in either.
 
 There is no CPU mode: without a card and nvcc it raises.
 """
@@ -76,7 +90,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="compare the GEMM probes' tile_gemm.cu instead")
     p.add_argument("--tiles", nargs="+", type=int, default=[0],
                    help="--gemm: the tile indices whose bf16 and s8 are timed")
-    return p.parse_args(argv)
+    p.add_argument("--int8", action="store_true",
+                   help="compare the int8 lane's mlp_int8.cu and linear_int8.cu instead")
+    args = p.parse_args(argv)
+    if args.gemm and args.int8:
+        p.error("--gemm and --int8 compare different kernels: pass one")
+    return args
 
 
 def _nvcc_all(jobs: dict, csrc: Path, out: Path) -> dict:
@@ -227,6 +246,166 @@ def report_gemm(results: dict) -> int:
     return 0 if same and right else 1
 
 
+# --int8: the int8 lane's shapes (rows, D, F) and its cases; the flip
+# tolerance of tests/test_torch_mlp_int8.py (max |d| and mean |d| over
+# max |plain|)
+INT8_M = {"vit-l/14": 64 * 257, "ragged": 333}
+INT8_D, INT8_F = 1024, 4096
+MLP_CASES = {"mlp plain": (8, False), "mlp fused-LN": (8, True), "mlp fused-LN w4": (4, True)}
+LINEAR_CASES = {"linear qkv": (3 * INT8_D, 3), "linear out_proj": (INT8_D, 1)}
+INT8_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+INT8_TOL_MAX, INT8_TOL_MEAN = 0.02, 0.002
+
+
+def build_int8(csrc: Path, out: Path) -> dict:
+    """mlp_int8.cu and linear_int8.cu of csrc built into out (two nvcc at
+    once) and loaded, their C interfaces typed: {"mlp": lib, "linear": lib}."""
+    libs = _nvcc_all({"mlp": "mlp_int8.cu", "linear": "linear_int8.cu"}, csrc, out)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    libs["mlp"].bvt_mlp_int8.argtypes = [p, i, i, i, i, p, p, f, p, p, p, p, p, p, i,
+                                         p, p, p, p, p, p, p]
+    libs["linear"].bvt_linear_int8.argtypes = [p, i, i, i, i, p, p, p, i, p, p, p, p]
+    for lib in libs.values():
+        lib.bvt_error_string.argtypes = [i]
+        lib.bvt_error_string.restype = ctypes.c_char_p
+    return libs
+
+
+def _int8_operands(M: int, dtype, gen) -> dict:
+    """Seeded x and the lane's weights (the port's quantizer, so both trees
+    take the same int8 values), fp32 biases and LN parameters."""
+    from bayesvlm_tpu_torch.models import mlp_int8 as mlp
+
+    D, F = INT8_D, INT8_F
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    x = randn(M, D).to(dtype)
+    w1, w2 = randn(F, D, scale=D ** -0.5).to(dtype), randn(D, F, scale=F ** -0.5).to(dtype)
+    wqkv, wo = randn(3 * D, D, scale=D ** -0.5).to(dtype), randn(D, D, scale=D ** -0.5).to(dtype)
+    return {"x": x, "w1": w1, "w2": w2, "b1": randn(F, scale=0.02), "b2": randn(D, scale=0.02),
+            "ln_w": 1.0 + randn(D, scale=0.1), "ln_b": randn(D, scale=0.1),
+            "quant": {bits: mlp.quantize_mlp_weights(w1, w2, bits) for bits in (8, 4)},
+            "linear": {"linear qkv": (wqkv, randn(3 * D, scale=0.02)),
+                       "linear out_proj": (wo, randn(D, scale=0.02))}}
+
+
+def int8_launcher(libs: dict, case: str, ops: dict, out: torch.Tensor):
+    """A call of one tree's kernel for `case` on ops into out, with its own
+    scratch."""
+    from bayesvlm_tpu_torch.models.linear_int8 import quantize_weight
+
+    x = ops["x"]
+    M, D = x.shape
+    code = 1 if x.dtype == torch.bfloat16 else 0
+    dev = dict(device="cuda")
+    if case in MLP_CASES:
+        bits, fused = MLP_CASES[case]
+        q, F = ops["quant"][bits], INT8_F
+        ln = (ops["ln_w"].data_ptr(), ops["ln_b"].data_ptr(), 1e-5) if fused else (None, None, 0.0)
+        scratch = [torch.empty(M, D, dtype=torch.int8, **dev), torch.empty(M, **dev),
+                   torch.empty(M, F, **dev), torch.empty(M, F, dtype=torch.int8, **dev),
+                   torch.empty(M, **dev)]
+        args = [x.data_ptr(), code, M, D, F, *ln, q["w1q"].data_ptr(), q["s1"].data_ptr(),
+                ops["b1"].data_ptr(), q["w2q"].data_ptr(), q["s2"].data_ptr(),
+                ops["b2"].data_ptr(), 1, *(t.data_ptr() for t in scratch), out.data_ptr()]
+        lib, fn = libs["mlp"], libs["mlp"].bvt_mlp_int8
+    else:
+        N, chunks = LINEAR_CASES[case]
+        w, b = ops["linear"][case]
+        wq, s = quantize_weight(w)
+        scratch = [torch.empty(M, D, dtype=torch.int8, **dev), torch.empty(M, **dev), wq, s]
+        args = [x.data_ptr(), code, M, D, N, wq.data_ptr(), s.data_ptr(), b.data_ptr(),
+                N // chunks, scratch[0].data_ptr(), scratch[1].data_ptr(), out.data_ptr()]
+        lib, fn = libs["linear"], libs["linear"].bvt_linear_int8
+
+    def call():
+        kernels.check(lib, fn(*args, torch.cuda.current_stream().cuda_stream), case)
+
+    call.scratch = scratch  # kept alive with the call
+    return call
+
+
+def int8_plain(case: str, ops: dict) -> torch.Tensor:
+    """The plain version of `case`, laid out as the kernels write it
+    (linear: N / chunk contiguous [M, chunk] blocks)."""
+    from bayesvlm_tpu_torch.models import linear_int8 as linear
+    from bayesvlm_tpu_torch.models import mlp_int8 as mlp
+
+    x = ops["x"]
+    if case in MLP_CASES:
+        bits, fused = MLP_CASES[case]
+        ln = dict(ln_weight=ops["ln_w"], ln_bias=ops["ln_b"], ln_eps=1e-5) if fused else {}
+        return mlp.mlp_int8_reference(x, ops["w1"], ops["b1"], ops["w2"], ops["b2"],
+                                      "gelu_tanh", quant=ops["quant"][bits], **ln)
+    N, chunks = LINEAR_CASES[case]
+    ref = linear.linear_int8_reference(x, *ops["linear"][case])
+    return torch.stack(ref.chunk(chunks, dim=-1)).contiguous()
+
+
+def _flip_ok(out: torch.Tensor, ref: torch.Tensor) -> bool:
+    d = (out.float() - ref.float()).abs()
+    scale = float(ref.float().abs().max()) + 1e-12
+    return float(d.max()) <= INT8_TOL_MAX * scale and float(d.mean()) <= INT8_TOL_MEAN * scale
+
+
+def run_int8(args) -> dict:
+    """Both trees' int8 kernels at every case, dtype and M: b's bits against
+    a's, each against plain, and at the full M both timed in turns."""
+    out = {"cases": {}}
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        trees = {}
+        for tag in ("a", "b"):
+            (Path(tmp) / tag).mkdir()
+            trees[tag] = build_int8(getattr(args, tag), Path(tmp) / tag)
+        for mname, M in INT8_M.items():
+            for dname, dtype in INT8_DTYPES.items():
+                ops = _int8_operands(M, dtype, torch.Generator(device="cuda").manual_seed(M))
+                for case in (*MLP_CASES, *LINEAR_CASES):
+                    shape = (M, INT8_D) if case in MLP_CASES else (
+                        LINEAR_CASES[case][1], M, LINEAR_CASES[case][0] // LINEAR_CASES[case][1])
+                    outs = {tag: torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+                            for tag in trees}
+                    calls = {tag: int8_launcher(trees[tag], case, ops, outs[tag]) for tag in trees}
+                    for call in calls.values():
+                        call()
+                    torch.cuda.synchronize()
+                    ref = int8_plain(case, ops)
+                    r = {"b_equals_a": bool(torch.equal(outs["a"], outs["b"])),
+                         **{f"{tag}_ok": _flip_ok(outs[tag], ref) for tag in trees}}
+                    if mname == "vit-l/14":
+                        times = {"a": [], "b": []}
+                        for tag in TURNS:
+                            times[tag].append(cuda_ms(calls[tag]))
+                        r.update({f"{tag}_ms": min(times[tag]) for tag in trees})
+                        r.update({f"{tag}_median_ms": statistics.median(times[tag])
+                                  for tag in trees})
+                    out["cases"][(case, dname, mname)] = r
+                    del outs, calls, ref
+                del ops
+    return out
+
+
+def report_int8(results: dict) -> int:
+    print(f"card: {card_line()}")
+    print(f"int8 lane at M={INT8_M}, D={INT8_D}, F={INT8_F} (times best / median of "
+          f"{len(TURNS) // 2} turns of {ITERS}):")
+    for (case, dname, mname), r in results["cases"].items():
+        line = (f"  {case:16s} {dname} {mname:8s}: b equals a: {r['b_equals_a']}; "
+                f"within the flip tolerance of plain: a {r['a_ok']}, b {r['b_ok']}")
+        if "a_ms" in r:
+            line += (f"; a {r['a_ms']:.4f} / {r['a_median_ms']:.4f} ms, b {r['b_ms']:.4f} / "
+                     f"{r['b_median_ms']:.4f} ms (b/a {r['b_ms'] / r['a_ms']:.3f})")
+        print(line)
+    same = all(r["b_equals_a"] for r in results["cases"].values())
+    right = all(r["a_ok"] and r["b_ok"] for r in results["cases"].values())
+    print(f"every int8 output of b equals a bit for bit: {same}; every output within "
+          f"the flip tolerance in both trees: {right}")
+    return 0 if same and right else 1
+
+
 def card_line() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -301,10 +480,10 @@ def report(results: dict) -> int:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.gemm:
+    if args.gemm or args.int8:
         if not torch.cuda.is_available():
             raise RuntimeError("compare_builds times kernels on the card: no CUDA device")
-        return report_gemm(run_gemm(args))
+        return report_int8(run_int8(args)) if args.int8 else report_gemm(run_gemm(args))
     return report(run(args))
 
 

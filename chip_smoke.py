@@ -42,7 +42,10 @@ Phases (any failure raises and exits non-zero, without the result line):
      outputs) and the out-projection (N=1024); and a ragged M. Beside
      them, for reference only (no single PyTorch call computes the W8A8
      function): the bf16 cuBLAS sublayer each replaces and torch._int_mm
-     on the same int8 operands;
+     on the same int8 operands; the body (both GEMMs on the wgmma body
+     of csrc/wgmma_gemm.cuh), shared memory, blocks an SM and registers
+     of their GEMMs, and each call's launches (quantize, GEMM1, activation
+     + requantize, GEMM2) timed apart by torch.profiler;
   5. EPIG joint-entropy kernel vs plain at the reference operating point
      (pool 4000, targets 2000, C=65, K=100 MC samples: a [260000, 130000]
      joint), bf16 and int8, a ragged small shape, and K=400 (the streamed
@@ -260,10 +263,11 @@ PROBE_EXTRAS = ("smem_bytes", "blocks_per_sm", "base_ms", "vs_base", "tops", "ti
                 "yardstick", "reference_ms")
 # the body of each kernel source other than the attention kernel, the
 # attention probes and the GEMM probes (which report their own: the GEMMs
-# "wgmma" for bf16 and s8, "mma" for the s4 kinds): "mma" where its
-# products run on the tensor cores (mma.sync), "simt" where they run as
-# fp32 FMAs on the CUDA cores
-SOURCE_BODY = {"attention_block.cu": "mma", "mlp_int8.cu": "mma", "linear_int8.cu": "mma",
+# "wgmma" for bf16 and s8, "mma" for the s4 kinds): "wgmma" where its
+# products run on the warp-specialised wgmma body of csrc/wgmma_gemm.cuh
+# (the int8 lane's two kernels), "mma" where they run on the tensor cores
+# by mma.sync, "simt" where they run as fp32 FMAs on the CUDA cores
+SOURCE_BODY = {"attention_block.cu": "mma", "mlp_int8.cu": "wgmma", "linear_int8.cu": "wgmma",
                "xlogy_rowsum.cu": "mma", "smith_head.cu": "simt", "packed_heads.cu": "mma"}
 # the packed-head kernels at the probe's shape and a ragged one (B, T, H)
 PACKED_SHAPES = {"probe": (80, 257, 16), "ragged": (3, 50, 12)}
@@ -571,8 +575,50 @@ def _flip_check(torch, name: str, out, ref) -> dict:
     return {"max_abs_err": max_err, "mean_abs_err": mean_err}
 
 
+# the launches inside one int8 kernel call, by the name the profiler gives
+# them (the first pattern that matches)
+INT8_PARTS = (("GEMM1 (EpiDequant<float, false>)", r"EpiDequant<float, false>"),
+              ("GEMM2 or linear (EpiDequant<out, residual>)", r"EpiDequant<"),
+              ("activation + requantize (act_quant_rows_kernel)", r"act_quant_rows_kernel"),
+              ("quantize x (quant_rows_kernel)", r"quant_rows_kernel"))
+
+
+def _int8_parts(torch, fn, calls: int = 5) -> dict:
+    """Each launch of an int8 kernel call timed apart: torch.profiler over
+    `calls` calls, device ms a call by INT8_PARTS (anything else under
+    "other")."""
+    import re
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts: dict = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        label = next((lb for lb, pat in INT8_PARTS if re.search(pat, e.key)), "other")
+        parts[label] = parts.get(label, 0.0) + us / 1e3 / calls
+    check(sum(parts.values()) > 0, "the profiler recorded no device time for an int8 call")
+    return parts
+
+
+def _print_parts(label: str, parts: dict) -> None:
+    total = sum(parts.values())
+    print(f"  {label} by launch (torch.profiler, device ms a call; shares of "
+          f"{total:.4f}): " + ", ".join(f"{k} {v:.4f} ({v / total:.1%})"
+                                       for k, v in sorted(parts.items(), key=lambda kv: -kv[1])))
+
+
 def phase_int8_vs_plain(torch, mlp, linear) -> dict:
-    """Both int8 kernels at the ViT-L/14 int8 lane's shapes, bf16."""
+    """Both int8 kernels at the ViT-L/14 int8 lane's shapes, bf16: each
+    against plain, its time beside the bound and the yardsticks, its GEMMs'
+    resources, and the share of each launch inside a call."""
     import torch.nn.functional as F
 
     M, D, Fd = BATCH * 257, 1024, 4096
@@ -606,8 +652,13 @@ def phase_int8_vs_plain(torch, mlp, linear) -> dict:
         nbytes = (2 * M * D * x.element_size() + 2 * D * Fd
                   + 4 * (2 * Fd + 2 * D + (2 * D if kw else 0)))
         r.update(bound(nbytes, 4 * M * D * Fd, "int8"))
+        r.update(mlp.kernel_resources(x.dtype))
         print(f"  {label}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); body {r['body']}: "
+              f"{r['smem_bytes']} B shared memory, {r['blocks_per_sm']} blocks/SM, "
+              f"registers at launch GEMM1 / GEMM2 {r['registers_gemm']}")
+        r["parts_ms"] = _int8_parts(torch, run)
+        _print_parts(label, r["parts_ms"])
         results[label] = r
 
     xq, _ = mlp._quant_rows(x.float())
@@ -648,10 +699,16 @@ def phase_int8_vs_plain(torch, mlp, linear) -> dict:
         wq = linear.quantize_weight(w)[0]
         r["bf16_cublas_ms"] = cuda_ms(torch, lambda: F.linear(x, w, b.bfloat16()))
         r["int_mm_ms"] = cuda_ms(torch, lambda: torch._int_mm(xq, wq.t()))
+        r.update(linear.kernel_resources(x.dtype, N, chunks))
         print(f"  {label}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); yardsticks "
               f"(reference only): bf16 F.linear {r['bf16_cublas_ms']:.4f} ms, "
-              f"torch._int_mm {r['int_mm_ms']:.4f} ms")
+              f"torch._int_mm {r['int_mm_ms']:.4f} ms; body {r['body']}: "
+              f"{r['smem_bytes']} B shared memory, {r['blocks_per_sm']} blocks/SM, "
+              f"{r['registers']} registers at launch, TMA store {r['tma_store']}")
+        check(r["tma_store"], f"{label}: the chunked output should go out by the TMA")
+        r["parts_ms"] = _int8_parts(torch, run)
+        _print_parts(label, r["parts_ms"])
         results[label] = r
 
     # a ragged M (no multiple of the 128-row tile or of 32)
@@ -1548,12 +1605,14 @@ def main() -> int:
         qkv, None)
     # the row above is the fused QKV shape; the out-projection's numbers
     linear_entry["out_proj"] = {k: out_proj[k] for k in (
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "parts_ms")}
+    linear_entry["parts_ms"] = qkv["parts_ms"]
     fused = int8["mlp_int8 fused-LN"]
     mlp_entry = _entry("mlp_int8", "bayesvlm_tpu_torch/csrc/mlp_int8.cu",
                        "bayesvlm_tpu/models/mlp_int8.py:101",
                        int8_launches["mlp_int8"], fused, None)
     mlp_entry["yardsticks"] = int8["mlp_int8 yardsticks"]
+    mlp_entry.update(registers_gemm=fused["registers_gemm"], parts_ms=fused["parts_ms"])
     split, packed = attn[("vit-l/14", "bf16", "split_key")], attn[
         ("vit-l/14", "bf16", "packed_heads")]
     # #1's row is the main path's shape (ViT-L/14, bf16); its other bf16

@@ -189,3 +189,85 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         linear_int8(torch.zeros(2, 32, device=cuda, dtype=torch.float16),
                     torch.zeros(8, 32, device=cuda))
+
+
+# the wgmma body's dequantising epilogue (csrc/wgmma_gemm.cuh EpiDequant):
+# N = 16 and 96 (mod 128: the last tile's boxes past N are skipped), chunks
+# that are no multiple of the box's 32 fp32 / 64 bf16 columns (48, 40, 24:
+# plain stores from the box) and that are (32 fp32, 64: one 3-D TMA map),
+# K = 32 and 96 (less than one 128-byte stage, the TMA zero-fills) and
+# 4096, M = 1, 333 (ragged) and 64 x 257 (the lane's rows)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,chunks", [
+    (1, 32, 144, 3), (333, 96, 120, 3), (333, 32, 72, 3), (333, 64, 192, 3),
+    (333, 4096, 2064, 1), (64 * 257, 96, 2144, 1), (64 * 257, 1024, 3072, 3),
+    (1, 4096, 96, 1), (333, 1024, 16, 1),
+])
+def test_epilogue_shapes_match_plain_on_card(cuda, dtype, M, K, N, chunks):
+    gen = torch.Generator(device=cuda).manual_seed(M + K + N)
+    x = torch.randn(M, K, generator=gen, device=cuda).to(dtype)
+    w = (torch.randn(N, K, generator=gen, device=cuda) * K ** -0.5).to(dtype)
+    b = torch.randn(N, generator=gen, device=cuda) * 0.02
+    out = linear_int8(x, w, b, chunks=chunks)
+    out = torch.cat(out, dim=-1) if chunks > 1 else out
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (M, N)
+    ref = linear_int8_reference(x, w, b)
+    assert_flip_close(out.float().cpu().numpy(), ref.float().cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [2064, 2144], ids=["n16", "n96"])
+def test_ten_calls_at_a_ragged_n_on_card(cuda, dtype, N):
+    # the last column block of every tile row stores some of its boxes and
+    # skips the rest; ten calls back to back keep the two epilogue buffers
+    # busy, so a box that overwrote a buffer still being stored would show
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    x = torch.randn(8192, 128, generator=gen, device=cuda).to(dtype)
+    w = (torch.randn(N, 128, generator=gen, device=cuda) * 0.1).to(dtype)
+    b = torch.randn(N, generator=gen, device=cuda) * 0.02
+    outs = [linear_int8(x, w, b) for _ in range(10)]
+    torch.cuda.synchronize()
+    ref = linear_int8_reference(x, w, b)
+    assert_flip_close(outs[0].float().cpu().numpy(), ref.float().cpu().numpy())
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+
+
+@pytest.mark.cuda
+def test_zero_rows_on_card(cuda):
+    # no rows: nothing to launch, the right empty shapes; all-zero rows:
+    # absmax 0, the 1e-12 floor, the bias alone
+    w = torch.randn(96, 64, device=cuda) * 0.1
+    b = torch.randn(96, device=cuda) * 0.02
+    assert linear_int8(torch.zeros(0, 64, device=cuda), w, b).shape == (0, 96)
+    parts = linear_int8(torch.zeros(2, 0, 64, device=cuda), w, b, chunks=3)
+    assert [tuple(p.shape) for p in parts] == [(2, 0, 32)] * 3
+    x = torch.randn(40, 64, device=cuda)
+    x[::3] = 0
+    out = linear_int8(x, w, b)
+    torch.cuda.synchronize()
+    ref = linear_int8_reference(x, w, b)
+    assert torch.equal(out[::3], ref[::3])
+    assert_flip_close(out.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_resources_on_card(cuda, dtype):
+    # one persistent block of 384 threads an SM, started with the registers
+    # its setmaxnreg split asks for (40 x 128 + 232 x 256)
+    from bayesvlm_tpu_torch.models.linear_int8 import kernel_resources
+
+    r = kernel_resources(dtype, 3072, 3)
+    assert r["body"] == "wgmma" and r["blocks_per_sm"] == 1
+    assert r["smem_bytes"] <= 227 * 1024
+    assert r["registers"] * 384 >= 40 * 128 + 232 * 256
+    # one matrix or whole-box chunks go out by the TMA, other chunks by
+    # plain stores
+    assert r["tma_store"] and kernel_resources(dtype, 96, 1)["tma_store"]
+    assert not kernel_resources(dtype, 144, 3)["tma_store"]
+    assert kernel_resources(dtype, 192, 3)["tma_store"]
+    assert kernel_resources(dtype, 96, 3)["tma_store"] == (dtype == torch.float32)

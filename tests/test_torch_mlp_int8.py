@@ -364,3 +364,98 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         mlp_int8(torch.zeros(2, D, device=cuda, dtype=torch.float16),
                  w1.T, b1, w2.T, b2)
+
+
+# the wgmma body's dequantising epilogue (csrc/wgmma_gemm.cuh EpiDequant):
+# GEMM1 (N = F) and GEMM2 (N = D) at N = 16 and 96 (mod 128), K = D and F
+# of 32, 96, 144, 224, 2064 and 4096, M = 1, 333 and 64 x 257; 4-bit
+# weights; the activation and requantize between them in one row pass
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("act", ["gelu_tanh", "quick_gelu"])
+@pytest.mark.parametrize("M,d,f,bits", [
+    (1, 32, 96, 8), (333, 144, 2064, 8), (333, 96, 224, 4),
+    (64 * 257, 1024, 4096, 8), (333, 1024, 4096, 4),
+])
+def test_epilogue_shapes_match_plain_on_card(cuda, dtype, fused, act, M, d, f, bits):
+    w1, b1, w2, b2, g, bb = (torch.from_numpy(a).to(cuda) for a in _mlp(M + d, d, f))
+    w1, w2 = w1.T.contiguous().to(dtype), w2.T.contiguous().to(dtype)
+    x = torch.randn(M, d, generator=torch.Generator(device=cuda).manual_seed(d),
+                    device=cuda).to(dtype)
+    ln = dict(ln_weight=g, ln_bias=bb, ln_eps=1e-5) if fused else {}
+    quant = quantize_mlp_weights(w1, w2, bits)
+    out = mlp_int8(x, w1, b1, w2, b2, act, quant=quant, **ln)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == x.shape
+    ref = mlp_int8_reference(x, w1, b1, w2, b2, act, quant=quant, **ln)
+    assert_flip_close(out.float().cpu().numpy(), ref.float().cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ten_calls_at_a_ragged_n_on_card(cuda, dtype):
+    # D = 144 and F = 2064 (16 mod 128): both GEMMs' last column blocks
+    # skip boxes; ten calls back to back give the same bits
+    w1, b1, w2, b2, g, bb = (torch.from_numpy(a).to(cuda) for a in _mlp(7, 144, 2064))
+    w1, w2 = w1.T.contiguous().to(dtype), w2.T.contiguous().to(dtype)
+    x = torch.randn(4096, 144, generator=torch.Generator(device=cuda).manual_seed(7),
+                    device=cuda).to(dtype)
+    ln = dict(ln_weight=g, ln_bias=bb, ln_eps=1e-5)
+    quant = quantize_mlp_weights(w1, w2)
+    outs = [mlp_int8(x, w1, b1, w2, b2, quant=quant, **ln) for _ in range(10)]
+    torch.cuda.synchronize()
+    ref = mlp_int8_reference(x, w1, b1, w2, b2, quant=quant, **ln)
+    assert_flip_close(outs[0].float().cpu().numpy(), ref.float().cpu().numpy())
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_zero_rows_on_card(cuda, fused):
+    # no rows: nothing to launch; all-zero rows with b1 = 0: GEMM1's rows
+    # are 0, their absmax 0, and the requantize takes the 1e-12 floor
+    w1, b1, w2, b2, g, bb = (torch.from_numpy(a).to(cuda) for a in _mlp(5))
+    ln = dict(ln_weight=g, ln_bias=bb, ln_eps=1e-5) if fused else {}
+    assert mlp_int8(torch.zeros(0, D, device=cuda), w1.T, b1, w2.T, b2, **ln).shape == (0, D)
+    x = torch.randn(40, D, device=cuda)
+    x[::4] = 0
+    b1 = torch.zeros_like(b1)
+    out = mlp_int8(x, w1.T, b1, w2.T, b2, **ln)
+    torch.cuda.synchronize()
+    ref = mlp_int8_reference(x, w1.T, b1, w2.T, b2, **ln)
+    if not fused:
+        assert torch.equal(out[::4], ref[::4])
+    assert_flip_close(out.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_resources_on_card(cuda, dtype):
+    # both GEMMs: one persistent block of 384 threads an SM, started with
+    # the registers their setmaxnreg split asks for (40 x 128 + 232 x 256)
+    from bayesvlm_tpu_torch.models.mlp_int8 import kernel_resources
+
+    r = kernel_resources(dtype)
+    assert r["body"] == "wgmma" and r["blocks_per_sm"] == 1
+    assert r["smem_bytes"] <= 227 * 1024
+    assert all(regs * 384 >= 40 * 128 + 232 * 256 for regs in r["registers_gemm"])
+
+
+def test_compare_builds_int8_has_no_cpu_mode(tmp_path, capsys):
+    # --int8 builds two trees' mlp_int8.cu and linear_int8.cu and drives
+    # them on the card only: without a CUDA device it raises before it
+    # builds anything; --gemm and --int8 together are refused
+    from bayesvlm_tpu_torch.probes import compare_builds
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    argv = ["--a", str(tmp_path), "--b", str(tmp_path), "--int8"]
+    args = compare_builds.parse_args(argv)
+    assert args.int8 and not args.gemm and args.a == tmp_path
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compare_builds.main(argv)
+    assert capsys.readouterr().out == ""
+    with pytest.raises(SystemExit):
+        compare_builds.parse_args(argv + ["--gemm"])
