@@ -33,6 +33,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "convert.cuh"
+
 namespace bvt_int8 {
 
 constexpr float kEps = 1e-12f;
@@ -41,17 +43,9 @@ constexpr int kMaxRowFloats = 12288;  // a row's fp32 copy fits in 48 KB
 
 enum Activation { kNone = 0, kGeluTanh = 1, kQuickGelu = 2 };
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+using bvt_cvt::from_f;
+using bvt_cvt::store2;
+using bvt_cvt::to_f;
 
 // 0.5 * x * (1 + tanh(c * (x + 0.044715 * x * x * x))), in the order of
 // the JAX package's `_tanh_gelu`
@@ -254,15 +248,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const int8_t* p) 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(s));
-}
-
-template <typename T> __device__ __forceinline__ void store2(T* p, float a, float b);
-template <> __device__ __forceinline__ void store2<float>(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-template <> __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
-                                                                  float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // c (16 x 8 int32) += a (16 x 32 s8, row) . b (32 x 8 s8, col)

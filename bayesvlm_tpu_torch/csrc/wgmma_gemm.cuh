@@ -74,7 +74,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "int8_gemm.cuh"  // the dequantising epilogue's arithmetic
+#include "convert.cuh"  // the dequantising epilogue's loads and stores
 
 namespace bvt_wgmma {
 
@@ -461,6 +461,9 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                   const __grid_constant__ typename EPI::Params ep) {
   using L = WgLayout<KIND, BM, BN, STAGES, SCHED>;
   using Acc = typename WgTraits<KIND>::Acc;
+  // EpiDequant dequantises s8 products, and its staging gives each
+  // consumer thread BN / 128 of a tile's columns
+  static_assert(EPI::kRaw || (KIND == kWgS8 && BN % 128 == 0), "EpiDequant: s8, BN % 128 == 0");
   constexpr int kConsumers = SCHED == kCoop ? 2 : 1;  // consumers a stage
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -701,13 +704,13 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                 if constexpr (EPI::kResidual) {
                   if (row < M && col + e < N)
                     y = __fadd_rn(
-                        y, bvt_int8::to_f(ep.residual[static_cast<long>(row) * N + col + e]));
+                        y, bvt_cvt::to_f(ep.residual[static_cast<long>(row) * N + col + e]));
                 }
                 v[e] = y;
               }
               // the pair's bytes in row r; 16-byte chunk c sits at c ^ (r % 8)
               const int byte = (8 * q + 2 * (lane % 4)) * static_cast<int>(sizeof(Out));
-              bvt_int8::store2<Out>(
+              bvt_cvt::store2<Out>(
                   reinterpret_cast<Out*>(buf + r * kRowBytes + (((byte >> 4) ^ (r & 7)) << 4) +
                                          (byte & 15)),
                   v[0], v[1]);
@@ -868,31 +871,31 @@ bool tma_output(int N, int chunk) {
 // the dequantising GEMMs' one configuration: ping-pong 128 x 128 tiles,
 // 5 stages (6 and the staging pass the shared-memory limit by 1,136 B)
 constexpr int kDqBM = 128, kDqBN = 128, kDqStages = 5, kDqSched = kPingPong;
+using DqLayout = WgLayout<kWgS8, kDqBM, kDqBN, kDqStages, kDqSched>;
 
 // out = EPI(a . w^T) on `stream`, EPI an EpiDequant: a [M, K] s8, w [N, K]
 // s8 (K a multiple of 16, both 16-byte aligned), ep as EpiDequant::Params
 // describes (ep.direct is set here, from the shape). Returns 0, a
 // cudaError_t or one of the codes above; M == 0 launches nothing.
-template <class EPI, int BM = kDqBM, int BN = kDqBN, int STAGES = kDqStages,
-          int SCHED = kDqSched>
+template <class EPI>
 int wgmma_gemm_dequant(const int8_t* a, const int8_t* w, int M, int N, int K,
                        typename EPI::Params ep, cudaStream_t stream) {
   using Out = typename EPI::Out;
-  using L = WgLayout<kWgS8, BM, BN, STAGES, SCHED>;
+  using L = DqLayout;
   static_assert(L::template smem<EPI>() <= 232448, "past the shared memory of a block");
   if (K <= 0 || K % 16 != 0 || N <= 0 || ep.chunk <= 0 || N % ep.chunk != 0)
     return cudaErrorInvalidValue;
-  const int ready = prepare<kWgS8, BM, BN, STAGES, SCHED, EPI>();
+  const int ready = prepare<kWgS8, kDqBM, kDqBN, kDqStages, kDqSched, EPI>();
   if (ready != 0) return ready;
   if (M == 0) return cudaSuccess;
   constexpr uint32_t kCols = kRowBytes / sizeof(Out);
   ep.direct = tma_output<Out>(N, ep.chunk) ? 0 : 1;
   CUtensorMap ma, mb, mc = {};
   int e = encode_2d(&ma, CU_TENSOR_MAP_DATA_TYPE_UINT8, a, K, M, static_cast<uint64_t>(K),
-                    L::kBK, BM);
+                    L::kBK, kDqBM);
   if (e == 0)
     e = encode_2d(&mb, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, K, N, static_cast<uint64_t>(K),
-                  L::kBK, BN);
+                  L::kBK, kDqBN);
   if (e == 0 && !ep.direct) {
     // [N / chunk, M, chunk]: a box never leaves its chunk
     const uint64_t dims[3] = {static_cast<uint64_t>(ep.chunk), static_cast<uint64_t>(M),
@@ -903,19 +906,18 @@ int wgmma_gemm_dequant(const int8_t* a, const int8_t* w, int M, int N, int K,
     e = encode(&mc, EPI::out_type, ep.out, 3, dims, strides, box);
   }
   if (e != 0) return e;
-  return launch<kWgS8, BM, BN, STAGES, SCHED, EPI>(ma, mb, mc, M, N, K, ep, stream);
+  return launch<kWgS8, kDqBM, kDqBN, kDqStages, kDqSched, EPI>(ma, mb, mc, M, N, K, ep,
+                                                                stream);
 }
 
-// a kernel's dynamic shared memory, blocks an SM (the occupancy
+// a dequantising GEMM's dynamic shared memory, blocks an SM (the occupancy
 // calculator) and registers a thread at launch into out[0..2]; returns 0 or
 // a cudaError_t
-template <class EPI, int KIND = kWgS8, int BM = kDqBM, int BN = kDqBN, int STAGES = kDqStages,
-          int SCHED = kDqSched>
+template <class EPI>
 int resources(int* out) {
-  using L = WgLayout<KIND, BM, BN, STAGES, SCHED>;
-  constexpr int smem = L::template smem<EPI>();
-  const void* kernel =
-      reinterpret_cast<const void*>(wgmma_gemm_kernel<KIND, BM, BN, STAGES, SCHED, EPI>);
+  constexpr int smem = DqLayout::template smem<EPI>();
+  const void* kernel = reinterpret_cast<const void*>(
+      wgmma_gemm_kernel<kWgS8, kDqBM, kDqBN, kDqStages, kDqSched, EPI>);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int blocks = 0;

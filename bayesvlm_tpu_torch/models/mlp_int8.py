@@ -37,6 +37,13 @@ EPS = 1e-12
 ACTIVATIONS = {"gelu_tanh": 1, "quick_gelu": 2}  # csrc/int8_gemm.cuh Activation
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _QMAX = {8: 127.0, 4: 7.0}
+# The int8 lane's tolerance against its plain version, the JAX package's
+# flip tolerance (tests/test_mlp_int8.py): an ulp of difference before a
+# rounding (the LayerNorm's summation order, tanhf, rsqrt) can flip one
+# int8 step of one element; flips are sparse, a systematic fault moves
+# every element. max |d| <= FLIP_TOL_MAX max|ref|, mean |d| <=
+# FLIP_TOL_MEAN max|ref|.
+FLIP_TOL_MAX, FLIP_TOL_MEAN = 0.02, 0.002
 
 
 def quantize_weight(w: torch.Tensor, bits: int = 8):

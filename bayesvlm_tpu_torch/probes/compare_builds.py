@@ -64,6 +64,7 @@ from pathlib import Path
 import torch
 
 from bayesvlm_tpu_torch import kernels
+from bayesvlm_tpu_torch.models.mlp_int8 import FLIP_TOL_MAX, FLIP_TOL_MEAN
 from bayesvlm_tpu_torch.probes import tile_gemm as tg
 
 # B, T, H, Dh: ViT-L/14 at the main path's batch, and the probes' batch
@@ -246,15 +247,13 @@ def report_gemm(results: dict) -> int:
     return 0 if same and right else 1
 
 
-# --int8: the int8 lane's shapes (rows, D, F) and its cases; the flip
-# tolerance of tests/test_torch_mlp_int8.py (max |d| and mean |d| over
-# max |plain|)
+# --int8: the int8 lane's shapes (rows, D, F) and its cases, held to the
+# lane's flip tolerance against plain (models/mlp_int8.py FLIP_TOL_*)
 INT8_M = {"vit-l/14": 64 * 257, "ragged": 333}
 INT8_D, INT8_F = 1024, 4096
 MLP_CASES = {"mlp plain": (8, False), "mlp fused-LN": (8, True), "mlp fused-LN w4": (4, True)}
 LINEAR_CASES = {"linear qkv": (3 * INT8_D, 3), "linear out_proj": (INT8_D, 1)}
 INT8_DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
-INT8_TOL_MAX, INT8_TOL_MEAN = 0.02, 0.002
 
 
 def build_int8(csrc: Path, out: Path) -> dict:
@@ -347,7 +346,7 @@ def int8_plain(case: str, ops: dict) -> torch.Tensor:
 def _flip_ok(out: torch.Tensor, ref: torch.Tensor) -> bool:
     d = (out.float() - ref.float()).abs()
     scale = float(ref.float().abs().max()) + 1e-12
-    return float(d.max()) <= INT8_TOL_MAX * scale and float(d.mean()) <= INT8_TOL_MEAN * scale
+    return float(d.max()) <= FLIP_TOL_MAX * scale and float(d.mean()) <= FLIP_TOL_MEAN * scale
 
 
 def run_int8(args) -> dict:

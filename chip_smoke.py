@@ -168,12 +168,6 @@ BLOCK_TOL = KERNEL_TOL
 # worst, a cosine above 0.9999. 0.999 leaves room and still catches a
 # wrong weight, head or layout (a cosine far below 0.99).
 BLOCK_EMBED_COS_MIN = 0.999
-# int8 kernels vs plain: the JAX package's flip tolerance
-# (tests/test_mlp_int8.py:50-62). An ulp of difference before a rounding
-# (the LayerNorm's summation order, tanhf, rsqrt) can flip one int8 step
-# of one element; flips are sparse, a systematic fault moves every
-# element. max |d| <= 0.02 max|ref|, mean |d| <= 0.002 max|ref|.
-INT8_TOL_MAX, INT8_TOL_MEAN = 0.02, 0.002
 # bf16 towers vs fp32 towers of the same weights. With random weights
 # the probit probs are near uniform (max ~0.014 over 100 classes), so
 # top-1 agreement is decided by noise-sized margins and is only printed.
@@ -564,13 +558,17 @@ def phase_block_vs_plain(torch, attention) -> dict:
 
 
 def _flip_check(torch, name: str, out, ref) -> dict:
+    """An int8 kernel against its plain version, to the lane's flip
+    tolerance (the JAX package's, tests/test_mlp_int8.py:50-62)."""
+    from bayesvlm_tpu_torch.models.mlp_int8 import FLIP_TOL_MAX, FLIP_TOL_MEAN
+
     d = (out.float() - ref.float()).abs()
     scale = float(ref.float().abs().max()) + 1e-12
     max_err, mean_err = float(d.max()), float(d.mean())
-    print(f"  {name}: max_abs_err={max_err:.3e} (tol {INT8_TOL_MAX * scale:.3e}) "
-          f"mean_abs_err={mean_err:.3e} (tol {INT8_TOL_MEAN * scale:.3e}) "
+    print(f"  {name}: max_abs_err={max_err:.3e} (tol {FLIP_TOL_MAX * scale:.3e}) "
+          f"mean_abs_err={mean_err:.3e} (tol {FLIP_TOL_MEAN * scale:.3e}) "
           f"flipped={int((d > 0).sum())}/{d.numel()}")
-    check(max_err <= INT8_TOL_MAX * scale and mean_err <= INT8_TOL_MEAN * scale,
+    check(max_err <= FLIP_TOL_MAX * scale and mean_err <= FLIP_TOL_MEAN * scale,
           f"{name}: the kernel disagrees with its plain version")
     return {"max_abs_err": max_err, "mean_abs_err": mean_err}
 

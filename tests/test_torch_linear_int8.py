@@ -8,7 +8,7 @@ tiny tower; plus the CUDA kernel against its plain version on the card
 
 Tolerance: the JAX package's own flip tolerance (see
 tests/test_torch_mlp_int8.py), max |d| <= 0.02 max|ref| and mean |d| <=
-0.002 max|ref|.
+0.002 max|ref| (`FLIP_TOL_MAX`, `FLIP_TOL_MEAN` of `models/mlp_int8.py`).
 
     python -m pytest --noconftest -m cuda tests/test_torch_linear_int8.py
 """
@@ -21,6 +21,7 @@ from bayesvlm_tpu_torch.models.linear_int8 import (
     linear_int8,
     linear_int8_reference,
 )
+from bayesvlm_tpu_torch.models.mlp_int8 import FLIP_TOL_MAX, FLIP_TOL_MEAN
 
 
 def assert_flip_close(out, ref):
@@ -28,8 +29,8 @@ def assert_flip_close(out, ref):
     ref = np.asarray(ref, np.float32)
     scale = np.abs(ref).max() + 1e-12
     d = np.abs(out - ref)
-    assert d.max() <= 0.02 * scale, (d.max(), scale)
-    assert d.mean() <= 0.002 * scale, (d.mean(), scale)
+    assert d.max() <= FLIP_TOL_MAX * scale, (d.max(), scale)
+    assert d.mean() <= FLIP_TOL_MEAN * scale, (d.mean(), scale)
 
 
 def _case(m, k, n, seed, bias=True):

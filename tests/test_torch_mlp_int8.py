@@ -12,7 +12,8 @@ frameworks now and then round a pre-round value one ulp apart (the
 LayerNorm's summation order, tanh, FMA contraction), which flips one
 int8 step of one element. Flips are sparse and small; a systematic
 fault (a wrong scale axis, a missing /127) moves every element. So
-max |d| <= 0.02 max|ref| and mean |d| <= 0.002 max|ref|.
+max |d| <= 0.02 max|ref| and mean |d| <= 0.002 max|ref| (`FLIP_TOL_MAX`,
+`FLIP_TOL_MEAN` of `models/mlp_int8.py`).
 
 JAX is imported inside the parity tests, so that the `cuda` tests also
 run where JAX is not installed:
@@ -26,6 +27,8 @@ import pytest
 import torch
 
 from bayesvlm_tpu_torch.models.mlp_int8 import (
+    FLIP_TOL_MAX,
+    FLIP_TOL_MEAN,
     mlp_int8,
     mlp_int8_reference,
     quantize_mlp_weights,
@@ -40,8 +43,8 @@ def assert_flip_close(out, ref):
     ref = np.asarray(ref, np.float32)
     scale = np.abs(ref).max() + 1e-12
     d = np.abs(out - ref)
-    assert d.max() <= 0.02 * scale, (d.max(), scale)
-    assert d.mean() <= 0.002 * scale, (d.mean(), scale)
+    assert d.max() <= FLIP_TOL_MAX * scale, (d.max(), scale)
+    assert d.mean() <= FLIP_TOL_MEAN * scale, (d.mean(), scale)
 
 
 def _mlp(seed, d=D, f=F):
