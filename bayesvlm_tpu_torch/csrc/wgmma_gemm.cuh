@@ -204,6 +204,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// a box of a rank-1 tensor map (no swizzle) at element c0
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
                                              int c1) {
   asm volatile(
@@ -295,7 +305,8 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
 
 // d (64 x N, this thread's N / 2 accumulators) (+)= A (64 x k) . B (k x N)
 // from descriptors; scale_d 0 overwrites d. bf16: A K-major, B MN-major
-// (imm-trans-b 1); s8: both K-major.
+// (imm-trans-b 1; TRANS_B 0 reads B K-major); s8: both K-major.
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_bf16_n128(float* d, uint64_t da, uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
@@ -305,7 +316,7 @@ __device__ __forceinline__ void wgmma_bf16_n128(float* d, uint64_t da, uint64_t 
       " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 1;\n}\n"
+      " %64, %65, p, 1, 1, 0, %67;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -314,7 +325,7 @@ __device__ __forceinline__ void wgmma_bf16_n128(float* d, uint64_t da, uint64_t 
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 
 __device__ __forceinline__ void wgmma_bf16_n256(float* d, uint64_t da, uint64_t db, int scale_d) {
@@ -404,6 +415,40 @@ __device__ __forceinline__ void wgmma_s8_n256(int* d, uint64_t da, uint64_t db, 
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// The register-A forms: d (64 x N) (+)= A (64 x k) . B (k x N), A from four
+// registers a thread (its warp's 16 rows, laid out as mma.sync's m16n8k16
+// bf16 / m16n8k32 s8 A fragment: rows g and g + 8, bytes 4 t and 16 + 4 t
+// of the k-step's 32), B K-major from a descriptor.
+#define BVT_WG_ACC8(c, d, i)                                                            \
+  c(d[i]), c(d[(i) + 1]), c(d[(i) + 2]), c(d[(i) + 3]), c(d[(i) + 4]), c(d[(i) + 5]), \
+      c(d[(i) + 6]), c(d[(i) + 7])
+#define BVT_WG_ACC32(c, d) \
+  BVT_WG_ACC8(c, d, 0), BVT_WG_ACC8(c, d, 8), BVT_WG_ACC8(c, d, 16), BVT_WG_ACC8(c, d, 24)
+#define BVT_WG_REGS32                                                                   \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"              \
+  " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+__device__ __forceinline__ void wgmma_rs_bf16_n64(float* d, const uint32_t* a, uint64_t db,
+                                                  int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " BVT_WG_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : BVT_WG_ACC32("+f", d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_s8_n64(int* d, const uint32_t* a, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " BVT_WG_REGS32
+      ", {%32, %33, %34, %35}, %36, p;\n}\n"
+      : BVT_WG_ACC32("+r", d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
 
 template <int KIND, int BN>
 __device__ __forceinline__ void wgmma(typename WgTraits<KIND>::Acc* d, uint64_t da,

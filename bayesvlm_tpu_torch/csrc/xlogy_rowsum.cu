@@ -29,54 +29,77 @@
 // What bounds it on an H100, at the reference operating point (pool 4000,
 // targets 2000, C = 65, K = 100: M = 260,000, N = 130,000): the operands
 // are ~78 MB as bf16, nothing. The tensor work is 2 M N K = 6.76 T bf16
-// operations, 6.8 ms at 989 TFLOP/s (3.4 ms at the int8 rate). The logs
-// are M N = 3.38e10; MUFU lg2 issues 16 per SM per clock, ~8.1 ms at 132
-// SMs and 1.98 GHz. So the logs and the fp32 epilogue (scale, clamp, FMA:
-// 3 instructions an element, 128 lanes per SM per clock) bound it,
-// not the tensor cores. For comparison, writing the joint out in fp32, as
-// a plain cuBLAS product would, moves >= 135 GB: >= 40 ms. This version's
-// time on the card against that bound is in PERF.md (chip_smoke.py).
+// operations, 6.8 ms at 989 TFLOP/s (3.4 ms at the int8 rate; 7.6 ms at
+// the padded K = 112 the kernel multiplies). The logs are M N = 3.38e10;
+// MUFU lg2 issues 16 per SM per clock, ~8.1 ms at 132 SMs and 1.98 GHz.
+// The fp32 epilogue issues beside them: scale, clamp and FMA an element
+// (int8: also the conversion and two more products).
+// On this card the products and the epilogue's fp32 instructions of one
+// SM barely overlap (PERF.md, the EPIG kernel's findings: products alone
+// 8.2 ms, the epilogue alone 10.6, without its log 10.9 with the
+// products), so their sum, not the log count alone, is what the design
+// works against. For comparison,
+// writing the joint out in fp32, as a plain cuBLAS product would, moves
+// >= 135 GB: >= 40 ms. This version's time on the card against that
+// bound is in PERF.md (chip_smoke.py).
 //
-// Design (first version). One block of 256 threads (8 warps as 4 x 2)
-// owns BM = 128 pool rows; their A tile stays in shared memory for the
-// block's life. The block loops over ALL target rows itself, in tiles of
-// BN = 128, streaming each B tile (all of K) with cp.async into a double
-// buffer, so tile j+1 loads while tile j is worked on. Pool rows are the
-// MMA's M dimension (mma.sync m16n8k16 bf16 -> fp32, or m16n8k32 s8 ->
-// s32): each warp owns 32 pool rows, whose A fragments sit in registers
-// from the start when K <= 112 bf16 / 128 int8 (7 / 4 k-steps of 32
-// bytes; a second instantiation for larger K reads them from shared
-// memory at every k-step), and 64 target columns of each tile, taken 16
-// at a time: a group's products, then at once its epilogue, folded into
-// per-row partial sums in registers (4 rows per thread). The group loop
-// has no branch, so the scheduler overlaps the log work of one group with
-// the products of the next. B fragments come by
-// ldmatrix from rows padded by 16 bytes (an ldmatrix phase hits 32
-// distinct banks): 7 bytes of shared memory per joint element at K = 112.
-// After the last tile the 4 threads of a row quad are reduced with
-// shuffles, the 2 warps that share rows through shared memory, and each
-// row sum is written once. No atomics: the result is deterministic.
-// The TPU's sequential target grid axis and its [1, M] scratch are gone:
-// the loop inside the block takes their place. At the operating point
-// the grid is ceil(260000 / 128) = 2032 blocks, two per SM.
+// Design. A block owns BM = 256 pool rows and walks ALL target rows in
+// tiles of BN = 64. It has 640 threads, a producer warpgroup and four
+// consumer warpgroups:
+//   - one producer thread keeps TMA loads of B tiles in flight into a ring
+//     of kStages stages (full / empty mbarriers). A stage row is K bytes
+//     of one target, in 128-byte chunks (64 bf16 / 128 s8, one TMA box
+//     each, in the 128-byte swizzle wgmma reads without bank conflicts);
+//     the TMA zero-fills targets past N and bytes past K (K = 112 bf16
+//     fills two 64-value chunks, the second's last 16 with zeros, and only
+//     the 7 k-steps of K are multiplied). The int8 kernel's stage also
+//     holds the tile's b_scale (a rank-1 TMA box).
+//   - each consumer owns 64 pool rows (one m64 wgmma product) for its
+//     life, their A fragments loaded once from device memory into
+//     registers (K <= 128 bf16 / 256 int8: at most 8 k-steps of 32 bytes,
+//     4 registers each; 28 at the operating point). A tile is one
+//     m64n64k16 bf16 / m64n64k32 s8 product a k-step, A from registers,
+//     then its epilogue. All four consumers read every B stage, which is
+//     freed when all 16 of their warps are done with it: one pass over B
+//     serves 256 pool rows, half the L2 traffic of a 128-row block.
+//   - products and logs overlap between consumers: four warps an SMSP take
+//     turns at the tensor core, MUFU and the fp32 pipe, and run free (they
+//     share only the ring). 32 accumulators and 28 A registers leave the
+//     epilogue room under the 96 registers a thread of 640 threads gets,
+//     so no register split is needed. Measured against the alternatives
+//     on this card (PERF.md, the EPIG kernel's findings), bf16: two
+//     consumers of 128 rows, each with its two products' wgmma groups
+//     beside each other's epilogue, took 1.11x as long, three consumers
+//     of 64 rows 1.34x; at 128 rows a consumer BN = 128 spilled and A
+//     from shared memory was no faster.
+//   - a term: s = acc * (1/K) (int8: the products above), then s *
+//     lg2(max(s, FLT_MIN)) into the tile's per-row sums, which go into the
+//     row's running sum. The int8 conversion s32 -> fp32 is I2F
+//     (__int2float_rn, exact below 2^24 > K * 127^2 for K <= 1040): the
+//     exact magic-number form (an integer add and a float subtract on the
+//     full-rate pipes instead) measured 4% slower, as the epilogue's
+//     fp32-pipe instructions, not MUFU, are what the products crowd out.
+//   - after the last tile the 4 threads of a row quad add their sums by
+//     shuffles and each row sum is written once: no atomics, no other
+//     warp shares a row, the result is deterministic.
+// The grid is ceil(M / 256) blocks, one an SM (1016 at the operating
+// point). The TPU's sequential target grid axis and its [1, M] scratch
+// are gone: the loop inside the block takes their place.
 //
-// K (zero-padded by the wrapper to a multiple of 16 bf16 / 32 int8
-// values; a zero column adds zero) lives whole in shared memory:
-// 3 x 128 rows of K bytes + 16 (A, two B buffers) + 1.5 KB, 93.7 KB at
-// K = 112 bf16. That fits the device's opt-in limit up to K = 288 bf16
-// or K = 576 int8 on an H100. Ragged M and N are zero-filled by
-// cp.async: an s of 0 adds 0.
+// Longer rows (K > 128 bf16 / 256 int8) take the streamed instantiation:
+// the same ring with stages of (A chunk, B chunk), 128 bytes of each of
+// the block's 256 pool rows and of a tile's 128 targets, in a block of
+// 384 threads (csrc/wgmma_gemm.cuh's shape: setmaxnreg drops the producer
+// to 40 registers) whose two consumers own 128 rows each. A comes
+// from the stage by descriptor (m64n128 wgmma, both operands K-major), the
+// accumulators are kept across the chunks of a B tile and the epilogue
+// runs only after the last one: xlogy is not linear, so every dot must be
+// whole first. Both consumers take each stage at once, so their epilogues
+// do not overlap their own products; the wgmma of chunk c + 1 is issued
+// before chunk c's stage is freed.
 //
-// Longer rows take the streamed instantiation (the caller picks it when
-// the resident block would not fit): A and B both go through the same
-// cp.async double buffer in chunks of KC = 128 bytes of each row (64
-// bf16 / 128 int8 values), one (B tile, K chunk) pair a step, so the A
-// tile is read again for every B tile. Each warp keeps its whole
-// [32 rows x 64 targets] tile of fp32 (or s32) dot products in
-// registers across the chunks and runs the epilogue only after the last
-// chunk of a B tile: xlogy is not linear, so every dot must be whole
-// first. 75 KB of shared memory whatever K, two blocks an SM; columns
-// past K are zero-filled by cp.async.
+// Every operand must start 16-byte aligned, with rows a multiple of 16
+// bytes apart (the TMA's rule; the wrapper's padded copies are).
 //
 // Built by bayesvlm_tpu_torch/kernels.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -84,24 +107,24 @@
 
 #include <float.h>
 
-#include "int8_gemm.cuh"
+#include "int8_gemm.cuh"   // quant_rows: the int8 operands
+#include "wgmma_gemm.cuh"  // wgmma, TMA and mbarrier PTX, the tensor-map encoder
 
 namespace {
 
-using bvt_int8::cp_async16;
-using bvt_int8::cp_async_commit;
-using bvt_int8::cp_async_wait;
-using bvt_int8::ldmatrix_x4;
-using bvt_int8::mma_bf16;
-using bvt_int8::mma_s8;
+namespace wg = bvt_wgmma;
 
-constexpr int BM = 128;   // pool rows per block (resident A tile)
-constexpr int BN = 128;   // target rows per streamed B tile
-constexpr int NT = 256;   // threads: 8 warps as 4 (pool rows) x 2 (targets)
-constexpr int WM = 32;    // pool rows per warp
-constexpr int WN = 64;    // target rows per warp and tile
-constexpr int PAD = 16;   // bytes appended to each shared-memory row
+constexpr int BM = 256;               // pool rows a block
+constexpr int BN = 64;                // targets a resident tile (wgmma's N)
+constexpr int BNS = 128;              // targets a streamed tile
+constexpr int kThreadsR = 640;        // resident: a producer and 4 consumer warpgroups
+constexpr int kRowsS = 128;           // streamed: pool rows a consumer (of 2)
+constexpr int kStages = 4;
+constexpr int kChunk = wg::kRowBytes;  // bytes of K a TMA box (the swizzle span)
+constexpr int kRegBytes = 256;         // the most K bytes a resident block holds
 constexpr float kLn2 = 0.693147180559945309f;
+static_assert(BM == (kThreadsR / 128 - 1) * 64, "resident: one m64 product a consumer");
+static_assert(BM == (wg::kThreads / 128 - 1) * kRowsS, "streamed: a producer and 2 consumers");
 
 // log2(x) by MUFU, for normal x (subnormals would read as 0)
 __device__ __forceinline__ float lg2_ftz(float x) {
@@ -110,491 +133,488 @@ __device__ __forceinline__ float lg2_ftz(float x) {
   return y;
 }
 
-// A k-step is 32 bytes of each row for both operand types (16 bf16 or
-// 32 int8), so the fragment loads are the same; only the product and
-// the accumulator type differ.
+// the products by operand type: A from registers (resident, N = BN) or a
+// descriptor (streamed, N = BNS), B K-major from a descriptor
 template <bool kInt8> struct Op;
 template <> struct Op<false> {
   using Acc = float;
-  static __device__ __forceinline__ void mma(float* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    mma_bf16(c, a, b);
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db, int sd) {
+    wg::wgmma_rs_bf16_n64(d, a, db, sd);
+  }
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int sd) {
+    wg::wgmma_bf16_n128<0>(d, da, db, sd);
   }
 };
 template <> struct Op<true> {
   using Acc = int;
-  static __device__ __forceinline__ void mma(int* c, const uint32_t* a,
-                                             const uint32_t* b) {
-    mma_s8(c, a, b);
+  static __device__ __forceinline__ void rs(int* d, const uint32_t* a, uint64_t db, int sd) {
+    wg::wgmma_rs_s8_n64(d, a, db, sd);
+  }
+  static __device__ __forceinline__ void ss(int* d, uint64_t da, uint64_t db, int sd) {
+    wg::wgmma_s8_n128(d, da, db, sd);
   }
 };
 
-// shared memory of one block: A tile, two B tiles (row stride kb + PAD
-// bytes), the cross-warp row sums [2][BM] and the pool-row scales [BM]
-__host__ __device__ constexpr long smem_bytes(int kb) {
-  return (long)(BM + 2 * BN) * (kb + PAD) + 3L * BM * (long)sizeof(float);
-}
-
-// rows r0 .. r0+rows_tile-1 (all kb bytes) of a row-major [rows, kb]
-// operand into shared memory with row stride sb; rows past `rows` are
-// zero-filled
-__device__ __forceinline__ void load_rows(int8_t* dst, const int8_t* src, long r0,
-                                          long rows, int rows_tile, int kb, int sb) {
-  const int chunks = kb / 16;
-  for (int c = threadIdx.x; c < rows_tile * chunks; c += NT) {
-    const int r = c / chunks, kc = (c % chunks) * 16;
-    const bool ok = r0 + r < rows;
-    cp_async16(dst + r * sb + kc, ok ? src + (r0 + r) * kb + kc : src, ok ? 16 : 0);
+// H m64 products' terms of a tile into this thread's row sums (two a
+// product), by way of the tile's own sums (a row's error grows with NT / 4
+// + N / NT sequential adds, not N / 4). Accumulator 4 jn + 2 h + e of a
+// product: its row 16 warp + g + 8 h, target column 8 jn + 2 t + e of the
+// tile; bsc the tile's b_scale (int8), asc the rows' a_scale
+template <bool kInt8, int NT, int H>
+__device__ __forceinline__ void add_terms(const typename Op<kInt8>::Acc (*d)[NT / 2],
+                                          const float* bsc, const float (*asc)[2], int t,
+                                          float inv_k, float (*part)[2]) {
+  float tile[H][2] = {};
+#pragma unroll
+  for (int jn = 0; jn < NT / 8; ++jn) {
+    float bv[2] = {0.f, 0.f};
+    if constexpr (kInt8) {
+      const float2 b2 = *reinterpret_cast<const float2*>(bsc + 8 * jn + 2 * t);
+      bv[0] = b2.x;
+      bv[1] = b2.y;
+    }
+#pragma unroll
+    for (int mi = 0; mi < H; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float s;
+          if constexpr (kInt8)
+            s = __fmul_rn(__fmul_rn(__fmul_rn(__int2float_rn(d[mi][4 * jn + 2 * h + e]), bv[e]),
+                                    asc[mi][h]),
+                          inv_k);
+          else
+            s = __fmul_rn(d[mi][4 * jn + 2 * h + e], inv_k);
+          tile[mi][h] = fmaf(s, lg2_ftz(fmaxf(s, FLT_MIN)), tile[mi][h]);
+        }
   }
+#pragma unroll
+  for (int mi = 0; mi < H; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) part[mi][h] += tile[mi][h];
 }
 
-// the most k-steps of 32 bytes whose A fragments a block holds in
-// registers: K <= 112 bf16 / 128 int8 (the operating point's K = 100)
-template <bool kInt8> constexpr int kRegSteps = kInt8 ? 4 : 7;
+// this warp is done with a stage (its wgmma waited for, its reads made)
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) wg::mbar_arrive(empty);
+}
 
-// a [M, kb] and b [N, kb] bytes (bf16 or int8 values), kb a multiple of
-// 32; a_scale [M] and b_scale [N] are read only by the int8 variant;
-// out [M] fp32. KS > 0: kb = 32 KS, known at compile time, and the A
-// fragments sit in registers; KS = 0: any kb, and every k-step reads the
-// A fragments from shared memory.
+// the 4 threads of a row quad add their sums; each row is written once.
+// This thread's rows: row0 + 64 mi + 8 h.
+template <int H>
+__device__ __forceinline__ void write_rows(float (&part)[H][2], long row0, int M, int t,
+                                           float* out) {
+#pragma unroll
+  for (int mi = 0; mi < H; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = part[mi][h];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      const long row = row0 + mi * 64 + 8 * h;
+      if (t == 0 && row < M) out[row] = __fmul_rn(v, kLn2);
+    }
+}
+
+// this thread's rows' a_scale (int8; 0 past M)
+template <int H>
+__device__ __forceinline__ void load_row_scales(float (&asc)[H][2], const float* a_scale,
+                                                long row0, int M) {
+#pragma unroll
+  for (int mi = 0; mi < H; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long row = row0 + mi * 64 + 8 * h;
+      asc[mi][h] = row < M ? a_scale[row] : 0.f;
+    }
+}
+
+// the shared memory after the 1024-byte-aligned ring: kStages tiles' int8
+// column scales, then the full and empty barriers (an empty barrier counts
+// every consumer warp)
+__host__ __device__ constexpr int smem_bytes(int stage, int cols) {
+  return 1024 + kStages * (stage + cols * 4) + 2 * kStages * 8;
+}
+template <int KS>
+__host__ __device__ constexpr int resident_stage() {
+  return (32 * KS + kChunk - 1) / kChunk * BN * kChunk;
+}
+constexpr int kStreamStage = (BM + BNS) * kChunk;
+
+struct Smem {
+  uint8_t* ring;
+  float* bsc;
+  uint64_t *full, *empty;
+};
+
+// the ring (aligned to the swizzle's 1024-byte period), the scales and the
+// barriers, initialised by thread 0
+__device__ __forceinline__ Smem setup(uint8_t* raw, int stage, int cols, int arrivals) {
+  Smem m;
+  m.ring = raw + ((1024 - (wg::smem_u32(raw) & 1023)) & 1023);
+  m.bsc = reinterpret_cast<float*>(m.ring + kStages * stage);
+  m.full = reinterpret_cast<uint64_t*>(m.bsc + kStages * cols);
+  m.empty = m.full + kStages;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      wg::mbar_init(&m.full[s], 1);  // the producer's expect_tx, then the bytes
+      wg::mbar_init(&m.empty[s], arrivals);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return m;
+}
+
+// -- the resident instantiation: A in registers (kb = 32 KS <= 256) --------
+
+// the smem address of tile j's stage, once the TMA has filled it
+__device__ __forceinline__ uint32_t full_stage(const Smem& sm, int stage_bytes, int j) {
+  wg::mbar_wait(&sm.full[j % kStages], (j / kStages) & 1);
+  return wg::smem_u32(sm.ring + (j % kStages) * stage_bytes);
+}
+
+// one m64 product of a tile, A from this thread's fragments, B the stage
+// at b_s (k-step ks: chunk ks / 4, 32 bytes along its rows), committed as
+// one group
 template <bool kInt8, int KS>
-__global__ void __launch_bounds__(NT, 2)
-xlogy_rowsum_kernel(const int8_t* __restrict__ a, const float* __restrict__ a_scale,
-                    const int8_t* __restrict__ b, const float* __restrict__ b_scale,
-                    float* __restrict__ out, int M, int N, int kb_any, float inv_k) {
+__device__ __forceinline__ void issue(typename Op<kInt8>::Acc* d, const uint32_t (&af)[KS][4],
+                                      uint32_t b_s) {
+  wg::wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+    Op<kInt8>::rs(d, af[ks],
+                  wg::smem_desc(b_s + (ks / 4) * BN * kChunk + (ks % 4) * 32, 16, 1024),
+                  ks != 0);
+  wg::wgmma_commit();
+}
+
+// tma_b: B [N, K] (box 128 bytes x BN, 128-byte swizzle); tma_bs: int8
+// b_scale [N] (box BN); a [M, kb] bytes, a_scale [M] (int8); out [M]
+template <bool kInt8, int KS>
+__global__ void __launch_bounds__(kThreadsR, 1)
+xlogy_rowsum_kernel(const __grid_constant__ CUtensorMap tma_b,
+                    const __grid_constant__ CUtensorMap tma_bs, const int8_t* __restrict__ a,
+                    const float* __restrict__ a_scale, float* __restrict__ out, int M, int N,
+                    float inv_k) {
   using Acc = typename Op<kInt8>::Acc;
-  constexpr bool kRegA = KS > 0;
-  constexpr int KR = kRegA ? KS : 1;
-  extern __shared__ __align__(16) int8_t smem[];
-  const int kb = kRegA ? 32 * KS : kb_any;
-  const int sb = kb + PAD, ksteps = kb / 32;
-  int8_t* as = smem;                        // [BM][sb], resident
-  int8_t* bs = smem + BM * sb;              // 2 x [BN][sb]
-  float* red = reinterpret_cast<float*>(smem + (BM + 2 * BN) * sb);  // [2][BM]
-  float* asc = red + 2 * BM;                // [BM]
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;     // fragment row group, thread in group
-  const int wm = (warp / 2) * WM, wn = (warp % 2) * WN;
-  const long m0 = (long)blockIdx.x * BM;
-  // this lane's ldmatrix row and byte offset (see csrc/int8_gemm.cuh)
-  const int lq = lane / 8, lr = lane % 8;
-  const int a_off = (lr + (lq & 1) * 8) * sb + (lq >> 1) * 16;
-  const int b_off = (lr + (lq >> 1) * 8) * sb + (lq & 1) * 16;
-
-  load_rows(as, a, m0, M, BM, kb, sb);
-  cp_async_commit();
+  constexpr int kb = 32 * KS;
+  constexpr int kChunks = (kb + kChunk - 1) / kChunk;
+  constexpr int kStage = resident_stage<KS>();
+  constexpr int kBK = kInt8 ? kChunk : kChunk / 2;  // K values a box
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const Smem sm = setup(smem_raw, kStage, kInt8 ? BN : 0, kThreadsR / 32 - 4);
   const int ntiles = (N + BN - 1) / BN;
-  if (ntiles > 0) load_rows(bs, b, 0, N, BN, kb, sb);
-  cp_async_commit();
-  if constexpr (kInt8) {
-    for (int r = tid; r < BM; r += NT) asc[r] = m0 + r < M ? a_scale[m0 + r] : 0.f;
-  }
-  cp_async_wait<1>();  // A has landed
-  __syncthreads();
-  uint32_t af[2][KR][4];
-  if constexpr (kRegA) {
+  const int wgi = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (wgi == 0) {
+    // -- producer: one thread keeps the ring full -----------------------------
+    if (tid != 0) return;
+    wg::prefetch_map(&tma_b);
+    if constexpr (kInt8) wg::prefetch_map(&tma_bs);
+    for (int j = 0; j < ntiles; ++j) {
+      const int s = j % kStages;
+      wg::mbar_wait(&sm.empty[s], ((j / kStages) & 1) ^ 1);  // round 0 passes
+      wg::mbar_expect_tx(&sm.full[s], kStage + (kInt8 ? BN * 4 : 0));
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int ks = 0; ks < KR; ++ks)
-        ldmatrix_x4(af[i][ks], as + (wm + i * 16) * sb + ks * 32 + a_off);
-  }
-  float rs[2][2] = {};  // pool-row scales of this thread's rows (int8)
-  if constexpr (kInt8) {
-    for (int i = 0; i < 2; ++i)
-      for (int h = 0; h < 2; ++h) rs[i][h] = asc[wm + i * 16 + g + h * 8];
+      for (int c = 0; c < kChunks; ++c)
+        wg::tma_load_2d(sm.ring + s * kStage + c * BN * kChunk, &tma_b, &sm.full[s], c * kBK,
+                        j * BN);
+      if constexpr (kInt8) wg::tma_load_1d(sm.bsc + s * BN, &tma_bs, &sm.full[s], j * BN);
+    }
+    return;
   }
 
-  float part[2][2] = {};  // [m16 tile][row g, row g + 8]: sums of s log2 s
+  // -- consumers: 64 pool rows each ---------------------------------------------
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  // this thread's rows: row0 and row0 + 8
+  const long row0 = static_cast<long>(blockIdx.x) * BM + (wgi - 1) * 64 + warp * 16 + g;
+  // the A fragments: register q of k-step ks holds row0 + 8 (q & 1), bytes
+  // ks * 32 + 16 (q >> 1) + 4 t .. + 3 (zero past M)
+  uint32_t af[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long row = row0 + (q & 1) * 8;
+      af[ks][q] = row < M ? __ldg(reinterpret_cast<const uint32_t*>(
+                                a + row * kb + ks * 32 + (q >> 1) * 16 + 4 * t))
+                          : 0u;
+    }
+  float asc[1][2] = {};
+  if constexpr (kInt8) load_row_scales(asc, a_scale, row0, M);
+  Acc d[1][BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) d[0][i] = 0;
+  float part[1][2] = {};  // [row, row + 8]: sums of s log2 s
   for (int j = 0; j < ntiles; ++j) {
-    // refill the buffer read in step j-1 (every thread is past it)
-    if (j + 1 < ntiles)
-      load_rows(bs + ((j + 1) & 1) * BN * sb, b, (long)(j + 1) * BN, N, BN, kb, sb);
-    cp_async_commit();
-    cp_async_wait<1>();  // tile j has landed
-    __syncthreads();
-    const int8_t* bt = bs + (j & 1) * BN * sb;
-
-    // the warp's 64 target columns in 4 groups of 16: each group's
-    // products, then at once its epilogue, so that the log work of one
-    // group overlaps the products of the next. With kRegA the loop has no
-    // branch and constant shared-memory offsets (one basic block for the
-    // scheduler).
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      const int8_t* bp = bt + (wn + p * 16) * sb + b_off;
-      Acc acc[2][2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][n][e] = 0;
-      if constexpr (kRegA) {
-#pragma unroll
-        for (int ks = 0; ks < KR; ++ks) {
-          uint32_t r[4];  // two 8-column B fragments
-          ldmatrix_x4(r, bp + ks * 32);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            Op<kInt8>::mma(acc[i][0], af[i][ks], r);
-            Op<kInt8>::mma(acc[i][1], af[i][ks], r + 2);
-          }
-        }
-      } else {
-        for (int ks = 0; ks < ksteps; ++ks) {
-          uint32_t r[4], x[2][4];
-          ldmatrix_x4(r, bp + ks * 32);
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            ldmatrix_x4(x[i], as + (wm + i * 16) * sb + ks * 32 + a_off);
-            Op<kInt8>::mma(acc[i][0], x[i], r);
-            Op<kInt8>::mma(acc[i][1], x[i], r + 2);
-          }
-        }
-      }
-
-      // accumulator e of tile (i, n): pool row g (+8 for e >= 2), target
-      // column 2t + e % 2. Columns past N hold 0 (zero-filled rows of B).
-      float bsc[2][2] = {};
-      if constexpr (kInt8) {
-        for (int n = 0; n < 2; ++n)
-          for (int e = 0; e < 2; ++e) {
-            const long col = (long)j * BN + wn + p * 16 + n * 8 + 2 * t + e;
-            bsc[n][e] = col < N ? b_scale[col] : 0.f;
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float sum = part[i][h];
-#pragma unroll
-          for (int n = 0; n < 2; ++n) {
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              float s;
-              if constexpr (kInt8)
-                s = __fmul_rn(__fmul_rn(__fmul_rn(__int2float_rn(acc[i][n][h * 2 + e]),
-                                                  bsc[n][e]), rs[i][h]), inv_k);
-              else
-                s = __fmul_rn(acc[i][n][h * 2 + e], inv_k);
-              sum = fmaf(s, lg2_ftz(fmaxf(s, FLT_MIN)), sum);
-            }
-          }
-          part[i][h] = sum;
-        }
-      }
-    }
-    __syncthreads();  // buffer j & 1 is refilled in step j + 1
+    issue<kInt8, KS>(d[0], af, full_stage(sm, kStage, j));
+    wg::wgmma_wait<0>();
+    wg::fence_regs<BN / 2>(d[0]);
+    add_terms<kInt8, BN, 1>(d, sm.bsc + (j % kStages) * BN, asc, t, inv_k, part);
+    release(&sm.empty[j % kStages], lane);  // after its products and b_scale reads
   }
-  cp_async_wait<0>();
-
-  // the 4 threads of a quad share a row; then the 2 warps that share rows
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v = part[i][h];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      if (t == 0) red[(warp % 2) * BM + wm + i * 16 + g + h * 8] = v;
-    }
-  __syncthreads();
-  if (tid < BM && m0 + tid < M)
-    out[m0 + tid] = __fmul_rn(red[tid] + red[BM + tid], kLn2);
+  write_rows(part, row0, M, t, out);
 }
 
-// -- the streamed instantiation (any K) ----------------------------------
+// -- the streamed instantiation: any kb, (A chunk, B chunk) stages -----------
 
-constexpr int KC = 128;        // bytes of each row per streamed chunk
-constexpr int SBS = KC + PAD;  // row stride of a streamed chunk
-
-// one stage (A chunk, B chunk) twice, the cross-warp row sums and the
-// pool-row scales
-__host__ __device__ constexpr long stream_smem_bytes() {
-  return 2L * (BM + BN) * SBS + 3L * BM * (long)sizeof(float);
-}
-
-// bytes kc0 .. kc0+KC-1 of rows r0 .. r0+rows_tile-1 of a row-major
-// [rows, kb] operand into shared memory with row stride SBS; rows past
-// `rows` and bytes past kb are zero-filled (kb and kc0 are multiples of
-// 16, so a piece is whole or absent)
-__device__ __forceinline__ void load_chunk(int8_t* dst, const int8_t* src, long r0,
-                                           long rows, int rows_tile, int kb, int kc0) {
-  constexpr int pieces = KC / 16;
-  for (int c = threadIdx.x; c < rows_tile * pieces; c += NT) {
-    const int r = c / pieces, kc = (c % pieces) * 16;
-    const bool ok = r0 + r < rows && kc0 + kc < kb;
-    cp_async16(dst + r * SBS + kc, ok ? src + (r0 + r) * kb + kc0 + kc : src,
-               ok ? 16 : 0);
-  }
-}
-
-// the same function as xlogy_rowsum_kernel for any kb (a multiple of 32):
-// step s of the loop holds B tile s / nchunks and K chunk s % nchunks
+// tma_a: A [M, K] (box 128 bytes x BM); tma_b: B [N, K] (box 128 bytes x
+// BNS); tma_bs: int8 b_scale [N] (box BNS); all else as the resident one.
+// Step it of the ring holds B tile it / nchunks and K chunk it % nchunks.
 template <bool kInt8>
-__global__ void __launch_bounds__(NT, 2)
-xlogy_rowsum_stream_kernel(const int8_t* __restrict__ a,
-                           const float* __restrict__ a_scale,
-                           const int8_t* __restrict__ b,
-                           const float* __restrict__ b_scale, float* __restrict__ out,
-                           int M, int N, int kb, float inv_k) {
+__global__ void __launch_bounds__(wg::kThreads, 1)
+xlogy_rowsum_stream_kernel(const __grid_constant__ CUtensorMap tma_a,
+                           const __grid_constant__ CUtensorMap tma_b,
+                           const __grid_constant__ CUtensorMap tma_bs,
+                           const float* __restrict__ a_scale, float* __restrict__ out, int M,
+                           int N, int kb, float inv_k) {
   using Acc = typename Op<kInt8>::Acc;
-  constexpr int STAGE = (BM + BN) * SBS;
-  extern __shared__ __align__(16) int8_t smem[];
-  float* red = reinterpret_cast<float*>(smem + 2 * STAGE);  // [2][BM]
-  float* asc = red + 2 * BM;                                // [BM]
+  constexpr int kBK = kInt8 ? kChunk : kChunk / 2;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const Smem sm = setup(smem_raw, kStreamStage, kInt8 ? BNS : 0, wg::kThreads / 32 - 4);
+  const int ntiles = (N + BNS - 1) / BNS, nchunks = (kb + kChunk - 1) / kChunk;
+  const int wgi = threadIdx.x / 128, tid = threadIdx.x % 128;
 
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;
-  const int wm = (warp / 2) * WM, wn = (warp % 2) * WN;
-  const long m0 = (long)blockIdx.x * BM;
-  const int lq = lane / 8, lr = lane % 8;
-  const int a_off = (lr + (lq & 1) * 8) * SBS + (lq >> 1) * 16;
-  const int b_off = (lr + (lq >> 1) * 8) * SBS + (lq & 1) * 16;
-  const int nchunks = (kb + KC - 1) / KC;
-  const int steps = (N + BN - 1) / BN * nchunks;
-
-  auto load_step = [&](int step) {
-    int8_t* st = smem + (step & 1) * STAGE;
-    const int kc0 = (step % nchunks) * KC;
-    load_chunk(st, a, m0, M, BM, kb, kc0);
-    load_chunk(st + BM * SBS, b, (long)(step / nchunks) * BN, N, BN, kb, kc0);
-  };
-  if (steps > 0) load_step(0);
-  cp_async_commit();
-  if constexpr (kInt8) {
-    for (int r = tid; r < BM; r += NT) asc[r] = m0 + r < M ? a_scale[m0 + r] : 0.f;
-  }
-  __syncthreads();
-  float rs[2][2] = {};  // pool-row scales of this thread's rows (int8)
-  if constexpr (kInt8) {
-    for (int i = 0; i < 2; ++i)
-      for (int h = 0; h < 2; ++h) rs[i][h] = asc[wm + i * 16 + g + h * 8];
-  }
-
-  float part[2][2] = {};  // [m16 tile][row g, row g + 8]: sums of s log2 s
-  Acc acc[2][8][4];       // [m16 tile][8-column fragment][element]
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0;
-  for (int step = 0; step < steps; ++step) {
-    // refill the buffer read in step-1 (every thread is past it)
-    if (step + 1 < steps) load_step(step + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this step's chunks have landed
-    __syncthreads();
-    const int8_t* at = smem + (step & 1) * STAGE;
-    const int8_t* bt = at + BM * SBS;
-#pragma unroll
-    for (int ks = 0; ks < KC / 32; ++ks) {
-      uint32_t x[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldmatrix_x4(x[i], at + (wm + i * 16) * SBS + ks * 32 + a_off);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        uint32_t r[4];  // two 8-column B fragments
-        ldmatrix_x4(r, bt + (wn + p * 16) * SBS + ks * 32 + b_off);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          Op<kInt8>::mma(acc[i][2 * p], x[i], r);
-          Op<kInt8>::mma(acc[i][2 * p + 1], x[i], r + 2);
-        }
+  if (wgi == 0) {
+    wg::setmaxnreg_dec<wg::kProducerRegs>();
+    if (tid != 0) return;
+    wg::prefetch_map(&tma_a);
+    wg::prefetch_map(&tma_b);
+    if constexpr (kInt8) wg::prefetch_map(&tma_bs);
+    int it = 0;
+    for (int j = 0; j < ntiles; ++j)
+      for (int c = 0; c < nchunks; ++c, ++it) {
+        const int s = it % kStages;
+        const bool scales = kInt8 && c == nchunks - 1;  // the epilogue's stage
+        wg::mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
+        wg::mbar_expect_tx(&sm.full[s], kStreamStage + (scales ? BNS * 4 : 0));
+        uint8_t* st = sm.ring + s * kStreamStage;
+        wg::tma_load_2d(st, &tma_a, &sm.full[s], c * kBK, blockIdx.x * BM);
+        wg::tma_load_2d(st + BM * kChunk, &tma_b, &sm.full[s], c * kBK, j * BNS);
+        if (scales) wg::tma_load_1d(sm.bsc + s * BNS, &tma_bs, &sm.full[s], j * BNS);
       }
-    }
-
-    if (step % nchunks == nchunks - 1) {
-      // the tile's dots are whole: the epilogue of xlogy_rowsum_kernel,
-      // in its order, then the accumulators start again
-      const long j = step / nchunks;
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        float bsc[2][2] = {};
-        if constexpr (kInt8) {
-          for (int n = 0; n < 2; ++n)
-            for (int e = 0; e < 2; ++e) {
-              const long col = j * BN + wn + p * 16 + n * 8 + 2 * t + e;
-              bsc[n][e] = col < N ? b_scale[col] : 0.f;
-            }
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float sum = part[i][h];
-#pragma unroll
-            for (int n = 0; n < 2; ++n) {
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                const Acc v = acc[i][2 * p + n][h * 2 + e];
-                float s;
-                if constexpr (kInt8)
-                  s = __fmul_rn(__fmul_rn(__fmul_rn(__int2float_rn(v), bsc[n][e]),
-                                          rs[i][h]), inv_k);
-                else
-                  s = __fmul_rn(v, inv_k);
-                sum = fmaf(s, lg2_ftz(fmaxf(s, FLT_MIN)), sum);
-              }
-            }
-            part[i][h] = sum;
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[i][n][e] = 0;
-    }
-    __syncthreads();  // buffer step & 1 is refilled in step + 1
+    return;
   }
-  cp_async_wait<0>();
 
+  wg::setmaxnreg_inc<wg::kConsumerRegs>();
+  const int cw = wgi - 1, warp = tid / 32, lane = tid % 32, t = lane % 4;
+  const long row0 = static_cast<long>(blockIdx.x) * BM + cw * kRowsS + warp * 16 + lane / 4;
+  float asc[2][2] = {};
+  if constexpr (kInt8) load_row_scales(asc, a_scale, row0, M);
+  Acc d[2][BNS / 2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v = part[i][h];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      if (t == 0) red[(warp % 2) * BM + wm + i * 16 + g + h * 8] = v;
+    for (int i = 0; i < BNS / 2; ++i) d[mi][i] = 0;
+  float part[2][2] = {};
+
+  int it = 0;
+  for (int j = 0; j < ntiles; ++j) {
+    int prev = 0;
+    for (int c = 0; c < nchunks; ++c, ++it) {
+      const int s = it % kStages;
+      wg::mbar_wait(&sm.full[s], (it / kStages) & 1);
+      const uint32_t a_s = wg::smem_u32(sm.ring + s * kStreamStage) + cw * kRowsS * kChunk;
+      const uint32_t b_s = wg::smem_u32(sm.ring + s * kStreamStage) + BM * kChunk;
+      const int nks = min(kChunk, kb - c * kChunk) / 32;  // k-steps in this chunk
+      wg::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kChunk / 32; ++ks) {
+        if (ks >= nks) break;
+        const uint64_t db = wg::smem_desc(b_s + ks * 32, 16, 1024);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          Op<kInt8>::ss(d[mi], wg::smem_desc(a_s + mi * 64 * kChunk + ks * 32, 16, 1024), db,
+                        (c | ks) != 0);
+      }
+      wg::wgmma_commit();
+      if (c > 0) {
+        // chunk c-1's products are done: free its stage
+        wg::wgmma_wait<1>();
+        release(&sm.empty[prev], lane);
+      }
+      prev = s;
     }
-  __syncthreads();
-  if (tid < BM && m0 + tid < M)
-    out[m0 + tid] = __fmul_rn(red[tid] + red[BM + tid], kLn2);
+    wg::wgmma_wait<0>();
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) wg::fence_regs<BNS / 2>(d[mi]);
+    if constexpr (!kInt8) release(&sm.empty[prev], lane);
+    add_terms<kInt8, BNS, 2>(d, sm.bsc + prev * BNS, asc, t, inv_k, part);
+    if constexpr (kInt8) release(&sm.empty[prev], lane);
+  }
+  write_rows(part, row0, M, t, out);
 }
 
-template <bool kInt8>
-cudaError_t launch_stream(const int8_t* a, const float* a_scale, const int8_t* b,
-                          const float* b_scale, float* out, int M, int N, int kb,
-                          float inv_k, cudaStream_t stream) {
-  const long bytes = stream_smem_bytes();
-  cudaError_t err = cudaFuncSetAttribute(xlogy_rowsum_stream_kernel<kInt8>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+// -- the host side -------------------------------------------------------------
+
+// a row-major [rows, k] operand (bf16 or s8) in boxes of box_rows x 128
+// bytes, 128-byte swizzle, zero fill
+int encode_rows(CUtensorMap* map, bool int8, const void* base, int k, int rows, int box_rows) {
+  const int elem = int8 ? 1 : 2;
+  return wg::encode_2d(map, int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                       base, k, rows, static_cast<uint64_t>(k) * elem, kChunk / elem, box_rows);
+}
+
+// a [n] fp32 vector in boxes of `box` values, no swizzle, zero fill
+int encode_scales(CUtensorMap* map, const float* base, int n, int box) {
+  const wg::EncodeTiled fn = wg::encoder();
+  if (fn == nullptr) return wg::kErrNoEncoder;
+  cuuint64_t dim[1] = {static_cast<cuuint64_t>(n)}, stride[1] = {static_cast<cuuint64_t>(n) * 4};
+  cuuint32_t bx[1] = {static_cast<cuuint32_t>(box)}, unit[1] = {1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base), dim,
+                        stride, bx, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : wg::kErrEncode;
+}
+
+// a kernel opted in to its shared memory, with (streamed) the registers at
+// launch its setmaxnreg split needs (0, a cudaError_t or wg::kErrRegisters)
+int prepare(const void* kernel, int smem, bool streamed) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((M + BM - 1) / BM);
-  xlogy_rowsum_stream_kernel<kInt8><<<blocks, NT, bytes, stream>>>(
-      a, a_scale, b, b_scale, out, M, N, kb, inv_k);
-  return cudaGetLastError();
+  const int regs = wg::kernel_registers(kernel);
+  if (regs < 0) return -regs;
+  if (streamed && regs * wg::kThreads < 128 * wg::kProducerRegs + 256 * wg::kConsumerRegs)
+    return wg::kErrRegisters;
+  return 0;
 }
 
-// -- the resident instantiations -----------------------------------------
-
-template <bool kInt8, int KS>
-cudaError_t launch_kernel(const int8_t* a, const float* a_scale, const int8_t* b,
-                          const float* b_scale, float* out, int M, int N, int kb,
-                          float inv_k, long bytes, cudaStream_t stream) {
-  // above 48 KB a launch is refused unless the kernel opted in
-  cudaError_t err = cudaFuncSetAttribute(xlogy_rowsum_kernel<kInt8, KS>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((M + BM - 1) / BM);
-  xlogy_rowsum_kernel<kInt8, KS><<<blocks, NT, bytes, stream>>>(
-      a, a_scale, b, b_scale, out, M, N, kb, inv_k);
-  return cudaGetLastError();
+// the instantiation for (int8, streamed, kb) and its dynamic shared memory
+// (kernel null: no instantiation takes that kb resident)
+template <bool kInt8, int KS = 8>
+void pick_resident(int kb, const void*& kernel, int& smem) {
+  if constexpr (KS > 0) {
+    if (kb == 32 * KS) {
+      kernel = reinterpret_cast<const void*>(xlogy_rowsum_kernel<kInt8, KS>);
+      smem = smem_bytes(resident_stage<KS>(), kInt8 ? BN : 0);
+      return;
+    }
+    pick_resident<kInt8, KS - 1>(kb, kernel, smem);
+  }
 }
 
-// the instantiation with KS = kb / 32 k-steps in registers, for KS <= KMAX
-template <bool kInt8, int KMAX>
-cudaError_t launch_regs(const int8_t* a, const float* a_scale, const int8_t* b,
-                        const float* b_scale, float* out, int M, int N, int kb,
-                        float inv_k, long bytes, cudaStream_t stream) {
-  if constexpr (KMAX == 0) {
-    return cudaErrorInvalidValue;
+void pick(bool int8, bool streamed, int kb, const void*& kernel, int& smem) {
+  kernel = nullptr;
+  if (streamed) {
+    kernel = int8 ? reinterpret_cast<const void*>(xlogy_rowsum_stream_kernel<true>)
+                  : reinterpret_cast<const void*>(xlogy_rowsum_stream_kernel<false>);
+    smem = smem_bytes(kStreamStage, int8 ? BNS : 0);
+  } else if (int8) {
+    pick_resident<true>(kb, kernel, smem);
   } else {
-    if (kb == 32 * KMAX)
-      return launch_kernel<kInt8, KMAX>(a, a_scale, b, b_scale, out, M, N, kb, inv_k,
-                                        bytes, stream);
-    return launch_regs<kInt8, KMAX - 1>(a, a_scale, b, b_scale, out, M, N, kb, inv_k,
-                                        bytes, stream);
+    pick_resident<false>(kb, kernel, smem);
   }
 }
 
-// streamed != 0 takes the streamed instantiation (any kb), else the
-// resident one (refused when its block does not fit)
-template <bool kInt8>
-cudaError_t launch(const int8_t* a, const float* a_scale, const int8_t* b,
-                   const float* b_scale, float* out, int M, int N, int kb,
-                   float inv_k, int streamed, cudaStream_t stream) {
-  if (kb <= 0 || kb % 32 != 0 || M < 0 || N < 0) return cudaErrorInvalidValue;
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// a [M, k] and b [N, k] values (bf16 or s8; k a multiple of 16 / 32),
+// a_scale [M] and b_scale [N] read by int8 only; out [M]
+int launch(bool int8, const void* a, const float* a_scale, const void* b, const float* b_scale,
+           float* out, int M, int N, int k, float inv_k, int streamed, cudaStream_t stream) {
+  int kb = int8 ? k : 2 * k;
+  if (k <= 0 || kb % 32 != 0 || M < 0 || N < 0) return cudaErrorInvalidValue;
+  if (!streamed && kb > kRegBytes) return cudaErrorInvalidValue;
+  if (!aligned16(a) || !aligned16(b) || (int8 && !aligned16(b_scale)))
+    return cudaErrorInvalidValue;
   if (M == 0) return cudaSuccess;
-  if (streamed)
-    return launch_stream<kInt8>(a, a_scale, b, b_scale, out, M, N, kb, inv_k, stream);
-  const long bytes = smem_bytes(kb);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (bytes > optin) return cudaErrorInvalidValue;
-  if (kb <= 32 * kRegSteps<kInt8>)
-    return launch_regs<kInt8, kRegSteps<kInt8>>(a, a_scale, b, b_scale, out, M, N, kb,
-                                                inv_k, bytes, stream);
-  return launch_kernel<kInt8, 0>(a, a_scale, b, b_scale, out, M, N, kb, inv_k, bytes,
-                                 stream);
+  if (N == 0)  // every row sums nothing
+    return cudaMemsetAsync(out, 0, static_cast<size_t>(M) * sizeof(float), stream);
+  const void* kernel;
+  int smem;
+  pick(int8, streamed, kb, kernel, smem);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  int err = prepare(kernel, smem, streamed);
+  if (err != 0) return err;
+  CUtensorMap ma = {}, mb = {}, ms = {};
+  err = encode_rows(&mb, int8, b, k, N, streamed ? BNS : BN);
+  if (err == 0 && streamed) err = encode_rows(&ma, int8, a, k, M, BM);
+  if (err == 0 && int8) err = encode_scales(&ms, b_scale, N, streamed ? BNS : BN);
+  if (err != 0) return err;
+  const unsigned grid = static_cast<unsigned>((M + BM - 1) / BM);
+  const int8_t* a8 = static_cast<const int8_t*>(a);
+  if (streamed) {
+    void* args[] = {&ma, &mb, &ms, &a_scale, &out, &M, &N, &kb, &inv_k};
+    return cudaLaunchKernel(kernel, grid, wg::kThreads, args, smem, stream);
+  }
+  void* args[] = {&mb, &ms, &a8, &a_scale, &out, &M, &N, &inv_k};
+  return cudaLaunchKernel(kernel, grid, kThreadsR, args, smem, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// bytes of dynamic shared memory one block of the resident instantiation
-// needs for rows of kb bytes (the streamed one needs 75 KB whatever kb)
-long bvt_xlogy_rowsum_smem_bytes(int kb) { return smem_bytes(kb); }
-
-// the most dynamic shared memory a block of the current device may opt
-// in to, or -1 when the device cannot be queried
-int bvt_xlogy_rowsum_smem_limit(void) {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess)
-    return -1;
-  return optin;
-}
-
 // a [M, k] and b [N, k] bf16, row-major, k a multiple of 16 (zero-padded);
-// out [M] fp32; streamed: 1 for the streamed instantiation. Returns a
-// cudaError_t (0 = launched).
-int bvt_xlogy_rowsum_bf16(const void* a, const void* b, float* out, int M, int N,
-                          int k, float inv_k, int streamed, void* stream) {
+// out [M] fp32; streamed: 1 for the streamed instantiation (any k), 0 for
+// the resident one (k <= 128). Returns 0 (launched), a cudaError_t or a
+// tensor-map / register code of wgmma_gemm.cuh (bvt_error_string).
+int bvt_xlogy_rowsum_bf16(const void* a, const void* b, float* out, int M, int N, int k,
+                          float inv_k, int streamed, void* stream) {
   if (k <= 0 || k % 16 != 0) return cudaErrorInvalidValue;
-  return launch<false>(static_cast<const int8_t*>(a), nullptr,
-                       static_cast<const int8_t*>(b), nullptr, out, M, N, 2 * k,
-                       inv_k, streamed, static_cast<cudaStream_t>(stream));
+  return launch(false, a, nullptr, b, nullptr, out, M, N, k, inv_k, streamed,
+                static_cast<cudaStream_t>(stream));
 }
 
 // a [M, k] and b [N, k] bf16, row-major, k a multiple of 32 (zero-padded),
 // quantized per row into the scratch aq [M, k] + a_scale [M] and
-// bq [N, k] + b_scale [N]; then the int8 kernel (streamed as above).
-// Three launches on the caller's stream. Returns a cudaError_t (0 =
-// launched).
-int bvt_xlogy_rowsum_int8(const void* a, const void* b, int8_t* aq, float* a_scale,
-                          int8_t* bq, float* b_scale, float* out, int M, int N,
-                          int k, float inv_k, int streamed, void* stream) {
+// bq [N, k] + b_scale [N]; then the int8 kernel (streamed as above; the
+// resident one takes k <= 256). Three launches on the caller's stream.
+// Returns as bvt_xlogy_rowsum_bf16.
+int bvt_xlogy_rowsum_int8(const void* a, const void* b, int8_t* aq, float* a_scale, int8_t* bq,
+                          float* b_scale, float* out, int M, int N, int k, float inv_k,
+                          int streamed, void* stream) {
   if (k <= 0 || k % 32 != 0) return cudaErrorInvalidValue;
+  if (!streamed && k > kRegBytes) return cudaErrorInvalidValue;  // before quantizing
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = bvt_int8::quant_rows<__nv_bfloat16>(
-      static_cast<const __nv_bfloat16*>(a), M, k, nullptr, nullptr, 0.f, aq,
-      a_scale, st);
+      static_cast<const __nv_bfloat16*>(a), M, k, nullptr, nullptr, 0.f, aq, a_scale, st);
   if (err != cudaSuccess) return err;
-  err = bvt_int8::quant_rows<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(b), N,
-                                            k, nullptr, nullptr, 0.f, bq, b_scale, st);
+  err = bvt_int8::quant_rows<__nv_bfloat16>(static_cast<const __nv_bfloat16*>(b), N, k, nullptr,
+                                            nullptr, 0.f, bq, b_scale, st);
   if (err != cudaSuccess) return err;
-  return launch<true>(aq, a_scale, bq, b_scale, out, M, N, k, inv_k, streamed, st);
+  return launch(true, aq, a_scale, bq, b_scale, out, M, N, k, inv_k, streamed, st);
 }
 
-const char* bvt_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+// what the instantiation a launch at (int8, streamed, k) takes: dynamic
+// shared memory a block, blocks an SM (the occupancy calculator),
+// registers a thread at launch (the streamed one's warpgroups then move to
+// 40 / 232 with setmaxnreg), local memory a thread, the device's opt-in
+// limit of shared memory a block and threads a block, into out[0..5].
+// Returns 0 or a cudaError_t.
+int bvt_xlogy_rowsum_resources(int int8, int streamed, int k, int* out) {
+  const int kb = int8 ? k : 2 * k;
+  if (k <= 0 || kb % 32 != 0 || (!streamed && kb > kRegBytes)) return cudaErrorInvalidValue;
+  const void* kernel;
+  int smem;
+  pick(int8 != 0, streamed != 0, kb, kernel, smem);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, kernel, streamed ? wg::kThreads : kThreadsR, smem);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  int dev = 0, limit = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  out[0] = smem;
+  out[1] = blocks;
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
+  out[4] = limit;
+  out[5] = streamed ? wg::kThreads : kThreadsR;
+  return 0;
 }
+
+const char* bvt_error_string(int err) { return wg::error_string(err); }
 
 }  // extern "C"

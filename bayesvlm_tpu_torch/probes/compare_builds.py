@@ -1,10 +1,11 @@
 """The kernels of two source trees, side by side on the card: the bf16
-attention kernels, (--gemm) the GEMM probes' kernels, or (--int8) the
-int8 lane's two kernels.
+attention kernels, (--gemm) the GEMM probes' kernels, (--int8) the int8
+lane's two kernels, or (--epig) the EPIG joint-entropy kernel.
 
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR [--changed v2 v3]
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --gemm
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --int8
+    python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --epig
 
 Each DIR is a `csrc/` directory (this package's, or one unpacked from
 another commit with `git archive`). Its `attention.cu` and
@@ -46,6 +47,18 @@ must equal a's bit for bit, and each tree's lie within the JAX package's
 flip tolerance of the plain version; at the full M both trees are timed
 in the same turns. The exit code is 1 when any output differs between the
 trees or strays from plain in either.
+
+--epig: each tree's `xlogy_rowsum.cu` is built and called through its C
+interface, `bvt_xlogy_rowsum_bf16` and `bvt_xlogy_rowsum_int8` (the same
+arguments and scratch in both trees), on seeded class probabilities
+(softmax over C = 65 classes, flattened as `epig_from_probs_fused` does)
+at the operating point (pool 4000, targets 2000, K = 100: M = 260,000, N
+= 130,000; the resident instantiation) and at K = 400 (pool 1000, targets
+500; the streamed one), bf16 and int8. Each tree's row sums must lie
+within `epig_joint.ROWSUM_RTOL` of the plain version, row by row (the
+summation order may differ between the trees, so their bits need not
+agree); both trees are timed in the same turns. The exit code is 1 when
+either tree strays from plain.
 
 There is no CPU mode: without a card and nvcc it raises.
 """
@@ -93,9 +106,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="--gemm: the tile indices whose bf16 and s8 are timed")
     p.add_argument("--int8", action="store_true",
                    help="compare the int8 lane's mlp_int8.cu and linear_int8.cu instead")
+    p.add_argument("--epig", action="store_true",
+                   help="compare the EPIG joint-entropy kernel's xlogy_rowsum.cu instead")
     args = p.parse_args(argv)
-    if args.gemm and args.int8:
-        p.error("--gemm and --int8 compare different kernels: pass one")
+    if args.gemm + args.int8 + args.epig > 1:
+        p.error("--gemm, --int8 and --epig compare different kernels: pass one")
     return args
 
 
@@ -405,22 +420,120 @@ def report_int8(results: dict) -> int:
     return 0 if same and right else 1
 
 
+# --epig: (pool images, target images, K, streamed) of each case; C classes
+EPIG_CASES = {"operating point": (4000, 2000, 100, False),
+              "K=400 streamed": (1000, 500, 400, True)}
+EPIG_C, EPIG_ITERS = 65, 5
+
+
+def build_epig(csrc: Path, out: Path) -> ctypes.CDLL:
+    """xlogy_rowsum.cu of csrc built into out and loaded, its two entry
+    points typed."""
+    lib = _nvcc_all({"xlogy_rowsum": "xlogy_rowsum.cu"}, csrc, out)["xlogy_rowsum"]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.bvt_xlogy_rowsum_bf16.argtypes = [p, p, p, i, i, i, f, i, p]
+    lib.bvt_xlogy_rowsum_int8.argtypes = [p, p, p, p, p, p, p, i, i, i, f, i, p]
+    lib.bvt_error_string.argtypes = [i]
+    lib.bvt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def epig_launcher(lib, pool, targ, K: int, use_int8: bool, streamed: bool, out):
+    """A call of one tree's kernel on the flattened operands into out, with
+    its own padded bf16 copies and int8 scratch (`epig_joint._plan`)."""
+    from bayesvlm_tpu_torch.select import epig_joint as ej
+
+    (M, _), N = pool.shape, targ.shape[0]
+    plan = ej._plan(M, N, K, use_int8)
+    k_pad = plan["k_pad"]
+    a, b = ej._padded_bf16(pool, k_pad), ej._padded_bf16(targ, k_pad)
+    scratch = [torch.empty(shape, dtype=dtype, device="cuda")
+               for shape, dtype in plan["scratch"].values()]
+    args = [a.data_ptr(), b.data_ptr(), *(t.data_ptr() for t in scratch), out.data_ptr(),
+            M, N, k_pad, 1.0 / K, int(streamed)]
+    fn = lib.bvt_xlogy_rowsum_int8 if use_int8 else lib.bvt_xlogy_rowsum_bf16
+
+    def call():
+        kernels.check(lib, fn(*args, torch.cuda.current_stream().cuda_stream),
+                      "xlogy_rowsum kernel")
+
+    call.keep = (a, b, scratch)  # kept alive with the call
+    return call
+
+
+def run_epig(args) -> dict:
+    """Both trees' EPIG kernel at each case, bf16 and int8: each tree's row
+    sums against plain, and both timed in turns."""
+    from bayesvlm_tpu_torch.select import epig_joint as ej
+
+    out = {"cases": {}, "rtol": ej.ROWSUM_RTOL}
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        libs = {}
+        for tag in ("a", "b"):
+            (Path(tmp) / tag).mkdir()
+            libs[tag] = build_epig(getattr(args, tag), Path(tmp) / tag)
+        for label, (n_pool, n_targ, K, streamed) in EPIG_CASES.items():
+            gen = torch.Generator(device="cuda").manual_seed(K)
+
+            def probs(n):
+                return ej._flatten(torch.softmax(torch.randn(
+                    n, K, EPIG_C, generator=gen, device="cuda"), -1))
+
+            pool, targ = probs(n_pool), probs(n_targ)
+            for dname, use_int8 in (("bf16", False), ("int8", True)):
+                ref = ej.joint_xlogy_rowsums_reference(pool, targ, K, use_int8=use_int8)
+                outs = {tag: torch.full_like(ref, float("nan")) for tag in libs}
+                calls = {tag: epig_launcher(libs[tag], pool, targ, K, use_int8, streamed,
+                                            outs[tag]) for tag in libs}
+                for call in calls.values():
+                    call()
+                torch.cuda.synchronize()
+                r = {}
+                for tag in libs:
+                    err = (outs[tag] - ref).abs()
+                    r[f"{tag}_max_rel_err"] = float((err / ref.abs()).max())
+                    r[f"{tag}_ok"] = bool((err <= ej.ROWSUM_RTOL * ref.abs()).all())
+                times = {"a": [], "b": []}
+                for tag in TURNS:
+                    times[tag].append(cuda_ms(calls[tag], EPIG_ITERS))
+                r.update({f"{tag}_ms": min(times[tag]) for tag in libs})
+                r.update({f"{tag}_median_ms": statistics.median(times[tag]) for tag in libs})
+                out["cases"][(label, dname)] = r
+                del outs, calls, ref
+    return out
+
+
+def report_epig(results: dict) -> int:
+    print(f"card: {card_line()}")
+    print(f"EPIG joint-entropy kernel (C={EPIG_C}; times best / median of "
+          f"{len(TURNS) // 2} turns of {EPIG_ITERS}):")
+    for (label, dname), r in results["cases"].items():
+        print(f"  {label:16s} {dname}: within {results['rtol']:.0e} of plain row by row: a {r['a_ok']} "
+              f"(max rel {r['a_max_rel_err']:.3e}), b {r['b_ok']} (max rel "
+              f"{r['b_max_rel_err']:.3e}); a {r['a_ms']:.4f} / {r['a_median_ms']:.4f} ms, "
+              f"b {r['b_ms']:.4f} / {r['b_median_ms']:.4f} ms (b/a {r['b_ms'] / r['a_ms']:.3f})")
+    right = all(r["a_ok"] and r["b_ok"] for r in results["cases"].values())
+    print(f"every row sum within the tolerance of plain in both trees: {right}")
+    return 0 if right else 1
+
+
 def card_line() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     return smi.stdout.strip()
 
 
-def cuda_ms(fn) -> float:
+def cuda_ms(fn, iters: int = ITERS) -> float:
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(ITERS):
+    for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / ITERS
+    return start.elapsed_time(end) / iters
 
 
 def run(args) -> dict:
@@ -479,9 +592,11 @@ def report(results: dict) -> int:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.gemm or args.int8:
+    if args.gemm or args.int8 or args.epig:
         if not torch.cuda.is_available():
             raise RuntimeError("compare_builds times kernels on the card: no CUDA device")
+        if args.epig:
+            return report_epig(run_epig(args))
         return report_int8(run_int8(args)) if args.int8 else report_gemm(run_gemm(args))
     return report(run(args))
 

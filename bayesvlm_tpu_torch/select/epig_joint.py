@@ -11,8 +11,10 @@ with bf16-rounded operands and fp32 products, sums and xlogy. At the
 reference operating point (pool 4000, targets 2000, C = 65, K = 100) the
 joint is [260000, 130000], 135 GB in fp32; the kernel never writes it.
 
-- CUDA tensors launch the hand-written kernel (csrc/xlogy_rowsum.cu) or
-  raise; nothing falls back to the plain version on the card.
+- CUDA tensors launch the hand-written kernel (csrc/xlogy_rowsum.cu: wgmma
+  fed by TMA, consumer warpgroups whose logs run beside each other's
+  products) or raise; nothing falls back to the plain version on the
+  card. `kernel_resources` reads what it takes on the card.
 - CPU tensors run `joint_xlogy_rowsums_reference`, the same math in
   plain PyTorch, in pool-row chunks of about 1 GB of fp32 joint.
 
@@ -37,6 +39,21 @@ from bayesvlm_tpu_torch.probforward.smith import _highest_fp32_matmul
 # fp32 elements of one joint chunk of the plain version (1 GiB)
 _CHUNK_ELEMS = 1 << 28
 _DTYPES = (torch.float32, torch.bfloat16)
+# The kernel's row sums against the plain version, row by row: both take
+# the same fp32 s (bf16 products are exact, int8 sums exact in both), so
+# they differ by the fp32 summation order of N terms of one sign (a
+# thread adds N / 4 of them as N / 64 tile sums of 16: at worst (16 + N /
+# 64) 2^-24 of the sum, 1.2e-4 at N = 130,000, typically about the square
+# root of that count times 2^-24, 3e-6) and by lg2.approx (<= 3e-7 s a
+# term).
+ROWSUM_RTOL = 1e-4
+# K is zero-padded to whole wgmma k-steps of 32 bytes: 16 bf16, 32 int8
+# values (a zero column adds zero)
+_K_STEP = {False: 16, True: 32}
+# the most bytes of K a resident block holds as A fragments in registers
+# (csrc/xlogy_rowsum.cu kRegBytes: K <= 128 bf16 / 256 int8); longer rows
+# take the streamed instantiation
+RESIDENT_K_BYTES = 256
 
 
 def _check_operands(pool_flat: torch.Tensor, targ_flat: torch.Tensor) -> None:
@@ -90,11 +107,51 @@ def _library() -> ctypes.CDLL:
     lib.bvt_xlogy_rowsum_bf16.restype = ctypes.c_int
     lib.bvt_xlogy_rowsum_int8.argtypes = [p, p, p, p, p, p, p, i, i, i, f, i, p]
     lib.bvt_xlogy_rowsum_int8.restype = ctypes.c_int
-    lib.bvt_xlogy_rowsum_smem_bytes.argtypes = [i]
-    lib.bvt_xlogy_rowsum_smem_bytes.restype = ctypes.c_long
-    lib.bvt_xlogy_rowsum_smem_limit.argtypes = []
-    lib.bvt_xlogy_rowsum_smem_limit.restype = ctypes.c_int
+    lib.bvt_xlogy_rowsum_resources.argtypes = [i, i, i, p]
+    lib.bvt_xlogy_rowsum_resources.restype = ctypes.c_int
     return lib
+
+
+def _plan(M: int, N: int, K: int, use_int8: bool,
+          streamed: Optional[bool] = None) -> dict:
+    """What a launch on [M, K] x [N, K] takes: K padded to whole k-steps
+    (`k_pad`), the instantiation (`streamed`: the resident one holds at
+    most RESIDENT_K_BYTES of K a row; `streamed` forces one, for timing
+    them against each other) and the int8 scratch ({name: (shape,
+    dtype)}: the quantized operands and their row scales)."""
+    step = _K_STEP[use_int8]
+    k_pad = -(-K // step) * step
+    k_bytes = k_pad if use_int8 else 2 * k_pad
+    if streamed is None:
+        streamed = k_bytes > RESIDENT_K_BYTES
+    elif not streamed and k_bytes > RESIDENT_K_BYTES:
+        raise ValueError(f"the resident xlogy_rowsum kernel holds at most "
+                         f"{RESIDENT_K_BYTES} bytes of K a row, not {k_bytes} "
+                         f"(K = {K}); take the streamed one")
+    scratch = {}
+    if use_int8:
+        scratch = {"aq": ((M, k_pad), torch.int8), "a_scale": ((M,), torch.float32),
+                   "bq": ((N, k_pad), torch.int8), "b_scale": ((N,), torch.float32)}
+    return {"k_pad": k_pad, "streamed": bool(streamed), "scratch": scratch}
+
+
+def kernel_resources(use_int8: bool = False, K: int = 100,
+                     streamed: Optional[bool] = None, device=None) -> dict:
+    """What the instantiation a launch at this K takes on the card: its
+    dynamic shared memory a block (and the device's opt-in limit), blocks
+    an SM (the occupancy calculator), threads a block, registers a thread
+    at launch (the streamed one's warpgroups then move to 40 / 232 with
+    setmaxnreg) and local memory a thread (spills)."""
+    plan = _plan(1, 1, K, use_int8, streamed)
+    lib = _library()
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        err = lib.bvt_xlogy_rowsum_resources(int(use_int8), int(plan["streamed"]),
+                                             plan["k_pad"], out)
+    kernels.check(lib, err, "xlogy_rowsum resources query")
+    return {"body": "wgmma", "streamed": plan["streamed"], "k_pad": plan["k_pad"],
+            "smem_bytes": out[0], "smem_limit": out[4], "blocks_per_sm": out[1],
+            "threads": out[5], "registers": out[2], "local_bytes": out[3]}
 
 
 def _padded_bf16(x: torch.Tensor, k_pad: int) -> torch.Tensor:
@@ -115,8 +172,8 @@ def joint_xlogy_rowsums(pool_flat: torch.Tensor, targ_flat: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors (float32 or
     bfloat16, any strides) launch the kernel or raise, for any K: rows
-    whose block would not fit in shared memory take the kernel's
-    streamed instantiation (K > 288 bf16 / 576 int8 on an H100). Each
+    longer than the resident block holds in registers take the kernel's
+    streamed instantiation (K > 128 bf16 / 256 int8). Each
     launch is counted: the bf16 kernel's in
     `joint_xlogy_rowsums.launches`, the int8 kernel's in
     `joint_xlogy_rowsums.launches_int8`."""
@@ -135,41 +192,42 @@ def joint_xlogy_rowsums(pool_flat: torch.Tensor, targ_flat: torch.Tensor,
 
 def _launch(pool_flat: torch.Tensor, targ_flat: torch.Tensor, num_samples: int,
             use_int8: bool, streamed: Optional[bool] = None) -> torch.Tensor:
-    """The kernel on CUDA operands: the resident instantiation where its
-    block fits in shared memory, else the streamed one (`streamed` forces
-    one, for timing them against each other)."""
-    (M, K), N = pool_flat.shape, targ_flat.shape[0]
-    step = 32 if use_int8 else 16
-    k_pad = -(-K // step) * step
-    lib = _library()
+    """The kernel on CUDA operands, on the current stream (`streamed` as
+    `_plan` takes it)."""
     dev = pool_flat.device
     with torch.cuda.device(dev):
-        if streamed is None:
-            streamed = (lib.bvt_xlogy_rowsum_smem_bytes(k_pad if use_int8 else 2 * k_pad)
-                        > lib.bvt_xlogy_rowsum_smem_limit())
-        streamed = int(streamed)
-        a, b = _padded_bf16(pool_flat, k_pad), _padded_bf16(targ_flat, k_pad)
-        out = torch.empty(M, dtype=torch.float32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        inv_k = 1.0 / num_samples
-        if use_int8:
-            aq = torch.empty(M, k_pad, dtype=torch.int8, device=dev)
-            bq = torch.empty(N, k_pad, dtype=torch.int8, device=dev)
-            a_scale = torch.empty(M, dtype=torch.float32, device=dev)
-            b_scale = torch.empty(N, dtype=torch.float32, device=dev)
-            err = lib.bvt_xlogy_rowsum_int8(
-                a.data_ptr(), b.data_ptr(), aq.data_ptr(), a_scale.data_ptr(),
-                bq.data_ptr(), b_scale.data_ptr(), out.data_ptr(), M, N, k_pad,
-                inv_k, streamed, stream)
-        else:
-            err = lib.bvt_xlogy_rowsum_bf16(a.data_ptr(), b.data_ptr(),
-                                            out.data_ptr(), M, N, k_pad, inv_k,
-                                            streamed, stream)
-    kernels.check(lib, err, "xlogy_rowsum kernel")
+        out = _call(_library(), pool_flat, targ_flat, num_samples, use_int8, streamed,
+                    torch.cuda.current_stream(dev).cuda_stream)
     if use_int8:
         joint_xlogy_rowsums.launches_int8 += 1
     else:
         joint_xlogy_rowsums.launches += 1
+    return out
+
+
+def _call(lib, pool_flat: torch.Tensor, targ_flat: torch.Tensor, num_samples: int,
+          use_int8: bool, streamed: Optional[bool], stream: int) -> torch.Tensor:
+    """One call of the library's entry point: bf16 operands zero-padded to
+    `_plan`'s K (fresh, so 16-byte aligned with rows a multiple of 16
+    bytes apart, as the kernel's TMA needs), the int8 scratch, the row
+    sums [M]; raises when the library refuses."""
+    (M, K), N = pool_flat.shape, targ_flat.shape[0]
+    plan = _plan(M, N, K, use_int8, streamed)
+    k_pad, dev = plan["k_pad"], pool_flat.device
+    a, b = _padded_bf16(pool_flat, k_pad), _padded_bf16(targ_flat, k_pad)
+    out = torch.empty(M, dtype=torch.float32, device=dev)
+    inv_k = 1.0 / num_samples
+    if use_int8:
+        scratch = {name: torch.empty(shape, dtype=dtype, device=dev)
+                   for name, (shape, dtype) in plan["scratch"].items()}
+        err = lib.bvt_xlogy_rowsum_int8(
+            a.data_ptr(), b.data_ptr(), *(scratch[n].data_ptr() for n in (
+                "aq", "a_scale", "bq", "b_scale")), out.data_ptr(), M, N, k_pad, inv_k,
+            int(plan["streamed"]), stream)
+    else:
+        err = lib.bvt_xlogy_rowsum_bf16(a.data_ptr(), b.data_ptr(), out.data_ptr(), M, N,
+                                        k_pad, inv_k, int(plan["streamed"]), stream)
+    kernels.check(lib, err, "xlogy_rowsum kernel")
     return out
 
 

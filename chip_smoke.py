@@ -52,7 +52,9 @@ Phases (any failure raises and exits non-zero, without the result line):
      instantiation; pool 1000, targets 500): row sums and EPIG
      scores within a stated tolerance, top-50 overlap with the plain
      ranking (printed), times, bound and the cuBLAS bf16 product of the
-     same shape as a yardstick (reference only). The int8 kernel's path,
+     same shape as a yardstick (reference only), and each instantiation's
+     shared memory, registers, local memory and blocks an SM (the wgmma
+     body: resident at K=100, streamed at K=400). The int8 kernel's path,
      `epig_from_probs_fused(use_int8=True)`, is read with its count;
   5b. fused probit head kernel (fused_probit_probs, csrc/smith_head.cu)
      vs plain in fp32 at B=2048 with C=1000, D=768 (ImageNet, ViT-L/14
@@ -201,11 +203,12 @@ DEVICE = {}
 EPIG_POOL, EPIG_TARG, EPIG_C, EPIG_K = 4000, 2000, 65, 100
 # EPIG kernel vs plain, row sums: both take the same fp32 s (bf16 products
 # are exact; int8 sums exact in both), so they differ by the fp32
-# summation order of N = 130,000 terms of one sign (the kernel adds ~8k
-# a thread, sequentially: about sqrt(8k) * 2^-24 = 5e-6 of the sum, 5e-4
-# at worst) and by __log2f (<= 3e-7 s a term). 1e-4 of |row sum| is 20x
-# the typical drift. A score is (sum over the C rows of a pool item) / N_t,
-# so its error is at most 1e-4 * sum_c |r| / N_t.
+# summation order of N = 130,000 terms of one sign (a kernel thread adds
+# a row's N / 4 as tile sums of 16: at worst (16 + N / 64) * 2^-24 =
+# 1.2e-4 of the sum, typically about the square root of that count times
+# 2^-24, 3e-6) and by lg2.approx (<= 3e-7 s a term).
+# A score is (sum over the C rows of a pool item) / N_t, so its error is
+# at most 1e-4 * sum_c |r| / N_t.
 ROWSUM_RTOL = 1e-4
 # Stage-3 online EPIG path, the active-learning script's settings
 # (scripts/activelearning.py:67-71, 185-210)
@@ -258,11 +261,11 @@ PROBE_EXTRAS = ("smem_bytes", "blocks_per_sm", "base_ms", "vs_base", "tops", "ti
 # the body of each kernel source other than the attention kernel, the
 # attention probes and the GEMM probes (which report their own: the GEMMs
 # "wgmma" for bf16 and s8, "mma" for the s4 kinds): "wgmma" where its
-# products run on the warp-specialised wgmma body of csrc/wgmma_gemm.cuh
-# (the int8 lane's two kernels), "mma" where they run on the tensor cores
+# products run on wgmma fed by TMA with the PTX of csrc/wgmma_gemm.cuh
+# (the int8 lane's two kernels, the EPIG kernel), "mma" where they run on the tensor cores
 # by mma.sync, "simt" where they run as fp32 FMAs on the CUDA cores
 SOURCE_BODY = {"attention_block.cu": "mma", "mlp_int8.cu": "wgmma", "linear_int8.cu": "wgmma",
-               "xlogy_rowsum.cu": "mma", "smith_head.cu": "simt", "packed_heads.cu": "mma"}
+               "xlogy_rowsum.cu": "wgmma", "smith_head.cu": "simt", "packed_heads.cu": "mma"}
 # the packed-head kernels at the probe's shape and a ragged one (B, T, H)
 PACKED_SHAPES = {"probe": (80, 257, 16), "ragged": (3, 50, 12)}
 # the GEMM at the probes' shape and three ragged ones (M, K, N); N a
@@ -1078,6 +1081,16 @@ def _rowsum_check(torch, ej, label: str, pool, targ, k: int, use_int8: bool):
     return r
 
 
+def _resources_line(r: dict) -> str:
+    """The EPIG kernel instantiation's resources, as kernel_resources reads
+    them."""
+    kind = "streamed" if r["streamed"] else "resident"
+    return (f"body {r['body']} ({kind}, K padded to {r['k_pad']}): {r['smem_bytes']} B "
+            f"shared memory (limit {r['smem_limit']}), {r['threads']} threads of "
+            f"{r['registers']} registers at launch, {r['local_bytes']} B local memory, "
+            f"{r['blocks_per_sm']} blocks/SM")
+
+
 def phase_epig_vs_plain(torch, ej, counters) -> dict:
     """The joint-entropy kernel, bf16 and int8, at the operating point."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -1104,9 +1117,10 @@ def phase_epig_vs_plain(torch, ej, counters) -> dict:
         # per joint element
         r.update(bound((M + N) * K * 4 + M * 4, 2 * M * N * K, op_type,
                        transcendentals=M * N))
+        r.update(ej.kernel_resources(use_int8, K))
         print(f"  {name}: kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) top50 overlap with "
-              f"plain={r['top50_overlap']}/50")
+              f"plain={r['top50_overlap']}/50\n  {_resources_line(r)}")
         # the streamed instantiation forced at the operating point: what
         # the resident one saves there (the wrapper takes it only past the
         # resident block's shared memory)
@@ -1178,10 +1192,12 @@ def phase_epig_vs_plain(torch, ej, counters) -> dict:
             long_p, long_t, K, use_int8=use_int8), iters=5, warmup=1)
         r.update(bound((Ml + Nl) * K * 4 + Ml * 4, 2 * Ml * Nl * K, op_type,
                        transcendentals=Ml * Nl))
+        r.update(ej.kernel_resources(use_int8, K))
         print(f"  {name} streamed K={K}: kernel_ms={r['ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
-        results[name][f"k{K}"] = {k: r[k] for k in ("max_abs_err", "max_rel_err", "ms",
-                                                    "bound_ms", "bound_by")}
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})\n  {_resources_line(r)}")
+        results[name][f"k{K}"] = {k: r[k] for k in (
+            "max_abs_err", "max_rel_err", "ms", "bound_ms", "bound_by", "smem_bytes",
+            "registers", "blocks_per_sm", "local_bytes")}
     for r in results.values():
         del r["scores"], r["plain_scores"]
     return results
@@ -1506,7 +1522,8 @@ def _entry(name, source, replaces, launches, r, library_ms):
          "launches": launches, **{k: r[k] for k in keys},
          "library_ms": library_ms,
          "body": r.get("body") or SOURCE_BODY[source.rsplit("/", 1)[-1]]}
-    e.update((k, r[k]) for k in ("smem_bytes", "registers", "blocks_per_sm") if k in r)
+    e.update((k, r[k]) for k in ("smem_bytes", "registers", "blocks_per_sm", "local_bytes")
+             if k in r)
     return e
 
 

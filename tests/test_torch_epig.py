@@ -17,12 +17,17 @@ import numpy as np
 import pytest
 import torch
 
+import ctypes
+
 from bayesvlm_tpu_torch import types as port_types
 from bayesvlm_tpu_torch.select import epig as port_epig
+from bayesvlm_tpu_torch.select import epig_joint as ej
 from bayesvlm_tpu_torch.select.epig_joint import (
+    ROWSUM_RTOL,
     epig_from_probs_fused,
     joint_xlogy_rowsums,
     joint_xlogy_rowsums_reference,
+    kernel_resources,
 )
 from bayesvlm_tpu_torch.types import ProbabilisticLogits
 
@@ -206,6 +211,152 @@ def test_plain_version_chunks_the_pool(monkeypatch):
     torch.testing.assert_close(joint_xlogy_rowsums_reference(a, b, 5), whole)
 
 
+# -- the wrapper's host side, through a stub library -----------------------------
+
+
+@pytest.mark.parametrize("K,use_int8,k_pad,streamed", [
+    (9, False, 16, False), (100, False, 112, False), (112, False, 112, False),
+    (128, False, 128, False), (129, False, 144, True), (400, False, 400, True),
+    (9, True, 32, False), (100, True, 128, False), (256, True, 256, False),
+    (257, True, 288, True), (1000, True, 1024, True),
+])
+def test_plan_pads_k_and_picks_the_instantiation(K, use_int8, k_pad, streamed):
+    # K to whole wgmma k-steps of 32 bytes; the resident block holds at
+    # most 256 bytes of K a row (128 bf16, 256 int8), longer rows stream
+    plan = ej._plan(7, 5, K, use_int8)
+    assert (plan["k_pad"], plan["streamed"]) == (k_pad, streamed)
+    assert plan["k_pad"] * (1 if use_int8 else 2) > ej.RESIDENT_K_BYTES or not streamed
+
+
+def test_plan_forces_an_instantiation_or_refuses():
+    assert ej._plan(7, 5, 100, False, streamed=True)["streamed"]
+    assert not ej._plan(7, 5, 128, False, streamed=False)["streamed"]
+    assert not ej._plan(7, 5, 256, True, streamed=False)["streamed"]
+    for K, use_int8 in ((129, False), (257, True)):
+        with pytest.raises(ValueError, match="resident xlogy_rowsum kernel holds at most "
+                                             "256 bytes"):
+            ej._plan(7, 5, K, use_int8, streamed=False)
+
+
+@pytest.mark.parametrize("use_int8", [False, True])
+def test_plan_scratch_sizes(use_int8):
+    scratch = ej._plan(300, 77, 100, use_int8)["scratch"]
+    if not use_int8:
+        assert scratch == {}
+        return
+    assert scratch == {"aq": ((300, 128), torch.int8), "a_scale": ((300,), torch.float32),
+                       "bq": ((77, 128), torch.int8), "b_scale": ((77,), torch.float32)}
+
+
+def _view(ptr, n, ctype, dtype):
+    return torch.frombuffer((ctype * n).from_address(ptr), dtype=dtype) if n else \
+        torch.empty(0, dtype=dtype)
+
+
+class _StubLibrary:
+    """The kernel library's entry points on the CPU: each call's scalars
+    are recorded, the padded bf16 operands read at the pointers given, and
+    the plain row sums of those operands written at `out` (or `err`
+    returned)."""
+
+    def __init__(self, err=0):
+        self.err, self.calls = err, []
+
+    def bvt_xlogy_rowsum_bf16(self, a, b, out, M, N, k, inv_k, streamed, stream):
+        return self._run("bf16", (a, b), (), out, M, N, k, inv_k, streamed, stream)
+
+    def bvt_xlogy_rowsum_int8(self, a, b, aq, a_scale, bq, b_scale, out, M, N, k, inv_k,
+                              streamed, stream):
+        return self._run("int8", (a, b), (aq, a_scale, bq, b_scale), out, M, N, k, inv_k,
+                         streamed, stream)
+
+    def _run(self, kind, ab, scratch, out, M, N, k, inv_k, streamed, stream):
+        a, b = (_view(p, rows * k, ctypes.c_uint16, torch.bfloat16).view(rows, k)
+                for p, rows in zip(ab, (M, N)))
+        self.calls.append(dict(kind=kind, M=M, N=N, k=k, inv_k=inv_k, streamed=streamed,
+                               stream=stream, a=a.clone(), b=b.clone(), scratch=scratch,
+                               out=out))
+        if not self.err:
+            _view(out, M, ctypes.c_float, torch.float32)[:] = joint_xlogy_rowsums_reference(
+                a, b, round(1 / inv_k), use_int8=kind == "int8")
+        return self.err
+
+    def bvt_error_string(self, err):
+        return b"stub refusal"
+
+
+@pytest.mark.parametrize("use_int8", [False, True])
+@pytest.mark.parametrize("K,streamed", [(9, None), (100, None), (129, None), (400, None),
+                                        (100, True)])
+def test_call_hands_the_library_padded_operands(use_int8, K, streamed):
+    rng = np.random.default_rng(K)
+    a = torch.from_numpy(rng.uniform(size=(37, K)).astype(np.float32))
+    b = torch.from_numpy(rng.uniform(size=(29, K)).astype(np.float32))
+    lib = _StubLibrary()
+    out = ej._call(lib, a, b, K, use_int8, streamed, stream=7)
+    plan = ej._plan(37, 29, K, use_int8, streamed)
+    (call,) = lib.calls
+    assert call["kind"] == ("int8" if use_int8 else "bf16")
+    assert (call["M"], call["N"], call["k"], call["streamed"], call["stream"]) == (
+        37, 29, plan["k_pad"], int(plan["streamed"]), 7)
+    assert call["inv_k"] == 1.0 / K and call["out"] == out.data_ptr()
+    # the operands as bf16, zero past K
+    for got, x in ((call["a"], a), (call["b"], b)):
+        assert torch.equal(got[:, :K], x.bfloat16())
+        assert not got[:, K:].any()
+    # int8: four distinct scratch buffers, each 16-byte aligned
+    assert len(set(call["scratch"])) == len(call["scratch"]) == (4 if use_int8 else 0)
+    assert all(p % 16 == 0 for p in call["scratch"])
+    assert out.shape == (37,) and out.dtype == torch.float32
+    torch.testing.assert_close(out, joint_xlogy_rowsums_reference(a, b, K, use_int8),
+                               rtol=1e-6, atol=0)
+
+
+def test_call_raises_when_the_library_refuses():
+    a = torch.rand(5, 100)
+    with pytest.raises(RuntimeError, match="xlogy_rowsum kernel launch failed: stub "
+                                           "refusal"):
+        ej._call(_StubLibrary(err=1), a, a, 100, False, None, stream=0)
+    lib = _StubLibrary()
+    with pytest.raises(ValueError, match="resident"):
+        ej._call(lib, a[:, :60].repeat(1, 3), a, 180, False, False, stream=0)
+    assert lib.calls == []  # refused before the library
+
+
+def test_kernel_resources_reads_the_library(monkeypatch):
+    seen = []
+
+    class Lib:
+        def bvt_xlogy_rowsum_resources(self, int8, streamed, k, out):
+            seen.append((int8, streamed, k))
+            out[0], out[1], out[2], out[3], out[4], out[5] = 66624, 1, 96, 0, 232448, 640
+            return 0
+
+    monkeypatch.setattr(ej, "_library", Lib)
+    r = kernel_resources(False, 100, device=-1)
+    assert r == {"body": "wgmma", "streamed": False, "k_pad": 112, "smem_bytes": 66624,
+                 "smem_limit": 232448, "blocks_per_sm": 1, "threads": 640, "registers": 96,
+                 "local_bytes": 0}
+    assert kernel_resources(True, 400, device=-1)["streamed"]
+    assert seen == [(0, 0, 112), (1, 1, 416)]
+
+
+def test_compare_builds_epig_has_no_cpu_mode(tmp_path, capsys):
+    # --epig builds two trees' xlogy_rowsum.cu and times them on the card
+    # only: without a CUDA device it raises before it builds anything
+    from bayesvlm_tpu_torch.probes import compare_builds
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    argv = ["--a", str(tmp_path), "--b", str(tmp_path), "--epig"]
+    assert compare_builds.parse_args(argv).epig
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compare_builds.main(argv)
+    assert capsys.readouterr().out == ""
+    with pytest.raises(SystemExit):
+        compare_builds.parse_args(argv + ["--int8"])
+
+
 # -- the kernel on the card ---------------------------------------------------
 
 
@@ -226,13 +377,17 @@ def _card_probs(cuda, n, k, c, seed):
 @pytest.mark.parametrize("use_int8", [False, True])
 @pytest.mark.parametrize("n_p,n_t,c,k", [
     (3, 2, 5, 9), (37, 29, 7, 9), (41, 23, 13, 100), (300, 77, 65, 100),
-    (41, 23, 13, 200),
+    (41, 23, 13, 200), (41, 23, 13, 112), (41, 23, 13, 128), (41, 23, 13, 129),
+    (41, 23, 13, 256), (41, 23, 13, 257),
 ])
 def test_kernel_matches_plain_on_card(cuda, use_int8, n_p, n_t, c, k):
-    """M and N are no multiple of the 128-row tiles; K = 9 and 100 pad;
-    K = 200 reads the A fragments past the register-held k-steps from
-    shared memory. The two differ in fp32 summation order and in the log (__log2f):
-    1e-4 of the largest row sum."""
+    """M and N are no multiple of the 256-row block or the 64-target
+    tile; K = 9 and 100 pad (100: 112 bf16 in two TMA boxes, the second
+    part zero-filled; 128 int8 in one); 112 and 128 fill whole boxes; the
+    resident limit is 128 bf16 / 256 int8 and 129 / 257 just past it
+    stream; K = 200 streams in bf16 and stays resident in int8. The two
+    differ in fp32 summation order and in the log (lg2.approx): 1e-4 of
+    the largest row sum."""
     a, b = _card_probs(cuda, n_p, k, c, 1), _card_probs(cuda, n_t, k, c, 2)
     before = joint_xlogy_rowsums.launches, joint_xlogy_rowsums.launches_int8
     out = joint_xlogy_rowsums(a, b, k, use_int8=use_int8)
@@ -249,9 +404,10 @@ def test_kernel_matches_plain_on_card(cuda, use_int8, n_p, n_t, c, k):
 @pytest.mark.parametrize("use_int8", [False, True])
 @pytest.mark.parametrize("n_p,n_t,c,k", [(41, 23, 13, 400), (37, 29, 7, 1000)])
 def test_streamed_kernel_matches_plain_on_card(cuda, use_int8, n_p, n_t, c, k):
-    """K past the resident block's shared memory (288 bf16 / 576 int8 on
-    an H100): the streamed instantiation, 1e-4 of each row sum. K = 1000
-    ends in a partial 128-byte chunk (bf16) and in one (int8)."""
+    """K past what the resident block holds (128 bf16 / 256 int8): the
+    streamed instantiation, 1e-4 of each row sum. K = 1000: bf16 rows of
+    2016 bytes end in a partial 128-byte chunk (3 k-steps), int8 rows of
+    1024 in whole ones, converted by I2F (|s32| may pass 2^22)."""
     a, b = _card_probs(cuda, n_p, k, c, 7), _card_probs(cuda, n_t, k, c, 8)
     before = joint_xlogy_rowsums.launches, joint_xlogy_rowsums.launches_int8
     out = joint_xlogy_rowsums(a, b, k, use_int8=use_int8)
@@ -291,3 +447,100 @@ def test_epig_scores_count_one_launch_per_call(cuda):
     assert joint_xlogy_rowsums.launches == before + 1
     ref = port_epig.epig_from_probs_using_matmul(pp.cpu(), pt.cpu())
     torch.testing.assert_close(got.cpu(), ref, rtol=2e-3, atol=2e-3)
+
+
+def _card_rows(cuda, rows, k, seed):
+    """[rows, k] of uniform [0, 1) values: every s = a . b / k lies in
+    [0, 1), so every term s log s <= 0 and no row sum cancels."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.rand(rows, k, generator=gen, device=cuda)
+
+
+def _assert_rowsums(out, ref):
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert bool(((out - ref).abs() <= ROWSUM_RTOL * ref.abs()).all()), \
+        float(((out - ref).abs() / ref.abs()).max())
+
+
+EDGE_ROWS = (1, 63, 64, 65, 255, 256, 257)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_int8", [False, True])
+@pytest.mark.parametrize("M,N", [(m, 300) for m in EDGE_ROWS + (3001,)]
+                         + [(300, n) for n in EDGE_ROWS + (5003,)])
+def test_kernel_edges_match_plain_on_card(cuda, use_int8, M, N):
+    """M at the edges of a warp's 16 pool rows, a consumer's 128 and a
+    block's 256, N at those of a 128-target B tile (N < 128: less than
+    one tile), and ragged large ones; K = 100, the resident
+    instantiation: 1e-4 of each row sum."""
+    a, b = _card_rows(cuda, M, 100, M), _card_rows(cuda, N, 100, N + 1)
+    out = joint_xlogy_rowsums(a, b, 100, use_int8=use_int8)
+    torch.cuda.synchronize()
+    _assert_rowsums(out, joint_xlogy_rowsums_reference(a, b, 100, use_int8=use_int8))
+
+
+@pytest.mark.cuda
+def test_int8_conversion_at_its_largest_product(cuda):
+    """int8 at K = 256, the resident limit, every value its row's absmax:
+    every q = 127 and every s32 = 256 * 127^2 = 4,129,024, the largest a
+    resident block converts to fp32 (exactly: < 2^24). A = 0.5 and B = 1.0
+    put s at 0.5, far from a term of 0: 1e-4 of each row sum. All 1.0 puts
+    s at 1 within a few ulp, so each term is 0 up to lg2.approx's absolute
+    error (2^-22 near 1): within N 2^-21 of plain."""
+    N = 200
+    for a_val in (0.5, 1.0):
+        a = torch.full((300, 256), a_val, device=cuda)
+        b = torch.ones(N, 256, device=cuda)
+        out = joint_xlogy_rowsums(a, b, 256, use_int8=True)
+        torch.cuda.synchronize()
+        ref = joint_xlogy_rowsums_reference(a, b, 256, use_int8=True)
+        if a_val == 0.5:
+            _assert_rowsums(out, ref)
+        else:
+            assert float((out - ref).abs().max()) <= N * 2.0 ** -21
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_int8", [False, True])
+def test_kernel_takes_zero_rows(cuda, use_int8):
+    b = _card_rows(cuda, 50, 100, 5)
+    before = joint_xlogy_rowsums.launches + joint_xlogy_rowsums.launches_int8
+    out = joint_xlogy_rowsums(b[:0], b, 100, use_int8=use_int8)
+    assert out.shape == (0,)
+    # no targets: every row sums nothing
+    out = joint_xlogy_rowsums(b, b[:0], 100, use_int8=use_int8)
+    torch.cuda.synchronize()
+    assert torch.equal(out, torch.zeros(50, device=cuda))
+    assert joint_xlogy_rowsums.launches + joint_xlogy_rowsums.launches_int8 == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_int8", [False, True])
+@pytest.mark.parametrize("K", [100, 400])
+def test_kernel_ten_calls_in_a_row_agree(cuda, use_int8, K):
+    """The ring's barriers start afresh at every launch and each row sum is
+    written once: ten calls give the same bits."""
+    a, b = _card_rows(cuda, 1000, K, 6), _card_rows(cuda, 700, K, 7)
+    outs = [joint_xlogy_rowsums(a, b, K, use_int8=use_int8) for _ in range(10)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    _assert_rowsums(outs[0], joint_xlogy_rowsums_reference(a, b, K, use_int8=use_int8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_int8,K", [(False, 9), (False, 100), (False, 128), (False, 400),
+                                        (True, 100), (True, 256), (True, 400)])
+def test_kernel_resources(cuda, use_int8, K):
+    """One block an SM (resident: 640 threads, no register split;
+    streamed: 384, the registers at launch its setmaxnreg split needs), no
+    local memory (no spill), shared memory under the opt-in limit."""
+    r = kernel_resources(use_int8, K)
+    streamed = ej._plan(1, 1, K, use_int8)["streamed"]
+    assert r["body"] == "wgmma" and r["streamed"] == streamed
+    assert r["blocks_per_sm"] == 1 and r["local_bytes"] == 0
+    assert 0 < r["smem_bytes"] <= r["smem_limit"]
+    assert r["threads"] == (384 if streamed else 640)
+    assert r["registers"] * r["threads"] <= 65536
+    if streamed:
+        assert r["registers"] * 384 >= 128 * 40 + 256 * 232
