@@ -37,7 +37,9 @@ LANES = {"bf16": ({}, {}), "int8": ({"mlp_int8": True, "attn_int8": True}, {}),
 # kernel name -> group; the first pattern that matches wins
 GROUPS = (
     ("attention kernel (mha_mma_kernel, mha_kernel)", r"mha_mma_kernel|mha_kernel"),
-    ("block GEMMs (gemm_bf16_kernel)", r"gemm_bf16_kernel"),
+    # the block lane's projections: the wgmma body with its bias epilogue
+    # (ahead of the GEMM probes' row, which takes any other instantiation)
+    ("block GEMMs (wgmma_gemm_kernel, EpiBias)", r"wgmma_gemm_kernel<.*EpiBias"),
     ("block LayerNorm (ln_rows_kernel)", r"ln_rows_kernel"),
     # the int8 lane's products: the wgmma body with its dequantising
     # epilogue (its raw-accumulator instantiation is the GEMM probes')

@@ -2,10 +2,12 @@
 // an mbarrier ring.
 //
 //   C[M, N] = epilogue(A[M, K] . B)
-//   kWgBF16: bf16 x bf16 -> fp32, B row-major [K, N] (read MN-major)
-//   kWgS8:   s8 x s8 -> s32, B given as B^T [N, K] (wgmma reads 8-bit
-//            operands K-major only; the caller lays B out, or has it so:
-//            an nn.Linear weight [N, K] is B^T)
+//   kWgBF16:  bf16 x bf16 -> fp32, B row-major [K, N] (read MN-major)
+//   kWgS8:    s8 x s8 -> s32, B given as B^T [N, K] (wgmma reads 8-bit
+//             operands K-major only; the caller lays B out, or has it so:
+//             an nn.Linear weight [N, K] is B^T)
+//   kWgBF16T: bf16 x bf16 -> fp32, B given as B^T [N, K] and read K-major
+//             as A is (imm-trans-b 0): an nn.Linear weight in place; BN 128
 //
 // The epilogue is a compile-time policy (EPI):
 //   EpiRaw (the default): the raw accumulators, fp32 / s32 (the GEMM-tile
@@ -20,6 +22,14 @@
 //     each row's max |y| taken by atomics for the next quantize, was
 //     measured and left out: the accurate tanhf on a consumer's 4 warps
 //     outlasts the other consumer's mainloop; csrc/mlp_int8.cu.)
+//   EpiBias<RESIDUAL> (kWgBF16T): the attention sublayer's projections
+//     (csrc/attention_block.cu), y = round(acc + float(bias[col])), then
+//     with RESIDUAL y = round(float(residual) + float(y)), in fp32 with
+//     explicit __fadd_rn, stored as bf16. Its B is up to three weights read
+//     in place (`parts`, one tensor map each), the output `parts` contiguous
+//     [M, N] blocks (q, k, v): a tile column belongs to one part, so no tile
+//     straddles two weights or two outputs, and every box goes out by the
+//     TMA, clipped at N, whatever N is.
 //
 // Design (one block of 384 threads an SM, walking output tiles):
 //   - warpgroup 0 is the producer: setmaxnreg drops it to 40 registers
@@ -55,6 +65,10 @@
 //     residual's; and where a box could straddle a chunk of the output (a
 //     chunk that is no multiple of the box's columns, chosen at launch)
 //     the consumer copies the box out by plain stores instead of the TMA.
+//     EpiBias stages its tile's biases the same way; with RESIDUAL the
+//     consumer prefetches its tile's residual rows into L2 before the
+//     mainloop and loads each box's residual pairs before it uses the
+//     first (measured: the out-projection 0.096 -> 0.078 ms, PERF.md).
 //   - tiles are walked in groups of kGroupM tile rows along M, column by
 //     column inside a group, so the blocks at work share A and B in L2.
 //   - edges: the TMA zero-fills loads past M, N and K (so K need not be
@@ -78,7 +92,7 @@
 
 namespace bvt_wgmma {
 
-enum WgKind { kWgBF16 = 0, kWgS8 = 1 };
+enum WgKind { kWgBF16 = 0, kWgS8 = 1, kWgBF16T = 2 };
 enum WgSchedule { kCoop = 0, kPingPong = 1 };
 
 constexpr int kThreads = 384;      // producer warpgroup + 2 consumers
@@ -93,12 +107,16 @@ constexpr long long kWatchdogCycles = 1LL << 34;
 
 struct EpiRaw {
   static constexpr bool kRaw = true;
+  static constexpr bool kBias = false;
   struct Params {};
+  // fp32 values staged in shared memory a consumer
+  __host__ __device__ static constexpr int staging(int, int) { return 0; }
 };
 
 template <typename OutT, bool RESIDUAL>
 struct EpiDequant {
   static constexpr bool kRaw = false;
+  static constexpr bool kBias = false;
   static constexpr bool kResidual = RESIDUAL;
   using Out = OutT;
   static constexpr CUtensorMapDataType out_type =
@@ -112,6 +130,25 @@ struct EpiDequant {
     int chunk;
     int direct;            // boxes copied out by plain stores, not by the TMA
   };
+  // a consumer's rows' scales, then its tile's column scales and biases
+  __host__ __device__ static constexpr int staging(int rows, int bn) { return rows + 2 * bn; }
+};
+
+template <bool RESIDUAL>
+struct EpiBias {
+  static constexpr bool kRaw = false;
+  static constexpr bool kBias = true;
+  static constexpr bool kResidual = RESIDUAL;
+  static constexpr int kMaxParts = 3;
+  using Out = __nv_bfloat16;
+  struct Params {
+    CUtensorMap b[kMaxParts];             // part p's weight, B^T [N, K] (box 64 x BN)
+    const __nv_bfloat16* bias[kMaxParts];  // part p's [N]
+    const __nv_bfloat16* residual;        // kResidual: [M, N] (one part)
+    int parts;                            // 1 .. kMaxParts
+  };
+  // the tile's biases
+  __host__ __device__ static constexpr int staging(int, int bn) { return bn; }
 };
 
 template <int KIND> struct WgTraits;
@@ -121,6 +158,7 @@ template <> struct WgTraits<kWgBF16> {
   static constexpr CUtensorMapDataType in_type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   static constexpr CUtensorMapDataType out_type = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 };
+template <> struct WgTraits<kWgBF16T> : WgTraits<kWgBF16> {};
 template <> struct WgTraits<kWgS8> {
   using Acc = int;
   static constexpr int elem = 1;
@@ -142,13 +180,16 @@ struct WgLayout {
   // 1024: slack to align the ring to the swizzle's 1024-byte period; the
   // barriers: full and empty a stage, and two order barriers
   static constexpr int kSmem = 1024 + STAGES * kStage + kEpi + (2 * STAGES + 2) * 8;
-  // EpiDequant's staging after the barriers: a consumer's rows' scales,
-  // then its tile's column scales and biases (fp32)
+  // the epilogue's staging after the barriers, fp32 (EPI::staging): a
+  // consumer's rows and its tile's columns
   static constexpr int kRowsC = MW * 64;
-  static constexpr int kStageFloats = kRowsC + 2 * BN;
+  template <class EPI>
+  __host__ __device__ static constexpr int staged() {
+    return EPI::staging(kRowsC, BN);
+  }
   template <class EPI>
   static constexpr int smem() {
-    return kSmem + (EPI::kRaw ? 0 : 2 * kStageFloats * 4);
+    return kSmem + 2 * staged<EPI>() * 4;
   }
 };
 
@@ -249,6 +290,11 @@ __device__ __forceinline__ void bulk_wait_all() {
 // shared-memory writes of this thread visible to the TMA (async proxy)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the 128-byte line at p into L2 (generic address)
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.L2 [%0];\n" ::"l"(p));
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
@@ -456,6 +502,9 @@ __device__ __forceinline__ void wgmma(typename WgTraits<KIND>::Acc* d, uint64_t 
   if constexpr (KIND == kWgBF16) {
     if constexpr (BN == 128) wgmma_bf16_n128(d, da, db, scale_d);
     else wgmma_bf16_n256(d, da, db, scale_d);
+  } else if constexpr (KIND == kWgBF16T) {
+    static_assert(BN == 128, "kWgBF16T: n128");
+    wgmma_bf16_n128<0>(d, da, db, scale_d);
   } else {
     if constexpr (BN == 128) wgmma_s8_n128(d, da, db, scale_d);
     else wgmma_s8_n256(d, da, db, scale_d);
@@ -470,6 +519,28 @@ __device__ __forceinline__ void tile_coords(int t, int tiles_m, int tiles_n, int
   const int in = t - group * per_group;
   tm = first + in % rows;
   tn = in / rows;
+}
+
+// EpiBias: tile t's part, row and column. The parts' tile columns are
+// walked as one raster of parts x tiles_n columns, so the blocks at work
+// share A across the parts.
+__device__ __forceinline__ void part_coords(int t, int tiles_m, int tiles_n, int parts,
+                                            int& part, int& tm, int& tn) {
+  int tc;
+  tile_coords(t, tiles_m, parts * tiles_n, tm, tc);
+  part = tc / tiles_n;
+  tn = tc - part * tiles_n;
+}
+
+// EpiBias: part p's weight map and bias, by static indices into the
+// parameter
+template <class P>
+__device__ __forceinline__ const CUtensorMap* part_map(const P& ep, int part) {
+  return part == 0 ? &ep.b[0] : part == 1 ? &ep.b[1] : &ep.b[2];
+}
+template <class P>
+__device__ __forceinline__ const __nv_bfloat16* part_bias(const P& ep, int part) {
+  return part == 0 ? ep.bias[0] : part == 1 ? ep.bias[1] : ep.bias[2];
 }
 
 // a box's rows and columns inside [M, N], one element at a time, into
@@ -495,9 +566,11 @@ __device__ __forceinline__ void store_box_plain(const uint8_t* buf, Out* out, in
 // -- the kernel ------------------------------------------------------------------
 
 // tma_a: A [M, K] (box kBK x BM); tma_b: bf16 B [K, N] (box 64 x 64), s8
-// B^T [N, K] (box 128 x BN); tma_c: EpiRaw C [M, N] fp32 / s32 (box 32 x
-// 64), EpiDequant [N / chunk, M, chunk] of Out (box 128 bytes x 64 x 1;
-// unused with ep.direct); all in the 128-byte swizzle
+// B^T [N, K] (box 128 x BN; EpiBias: unused, its parts' B^T maps are in
+// ep.b); tma_c: EpiRaw C [M, N] fp32 / s32 (box 32 x 64), EpiDequant [N /
+// chunk, M, chunk] of Out (box 128 bytes x 64 x 1; unused with ep.direct),
+// EpiBias [parts, M, N] bf16 (box 64 x 64 x 1); all in the 128-byte
+// swizzle. N is a part's width (EpiBias) or the whole output's.
 template <int KIND, int BM, int BN, int STAGES, int SCHED, class EPI = EpiRaw>
 __global__ void __launch_bounds__(kThreads, 1)
 wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
@@ -506,9 +579,12 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
                   const __grid_constant__ typename EPI::Params ep) {
   using L = WgLayout<KIND, BM, BN, STAGES, SCHED>;
   using Acc = typename WgTraits<KIND>::Acc;
-  // EpiDequant dequantises s8 products, and its staging gives each
-  // consumer thread BN / 128 of a tile's columns
-  static_assert(EPI::kRaw || (KIND == kWgS8 && BN % 128 == 0), "EpiDequant: s8, BN % 128 == 0");
+  // EpiDequant dequantises s8 products, EpiBias (alone) bf16 ones read
+  // K-major, and their staging gives each consumer thread BN / 128 of a
+  // tile's columns
+  static_assert(EPI::kBias ? KIND == kWgBF16T && BN == 128
+                           : KIND != kWgBF16T && (EPI::kRaw || (KIND == kWgS8 && BN % 128 == 0)),
+                "EpiRaw: bf16 or s8; EpiDequant: s8, BN % 128 == 0; EpiBias: kWgBF16T, BN 128");
   constexpr int kConsumers = SCHED == kCoop ? 2 : 1;  // consumers a stage
   extern __shared__ __align__(16) uint8_t smem_raw[];
   uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -516,7 +592,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
   uint64_t* full = reinterpret_cast<uint64_t*>(epi + L::kEpi);
   uint64_t* empty = full + STAGES;
   uint64_t* order = empty + STAGES;  // kPingPong: order[c] lets consumer c run
-  float* staging = reinterpret_cast<float*>(order + 2);  // EpiDequant
+  float* staging = reinterpret_cast<float*>(order + 2);  // EpiDequant, EpiBias
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
@@ -530,7 +606,9 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
   __syncthreads();
 
   const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
-  const int tiles = tiles_m * tiles_n;
+  int parts = 1;  // EpiBias: the weights side by side
+  if constexpr (EPI::kBias) parts = ep.parts;
+  const int tiles = parts * tiles_m * tiles_n;
   const int ktiles = (K + L::kBK - 1) / L::kBK;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
 
@@ -539,11 +617,16 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
     setmaxnreg_dec<kProducerRegs>();
     if (tid != 0) return;
     prefetch_map(&tma_a);
-    prefetch_map(&tma_b);
+    if constexpr (EPI::kBias) {
+      for (int p = 0; p < parts; ++p) prefetch_map(part_map(ep, p));
+    } else {
+      prefetch_map(&tma_b);
+    }
     int it = 0;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      int tm, tn;
-      tile_coords(t, tiles_m, tiles_n, tm, tn);
+      int part = 0, tm, tn;
+      if constexpr (EPI::kBias) part_coords(t, tiles_m, tiles_n, parts, part, tm, tn);
+      else tile_coords(t, tiles_m, tiles_n, tm, tn);
       for (int kt = 0; kt < ktiles; ++kt, ++it) {
         const int s = it % STAGES;
         const uint32_t round = static_cast<uint32_t>(it / STAGES);
@@ -558,6 +641,9 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
           for (int j = 0; j < BN / 64; ++j)
             tma_load_2d(b_s + j * 64 * kRowBytes, &tma_b, &full[s], tn * BN + 64 * j,
                         kt * L::kBK);
+        } else if constexpr (EPI::kBias) {
+          // BN rows of the part's B^T (zero past its N)
+          tma_load_2d(b_s, part_map(ep, part), &full[s], kt * L::kBK, tn * BN);
         } else {
           tma_load_2d(b_s, &tma_b, &full[s], kt * L::kBK, tn * BN);  // BN rows of B^T
         }
@@ -576,7 +662,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
   for (int mi = 0; mi < L::MW; ++mi)
 #pragma unroll
     for (int i = 0; i < R; ++i) d[mi][i] = 0;
-  if constexpr (EPI::kRaw) {
+  if constexpr (EPI::kRaw || EPI::kBias) {
     if (tid == 0) prefetch_map(&tma_c);
   } else {
     if (tid == 0 && !ep.direct) prefetch_map(&tma_c);
@@ -591,14 +677,33 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
   // the boxes this consumer has stored: box & 1 is the buffer of the next
   int box = 0;
   for (int n = first; blockIdx.x + n * gridDim.x < tiles; n += kStep) {
-    int tm, tn;
-    tile_coords(blockIdx.x + n * gridDim.x, tiles_m, tiles_n, tm, tn);
+    int part = 0, tm, tn;
+    if constexpr (EPI::kBias)
+      part_coords(blockIdx.x + n * gridDim.x, tiles_m, tiles_n, parts, part, tm, tn);
+    else
+      tile_coords(blockIdx.x + n * gridDim.x, tiles_m, tiles_n, tm, tn);
     int prev = 0, it = n * ktiles;
     // EpiDequant: this thread's share of the tile's row scale, column
-    // scales and biases, loaded now and staged after the mainloop
+    // scales and biases (EpiBias: its bias), loaded now and staged after
+    // the mainloop
     constexpr int kPerC = BN / 128;  // columns a consumer thread stages
     float pre_x = 0.f, pre_w[kPerC], pre_b[kPerC];
-    if constexpr (!EPI::kRaw) {
+    if constexpr (EPI::kBias) {
+      const __nv_bfloat16* bias = part_bias(ep, part);
+      const int col = tn * BN + tid;
+      pre_b[0] = col < N ? bvt_cvt::to_f(bias[col]) : 0.f;
+      if constexpr (EPI::kResidual) {
+        // this consumer's rows of the tile's residual into L2 while the
+        // products run: BN bf16 a row, two lines
+        for (int r = tid; r < L::kRowsC; r += 128) {
+          const int row = tm * BM + m_off + r;
+          if (row >= M) break;
+          const __nv_bfloat16* res = ep.residual + static_cast<long>(row) * N + tn * BN;
+          prefetch_l2(res);
+          if (tn * BN + 64 < N) prefetch_l2(res + 64);
+        }
+      }
+    } else if constexpr (!EPI::kRaw) {
       const int row = tm * BM + m_off + tid;
       if (tid < L::kRowsC && row < M) pre_x = ep.xs[row];
 #pragma unroll
@@ -621,7 +726,7 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
       for (int ks = 0; ks < 4; ++ks) {
         // bf16 B is MN-major: 16 k rows of 128 bytes a step, the next 64
         // columns one box (8 KB) on (leading offset), the next 8 k rows
-        // 1 KB on (stride offset); s8 B^T is K-major as A is
+        // 1 KB on (stride offset); s8 and kWgBF16T's B^T are K-major as A is
         const uint64_t db =
             KIND == kWgBF16 ? smem_desc(b_s + ks * 16 * kRowBytes, 64 * kRowBytes, 1024)
                             : smem_desc(b_s + ks * 32, 16, 1024);
@@ -691,29 +796,33 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
         }
       }
     } else {
-      // -- EpiDequant: 64-row boxes of kCols Out columns (128-byte rows),
-      // column by column. First the tile's scales and biases go into the
-      // staging (the last reads of the previous tile's came before its last
-      // box's second barrier)
+      // -- EpiDequant, EpiBias: 64-row boxes of kCols Out columns (128-byte
+      // rows), column by column. First the tile's scales and biases go into
+      // the staging (the last reads of the previous tile's came before its
+      // last box's second barrier)
       using Out = typename EPI::Out;
       constexpr int kCols = kRowBytes / static_cast<int>(sizeof(Out));  // 32 fp32, 64 bf16
       constexpr int kQ = kCols / 8;  // 8-column accumulator groups a box
-      float* st_x = staging + cw * L::kStageFloats;
+      float* st_x = staging + cw * L::template staged<EPI>();
       float* st_w = st_x + L::kRowsC;
-      float* st_b = st_w + BN;
-      if (tid < L::kRowsC) st_x[tid] = pre_x;
+      float* st_b = EPI::kBias ? st_x : st_w + BN;
+      if constexpr (!EPI::kBias) {
+        if (tid < L::kRowsC) st_x[tid] = pre_x;
+      }
 #pragma unroll
       for (int c = 0; c < kPerC; ++c) {
-        st_w[c * 128 + tid] = pre_w[c];
+        if constexpr (!EPI::kBias) st_w[c * 128 + tid] = pre_w[c];
         st_b[c * 128 + tid] = pre_b[c];
       }
       named_sync(1 + cw, 128);
       const int rl = warp * 16 + lane / 4;  // this thread's rows: rl and rl + 8
       float xs[L::MW][2];
+      if constexpr (!EPI::kBias) {
 #pragma unroll
-      for (int mi = 0; mi < L::MW; ++mi)
+        for (int mi = 0; mi < L::MW; ++mi)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) xs[mi][h] = st_x[mi * 64 + rl + 8 * h];
+          for (int h = 0; h < 2; ++h) xs[mi][h] = st_x[mi * 64 + rl + 8 * h];
+      }
 #pragma unroll
       for (int j = 0; j < BN / kCols; ++j) {
         const int col0 = tn * BN + j * kCols;
@@ -724,6 +833,22 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
           // touches a buffer, and the buffers are counted by stored boxes
           const int row0 = tm * BM + m_off + mi * 64;
           if (row0 >= M) continue;
+          // EpiBias<true>: the box's residual pairs, every load issued
+          // before the first is used (zero past M and N, which the store
+          // clips)
+          __nv_bfloat162 res[kQ][2];
+          if constexpr (EPI::kBias && EPI::kResidual) {
+#pragma unroll
+            for (int q = 0; q < kQ; ++q)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int row = row0 + rl + 8 * h, col = col0 + 8 * q + 2 * (lane % 4);
+                res[q][h] = row < M && col < N
+                                ? *reinterpret_cast<const __nv_bfloat162*>(
+                                      ep.residual + static_cast<long>(row) * N + col)
+                                : __floats2bfloat162_rn(0.f, 0.f);
+              }
+          }
           uint8_t* buf = my_epi + (box++ & 1) * kEpiBox;
           if (tid == 0) bulk_wait_read<1>();
           named_sync(1 + cw, 128);
@@ -736,22 +861,35 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
               const int col = col0 + 8 * q + 2 * (lane % 4);
               // this pair's column scales and biases (zero past N)
               const int c = j * kCols + 8 * q + 2 * (lane % 4);
-              const float2 w2 = *reinterpret_cast<const float2*>(st_w + c);
               const float2 b2 = *reinterpret_cast<const float2*>(st_b + c);
-              const float wv[2] = {w2.x, w2.y}, bv[2] = {b2.x, b2.y};
               float v[2];
-#pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                float y = __fadd_rn(
-                    __fmul_rn(__fmul_rn(__int2float_rn(d[mi][4 * jn + 2 * h + e]), xs[mi][h]),
-                              wv[e]),
-                    bv[e]);
+              if constexpr (EPI::kBias) {
+                // round(acc + bias), then round(residual + that): the pair
+                // lies wholly inside or past N (N even)
+                v[0] = __fadd_rn(d[mi][4 * jn + 2 * h], b2.x);
+                v[1] = __fadd_rn(d[mi][4 * jn + 2 * h + 1], b2.y);
                 if constexpr (EPI::kResidual) {
-                  if (row < M && col + e < N)
-                    y = __fadd_rn(
-                        y, bvt_cvt::to_f(ep.residual[static_cast<long>(row) * N + col + e]));
+                  v[0] = __fadd_rn(bvt_cvt::to_f(res[q][h].x),
+                                   bvt_cvt::to_f(bvt_cvt::from_f<Out>(v[0])));
+                  v[1] = __fadd_rn(bvt_cvt::to_f(res[q][h].y),
+                                   bvt_cvt::to_f(bvt_cvt::from_f<Out>(v[1])));
                 }
-                v[e] = y;
+              } else {
+                const float2 w2 = *reinterpret_cast<const float2*>(st_w + c);
+                const float wv[2] = {w2.x, w2.y}, bv[2] = {b2.x, b2.y};
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  float y = __fadd_rn(
+                      __fmul_rn(__fmul_rn(__int2float_rn(d[mi][4 * jn + 2 * h + e]), xs[mi][h]),
+                                wv[e]),
+                      bv[e]);
+                  if constexpr (EPI::kResidual) {
+                    if (row < M && col + e < N)
+                      y = __fadd_rn(
+                          y, bvt_cvt::to_f(ep.residual[static_cast<long>(row) * N + col + e]));
+                  }
+                  v[e] = y;
+                }
               }
               // the pair's bytes in row r; 16-byte chunk c sits at c ^ (r % 8)
               const int byte = (8 * q + 2 * (lane % 4)) * static_cast<int>(sizeof(Out));
@@ -763,7 +901,12 @@ wgmma_gemm_kernel(const __grid_constant__ CUtensorMap tma_a,
           }
           fence_proxy_async();
           named_sync(1 + cw, 128);
-          if (ep.direct) {
+          if constexpr (EPI::kBias) {
+            if (tid == 0) {
+              tma_store_3d(&tma_c, buf, col0, row0, part);
+              bulk_commit();
+            }
+          } else if (ep.direct) {
             store_box_plain<Out>(buf, ep.out, row0, col0, M, N, ep.chunk, tid);
           } else if (tid == 0) {
             tma_store_3d(&tma_c, buf, col0 % ep.chunk, row0, col0 / ep.chunk);
@@ -861,16 +1004,18 @@ int prepare() {
   return 0;
 }
 
-// as many blocks as the card has SMs, at most one a tile
+// as many blocks as the card has SMs, at most one a tile (of `parts`
+// outputs of N columns each)
 template <int KIND, int BM, int BN, int STAGES, int SCHED, class EPI>
 int launch(const CUtensorMap& ma, const CUtensorMap& mb, const CUtensorMap& mc, int M, int N,
-           int K, const typename EPI::Params& ep, cudaStream_t stream) {
+           int K, const typename EPI::Params& ep, cudaStream_t stream, int parts = 1) {
   using L = WgLayout<KIND, BM, BN, STAGES, SCHED>;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const long tiles = static_cast<long>((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const long tiles =
+      static_cast<long>(parts) * ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   const unsigned grid = static_cast<unsigned>(tiles < sms ? tiles : sms);
   wgmma_gemm_kernel<KIND, BM, BN, STAGES, SCHED, EPI>
       <<<grid, kThreads, L::template smem<EPI>(), stream>>>(ma, mb, mc, M, N, K, ep);
@@ -955,26 +1100,88 @@ int wgmma_gemm_dequant(const int8_t* a, const int8_t* w, int M, int N, int K,
                                                                 stream);
 }
 
-// a dequantising GEMM's dynamic shared memory, blocks an SM (the occupancy
-// calculator) and registers a thread at launch into out[0..2]; returns 0 or
-// a cudaError_t
-template <class EPI>
-int resources(int* out) {
-  constexpr int smem = DqLayout::template smem<EPI>();
-  const void* kernel = reinterpret_cast<const void*>(
-      wgmma_gemm_kernel<kWgS8, kDqBM, kDqBN, kDqStages, kDqSched, EPI>);
+// an instantiation's dynamic shared memory, blocks an SM (the occupancy
+// calculator), registers a thread at launch and local memory a thread
+// (spills) into out[0..3]; returns 0 or a cudaError_t
+template <int KIND, int BM, int BN, int STAGES, int SCHED, class EPI>
+int kernel_resources(int* out) {
+  constexpr int smem = WgLayout<KIND, BM, BN, STAGES, SCHED>::template smem<EPI>();
+  const void* kernel =
+      reinterpret_cast<const void*>(wgmma_gemm_kernel<KIND, BM, BN, STAGES, SCHED, EPI>);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads, smem);
-  const int regs = kernel_registers(kernel);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  if (regs < 0) return -regs;
   out[0] = smem;
   out[1] = blocks;
-  out[2] = regs;
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
   return 0;
+}
+
+// a dequantising GEMM's dynamic shared memory, blocks an SM and registers a
+// thread at launch into out[0..2]; returns 0 or a cudaError_t
+template <class EPI>
+int resources(int* out) {
+  int r[4];
+  const int err = kernel_resources<kWgS8, kDqBM, kDqBN, kDqStages, kDqSched, EPI>(r);
+  if (err != 0) return err;
+  for (int i = 0; i < 3; ++i) out[i] = r[i];
+  return 0;
+}
+
+// the bias GEMMs' one configuration: ping-pong 128 x 128 tiles, 6 stages
+// (EpiBias stages 512 B a consumer, so a sixth stage fits: 231,536 B)
+constexpr int kBiBM = 128, kBiBN = 128, kBiStages = 6, kBiSched = kPingPong;
+using BiasLayout = WgLayout<kWgBF16T, kBiBM, kBiBN, kBiStages, kBiSched>;
+
+// out[p] = round(a . w[p]^T + bias[p]) for p < parts, and with RESIDUAL
+// (parts 1) out = round(residual + round(a . w^T + bias)), on `stream`: a
+// [M, K], each w[p] [N, K] (torch's [out, in], read in place), bias[p] [N],
+// residual [M, N], out `parts` contiguous [M, N] blocks, all bf16; K and N
+// multiples of 8, every base 16-byte aligned (the TMA's rules). Returns 0,
+// a cudaError_t or one of the codes above; M == 0 launches nothing.
+template <bool RESIDUAL>
+int wgmma_gemm_bias(const __nv_bfloat16* a, const __nv_bfloat16* const* w,
+                    const __nv_bfloat16* const* bias, int parts,
+                    const __nv_bfloat16* residual, __nv_bfloat16* out, int M, int N, int K,
+                    cudaStream_t stream) {
+  using EPI = EpiBias<RESIDUAL>;
+  using L = BiasLayout;
+  static_assert(L::template smem<EPI>() <= 232448, "past the shared memory of a block");
+  if (M < 0 || K <= 0 || K % 8 != 0 || N <= 0 || N % 8 != 0 || parts < 1 ||
+      parts > EPI::kMaxParts || (RESIDUAL && (parts != 1 || residual == nullptr)))
+    return cudaErrorInvalidValue;
+  const int ready = prepare<kWgBF16T, kBiBM, kBiBN, kBiStages, kBiSched, EPI>();
+  if (ready != 0) return ready;
+  if (M == 0) return cudaSuccess;
+  typename EPI::Params ep = {};
+  ep.parts = parts;
+  ep.residual = residual;
+  CUtensorMap ma, mc, unused = {};
+  int e = encode_2d(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, K, M,
+                    static_cast<uint64_t>(K) * 2, L::kBK, kBiBM);
+  for (int p = 0; p < parts && e == 0; ++p) {
+    e = encode_2d(&ep.b[p], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, w[p], K, N,
+                  static_cast<uint64_t>(K) * 2, L::kBK, kBiBN);
+    ep.bias[p] = bias[p];
+  }
+  if (e == 0) {
+    // [parts, M, N]: a box never leaves its part
+    const uint64_t dims[3] = {static_cast<uint64_t>(N), static_cast<uint64_t>(M),
+                              static_cast<uint64_t>(parts)};
+    const uint64_t row = static_cast<uint64_t>(N) * 2;
+    const uint64_t strides[2] = {row, row * M};
+    const uint32_t box[3] = {64, 64, 1};
+    e = encode(&mc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, out, 3, dims, strides, box);
+  }
+  if (e != 0) return e;
+  return launch<kWgBF16T, kBiBM, kBiBN, kBiStages, kBiSched, EPI>(ma, unused, mc, M, N, K, ep,
+                                                                  stream, parts);
 }
 
 // the message of a code returned above

@@ -18,7 +18,9 @@ and each projection rounded once (csrc/attention_block.cu).
   on the tensor-core body (`csrc/attention_mma.cuh`; the packed pair as
   one block of two heads side by side, equal to one-block bit for bit);
   fp32 the CUDA-core body (`csrc/attention.cuh`). `kernel_resources`
-  reports what a launch takes.
+  reports what a launch takes. The sublayer's bf16 projections run the
+  wgmma/TMA GEMM body (`csrc/wgmma_gemm.cuh`, bias and residual in its
+  epilogue); `block_gemm_resources` reports what they take.
 - CPU tensors run `fused_attention_reference` /
   `fused_attention_block_reference`, the same math in plain PyTorch. The
   tests and chip_smoke.py hold the kernels against them.
@@ -254,7 +256,50 @@ def _block_library() -> ctypes.CDLL:
         ctypes.c_float, *[ctypes.c_void_p] * 5,
     ]
     lib.bvt_attention_block.restype = ctypes.c_int
+    lib.bvt_attention_block_gemm.argtypes = [
+        *[ctypes.c_void_p] * 7, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        *[ctypes.c_int] * 4, ctypes.c_void_p]
+    lib.bvt_attention_block_gemm.restype = ctypes.c_int
+    lib.bvt_attention_block_gemm_resources.argtypes = [ctypes.c_int,
+                                                       ctypes.POINTER(ctypes.c_int)]
+    lib.bvt_attention_block_gemm_resources.restype = ctypes.c_int
     return lib
+
+
+def _block_projection(a, ws, bs, residual, out) -> None:
+    """One projection of the sublayer alone, on CUDA tensors, through its C
+    entry (the tests and chip_smoke.py time and check it; the sublayer
+    itself launches it from `bvt_attention_block`): out[p] = a . ws[p]^T +
+    bs[p] for each of the 1-3 parts, each rounded once, or with the
+    residual [M, N] (one part) residual + that. a [M, K]; ws[p] [N, K],
+    bs[p] [N]; out [parts, M, N]; one dtype, contiguous."""
+    lib = _block_library()
+    (M, K), N, parts = a.shape, ws[0].shape[0], len(ws)
+    w3, b3 = [*ws, *ws[:1] * (3 - parts)], [*bs, *bs[:1] * (3 - parts)]
+    err = lib.bvt_attention_block_gemm(
+        a.data_ptr(), *(t.data_ptr() for t in w3), *(t.data_ptr() for t in b3), parts,
+        None if residual is None else residual.data_ptr(), out.data_ptr(), M, N, K,
+        _DTYPE_CODES[a.dtype], torch.cuda.current_stream(a.device).cuda_stream)
+    kernels.check(lib, err, "attention block GEMM")
+
+
+def block_gemm_resources(device=None) -> dict:
+    """The bf16 sublayer's two GEMM instantiations on the wgmma body
+    (csrc/bf16_gemm.cuh): "qkv" (bias) and "out_proj" (bias and residual),
+    each {"smem_bytes", "blocks_per_sm", "registers" (a thread at launch),
+    "local_bytes" (spills, a thread), "producer_registers",
+    "consumer_registers" (after setmaxnreg)}."""
+    lib = _block_library()
+    keys = ("smem_bytes", "blocks_per_sm", "registers", "local_bytes",
+            "producer_registers", "consumer_registers")
+    out = {}
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        for name, residual in (("qkv", 0), ("out_proj", 1)):
+            vals = (ctypes.c_int * len(keys))()
+            kernels.check(lib, lib.bvt_attention_block_gemm_resources(residual, vals),
+                          "attention block GEMM resource query")
+            out[name] = dict(zip(keys, vals))
+    return out
 
 
 def fused_attention_block(x: torch.Tensor, ln_weight, ln_bias, wq, bq, wk, bk,
@@ -267,7 +312,8 @@ def fused_attention_block(x: torch.Tensor, ln_weight, ln_bias, wq, bq, wk, bk,
     and biases [D] in x's dtype; LN parameters [D] (used in fp32). CPU
     tensors take the plain version; CUDA tensors launch the kernel chain
     of csrc/attention_block.cu (counted once per call in
-    `fused_attention_block.launches`) or raise."""
+    `fused_attention_block.launches`) or raise: x and the weights must
+    start 16-byte aligned (the bf16 GEMMs read the weights by the TMA)."""
     if x.dim() != 3:
         raise ValueError(f"x must be [B, T, D], got {tuple(x.shape)}")
     B, T, D = x.shape
@@ -284,18 +330,24 @@ def fused_attention_block(x: torch.Tensor, ln_weight, ln_bias, wq, bq, wk, bk,
         return fused_attention_block_reference(x, ln_weight, ln_bias, wq, bq, wk,
                                                bk, wv, bv, wo, bo, num_heads,
                                                ln_eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"no attention block kernel for device {x.device}")
 
     Dh = D // num_heads
     params = (*weights, *biases)
     _check_kernel_operands((x, *params), x.dtype, Dh, "attention block kernel")
     if any(t.dtype != x.dtype for t in params):
         raise ValueError("projection weights and biases must be in x's dtype")
+    # the TMA's rules: rows a multiple of 16 bytes apart, 16-byte aligned
+    # bases (the weights; x is the out-projection's residual, read in pairs)
     if D % 8:
         raise ValueError(f"attention block kernel needs D a multiple of 8, not {D}")
+    for name, t in (("x", x), ("wq", wq), ("wk", wk), ("wv", wv), ("wo", wo)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"attention block kernel: {name}'s base address "
+                             f"{t.data_ptr():#x} is not 16-byte aligned")
     if B > 65535:
         raise ValueError("attention block kernel takes at most 65535 batch rows")
+    if x.device.type != "cuda":
+        raise ValueError(f"no attention block kernel for device {x.device}")
     _tensor_core_body(x.device.index, T, Dh, x.dtype, ONE_BLOCK)  # the core takes T
     ln_w, ln_b = ln_weight.float().contiguous(), ln_bias.float().contiguous()
     M = B * T
@@ -303,8 +355,6 @@ def fused_attention_block(x: torch.Tensor, ln_weight, ln_bias, wq, bq, wk, bk,
     qkv = torch.empty(3, M, D, device=x.device, dtype=x.dtype)
     attn = torch.empty(M, D, device=x.device, dtype=x.dtype)
     out = torch.empty_like(x)
-    if any(w.data_ptr() % 16 for w in weights):
-        raise ValueError("attention block kernel needs 16-byte aligned weights")
     lib = _block_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

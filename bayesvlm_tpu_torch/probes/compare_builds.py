@@ -1,11 +1,13 @@
 """The kernels of two source trees, side by side on the card: the bf16
 attention kernels, (--gemm) the GEMM probes' kernels, (--int8) the int8
-lane's two kernels, or (--epig) the EPIG joint-entropy kernel.
+lane's two kernels, (--epig) the EPIG joint-entropy kernel, or (--block)
+the attention sublayer kernel.
 
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR [--changed v2 v3]
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --gemm
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --int8
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --epig
+    python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --block
 
 Each DIR is a `csrc/` directory (this package's, or one unpacked from
 another commit with `git archive`). Its `attention.cu` and
@@ -60,6 +62,16 @@ summation order may differ between the trees, so their bits need not
 agree); both trees are timed in the same turns. The exit code is 1 when
 either tree strays from plain.
 
+--block: each tree's `attention_block.cu` is built and called through its
+C interface, `bvt_attention_block` (the same arguments and scratch in
+both trees), at ViT-L/14 (B = 64, T = 257, D = 1024, H = 16) in bf16 on
+seeded operands. Each tree's output is held against the plain version
+(`fused_attention_block_reference`) at `BLOCK_TOL` (absolute plus
+relative, chip_smoke.py's tolerance for the sublayer) and its max error
+printed; whether b equals a bit for bit is printed too (a redesign of its
+GEMMs moves the bits: another fp32 summation order). Both are timed in
+the same turns. The exit code is 1 when either tree strays from plain.
+
 There is no CPU mode: without a card and nvcc it raises.
 """
 
@@ -108,9 +120,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="compare the int8 lane's mlp_int8.cu and linear_int8.cu instead")
     p.add_argument("--epig", action="store_true",
                    help="compare the EPIG joint-entropy kernel's xlogy_rowsum.cu instead")
+    p.add_argument("--block", action="store_true",
+                   help="compare the attention sublayer kernel's attention_block.cu instead")
     args = p.parse_args(argv)
-    if args.gemm + args.int8 + args.epig > 1:
-        p.error("--gemm, --int8 and --epig compare different kernels: pass one")
+    if args.gemm + args.int8 + args.epig + args.block > 1:
+        p.error("--gemm, --int8, --epig and --block compare different kernels: pass one")
     return args
 
 
@@ -518,6 +532,92 @@ def report_epig(results: dict) -> int:
     return 0 if right else 1
 
 
+# --block: (B, T, D, H) of the sublayer, its tolerance against plain (bf16:
+# the last two roundings, one ulp each; chip_smoke.py's BLOCK_TOL) and the
+# calls a turn
+BLOCK_SHAPE = (64, 257, 1024, 16)
+BLOCK_TOL = 2.0 ** -6
+BLOCK_ITERS = 20
+
+
+def build_block(csrc: Path, out: Path) -> ctypes.CDLL:
+    """attention_block.cu of csrc built into out and loaded, its entry point
+    typed."""
+    lib = _nvcc_all({"attention_block": "attention_block.cu"}, csrc, out)["attention_block"]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.bvt_attention_block.argtypes = [p, p, p, f, *[p] * 8, i, i, i, i, i, f, *[p] * 5]
+    lib.bvt_error_string.argtypes = [i]
+    lib.bvt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def run_block(args) -> dict:
+    """Both trees' sublayer kernel at BLOCK_SHAPE in bf16: each against
+    plain, b against a, and both timed in turns."""
+    from bayesvlm_tpu_torch.models.attention import fused_attention_block_reference
+
+    B, T, D, H = BLOCK_SHAPE
+    M, Dh = B * T, D // H
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    x = randn(B, T, D).bfloat16()
+    ln_w, ln_b = 1.0 + randn(D, scale=0.1), randn(D, scale=0.1)
+    params = [t for _ in range(4)
+              for t in (randn(D, D, scale=D ** -0.5).bfloat16(), randn(D, scale=0.02).bfloat16())]
+    ref = fused_attention_block_reference(x, ln_w, ln_b, *params, num_heads=H).float()
+    h, attn = (torch.empty(M, D, device="cuda", dtype=torch.bfloat16) for _ in range(2))
+    qkv = torch.empty(3, M, D, device="cuda", dtype=torch.bfloat16)
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = {"shape": BLOCK_SHAPE, "tol": BLOCK_TOL}
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        libs, outs, calls = {}, {}, {}
+        for tag in ("a", "b"):
+            (Path(tmp) / tag).mkdir()
+            libs[tag] = lib = build_block(getattr(args, tag), Path(tmp) / tag)
+            outs[tag] = o = torch.full_like(x, float("nan"))
+
+            def call(lib=lib, o=o):
+                err = lib.bvt_attention_block(
+                    x.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), 1e-5,
+                    *(t.data_ptr() for t in params), B, T, D, H, 1, 1.0 / math.sqrt(Dh),
+                    h.data_ptr(), qkv.data_ptr(), attn.data_ptr(), o.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+                kernels.check(lib, err, "attention block kernel")
+
+            calls[tag] = call
+            call()
+        torch.cuda.synchronize()
+        for tag in libs:
+            err = (outs[tag].float() - ref).abs()
+            out[f"{tag}_max_abs_err"] = float(err.max())
+            out[f"{tag}_worst"] = float((err / (BLOCK_TOL + BLOCK_TOL * ref.abs())).max())
+        out["b_equals_a"] = bool(torch.equal(outs["a"], outs["b"]))
+        times = {"a": [], "b": []}
+        for tag in TURNS:
+            times[tag].append(cuda_ms(calls[tag], BLOCK_ITERS))
+        out.update({f"{tag}_ms": min(times[tag]) for tag in libs})
+        out.update({f"{tag}_median_ms": statistics.median(times[tag]) for tag in libs})
+    return out
+
+
+def report_block(r: dict) -> int:
+    B, T, D, H = r["shape"]
+    print(f"card: {card_line()}")
+    print(f"attention sublayer B={B} T={T} D={D} H={H} bf16 (best / median of "
+          f"{len(TURNS) // 2} turns of {BLOCK_ITERS}): a {r['a_ms']:.4f} / "
+          f"{r['a_median_ms']:.4f} ms, b {r['b_ms']:.4f} / {r['b_median_ms']:.4f} ms "
+          f"(b/a {r['b_ms'] / r['a_ms']:.3f})")
+    right = r["a_worst"] <= 1.0 and r["b_worst"] <= 1.0
+    print(f"  vs plain (tol {r['tol']:.3e} abs + rel): a max_abs_err {r['a_max_abs_err']:.3e} "
+          f"(worst/bound {r['a_worst']:.3f}), b {r['b_max_abs_err']:.3e} "
+          f"(worst/bound {r['b_worst']:.3f}); b equals a bit for bit: {r['b_equals_a']}")
+    print(f"both trees within the tolerance of plain: {right}")
+    return 0 if right else 1
+
+
 def card_line() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -592,11 +692,13 @@ def report(results: dict) -> int:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.gemm or args.int8 or args.epig:
+    if args.gemm or args.int8 or args.epig or args.block:
         if not torch.cuda.is_available():
             raise RuntimeError("compare_builds times kernels on the card: no CUDA device")
         if args.epig:
             return report_epig(run_epig(args))
+        if args.block:
+            return report_block(run_block(args))
         return report_int8(run_int8(args)) if args.int8 else report_gemm(run_gemm(args))
     return report(run(args))
 

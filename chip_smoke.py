@@ -34,8 +34,13 @@ Phases (any failure raises and exits non-zero, without the result line):
      plain at the ViT-L/14 sublayer (B=64, T=257, D=1024, H=16), bf16 and
      fp32, and a ragged small shape; beside it, for reference only (no
      single PyTorch call computes the sublayer), the chain F.layer_norm
-     -> F.linear (QKV) -> SDPA -> F.linear -> add; and the body, shared
-     memory, registers and blocks an SM of its attention core;
+     -> F.linear (QKV) -> SDPA -> F.linear -> add; the body, shared
+     memory, registers and blocks an SM of its attention core; and, bf16,
+     its two projections' (the wgmma body with the bias epilogue) shared
+     memory, registers and blocks an SM, each launch of a call (LN, QKV,
+     core, out-projection) timed apart by torch.profiler, and the
+     projections alone (QKV; the out-projection with and without its
+     residual) by CUDA events;
   4. int8 kernels vs plain at the ViT-L/14 shapes in bf16 (M = 64*257):
      mlp_int8 plain and fused pre-LN (D=1024, F=4096, tanh-GELU), once
      with 4-bit weights; linear_int8 for the fused QKV (N=3072, three
@@ -262,9 +267,10 @@ PROBE_EXTRAS = ("smem_bytes", "blocks_per_sm", "base_ms", "vs_base", "tops", "ti
 # attention probes and the GEMM probes (which report their own: the GEMMs
 # "wgmma" for bf16 and s8, "mma" for the s4 kinds): "wgmma" where its
 # products run on wgmma fed by TMA with the PTX of csrc/wgmma_gemm.cuh
-# (the int8 lane's two kernels, the EPIG kernel), "mma" where they run on the tensor cores
-# by mma.sync, "simt" where they run as fp32 FMAs on the CUDA cores
-SOURCE_BODY = {"attention_block.cu": "mma", "mlp_int8.cu": "wgmma", "linear_int8.cu": "wgmma",
+# (the attention sublayer's bf16 projections, the int8 lane's two kernels,
+# the EPIG kernel), "mma" where they run on the tensor cores by mma.sync,
+# "simt" where they run as fp32 FMAs on the CUDA cores
+SOURCE_BODY = {"attention_block.cu": "wgmma", "mlp_int8.cu": "wgmma", "linear_int8.cu": "wgmma",
                "xlogy_rowsum.cu": "wgmma", "smith_head.cu": "simt", "packed_heads.cu": "mma"}
 # the packed-head kernels at the probe's shape and a ragged one (B, T, H)
 PACKED_SHAPES = {"probe": (80, 257, 16), "ragged": (3, 50, 12)}
@@ -533,6 +539,16 @@ def phase_block_vs_plain(torch, attention) -> dict:
                 continue
             r["ms"], r["plain_ms"] = cuda_ms(torch, run), cuda_ms(torch, plain, iters=5)
             r["core"] = attention.kernel_resources(T, D // H, dtype)
+            if dname == "bf16":
+                # the two projections on the wgmma body: what they take, and
+                # each launch of a call timed apart
+                r["gemms"] = attention.block_gemm_resources()
+                r["parts_ms"] = _launch_parts(torch, run, BLOCK_PARTS)
+                r["projections_ms"] = _block_projections_ms(torch, attention, x, ws, bs)
+                print(f"  bf16 GEMMs (wgmma_gemm_kernel, EpiBias): {r['gemms']}")
+                _print_parts(f"attention block {label}", r["parts_ms"])
+                print(f"  the projections alone (CUDA events, on x as the input): "
+                      f"{r['projections_ms']}")
             # yardstick (reference only): the cuBLAS / SDPA chain on the same
             # tensors, the QKV weights concatenated once outside the timing
             wqkv, bqkv = torch.cat(ws[:3]), torch.cat(bs[:3])
@@ -560,6 +576,22 @@ def phase_block_vs_plain(torch, attention) -> dict:
     return results
 
 
+def _block_projections_ms(torch, attention, x, ws, bs) -> dict:
+    """The sublayer's bf16 projections alone through their C entry, on x
+    [B, T, D] as the input: QKV (three weights), the out-projection with
+    the residual x, and without it (the residual's cost)."""
+    a = x.view(-1, x.shape[-1])
+    out = torch.empty(3, *a.shape, device=x.device, dtype=x.dtype)
+
+    def gemm(idx, residual):
+        return lambda: attention._block_projection(a, [ws[i] for i in idx],
+                                                   [bs[i] for i in idx], residual, out)
+
+    return {"qkv": cuda_ms(torch, gemm((0, 1, 2), None), iters=50),
+            "out_proj": cuda_ms(torch, gemm((3,), a), iters=50),
+            "out_proj_no_residual": cuda_ms(torch, gemm((3,), None), iters=50)}
+
+
 def _flip_check(torch, name: str, out, ref) -> dict:
     """An int8 kernel against its plain version, to the lane's flip
     tolerance (the JAX package's, tests/test_mlp_int8.py:50-62)."""
@@ -582,11 +614,16 @@ INT8_PARTS = (("GEMM1 (EpiDequant<float, false>)", r"EpiDequant<float, false>"),
               ("GEMM2 or linear (EpiDequant<out, residual>)", r"EpiDequant<"),
               ("activation + requantize (act_quant_rows_kernel)", r"act_quant_rows_kernel"),
               ("quantize x (quant_rows_kernel)", r"quant_rows_kernel"))
+# the same for one attention sublayer call (csrc/attention_block.cu)
+BLOCK_PARTS = (("QKV (wgmma_gemm_kernel, EpiBias<false>)", r"EpiBias<false>"),
+               ("out-projection + residual (EpiBias<true>)", r"EpiBias<true>"),
+               ("LayerNorm (ln_rows_kernel)", r"ln_rows_kernel"),
+               ("attention core (mha_mma_kernel)", r"mha_mma_kernel|mha_kernel"))
 
 
-def _int8_parts(torch, fn, calls: int = 5) -> dict:
-    """Each launch of an int8 kernel call timed apart: torch.profiler over
-    `calls` calls, device ms a call by INT8_PARTS (anything else under
+def _launch_parts(torch, fn, table=INT8_PARTS, calls: int = 5) -> dict:
+    """Each launch of a kernel call timed apart: torch.profiler over
+    `calls` calls, device ms a call by `table` (anything else under
     "other")."""
     import re
 
@@ -603,9 +640,9 @@ def _int8_parts(torch, fn, calls: int = 5) -> dict:
             continue
         us = getattr(e, "self_device_time_total", None)
         us = e.self_cuda_time_total if us is None else us
-        label = next((lb for lb, pat in INT8_PARTS if re.search(pat, e.key)), "other")
+        label = next((lb for lb, pat in table if re.search(pat, e.key)), "other")
         parts[label] = parts.get(label, 0.0) + us / 1e3 / calls
-    check(sum(parts.values()) > 0, "the profiler recorded no device time for an int8 call")
+    check(sum(parts.values()) > 0, "the profiler recorded no device time for a kernel call")
     return parts
 
 
@@ -658,7 +695,7 @@ def phase_int8_vs_plain(torch, mlp, linear) -> dict:
               f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}); body {r['body']}: "
               f"{r['smem_bytes']} B shared memory, {r['blocks_per_sm']} blocks/SM, "
               f"registers at launch GEMM1 / GEMM2 {r['registers_gemm']}")
-        r["parts_ms"] = _int8_parts(torch, run)
+        r["parts_ms"] = _launch_parts(torch, run)
         _print_parts(label, r["parts_ms"])
         results[label] = r
 
@@ -708,7 +745,7 @@ def phase_int8_vs_plain(torch, mlp, linear) -> dict:
               f"{r['smem_bytes']} B shared memory, {r['blocks_per_sm']} blocks/SM, "
               f"{r['registers']} registers at launch, TMA store {r['tma_store']}")
         check(r["tma_store"], f"{label}: the chunked output should go out by the TMA")
-        r["parts_ms"] = _int8_parts(torch, run)
+        r["parts_ms"] = _launch_parts(torch, run)
         _print_parts(label, r["parts_ms"])
         results[label] = r
 
@@ -1657,7 +1694,9 @@ def main() -> int:
         dict(_entry("fused_attention_block", "bayesvlm_tpu_torch/csrc/attention_block.cu",
                     "bayesvlm_tpu/models/attention_pallas.py:225",
                     block_launches["attention_block"], block["bf16"], None),
-             chain_ms=block["bf16"]["chain_ms"], core=block["bf16"]["core"]),
+             chain_ms=block["bf16"]["chain_ms"], core=block["bf16"]["core"],
+             gemms=block["bf16"]["gemms"], parts_ms=block["bf16"]["parts_ms"],
+             projections_ms=block["bf16"]["projections_ms"]),
         mlp_entry,
         linear_entry,
         dict(_entry("xlogy_rowsum", "bayesvlm_tpu_torch/csrc/xlogy_rowsum.cu",

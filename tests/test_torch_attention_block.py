@@ -3,9 +3,11 @@ attention.fused_attention_block`, the `attn_pallas_block` lane) against
 the JAX package's `fused_attention_block`, run in interpret mode on the
 CPU as tests/test_pallas_attention.py runs it: the sublayer alone (fp32
 and bf16), the tiny-clip vision tower with the flag, the flag beside the
-int8 lanes, and the causal text tower it leaves alone; plus the CUDA
-kernel chain against its plain version on the card (marked `cuda`,
-skipped without a GPU).
+int8 lanes, and the causal text tower it leaves alone; the wrapper's
+refusals of what the TMA cannot address, through a stub library; plus
+the CUDA kernel chain and its two projections (the wgmma GEMM with its
+bias and residual epilogue) against their plain versions on the card
+(marked `cuda`, skipped without a GPU).
 
     python -m pytest --noconftest -m cuda tests/test_torch_attention_block.py
 """
@@ -16,9 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from bayesvlm_tpu_torch.models import layers
+from bayesvlm_tpu_torch.models import attention, layers
 from bayesvlm_tpu_torch.models.attention import (
     _layer_norm_fp32,
+    _proj,
     fused_attention_block,
     fused_attention_block_reference,
     fused_attention_reference,
@@ -140,6 +143,64 @@ def test_rejects_mismatched_shapes():
         fused_attention_block(tx, tw, tb, *args, num_heads=3)
     with pytest.raises(ValueError, match=r"\[B, T, D\]"):
         fused_attention_block(tx[0], tw, tb, *args, num_heads=2)
+
+
+def _meta_view(shape, dtype, offset):
+    """A contiguous meta tensor of `shape` that starts `offset` elements
+    into its storage (meta tensors report the address it implies)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + offset, dtype=dtype, device="meta")[offset:].view(*shape)
+
+
+@pytest.mark.parametrize("operand", ["x", "wq", "wk", "wv", "wo"])
+def test_wrapper_refuses_what_the_tma_cannot_address(operand, monkeypatch):
+    # x and the four weights must start 16-byte aligned (the bf16 GEMMs read
+    # the weights by the TMA, the residual x in pairs): the wrapper raises,
+    # naming the operand, before it loads or launches anything (a stub
+    # library fails the test if reached)
+    def no_library():
+        raise AssertionError("the wrapper reached the library")
+
+    monkeypatch.setattr(attention, "_block_library", no_library)
+    monkeypatch.setattr(attention, "_library", no_library)
+    B, T, D, H = 2, 5, 64, 1
+    bf16 = torch.bfloat16
+    names = ("x", "wq", "wk", "wv", "wo")
+
+    def operands(misaligned):
+        shapes = {"x": (B, T, D), **{w: (D, D) for w in names[1:]}}
+        return {n: _meta_view(shapes[n], bf16, int(n == misaligned)) for n in names}
+
+    def call(ops):
+        vec = lambda dtype=bf16: _meta_view((D,), dtype, 0)
+        return fused_attention_block(
+            ops["x"], vec(torch.float32), vec(torch.float32), ops["wq"], vec(), ops["wk"],
+            vec(), ops["wv"], vec(), ops["wo"], vec(), num_heads=H)
+
+    before = fused_attention_block.launches
+    # a view one element in: 2 bytes past an aligned base
+    with pytest.raises(ValueError, match=f"{operand}'s base address 0x2 is not 16-byte"):
+        call(operands(operand))
+    # the same operands, aligned, reach the device check (no kernel for meta)
+    with pytest.raises(ValueError, match="no attention block kernel for device meta"):
+        call(operands(None))
+    assert fused_attention_block.launches == before
+
+
+def test_compare_builds_block_has_no_cpu_mode(tmp_path, capsys):
+    # --block builds two trees' attention_block.cu and times them on the card
+    # only: without a CUDA device it raises before it builds anything
+    from bayesvlm_tpu_torch.probes import compare_builds
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    argv = ["--a", str(tmp_path), "--b", str(tmp_path), "--block"]
+    assert compare_builds.parse_args(argv).block
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        compare_builds.main(argv)
+    assert capsys.readouterr().out == ""
+    with pytest.raises(SystemExit):
+        compare_builds.parse_args([*argv, "--epig"])
 
 
 # -- the tiny-clip towers with the flag ----------------------------------------
@@ -281,6 +342,9 @@ _TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,D,H", [
     (2, 17, 32, 2), (3, 50, 768, 12), (2, 33, 160, 2), (4, 257, 1024, 16),
+    # D = 80: each part narrower than a 128-column tile; M = 111 and 257 no
+    # multiple of 64; B = 1
+    (3, 37, 80, 1), (1, 257, 1024, 16),
 ])
 def test_kernel_matches_plain_on_card(cuda, dtype, B, T, D, H):
     x, ln_w, ln_b, ws, bs = _case(B, T, D, seed=D)
@@ -348,3 +412,99 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     mixed = _port_args(ws, bs, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="x's dtype"):
         fused_attention_block(torch.from_numpy(x).to(cuda), *ln, *mixed, num_heads=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D,H", [(3, 37, 80, 1), (2, 257, 1024, 16)])
+def test_kernel_gives_the_same_bits_twice_on_card(cuda, B, T, D, H):
+    # no atomics and a fixed order of the sums: a call repeats its bits
+    x, ln_w, ln_b, ws, bs = _case(B, T, D, seed=D + 1)
+    args = (torch.from_numpy(x).to(cuda, torch.bfloat16), torch.from_numpy(ln_w).to(cuda),
+            torch.from_numpy(ln_b).to(cuda), *_port_args(ws, bs, torch.bfloat16, cuda))
+    first = fused_attention_block(*args, num_heads=H)
+    second = fused_attention_block(*args, num_heads=H)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def _project_on_card(a, ws, bs, residual=None):
+    """One projection of the sublayer through its C entry: [parts, M, N]."""
+    out = torch.full((len(ws), a.shape[0], ws[0].shape[0]), float("nan"), dtype=a.dtype,
+                     device=a.device)
+    attention._block_projection(a, ws, bs, residual, out)
+    torch.cuda.synchronize()
+    return out
+
+
+def _bf16_ulp(t):
+    """One unit in the last place of bf16 at each |t| (fp32 tensor)."""
+    return torch.exp2(torch.floor(torch.log2(t.abs().clamp_min(2.0 ** -126))) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,D,parts,residual", [
+    (111, 80, 3, False), (111, 80, 1, False), (111, 80, 1, True), (333, 1024, 3, False),
+    (333, 1024, 1, True), (257, 1024, 3, False), (16448, 1024, 3, False),
+    (16448, 1024, 1, True), (1, 64, 3, False), (1, 64, 1, True),
+])
+def test_projection_matches_plain_on_card(cuda, dtype, M, D, parts, residual):
+    """Each projection alone: QKV (3 parts) and the out-projection with and
+    without its residual, at D = 80 (a part narrower than a tile), M no
+    multiple of 64 or 128, ViT-L/14's M = 16,448 and one row. bf16: the
+    tensor cores add each k16 group's products into the fp32 sum aligned
+    to its largest term and truncated, where the plain version rounds
+    every fused multiply-add, so the sums differ by up to ~2^-16 here
+    (1024 terms of ~2^-5, 64 groups) and a rounded product by one ulp of
+    itself besides; with the residual the sum's rounding adds one more
+    ulp of the output. fp32: summation order only."""
+    rng = np.random.default_rng(M + D + parts)
+    a = torch.from_numpy(rng.normal(size=(M, D)).astype(np.float32)).to(cuda, dtype)
+    ws = [torch.from_numpy(rng.normal(0, D ** -0.5, size=(D, D)).astype(np.float32))
+          .to(cuda, dtype) for _ in range(parts)]
+    bs = [torch.from_numpy(rng.normal(0, 0.5, size=D).astype(np.float32)).to(cuda, dtype)
+          for _ in range(parts)]
+    x = torch.from_numpy(rng.normal(size=(M, D)).astype(np.float32)).to(cuda, dtype)
+    out = _project_on_card(a, ws, bs, x if residual else None).float()
+    prods = torch.stack([_proj(a, w, b) for w, b in zip(ws, bs)])
+    ref = (x + prods if residual else prods).float()
+    assert out.shape == (parts, M, D) and bool(torch.isfinite(out).all())
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+        return
+    bound = (2 * _bf16_ulp(ref) + (2 * _bf16_ulp(prods.float()) if residual else 0)
+             + 2.0 ** -12)
+    ratio = (out - ref).abs() / bound
+    at = int(ratio.argmax())
+    assert float(ratio.max()) <= 1.0, (float(ratio.max()), float(out.flatten()[at]),
+                                       float(ref.flatten()[at]))
+    assert float((out != ref).float().mean()) < 0.02
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_a_misaligned_weight_on_card(cuda):
+    x, ln_w, ln_b, ws, bs = _case(1, 5, 64, seed=5)
+    ln = (torch.from_numpy(ln_w).to(cuda), torch.from_numpy(ln_b).to(cuda))
+    args = _port_args(ws, bs, torch.bfloat16, cuda)
+    # wk one element into its storage: contiguous, 2 bytes past an aligned base
+    store = torch.empty(64 * 64 + 1, dtype=torch.bfloat16, device=cuda)
+    store[1:].view(64, 64).copy_(args[2])
+    args[2] = store[1:].view(64, 64)
+    before = fused_attention_block.launches
+    with pytest.raises(ValueError, match="wk's base address"):
+        fused_attention_block(torch.from_numpy(x).to(cuda, torch.bfloat16), *ln, *args,
+                              num_heads=1)
+    assert fused_attention_block.launches == before
+
+
+@pytest.mark.cuda
+def test_block_gemm_resources_on_card(cuda):
+    # one persistent block an SM: 6 stages of 32 KB, 32 KB of epilogue
+    # boxes, the barriers and 1 KB of staged biases; the registers at launch
+    # cover the setmaxnreg split (40 producer, 232 consumers)
+    res = attention.block_gemm_resources()
+    for name in ("qkv", "out_proj"):
+        r = res[name]
+        assert r["smem_bytes"] == 231_536 and r["blocks_per_sm"] == 1, r
+        assert (r["producer_registers"], r["consumer_registers"]) == (40, 232), r
+        assert r["registers"] * 384 >= 128 * 40 + 256 * 232, r

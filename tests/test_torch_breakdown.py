@@ -1,7 +1,8 @@
 """`bayesvlm_tpu_torch.breakdown`'s kernel groups, on the CPU: each
 representative demangled kernel name (as torch.profiler reports it) lands
-in its own group, the int8 lane's wgmma GEMMs ahead of the cuBLAS row
-whose pattern `gemm` would otherwise take them."""
+in its own group, the int8 lane's and the block lane's wgmma GEMMs ahead
+of the GEMM probes' row and the cuBLAS row whose pattern `gemm` would
+otherwise take them."""
 
 import pytest
 
@@ -11,10 +12,17 @@ _DEQUANT = ("void bvt_wgmma::wgmma_gemm_kernel<1, 128, 128, 5, 1, "
             "bvt_wgmma::EpiDequant<{out}, {res}> >(CUtensorMap, CUtensorMap, "
             "CUtensorMap, int, int, int, bvt_wgmma::EpiDequant<{out}, {res}>::Params)")
 
+# the block lane's projections (csrc/bf16_gemm.cuh), not the GEMM probes'
+_BIAS = ("void bvt_wgmma::wgmma_gemm_kernel<2, 128, 128, 6, 1, bvt_wgmma::EpiBias<{res}> >"
+         "(CUtensorMap, CUtensorMap, CUtensorMap, int, int, int, "
+         "bvt_wgmma::EpiBias<{res}>::Params)")
+
 
 @pytest.mark.parametrize("name,group", [
     (_DEQUANT.format(out="float", res="false"), "int8 GEMMs"),
     (_DEQUANT.format(out="__nv_bfloat16", res="true"), "int8 GEMMs"),
+    (_BIAS.format(res="false"), "block GEMMs"),
+    (_BIAS.format(res="true"), "block GEMMs"),
     ("void bvt_wgmma::wgmma_gemm_kernel<1, 128, 128, 6, 1, bvt_wgmma::EpiRaw>"
      "(CUtensorMap, CUtensorMap, CUtensorMap, int, int, int, bvt_wgmma::EpiRaw::Params)",
      "GEMM probes"),
