@@ -34,7 +34,8 @@ inside that call, so it is timed with it). At the probes' M, K, N = 16384, 1024,
 s4 x s4 and s8 x s4 from b must equal a's bit for bit (and plain), s8
 must equal plain in both trees and bf16 lie within `tile_gemm.BF16_TOL`
 of max |plain|; then bf16 and s8 at each tree's tile 0 (or each index
-of --tiles, which both trees must build) are timed in the same turns.
+of --tiles, which both trees must build), and s4 x s4 and s8 x s4 at
+tile 0 (their only one), are timed in the same turns.
 The exit code is 1 when s4 or s8 x s4 differ between the trees, or a
 kind is wrong in either tree.
 
@@ -202,7 +203,7 @@ def gemm_launcher(lib, kind: int, a, b, c, K: int, tile: int = 0):
 def run_gemm(args) -> dict:
     """Both trees' GEMM kinds at the probes' shape: s4 and s8 x s4 bits
     compared between the trees, s8 and bf16 held to plain (tile 0), bf16
-    and s8 timed in turns at each of args.tiles."""
+    and s8 timed in turns at each of args.tiles, the s4 kinds at tile 0."""
     Mr, Kr, Nr = tg.M, tg.K, tg.N
     gen = torch.Generator(device="cuda").manual_seed(0)
 
@@ -241,17 +242,16 @@ def run_gemm(args) -> dict:
                         ref.abs().max())
                 else:
                     r[f"{tag}_ok"] = bool(torch.equal(outs[tag], ref))
-            if kind in (tg.BF16, tg.S8):
-                r["times"] = {}
-                for tile in args.tiles:
-                    timed = {tag: gemm_launcher(libs[tag], kind, a, b, outs[tag], Kr, tile)
-                             for tag in libs}
-                    times = {"a": [], "b": []}
-                    for tag in TURNS:
-                        times[tag].append(cuda_ms(timed[tag]))
-                    r["times"][tile] = {
-                        **{f"{tag}_ms": min(times[tag]) for tag in libs},
-                        **{f"{tag}_median_ms": statistics.median(times[tag]) for tag in libs}}
+            r["times"] = {}
+            for tile in args.tiles if kind in (tg.BF16, tg.S8) else [0]:
+                timed = {tag: gemm_launcher(libs[tag], kind, a, b, outs[tag], Kr, tile)
+                         for tag in libs}
+                times = {"a": [], "b": []}
+                for tag in TURNS:
+                    times[tag].append(cuda_ms(timed[tag]))
+                r["times"][tile] = {
+                    **{f"{tag}_ms": min(times[tag]) for tag in libs},
+                    **{f"{tag}_median_ms": statistics.median(times[tag]) for tag in libs}}
             out["kinds"][tg.KIND_NAMES[kind]] = r
     return out
 
@@ -264,7 +264,7 @@ def report_gemm(results: dict) -> int:
     for kind, r in results["kinds"].items():
         print(f"  {kind:5s} b equals a: {r['b_equals_a']}; a right: {r['a_ok']}, "
               f"b right: {r['b_ok']}")
-        for tile, t in r.get("times", {}).items():
+        for tile, t in r["times"].items():
             print(f"  {kind:5s} tile {tile}: a {t['a_ms']:.4f} / {t['a_median_ms']:.4f} ms, "
                   f"b {t['b_ms']:.4f} / {t['b_median_ms']:.4f} ms (b/a "
                   f"{t['b_ms'] / t['a_ms']:.3f})")

@@ -9,15 +9,19 @@ and bench_int4_mxu.py lay it out (their shared `make_matmul` body).
   packed two a byte along K, the lower k in the low nibble, two's
   complement (`pack_s4`, `unpack_s4`): A as [M, K/2], B as [K/2, N]. No
   torch int4 dtype is used.
+- `unpack_prepass(a, b_packed)`: the s4 kinds' unpacking prepass alone.
 
-bf16 and int8 run the warp-specialised wgmma GEMM fed by TMA
-(csrc/wgmma_gemm.cuh) at any of its 8 configurations, `TILES` (the
-sweep's); the library lays int8's B out as B^T [N, K] first, with a
-transpose kernel in the same call (wgmma reads 8-bit operands K-major
-only). Every kind hands the library B [K, N].
-The s4 kinds run the mma.sync kernel at their one tile, `S4_TILE`. Every
-operand must start 16-byte aligned with rows a multiple of 16 bytes
-apart (the TMA's rule; the wrapper raises by name, it does not copy).
+Every kind runs the warp-specialised wgmma GEMM fed by TMA
+(csrc/wgmma_gemm.cuh): bf16 and int8 at any of its 8 configurations,
+`TILES` (the sweep's), the s4 kinds at `DEFAULT_TILE`. The library lays
+int8's B out as B^T [N, K] first, with a transpose kernel in the same
+call (wgmma reads 8-bit operands K-major only). Hopper's wgmma has no
+int4 form, so for the s4 kinds one prepass kernel in the same call
+unpacks B's nibbles to s8 B^T [N, K] (and s4 x s4's A's to s8 [M, K]),
+and the s8 GEMM runs on those. Every kind hands the library B [K, N]
+(packed for the s4 kinds). Every operand must start 16-byte aligned with
+rows a multiple of 16 bytes apart (the TMA's rule; the wrapper raises by
+name, it does not copy).
 CUDA tensors launch the kernel or raise; CPU tensors run the plain
 version; nothing falls back. Each launch is counted on its wrapper:
 `matmul.launches` (bf16), `matmul.launches_s8`, `matmul_s4.launches` (s4
@@ -39,8 +43,9 @@ from bayesvlm_tpu_torch.probes import card
 # csrc/tile_gemm.cu Kind
 BF16, S8, S4, S8S4 = 0, 1, 2, 3
 KIND_NAMES = {BF16: "bf16", S8: "s8", S4: "s4", S8S4: "s8s4"}
-# K must be a multiple of one mma step's depth
-DEPTH = {BF16: 16, S8: 32, S4: 64, S8S4: 32}
+# K must be a multiple of one wgmma step's depth (the s4 kinds run the s8
+# product after their prepass)
+DEPTH = {BF16: 16, S8: 32, S4: 32, S8S4: 32}
 # the probes' shape (the scripts' M, K, N), and a tiny one for the CPU
 M, K, N = 16384, 1024, 4096
 CPU_SHAPE = (64, 256, 128)
@@ -50,22 +55,22 @@ N_ITER, REPS, PLAIN_ITER = 20, 3, 2
 # bf16 kernel vs plain: both sum fp32 products of the same bf16 values, in
 # another order: a few fp32 ulps of the largest partial sums
 BF16_TOL = 1e-5
-# the product each kind runs (csrc/tile_gemm.cu; ptxas for sm_90a takes the
-# s4 mma) and its body: "wgmma" (csrc/wgmma_gemm.cuh) or "mma" (mma.sync)
+# the product each kind runs (csrc/tile_gemm.cu) and its body: "wgmma"
+# (csrc/wgmma_gemm.cuh) for all four
 MMA = {BF16: "wgmma m64nNk16 bf16 (TMA ring)", S8: "wgmma m64nNk32 s8 (TMA ring)",
-       S4: "mma.sync m16n8k64 s4", S8S4: "mma.sync m16n8k32 s8 (B's nibbles unpacked)"}
-BODY = {BF16: "wgmma", S8: "wgmma", S4: "mma", S8S4: "mma"}
+       S4: "wgmma m64nNk32 s8 (TMA ring) after the unpack_s4 prepass (A and B to s8)",
+       S8S4: "wgmma m64nNk32 s8 (TMA ring) after the unpack_s4 prepass (B to s8)"}
+BODY = {BF16: "wgmma", S8: "wgmma", S4: "wgmma", S8S4: "wgmma"}
 # the TMA's rule for every operand: base and row stride in 16-byte units
 ALIGN = 16
 
 
 class Tile(NamedTuple):
-    """A block tile: BM x BN outputs, `warps` warps, a `stages`-deep ring
-    and a schedule. bf16 and s8: the wgmma kernel (12 warps: a producer
-    and two consumer warpgroups; a TMA ring of 128-byte K rows), its
-    consumers sharing each tile ("coop") or taking whole tiles in turn
-    ("pingpong"); csrc/tile_gemm.cu BVT_TILES, in the same order. The s4
-    kinds: the mma.sync kernel's cp.async ring, no schedule ("")."""
+    """A block tile of the wgmma kernel: BM x BN outputs, `warps` warps
+    (12: a producer and two consumer warpgroups), a `stages`-deep TMA ring
+    of 128-byte K rows, and a schedule: the consumers share each tile
+    ("coop") or take whole tiles in turn ("pingpong"); csrc/tile_gemm.cu
+    BVT_TILES, in the same order."""
 
     bm: int
     bn: int
@@ -79,14 +84,12 @@ class Tile(NamedTuple):
 
 
 # the library's code of each schedule (describe's out[5])
-SCHEDULES = {"": -1, "coop": 0, "pingpong": 1}
+SCHEDULES = {"coop": 0, "pingpong": 1}
 TILES = (Tile(128, 128, 12, 6, "pingpong"), Tile(128, 128, 12, 5, "pingpong"),
          Tile(128, 128, 12, 4, "pingpong"), Tile(64, 256, 12, 4, "pingpong"),
          Tile(128, 256, 12, 4, "coop"), Tile(128, 256, 12, 3, "coop"),
          Tile(256, 128, 12, 4, "coop"), Tile(128, 256, 12, 2, "coop"))
-DEFAULT_TILE = TILES[0]
-# the s4 kinds' one tile (csrc/tile_gemm.cu BVT_S4_TILE)
-S4_TILE = Tile(128, 128, 8, 4)
+DEFAULT_TILE = TILES[0]  # and the s4 kinds' only one
 
 
 def pack_s4(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -141,15 +144,18 @@ def _library() -> ctypes.CDLL:
     lib.bvt_tile_gemm_blocks_per_sm.restype = ctypes.c_int
     lib.bvt_tile_gemm_registers.argtypes = [i, i]
     lib.bvt_tile_gemm_registers.restype = ctypes.c_int
+    lib.bvt_tile_gemm_unpack_s4.argtypes = [p, p, p, p, i, i, i, p]
+    lib.bvt_tile_gemm_unpack_s4.restype = ctypes.c_int
     return lib
 
 
 def _tile_index(tile: Tile, kind: int) -> int:
     """The tile's index in the library's table of this kind: TILES for bf16
-    and s8, S4_TILE (index 0) for the s4 kinds."""
+    and s8, DEFAULT_TILE (index 0) alone for the s4 kinds."""
     if kind in (S4, S8S4):
-        if tile != S4_TILE:
-            raise ValueError(f"the {KIND_NAMES[kind]} kernel is built for {S4_TILE} only")
+        if tile != DEFAULT_TILE:
+            raise ValueError(f"the {KIND_NAMES[kind]} kernel is built for {DEFAULT_TILE} "
+                             f"only")
         return 0
     if tile not in TILES:
         raise ValueError(f"no tile {tile}: the kernel is built for {TILES}")
@@ -171,20 +177,26 @@ def _check_operand(name: str, t: torch.Tensor) -> None:
                          f"multiple of {ALIGN} (the TMA's rule)")
 
 
-def _launch(kind: int, tile: Tile, a: torch.Tensor, b: torch.Tensor, Mr: int, Nr: int,
-            Kr: int, out_dtype: torch.dtype) -> torch.Tensor:
-    index = _tile_index(tile, kind)
+def _check_launch(kind: int, a: torch.Tensor, b: torch.Tensor, Kr: int, Nr: int) -> None:
+    """What the library takes, checked before it is loaded: the TMA's rules
+    for both operands, K and N, one CUDA device."""
     _check_operand("a", a)
     _check_operand("b", b)
     if Kr % DEPTH[kind]:
         raise ValueError(f"{KIND_NAMES[kind]} GEMM: K = {Kr} is not a multiple of "
-                         f"{DEPTH[kind]} (one mma step)")
+                         f"{DEPTH[kind]} (one wgmma step)")
     if Nr % 16:
         raise ValueError(f"GEMM: N = {Nr} is not a multiple of 16 (16-byte B rows)")
     if a.device != b.device:
         raise ValueError("GEMM: a and b must be on one device")
     if a.device.type != "cuda":
         raise ValueError(f"no GEMM kernel for device {a.device}")
+
+
+def _launch(kind: int, tile: Tile, a: torch.Tensor, b: torch.Tensor, Mr: int, Nr: int,
+            Kr: int, out_dtype: torch.dtype) -> torch.Tensor:
+    index = _tile_index(tile, kind)
+    _check_launch(kind, a, b, Kr, Nr)
     c = torch.empty(Mr, Nr, dtype=out_dtype, device=a.device)
     if Mr == 0:
         return c  # nothing to launch, nothing counted
@@ -221,7 +233,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor, tile: Tile = DEFAULT_TILE) -> torch
 
 def matmul_s4(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
     """s4 x s4 (a packed uint8 [M, K/2]) or s8 x s4 (a int8 [M, K]) times
-    b packed uint8 [K/2, N] -> int32 [M, N], at S4_TILE. Counts in
+    b packed uint8 [K/2, N] -> int32 [M, N], at DEFAULT_TILE: the unpacking
+    prepass, then the s8 GEMM, in one library call. Counts in
     `matmul_s4.launches` (s4 x s4) and `matmul_s4.launches_s8s4`."""
     if b_packed.dtype != torch.uint8 or a.dtype not in (torch.uint8, torch.int8):
         raise ValueError(f"matmul_s4 takes a packed s4 (uint8) or int8 a and a packed "
@@ -231,8 +244,36 @@ def matmul_s4(a: torch.Tensor, b_packed: torch.Tensor) -> torch.Tensor:
     _shapes(a, b_packed, Kr, 2 * b_packed.shape[0], "matmul_s4")
     if a.device.type == "cpu" and b_packed.device.type == "cpu":
         return matmul_s4_reference(a, b_packed)
-    return _launch(kind, S4_TILE, a, b_packed, a.shape[0], b_packed.shape[1], Kr,
+    return _launch(kind, DEFAULT_TILE, a, b_packed, a.shape[0], b_packed.shape[1], Kr,
                    torch.int32)
+
+
+def unpack_prepass(a: Optional[torch.Tensor], b_packed: torch.Tensor):
+    """The s4 kinds' prepass alone (`matmul_s4` launches it inside its
+    library call; the tests and chip_smoke.py check it apart): (a8, bt),
+    bt int8 [N, K] = B^T unpacked from b packed uint8 [K/2, N], a8 int8 [M,
+    K] unpacked from a packed uint8 [M, K/2], or None without a. CPU tensors
+    get the plain version (`unpack_s4`); nothing is counted."""
+    Kr, Nr = 2 * b_packed.shape[0], b_packed.shape[1]
+    if (b_packed.dtype != torch.uint8 or b_packed.dim() != 2
+            or (a is not None and (a.dtype != torch.uint8 or a.dim() != 2
+                                   or 2 * a.shape[1] != Kr))):
+        raise ValueError("unpack_prepass takes packed s4 (uint8) a [M, K/2] or None and b "
+                         "[K/2, N]")
+    if b_packed.device.type == "cpu" and (a is None or a.device.type == "cpu"):
+        return (None if a is None else unpack_s4(a, 1)), unpack_s4(b_packed, 0).t().contiguous()
+    _check_launch(S4, b_packed if a is None else a, b_packed, Kr, Nr)
+    dev = b_packed.device
+    bt = torch.empty(Nr, Kr, dtype=torch.int8, device=dev)
+    a8 = None if a is None else torch.empty(a.shape[0], Kr, dtype=torch.int8, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.bvt_tile_gemm_unpack_s4(
+            None if a is None else a.data_ptr(), b_packed.data_ptr(),
+            None if a8 is None else a8.data_ptr(), bt.data_ptr(),
+            0 if a is None else a.shape[0], Nr, Kr, torch.cuda.current_stream(dev).cuda_stream)
+    kernels.check(lib, err, "s4 unpacking prepass")
+    return a8, bt
 
 
 matmul.launches = 0
@@ -268,9 +309,9 @@ def gemm_bound(Mr: int, Kr: int, Nr: int, kind: str) -> dict:
 
 def tile_resources(kind: int, tile: Tile):
     """(shared-memory bytes, blocks an SM, registers a thread at launch) of
-    the kernel at this tile, from the library's own table (which must
-    match TILES and S4_TILE), the card's occupancy calculator and
-    cudaFuncGetAttributes."""
+    the GEMM kernel at this tile (the s4 kinds: the s8 wgmma kernel their
+    prepass feeds), from the library's own table (which must match TILES),
+    the card's occupancy calculator and cudaFuncGetAttributes."""
     lib = _library()
     index = _tile_index(tile, kind)
     out = (ctypes.c_int * 6)()

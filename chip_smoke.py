@@ -117,11 +117,13 @@ Phases (any failure raises and exits non-zero, without the result line):
      atol = 1e-4; pv one bf16 ulp and a mean |d| limit that a single bf16
      rounding of p must exceed, both means printed); the GEMM at the
      probes' M, K, N = 16384, 1024, 4096, a ragged 1000 x 128 x 1008 and
-     1000 x 128 x 2144 (N past the last full epilogue box) and (bf16 and
-     s8 only: K not a multiple of 64) 1000 x 96 x 1008, bf16
-     and s8 on the wgmma body at each of its 8 configurations, s4 x s4
-     and s8 x s4 on the mma.sync body (s8, s4 x s4, s8 x s4 exact; bf16
-     within 1e-5 of max |ref|); then
+     1000 x 128 x 2144 (N past the last full epilogue box) and 1000 x 96
+     x 1008 (K not a multiple of 64), bf16 and s8 on the wgmma body at
+     each of its 8 configurations, s4 x s4 and s8 x s4 on its tile 0
+     after their unpacking prepass (the prepass alone equal to the plain
+     unpacking; s8, s4 x s4, s8 x s4 exact; bf16 within 1e-5 of max
+     |ref|; at the probes' shape each s4 kind's prepass and GEMM timed
+     apart by torch.profiler); then
      the probes' entry points, each probe module's run and report (the
      attention probes: the check against #1 and against plain,
      CUDA-event times beside #1, the bound and SDPA; probe_packed_heads,
@@ -265,7 +267,8 @@ PROBE_EXTRAS = ("smem_bytes", "blocks_per_sm", "base_ms", "vs_base", "tops", "ti
                 "yardstick", "reference_ms")
 # the body of each kernel source other than the attention kernel, the
 # attention probes and the GEMM probes (which report their own: the GEMMs
-# "wgmma" for bf16 and s8, "mma" for the s4 kinds): "wgmma" where its
+# "wgmma" for all four kinds, the s4 kinds after an unpacking prepass
+# that widens their nibbles to s8): "wgmma" where its
 # products run on wgmma fed by TMA with the PTX of csrc/wgmma_gemm.cuh
 # (the attention sublayer's bf16 projections, the int8 lane's two kernels,
 # the EPIG kernel), "mma" where they run on the tensor cores by mma.sync,
@@ -277,7 +280,7 @@ PACKED_SHAPES = {"probe": (80, 257, 16), "ragged": (3, 50, 12)}
 # the GEMM at the probes' shape and three ragged ones (M, K, N); N a
 # multiple of 16; "ragged-n" (N = 96 mod 128 and 256: the wgmma epilogue
 # skips the boxes past N); "ragged-k" (K not a multiple of a wgmma stage,
-# nor of the s4 mma's depth 64) for bf16 and s8 only
+# 64 bf16 or 128 s8, nor of 64: the s4 kinds' packed A rows are 48 bytes)
 GEMM_SHAPES = {"probe": (16384, 1024, 4096), "ragged": (1000, 128, 1008),
                "ragged-n": (1000, 128, 2144), "ragged-k": (1000, 96, 1008)}
 
@@ -1471,11 +1474,19 @@ def phase_packed_heads_vs_plain(torch, ph) -> None:
                   f"{where}: the mean tolerance does not pin the fp32 products")
 
 
-def phase_gemm_vs_plain(torch, tg) -> None:
+# the launches inside one s4-kind GEMM call (csrc/tile_gemm.cu)
+GEMM_S4_PARTS = (("prepass (unpack_s4_kernel)", r"unpack_s4_kernel"),
+                 ("s8 GEMM (wgmma_gemm_kernel)", r"wgmma_gemm_kernel"))
+
+
+def phase_gemm_vs_plain(torch, tg) -> dict:
     """The GEMM kinds vs plain, bf16 and s8 at every tile of the sweep, s4
-    x s4 and s8 x s4 at their one tile (where K is a multiple of 64): s8,
-    s4 x s4 and s8 x s4 exact, bf16 within tg.BF16_TOL of max |ref|."""
+    x s4 and s8 x s4 at tile 0 after their prepass (which is held alone to
+    the plain unpacking, `unpack_s4`, bit for bit): s8, s4 x s4 and s8 x s4
+    exact, bf16 within tg.BF16_TOL of max |ref|. Returns each s4 kind's
+    launches at the probes' shape timed apart by torch.profiler."""
     print("GEMM probe kernels (csrc/tile_gemm.cu) vs plain:")
+    parts = {}
     for label, (Mr, Kr, Nr) in GEMM_SHAPES.items():
         gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
 
@@ -1495,15 +1506,24 @@ def phase_gemm_vs_plain(torch, tg) -> None:
                               ref16)
             print(f"  s8 and bf16 {where} tile {tile}: s8 exact, bf16 max_abs_err="
                   f"{r['max_abs_err']:.3e} (tol {tg.BF16_TOL} x {r['max_abs_ref']:.3e})")
-        if Kr % tg.DEPTH[tg.S4]:
-            continue
-        b4p = tg.pack_s4(b4, 0)
-        tg.check_exact(f"s4 x s4 {where}", tg.matmul_s4(tg.pack_s4(a4, 1), b4p),
+        a4p, b4p = tg.pack_s4(a4, 1), tg.pack_s4(b4, 0)
+        a_un, bt = tg.unpack_prepass(a4p, b4p)
+        check(torch.equal(a_un, a4) and torch.equal(bt, b4.t()),
+              f"the s4 prepass {where} differs from the plain unpacking")
+        check(torch.equal(tg.unpack_prepass(None, b4p)[1], bt),
+              f"the s4 prepass {where} without A differs")
+        tg.check_exact(f"s4 x s4 {where}", tg.matmul_s4(a4p, b4p),
                        tg.matmul_reference(a4, b4))
         tg.check_exact(f"s8 x s4 {where}", tg.matmul_s4(a8, b4p),
                        tg.matmul_reference(a8, b4))
-        print(f"  s4 x s4 and s8 x s4 {where}: exact ({tg.MMA[tg.S4]}; "
-              f"{tg.MMA[tg.S8S4]})")
+        print(f"  s4 x s4 and s8 x s4 {where}: prepass equal to the plain unpacking, "
+              f"products exact ({tg.MMA[tg.S4]}; {tg.MMA[tg.S8S4]})")
+        if label == "probe":
+            for name, a in (("tile_gemm_s4", a4p), ("tile_gemm_s8s4", a8)):
+                parts[name] = _launch_parts(torch, lambda a=a: tg.matmul_s4(a, b4p),
+                                            GEMM_S4_PARTS, calls=20)
+                _print_parts(f"{name} {where}", parts[name])
+    return parts
 
 
 def phase_probes(torch, counters) -> dict:
@@ -1531,9 +1551,10 @@ def phase_probes(torch, counters) -> dict:
     return {"launches": launches, "results": results}
 
 
-def _probe_entries(probe_path: dict) -> list:
+def _probe_entries(probe_path: dict, gemm_parts: dict) -> list:
     """Each probe kernel's line, from its probe's numbers; the GEMMs that
-    the sweep also runs carry its tiles."""
+    the sweep also runs carry its tiles, the s4 kinds their launches timed
+    apart (`parts_ms`)."""
     results = probe_path["results"]
     swept = results["bench_int8_sweep"]["kernels"]
     entries = []
@@ -1544,6 +1565,8 @@ def _probe_entries(probe_path: dict) -> list:
         e.update((k, r[k]) for k in PROBE_EXTRAS if k in r)
         if name in swept:
             e.update(swept[name], also_replaces="scripts/dev/bench_int8_sweep.py:53")
+        if name in gemm_parts:
+            e["parts_ms"] = gemm_parts[name]
         entries.append(e)
     return entries
 
@@ -1647,7 +1670,7 @@ def main() -> int:
             tiny_siglip, TINY_SIGLIP_CONFIG, SEED)), "tiny-siglip", ("default",))
     phase_probes_vs_plain(torch, attention, av)
     phase_packed_heads_vs_plain(torch, ph)
-    phase_gemm_vs_plain(torch, tg)
+    gemm_parts = phase_gemm_vs_plain(torch, tg)
     probe_path = phase_probes(torch, all_counters)
 
     qkv, out_proj = int8["linear_int8 qkv"], int8["linear_int8 out_proj"]
@@ -1718,7 +1741,7 @@ def main() -> int:
              shapes={label: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                "bound_ms", "bound_by")}
                      for label, r in smith.items()}),
-        *_probe_entries(probe_path),
+        *_probe_entries(probe_path, gemm_parts),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

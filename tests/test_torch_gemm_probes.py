@@ -35,8 +35,8 @@ TM, TN, TK = 32, 64, 128
 BF16_TOL = 1e-5
 
 
-def _make_matmul(script: str):
-    """make_matmul of scripts/dev/<script>, with M, K, N set small."""
+def _make_matmul(script: str, k: int = K):
+    """make_matmul of scripts/dev/<script>, with M, K, N set small (K = k)."""
     import jax
     import jax.numpy as jnp
     from jax.experimental import pallas as pl
@@ -46,7 +46,7 @@ def _make_matmul(script: str):
     tree = ast.parse(path.read_text())
     fn = next(n for n in tree.body
               if isinstance(n, ast.FunctionDef) and n.name == "make_matmul")
-    ns = dict(jax=jax, jnp=jnp, pl=pl, pltpu=pltpu, M=M, K=K, N=N)
+    ns = dict(jax=jax, jnp=jnp, pl=pl, pltpu=pltpu, M=M, K=k, N=N)
     exec(compile(ast.Module(body=[fn], type_ignores=[]), str(path), "exec"), ns)
     return ns["make_matmul"]
 
@@ -127,6 +127,51 @@ def test_s4_by_s4_matches_the_widened_int32_dot():
     np.testing.assert_array_equal(out.numpy(), ref)
 
 
+@pytest.mark.parametrize("kind", ["s4xs4", "s8xs4"])
+def test_s4_kinds_at_k_96_match_the_reference(kind):
+    # K = 96: a multiple of the s4 kinds' depth 32, not of 64 (their depth
+    # before the prepass design); s8 x s4 against the JAX body in interpret
+    # mode (three k steps of 32), s4 x s4 against the widened int32 dot
+    import jax.numpy as jnp
+
+    Kr = 96
+    rng = np.random.default_rng(96)
+    b4 = rng.integers(-8, 8, size=(Kr, N)).astype(np.int8)
+    b4p = tg.pack_s4(torch.from_numpy(b4), 0)
+    if kind == "s8xs4":
+        a = rng.integers(-128, 128, size=(M, Kr)).astype(np.int8)
+        make = _make_matmul("bench_int4_mxu.py", k=Kr)
+        ref = _interpret(make(jnp.int32, TM=TM, TN=TN, TK=32), jnp.asarray(a),
+                         jnp.asarray(b4, jnp.int4))
+        out = tg.matmul_s4(torch.from_numpy(a), b4p)
+    else:
+        a = rng.integers(-8, 8, size=(M, Kr)).astype(np.int8)
+        ref = a.astype(np.int32) @ b4.astype(np.int32)
+        out = tg.matmul_s4(tg.pack_s4(torch.from_numpy(a), 1), b4p)
+    assert out.dtype == torch.int32 and out.shape == (M, N)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("with_a", [True, False], ids=["a-and-b", "b-only"])
+def test_unpack_prepass_on_the_cpu_is_the_plain_unpacking(with_a):
+    # the prepass's layouts: B^T [N, K] (K-major, as wgmma reads 8-bit B)
+    # and A [M, K]; their product is the s4 kinds' product
+    gen = torch.Generator().manual_seed(7)
+    a4 = torch.randint(-8, 8, (M, 96), generator=gen, dtype=torch.int8)
+    b4 = torch.randint(-8, 8, (96, N), generator=gen, dtype=torch.int8)
+    a4p, b4p = tg.pack_s4(a4, 1), tg.pack_s4(b4, 0)
+    a8, bt = tg.unpack_prepass(a4p if with_a else None, b4p)
+    assert bt.dtype == torch.int8 and bt.shape == (N, 96) and bt.is_contiguous()
+    assert torch.equal(bt, b4.t())
+    if with_a:
+        assert torch.equal(a8, a4)
+        assert torch.equal(tg.matmul_reference(a8, bt.t()), tg.matmul_s4(a4p, b4p))
+    else:
+        assert a8 is None
+    with pytest.raises(ValueError, match="packed s4"):
+        tg.unpack_prepass(a4, b4p)
+
+
 @pytest.mark.parametrize("dim", [0, 1])
 def test_pack_s4_round_trip_and_signs(dim):
     x = torch.arange(-8, 8, dtype=torch.int8).repeat(4, 2)  # [4, 32]: every value
@@ -166,9 +211,9 @@ def test_wrappers_refuse_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="not a multiple of 32"):
         tg.matmul(torch.zeros(4, 48, dtype=torch.int8, device=meta),
                   torch.zeros(48, 16, dtype=torch.int8, device=meta))
-    with pytest.raises(ValueError, match="not a multiple of 64"):
-        tg.matmul_s4(torch.zeros(4, 16, dtype=torch.uint8, device=meta),
-                     torch.zeros(16, 16, dtype=torch.uint8, device=meta))
+    with pytest.raises(ValueError, match="s8s4 GEMM: K = 48 is not a multiple of 32"):
+        tg.matmul_s4(torch.zeros(4, 48, dtype=torch.int8, device=meta),
+                     torch.zeros(24, 16, dtype=torch.uint8, device=meta))
     with pytest.raises(ValueError, match="multiple of 16"):
         tg.matmul(torch.zeros(4, 64, dtype=torch.int8, device=meta),
                   torch.zeros(64, 24, dtype=torch.int8, device=meta))
@@ -178,6 +223,33 @@ def test_wrappers_refuse_what_the_kernel_cannot_take():
     with pytest.raises(ValueError, match="no GEMM kernel for device meta"):
         tg.matmul(torch.zeros(4, 64, dtype=torch.int8, device=meta),
                   torch.zeros(64, 16, dtype=torch.int8, device=meta))
+
+
+@pytest.mark.parametrize("kind", ["s4xs4", "s8xs4"])
+def test_s4_kinds_take_k_96_and_refuse_k_48_on_meta(kind, monkeypatch):
+    # K = 96 passes every check the wrapper makes before the device's (K a
+    # multiple of 32, packed A rows of 48 bytes); K = 48 is refused by name:
+    # s8 x s4 by its K, s4 x s4 by its packed A's 24-byte rows (the TMA's
+    # rule, checked first). A stub library fails the test if reached.
+    def no_library():
+        raise AssertionError("the wrapper reached the library")
+
+    monkeypatch.setattr(tg, "_library", no_library)
+    meta = torch.device("meta")
+
+    def a(Kr):
+        if kind == "s4xs4":
+            return torch.zeros(4, Kr // 2, dtype=torch.uint8, device=meta)
+        return torch.zeros(4, Kr, dtype=torch.int8, device=meta)
+
+    before = [getattr(*count) for _, count, _ in tg.KERNELS.values()]
+    with pytest.raises(ValueError, match="no GEMM kernel for device meta"):
+        tg.matmul_s4(a(96), torch.zeros(48, 16, dtype=torch.uint8, device=meta))
+    what = ("operand a: rows are 24 bytes apart" if kind == "s4xs4"
+            else "s8s4 GEMM: K = 48 is not a multiple of 32")
+    with pytest.raises(ValueError, match=what):
+        tg.matmul_s4(a(48), torch.zeros(24, 16, dtype=torch.uint8, device=meta))
+    assert [getattr(*count) for _, count, _ in tg.KERNELS.values()] == before
 
 
 def test_cpu_path_is_the_plain_version_and_counts_nothing():
@@ -222,7 +294,9 @@ def test_library_stand_in_on_the_cpu_is_the_fp32_product():
                         "int8/bf16 kernel-vs-kernel speedup: not measured")),
     ("bench_int8_sweep", ("correctness: int8 exact", "tile s8 256x128/12w/4st/coop:",
                           "int8/bf16 best-vs-best: not measured")),
-    ("bench_int4_mxu", ("s4 x s4 kernel runs: mma.sync m16n8k64 s4",
+    ("bench_int4_mxu", ("s4 x s4 kernel runs: wgmma m64nNk32 s8 (TMA ring) after the "
+                        "unpack_s4 prepass (A and B to s8); s8 x s4: wgmma m64nNk32 s8 "
+                        "(TMA ring) after the unpack_s4 prepass (B to s8)",
                         "int4xint4->int32 correctness vs int32 dot: EXACT",
                         "int8xint4->int32 correctness vs int32 dot: EXACT")),
 ])
@@ -243,24 +317,29 @@ def test_tiles_are_eight_wgmma_configurations_and_s4_keeps_its_own():
     # producer and two consumer warpgroups: 12 warps), both schedules: a
     # consumer takes half a tile's rows (coop) or all of them (pingpong) in
     # whole m64 products, at most 128 accumulators a thread, at 2-6 stages;
-    # the s4 kinds keep the mma.sync kernel's one tile
+    # the s4 kinds keep one tile of their own, the s8 GEMM's first, and
+    # refuse the other seven by name
     assert len(tg.TILES) == len(set(tg.TILES)) == 8 and tg.DEFAULT_TILE == tg.TILES[0]
     assert {t.schedule for t in tg.TILES} == {"coop", "pingpong"}
     for tile in tg.TILES:
         rows = tile.bm // 2 if tile.schedule == "coop" else tile.bm
         assert tile.warps == 12 and tile.bn in (128, 256) and rows % 64 == 0
         assert rows // 64 * tile.bn <= 256 and 2 <= tile.stages <= 6
-    assert tg.S4_TILE == tg.Tile(128, 128, 8, 4) and tg.S4_TILE not in tg.TILES
-    assert str(tg.S4_TILE) == "128x128/8w/4st" and tg.S4_TILE.schedule == ""
+    assert str(tg.DEFAULT_TILE) == "128x128/12w/6st/pingpong"
+    assert not hasattr(tg, "S4_TILE")
     for kind in (tg.BF16, tg.S8):
         assert [tg._tile_index(t, kind) for t in tg.TILES] == list(range(8))
         with pytest.raises(ValueError, match="no tile"):
-            tg._tile_index(tg.S4_TILE, kind)
+            tg._tile_index(tg.Tile(128, 128, 8, 4), kind)
     for kind in (tg.S4, tg.S8S4):
-        assert tg._tile_index(tg.S4_TILE, kind) == 0
-        with pytest.raises(ValueError, match="built for"):
-            tg._tile_index(tg.DEFAULT_TILE, kind)
-    assert tg.BODY == {tg.BF16: "wgmma", tg.S8: "wgmma", tg.S4: "mma", tg.S8S4: "mma"}
+        assert tg._tile_index(tg.TILES[0], kind) == 0
+        for tile in tg.TILES[1:]:
+            with pytest.raises(ValueError, match=rf"{tg.KIND_NAMES[kind]} kernel is built "
+                                                 rf"for {tg.DEFAULT_TILE} only"):
+                tg._tile_index(tile, kind)
+    assert tg.BODY == {tg.BF16: "wgmma", tg.S8: "wgmma", tg.S4: "wgmma", tg.S8S4: "wgmma"}
+    assert all("wgmma" in tg.MMA[k] for k in tg.MMA)
+    assert all("unpack_s4 prepass" in tg.MMA[k] for k in (tg.S4, tg.S8S4))
 
 
 def _meta_view(shape, dtype, offset):
@@ -348,8 +427,12 @@ def test_gemm_matches_plain_on_card(cuda, tile, Mr, Kr, Nr):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("Mr,Kr,Nr", [(1000, 128, 1008), (512, 1024, 256), (3, 64, 16)])
+@pytest.mark.parametrize("Mr,Kr,Nr", [(1000, 128, 1008), (512, 1024, 256), (3, 64, 16),
+                                      (1000, 96, 1008), (333, 160, 272), (1, 32, 16),
+                                      (4097, 96, 2144)])
 def test_s4_kinds_match_plain_on_card(cuda, Mr, Kr, Nr):
+    # K = 32, 96 and 160: whole k32 steps, not whole 128-byte stages (the
+    # TMA zero-fills past K); ragged M and N
     gen = torch.Generator(device=cuda).manual_seed(Mr)
     a4 = torch.randint(-8, 8, (Mr, Kr), generator=gen, device=cuda, dtype=torch.int8)
     b4 = torch.randint(-8, 8, (Kr, Nr), generator=gen, device=cuda, dtype=torch.int8)
@@ -372,8 +455,29 @@ def test_tile_table_matches_the_library_on_card(cuda):
             smem, blocks, registers = tg.tile_resources(kind, tile)
             assert smem <= 227 * 1024 and blocks == 1, (kind, tile)
             assert registers * 384 >= 40 * 128 + 232 * 256, (kind, tile, registers)
+    # the s4 kinds report the s8 kernel their prepass feeds, at tile 0
     for kind in (tg.S4, tg.S8S4):
-        assert tg.tile_resources(kind, tg.S4_TILE)[1] >= 1
+        assert tg.tile_resources(kind, tg.DEFAULT_TILE) == tg.tile_resources(
+            tg.S8, tg.DEFAULT_TILE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Mr,Kr,Nr", [(1000, 96, 1008), (3, 32, 16), (257, 1024, 528),
+                                      (1, 160, 4096)])
+def test_unpack_prepass_matches_plain_on_card(cuda, Mr, Kr, Nr):
+    # the prepass alone: B^T [N, K] and A [M, K] equal to the plain
+    # unpacking bit for bit, with A and without it (s8 x s4's launch)
+    gen = torch.Generator(device=cuda).manual_seed(Kr)
+    a4 = torch.randint(-8, 8, (Mr, Kr), generator=gen, device=cuda, dtype=torch.int8)
+    b4 = torch.randint(-8, 8, (Kr, Nr), generator=gen, device=cuda, dtype=torch.int8)
+    a4p, b4p = tg.pack_s4(a4, 1), tg.pack_s4(b4, 0)
+    before = [getattr(*count) for _, count, _ in tg.KERNELS.values()]
+    a8, bt = tg.unpack_prepass(a4p, b4p)
+    assert torch.equal(bt, tg.unpack_s4(b4p, 0).t()) and torch.equal(bt, b4.t())
+    assert torch.equal(a8, tg.unpack_s4(a4p, 1)) and torch.equal(a8, a4)
+    none, bt_only = tg.unpack_prepass(None, b4p)
+    assert none is None and torch.equal(bt_only, bt)
+    assert [getattr(*count) for _, count, _ in tg.KERNELS.values()] == before
 
 
 @pytest.mark.cuda
@@ -436,6 +540,11 @@ def test_m_zero_launches_nothing_on_card(cuda):
         out = tg.matmul(torch.zeros(0, 64, dtype=dtype, device=cuda),
                         torch.zeros(64, 32, dtype=dtype, device=cuda))
         assert out.shape == (0, 32) and out.dtype == out_dtype
+    b4p = torch.zeros(32, 32, dtype=torch.uint8, device=cuda)
+    for a in (torch.zeros(0, 32, dtype=torch.uint8, device=cuda),
+              torch.zeros(0, 64, dtype=torch.int8, device=cuda)):
+        out = tg.matmul_s4(a, b4p)
+        assert out.shape == (0, 32) and out.dtype == torch.int32
     assert [getattr(*count) for _, count, _ in tg.KERNELS.values()] == before
 
 
