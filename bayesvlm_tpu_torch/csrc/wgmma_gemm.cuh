@@ -255,6 +255,35 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// a box of a rank-3 tensor map at (c0, c1, c2), innermost first
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` contiguous bytes of device memory at src into shared memory at
+// dst (no tensor map): both 16-byte aligned, bytes a multiple of 16; the
+// copy completes on bar's transaction count
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` contiguous bytes of shared memory at src to device memory at dst,
+// in this thread's bulk group: both 16-byte aligned, bytes a multiple of 16
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
                                              int c1) {
   asm volatile(
@@ -464,7 +493,7 @@ __device__ __forceinline__ void wgmma_s8_n256(int* d, uint64_t da, uint64_t db, 
 // The register-A forms: d (64 x N) (+)= A (64 x k) . B (k x N), A from four
 // registers a thread (its warp's 16 rows, laid out as mma.sync's m16n8k16
 // bf16 / m16n8k32 s8 A fragment: rows g and g + 8, bytes 4 t and 16 + 4 t
-// of the k-step's 32), B K-major from a descriptor.
+// of the k-step's 32), B from a descriptor, K-major (bf16 also MN-major).
 #define BVT_WG_ACC8(c, d, i)                                                            \
   c(d[i]), c(d[(i) + 1]), c(d[(i) + 2]), c(d[(i) + 3]), c(d[(i) + 4]), c(d[(i) + 5]), \
       c(d[(i) + 6]), c(d[(i) + 7])
@@ -474,15 +503,30 @@ __device__ __forceinline__ void wgmma_s8_n256(int* d, uint64_t da, uint64_t db, 
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"              \
   " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
+// TRANS_B 1 reads B MN-major (imm-trans-b 1; bf16 only)
+template <int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_rs_bf16_n64(float* d, const uint32_t* a, uint64_t db,
                                                   int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " BVT_WG_REGS32
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : BVT_WG_ACC32("+f", d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// the descriptor form at n64: A K-major, B MN-major (TRANS_B 1) or K-major
+// (TRANS_B 0), as wgmma_bf16_n128
+template <int TRANS_B = 1>
+__device__ __forceinline__ void wgmma_bf16_n64(float* d, uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " BVT_WG_REGS32
+      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : BVT_WG_ACC32("+f", d)
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
 }
 
 __device__ __forceinline__ void wgmma_rs_s8_n64(int* d, const uint32_t* a, uint64_t db,

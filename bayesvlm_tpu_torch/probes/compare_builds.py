@@ -1,13 +1,14 @@
 """The kernels of two source trees, side by side on the card: the bf16
 attention kernels, (--gemm) the GEMM probes' kernels, (--int8) the int8
 lane's two kernels, (--epig) the EPIG joint-entropy kernel, or (--block)
-the attention sublayer kernel.
+the attention sublayer kernel, or (--packed) the packed-head probe kernels.
 
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR [--changed v2 v3]
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --gemm
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --int8
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --epig
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --block
+    python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --packed
 
 Each DIR is a `csrc/` directory (this package's, or one unpacked from
 another commit with `git archive`). Its `attention.cu` and
@@ -73,6 +74,16 @@ printed; whether b equals a bit for bit is printed too (a redesign of its
 GEMMs moves the bits: another fp32 summation order). Both are timed in
 the same turns. The exit code is 1 when either tree strays from plain.
 
+--packed: each tree's `packed_heads.cu` is built and called through its C
+interface, `bvt_qk_scores` and `bvt_pv` (the same arguments in both
+trees), on seeded operands at each of PACKED_SHAPES (the probe's B=80,
+T=257, H=16 and the ragged shapes chip_smoke.py checks): qk and pv, per
+head and packed. Each tree's output is held to the plain version (qk at
+rtol = atol = 1e-4, pv by `packed_heads.pv_check`) and whether b's bits
+equal a's is printed (a redesign that sums in another order moves them);
+at the probe's shape both trees are timed in the same turns. The exit code
+is 1 when either tree strays from plain.
+
 There is no CPU mode: without a card and nvcc it raises.
 """
 
@@ -123,9 +134,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="compare the EPIG joint-entropy kernel's xlogy_rowsum.cu instead")
     p.add_argument("--block", action="store_true",
                    help="compare the attention sublayer kernel's attention_block.cu instead")
+    p.add_argument("--packed", action="store_true",
+                   help="compare the packed-head probe kernels' packed_heads.cu instead")
     args = p.parse_args(argv)
-    if args.gemm + args.int8 + args.epig + args.block > 1:
-        p.error("--gemm, --int8, --epig and --block compare different kernels: pass one")
+    if args.gemm + args.int8 + args.epig + args.block + args.packed > 1:
+        p.error("--gemm, --int8, --epig, --block and --packed compare different kernels: "
+                "pass one")
     return args
 
 
@@ -618,6 +632,121 @@ def report_block(r: dict) -> int:
     return 0 if right else 1
 
 
+# --packed: (B, T, H) of each case, as chip_smoke.py's PACKED_SHAPES (the
+# probe's shape first: the one timed), and the calls a turn
+PACKED_SHAPES = {"probe": (80, 257, 16), "ragged": (3, 50, 12), "t63": (4, 63, 6),
+                 "t64": (3, 64, 4), "t65": (2, 65, 8), "t1": (3, 1, 2), "t577": (2, 577, 4)}
+PACKED_ITERS = 20
+PACKED_QK_TOL = 1e-4
+
+
+def build_packed(csrc: Path, out: Path) -> ctypes.CDLL:
+    """packed_heads.cu of csrc built into out and loaded, its two entry
+    points typed."""
+    lib = _nvcc_all({"packed_heads": "packed_heads.cu"}, csrc, out)["packed_heads"]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bvt_qk_scores.argtypes = [p, p, p, i, i, i, ctypes.c_float, i, p]
+    lib.bvt_pv.argtypes = [p, p, p, i, i, i, i, p]
+    lib.bvt_error_string.argtypes = [i]
+    lib.bvt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def packed_launcher(lib, name: str, x, y, out, num_heads: int):
+    """A call of one tree's kernel `name` (a key of packed_heads.KERNELS) on
+    x, y into out."""
+    from bayesvlm_tpu_torch.probes import packed_heads as ph
+
+    packed = int(name.endswith("packed"))
+    B, T = y.shape[:2]
+
+    def call():
+        stream = torch.cuda.current_stream().cuda_stream
+        if name.startswith("qk"):
+            err = lib.bvt_qk_scores(x.data_ptr(), y.data_ptr(), out.data_ptr(), B, T,
+                                    num_heads, ph.SCALE, packed, stream)
+        else:
+            err = lib.bvt_pv(x.data_ptr(), y.data_ptr(), out.data_ptr(), B, T, num_heads,
+                             packed, stream)
+        kernels.check(lib, err, f"{name} kernel")
+
+    return call
+
+
+def run_packed(args) -> dict:
+    """Both trees' four packed-head kernels at each shape: each against
+    plain, b's bits against a's, and at the probe's shape both timed in
+    turns."""
+    from bayesvlm_tpu_torch.probes import packed_heads as ph
+
+    out = {"cases": {}}
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        libs = {}
+        for tag in ("a", "b"):
+            (Path(tmp) / tag).mkdir()
+            libs[tag] = build_packed(getattr(args, tag), Path(tmp) / tag)
+        for label, (B, T, H) in PACKED_SHAPES.items():
+            gen = torch.Generator(device="cuda").manual_seed(T + H)
+            q, k, v = (torch.randn(B, T, H * 64, generator=gen, device="cuda").bfloat16()
+                       for _ in range(3))
+            p = torch.randn(B, H, T, T, generator=gen, device="cuda")
+            operands = {"qk_scores": (q, k), "qk_scores_packed": (q, k), "pv": (p, v),
+                        "pv_packed": (ph.pack_pairs(p).contiguous(), v)}
+            for name, (_, plain, _, _) in ph.KERNELS.items():
+                x, y = operands[name]
+                ref = plain(x, y, H)
+                outs = {tag: torch.full_like(ref, float("nan")) for tag in libs}
+                calls = {tag: packed_launcher(libs[tag], name, x, y, outs[tag], H)
+                         for tag in libs}
+                for call in calls.values():
+                    call()
+                torch.cuda.synchronize()
+                r = {"b_equals_a": bool(torch.equal(outs["a"], outs["b"]))}
+                for tag in libs:
+                    if name.startswith("qk"):
+                        err = (outs[tag] - ref).abs()
+                        r[f"{tag}_max_abs_err"] = float(err.max())
+                        r[f"{tag}_ok"] = bool(
+                            (err <= PACKED_QK_TOL + PACKED_QK_TOL * ref.abs()).all())
+                    else:
+                        try:
+                            r[f"{tag}_max_abs_err"] = ph.pv_check(outs[tag], ref)[
+                                "max_abs_err"]
+                            r[f"{tag}_ok"] = True
+                        except RuntimeError:
+                            r[f"{tag}_max_abs_err"] = float(
+                                (outs[tag].float() - ref.float()).abs().max())
+                            r[f"{tag}_ok"] = False
+                if label == "probe":
+                    times = {"a": [], "b": []}
+                    for tag in TURNS:
+                        times[tag].append(cuda_ms(calls[tag], PACKED_ITERS))
+                    r.update({f"{tag}_ms": min(times[tag]) for tag in libs})
+                    r.update({f"{tag}_median_ms": statistics.median(times[tag])
+                              for tag in libs})
+                out["cases"][(label, (B, T, H), name)] = r
+                del outs, calls, ref
+    return out
+
+
+def report_packed(results: dict) -> int:
+    print(f"card: {card_line()}")
+    print(f"packed-head probe kernels (times at the probe's shape, best / median of "
+          f"{len(TURNS) // 2} turns of {PACKED_ITERS}):")
+    for (label, (B, T, H), name), r in results["cases"].items():
+        line = (f"  {label:6s} B={B} T={T} H={H} {name:16s} right: a {r['a_ok']} (max |d| "
+                f"{r['a_max_abs_err']:.3e}), b {r['b_ok']} ({r['b_max_abs_err']:.3e}); "
+                f"b equals a: {r['b_equals_a']}")
+        if "a_ms" in r:
+            line += (f"; a {r['a_ms']:.4f} / {r['a_median_ms']:.4f} ms, b {r['b_ms']:.4f} / "
+                     f"{r['b_median_ms']:.4f} ms (b/a {r['b_ms'] / r['a_ms']:.3f})")
+        print(line)
+    right = all(r["a_ok"] and r["b_ok"] for r in results["cases"].values())
+    print(f"every output right in both trees: {right}")
+    return 0 if right else 1
+
+
 def card_line() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -692,9 +821,11 @@ def report(results: dict) -> int:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.gemm or args.int8 or args.epig or args.block:
+    if args.gemm or args.int8 or args.epig or args.block or args.packed:
         if not torch.cuda.is_available():
             raise RuntimeError("compare_builds times kernels on the card: no CUDA device")
+        if args.packed:
+            return report_packed(run_packed(args))
         if args.epig:
             return report_epig(run_epig(args))
         if args.block:

@@ -14,8 +14,12 @@ operand, as scripts/dev/probe_packed_heads.py computes them.
   (`pack_pairs`) times the block-diagonal V' [2T, 128].
 
 CUDA tensors launch the kernel or raise; CPU tensors run the plain
-version; nothing falls back. Each launch is counted on its wrapper
-(`.launches`, and `.launches_packed` for the packed instantiation).
+version; nothing falls back. q, k and v reach the kernels through tensor
+maps, so on the card they must start 16-byte aligned (the TMA's rule;
+the wrapper raises otherwise); p may start at any 4-byte boundary. Each
+launch is counted on its wrapper (`.launches`, and `.launches_packed` for
+the packed instantiation). `kernel_resources` reads what a kernel takes on
+the card, `qk_plan` how the scores kernel's staging holds a strip.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from bayesvlm_tpu_torch import kernels
 
 HEAD_DIM = 64
 SCALE = 1.0 / math.sqrt(HEAD_DIM)
+ALIGN = 16  # bytes: the TMA's rule for the bf16 operands' base
 # csrc/packed_heads.cu Kernel
 QK, PV = 0, 1
 # pv kernel vs plain: both take the fp32 product (the kernel's three bf16
@@ -106,10 +111,10 @@ def _library() -> ctypes.CDLL:
     lib.bvt_qk_scores.restype = ctypes.c_int
     lib.bvt_pv.argtypes = [p, p, p, i, i, i, i, p]
     lib.bvt_pv.restype = ctypes.c_int
-    lib.bvt_packed_heads_smem_bytes.argtypes = [i, i]
-    lib.bvt_packed_heads_smem_bytes.restype = ctypes.c_long
-    lib.bvt_packed_heads_blocks_per_sm.argtypes = [i, i]
-    lib.bvt_packed_heads_blocks_per_sm.restype = ctypes.c_int
+    lib.bvt_packed_heads_resources.argtypes = [i, i, p]
+    lib.bvt_packed_heads_resources.restype = ctypes.c_int
+    lib.bvt_qk_plan.argtypes = [i, i, p]
+    lib.bvt_qk_plan.restype = ctypes.c_int
     return lib
 
 
@@ -127,10 +132,18 @@ def _check_heads(x: torch.Tensor, num_heads: int, packed: bool, what: str) -> No
         raise ValueError(f"{what} takes bfloat16 q, k, v, not {x.dtype}")
 
 
-def _device(tensors, what: str) -> str:
+def _device(tensors, what: str, mapped=()) -> str:
+    """The operands' one device type; off the CPU, the `mapped` ones (the
+    bf16 operands the kernel reaches by tensor maps) must start ALIGN-byte
+    aligned."""
     device = tensors[0].device
     if any(t.device != device for t in tensors):
         raise ValueError(f"{what}: operands must be on one device")
+    if device.type != "cpu":
+        for name, t in mapped:
+            if t.data_ptr() % ALIGN:
+                raise ValueError(f"{what}: {name}'s base address {t.data_ptr():#x} is not "
+                                 f"{ALIGN}-byte aligned (the TMA's rule)")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no {what} kernel for device {device}")
     if device.type == "cuda" and not all(t.is_contiguous() for t in tensors):
@@ -147,7 +160,7 @@ def qk_scores(q: torch.Tensor, k: torch.Tensor, num_heads: int,
     if k.shape != q.shape or k.dtype != q.dtype:
         raise ValueError(f"qk_scores: q and k must share one shape and dtype, got "
                          f"{tuple(q.shape)} {q.dtype}, {tuple(k.shape)} {k.dtype}")
-    if _device((q, k), "qk_scores") == "cpu":
+    if _device((q, k), "qk_scores", (("q", q), ("k", k))) == "cpu":
         return qk_scores_reference(q, k, num_heads, packed)
     B, T, _ = q.shape
     shape = (B, num_heads // 2, T, 2 * T) if packed else (B, num_heads, T, T)
@@ -175,7 +188,7 @@ def pv(p: torch.Tensor, v: torch.Tensor, num_heads: int,
     if tuple(p.shape) != shape or p.dtype != torch.float32:
         raise ValueError(f"pv takes float32 p of shape {shape}, got {tuple(p.shape)} "
                          f"{p.dtype}")
-    if _device((p, v), "pv") == "cpu":
+    if _device((p, v), "pv", (("v", v),)) == "cpu":
         return pv_reference(p, v, num_heads, packed)
     o = torch.empty_like(v)
     lib = _library()
@@ -211,16 +224,29 @@ KERNELS = {
 }
 
 
-def block_resources(name: str):
-    """(shared-memory bytes, blocks an SM) of the kernel `name` (a key of
-    KERNELS), from the card's occupancy calculator."""
-    kernel = QK if name.startswith("qk") else PV
-    packed = int(name.endswith("packed"))
+def kernel_resources(name: str, device=None) -> dict:
+    """What the kernel `name` (a key of KERNELS) takes on the card: its
+    dynamic shared memory a block, blocks an SM (the occupancy calculator),
+    registers a thread, local memory a thread (spills) and threads a
+    block."""
     lib = _library()
-    blocks = lib.bvt_packed_heads_blocks_per_sm(kernel, packed)
-    if blocks < 0:
-        kernels.check(lib, -blocks, f"{name} occupancy")
-    return lib.bvt_packed_heads_smem_bytes(kernel, packed), blocks
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = lib.bvt_packed_heads_resources(QK if name.startswith("qk") else PV,
+                                             int(name.endswith("packed")), out)
+    kernels.check(lib, err, f"{name} resources query")
+    return {"body": "wgmma", "smem_bytes": out[0], "blocks_per_sm": out[1],
+            "registers": out[2], "local_bytes": out[3], "threads": out[4]}
+
+
+def qk_plan(T: int, packed: bool = False) -> dict:
+    """How the scores kernel stages a strip at this T: rows a strip (64, or
+    fewer where a strip would not fit), strips in flight (staging buffers)
+    and a buffer's bytes. Raises where one row does not fit."""
+    lib = _library()
+    out = (ctypes.c_int * 3)()
+    kernels.check(lib, lib.bvt_qk_plan(T, int(packed), out), f"qk plan at T = {T}")
+    return {"rows": out[0], "buffers": out[1], "pitch": out[2]}
 
 
 def pv_check(out: torch.Tensor, ref: torch.Tensor) -> dict:

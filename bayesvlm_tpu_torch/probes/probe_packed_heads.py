@@ -143,8 +143,10 @@ def run(args) -> dict:
                                    f"{r['max_abs_err']:.3e} (tol {QK_TOL} abs + rel)")
         else:
             r = ph.pv_check(got, ref)
-        r["smem_bytes"], r["blocks_per_sm"] = (ph.block_resources(name)
-                                               if device.type == "cuda" else (None, None))
+        if device.type == "cuda":
+            r.update(ph.kernel_resources(name, device))
+        else:
+            r.update(smem_bytes=None, blocks_per_sm=None)
         out["kernels"][name] = r
     del s1, s2
 
@@ -209,7 +211,9 @@ def report(results: dict) -> int:
                         ("pv", "pv per-head"), ("pv_packed", "pv packed  ")):
         r = ks[name]
         block = ("" if r["smem_bytes"] is None else
-                 f"  [{r['smem_bytes']} B shared memory, {r['blocks_per_sm']} blocks/SM]")
+                 f"  [{r['smem_bytes']} B shared memory, {r['blocks_per_sm']} blocks/SM, "
+                 f"{r['threads']} threads of {r['registers']} registers, "
+                 f"{r['local_bytes']} B local]")
         speed = ""
         if name.endswith("packed") and r["ms"] is not None:
             speed = f" (x{ms[name[:-len('_packed')]] / r['ms']:.2f})"

@@ -113,9 +113,14 @@ Phases (any failure raises and exits non-zero, without the result line):
      tensor-core body, fp32 the CUDA-core body);
   10b. the packed-head and GEMM probe kernels (csrc/packed_heads.cu,
      csrc/tile_gemm.cu) vs plain: qk scores and p . v, per head and
-     packed, at B=80, T=257, H=16 and a ragged B=3, T=50, H=12 (qk rtol =
-     atol = 1e-4; pv one bf16 ulp and a mean |d| limit that a single bf16
-     rounding of p must exceed, both means printed); the GEMM at the
+     packed (wgmma; q, k, v, o by TMA, the fp32 tensor by bulk copies),
+     at B=80, T=257, H=16 and the ragged PACKED_SHAPES (qk rtol = atol =
+     1e-4; pv one bf16 ulp and a mean |d| limit that a single bf16
+     rounding of p must exceed, both means printed), with each kernel's
+     threads, registers, shared memory, blocks an SM and local memory,
+     the qk staging plan at each T, and at the probe's shape each
+     kernel's CUDA-event time beside its device time a call by
+     torch.profiler; the GEMM at the
      probes' M, K, N = 16384, 1024, 4096, a ragged 1000 x 128 x 1008 and
      1000 x 128 x 2144 (N past the last full epilogue box) and 1000 x 96
      x 1008 (K not a multiple of 64), bf16 and s8 on the wgmma body at
@@ -274,9 +279,15 @@ PROBE_EXTRAS = ("smem_bytes", "blocks_per_sm", "base_ms", "vs_base", "tops", "ti
 # the EPIG kernel), "mma" where they run on the tensor cores by mma.sync,
 # "simt" where they run as fp32 FMAs on the CUDA cores
 SOURCE_BODY = {"attention_block.cu": "wgmma", "mlp_int8.cu": "wgmma", "linear_int8.cu": "wgmma",
-               "xlogy_rowsum.cu": "wgmma", "smith_head.cu": "simt", "packed_heads.cu": "mma"}
-# the packed-head kernels at the probe's shape and a ragged one (B, T, H)
-PACKED_SHAPES = {"probe": (80, 257, 16), "ragged": (3, 50, 12)}
+               "xlogy_rowsum.cu": "wgmma", "smith_head.cu": "simt", "packed_heads.cu": "wgmma"}
+# the packed-head kernels at the probe's shape (first: the one timed) and
+# ragged ones (B, T, H): T mod 4 = 2, 3, 0, 1 (a last strip of one row), T =
+# 1, and T = 577 (two p chunks a side, qk strips of fewer than 64 rows
+# packed); probes/compare_builds.py --packed checks the same
+PACKED_SHAPES = {"probe": (80, 257, 16), "ragged": (3, 50, 12), "t63": (4, 63, 6),
+                 "t64": (3, 64, 4), "t65": (2, 65, 8), "t1": (3, 1, 2), "t577": (2, 577, 4)}
+# the launches inside one packed-head kernel call (csrc/packed_heads.cu)
+PACKED_PARTS = (("qk_kernel", r"qk_kernel"), ("pv_kernel", r"pv_kernel"))
 # the GEMM at the probes' shape and three ragged ones (M, K, N); N a
 # multiple of 16; "ragged-n" (N = 96 mod 128 and 256: the wgmma epilogue
 # skips the boxes past N); "ragged-k" (K not a multiple of a wgmma stage,
@@ -1438,11 +1449,20 @@ def phase_probes_vs_plain(torch, attention, av) -> None:
                       f"{where}: the mean tolerance does not pin the score rounding")
 
 
-def phase_packed_heads_vs_plain(torch, ph) -> None:
+def phase_packed_heads_vs_plain(torch, ph) -> dict:
     """qk and pv, per head and packed, vs plain: qk at 1e-4; pv within one
     bf16 ulp (ph.PV_TOL) and a mean |d| limit (ph.PV_MEAN_RTOL of the
-    mean |plain|), which a single bf16 rounding of p must exceed."""
+    mean |plain|), which a single bf16 rounding of p must exceed. Prints
+    each kernel's resources and, at the probe's shape, its CUDA-event time
+    beside its device time a call by torch.profiler (the difference is the
+    host's share of back-to-back calls); returns those device times."""
     print("packed-head probe kernels (csrc/packed_heads.cu) vs plain:")
+    for name in ph.KERNELS:
+        r = ph.kernel_resources(name)
+        print(f"  {name} resources: {r['threads']} threads of {r['registers']} registers, "
+              f"{r['smem_bytes']} B shared memory, {r['blocks_per_sm']} blocks/SM, "
+              f"{r['local_bytes']} B local")
+    parts = {}
     for label, (B, T, H) in PACKED_SHAPES.items():
         gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
         q, k, v = (torch.randn(B, T, H * 64, generator=gen, device="cuda").bfloat16()
@@ -1472,6 +1492,17 @@ def phase_packed_heads_vs_plain(torch, ph) -> None:
                   f"mean tol {r['mean_tol']:.3e}")
             check(mean_rounded > r["mean_tol"],
                   f"{where}: the mean tolerance does not pin the fp32 products")
+        plans = {packed: ph.qk_plan(T, packed) for packed in (False, True)}
+        print(f"  qk staging at T={T}: per head {plans[False]}, packed {plans[True]}")
+        if label != "probe":
+            continue
+        for name, (fn, _, _, _) in ph.KERNELS.items():
+            x, y = operands[name]
+            ms = cuda_ms(torch, lambda: fn(x, y, H))
+            parts[name] = _launch_parts(torch, lambda: fn(x, y, H), PACKED_PARTS, calls=20)
+            _print_parts(f"{name} {label} (CUDA events {ms:.4f} ms a call back to back)",
+                         parts[name])
+    return parts
 
 
 # the launches inside one s4-kind GEMM call (csrc/tile_gemm.cu)
@@ -1551,10 +1582,10 @@ def phase_probes(torch, counters) -> dict:
     return {"launches": launches, "results": results}
 
 
-def _probe_entries(probe_path: dict, gemm_parts: dict) -> list:
+def _probe_entries(probe_path: dict, parts: dict) -> list:
     """Each probe kernel's line, from its probe's numbers; the GEMMs that
-    the sweep also runs carry its tiles, the s4 kinds their launches timed
-    apart (`parts_ms`)."""
+    the sweep also runs carry its tiles, the s4 kinds and the packed-head
+    kernels their launches timed apart (`parts_ms`)."""
     results = probe_path["results"]
     swept = results["bench_int8_sweep"]["kernels"]
     entries = []
@@ -1565,8 +1596,8 @@ def _probe_entries(probe_path: dict, gemm_parts: dict) -> list:
         e.update((k, r[k]) for k in PROBE_EXTRAS if k in r)
         if name in swept:
             e.update(swept[name], also_replaces="scripts/dev/bench_int8_sweep.py:53")
-        if name in gemm_parts:
-            e["parts_ms"] = gemm_parts[name]
+        if name in parts:
+            e["parts_ms"] = parts[name]
         entries.append(e)
     return entries
 
@@ -1669,7 +1700,7 @@ def main() -> int:
         phase_tiny_reference(torch, attention, str(save_synthetic_hessians(
             tiny_siglip, TINY_SIGLIP_CONFIG, SEED)), "tiny-siglip", ("default",))
     phase_probes_vs_plain(torch, attention, av)
-    phase_packed_heads_vs_plain(torch, ph)
+    packed_parts = phase_packed_heads_vs_plain(torch, ph)
     gemm_parts = phase_gemm_vs_plain(torch, tg)
     probe_path = phase_probes(torch, all_counters)
 
@@ -1741,7 +1772,7 @@ def main() -> int:
              shapes={label: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                                "bound_ms", "bound_by")}
                      for label, r in smith.items()}),
-        *_probe_entries(probe_path, gemm_parts),
+        *_probe_entries(probe_path, {**gemm_parts, **packed_parts}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
