@@ -1,7 +1,8 @@
 """The kernels of two source trees, side by side on the card: the bf16
 attention kernels, (--gemm) the GEMM probes' kernels, (--int8) the int8
 lane's two kernels, (--epig) the EPIG joint-entropy kernel, or (--block)
-the attention sublayer kernel, or (--packed) the packed-head probe kernels.
+the attention sublayer kernel, (--packed) the packed-head probe kernels,
+or (--smith) the fused probit head.
 
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR [--changed v2 v3]
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --gemm
@@ -9,6 +10,7 @@ the attention sublayer kernel, or (--packed) the packed-head probe kernels.
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --epig
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --block
     python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --packed
+    python -m bayesvlm_tpu_torch.probes.compare_builds --a DIR --b DIR --smith
 
 Each DIR is a `csrc/` directory (this package's, or one unpacked from
 another commit with `git archive`). Its `attention.cu` and
@@ -84,6 +86,21 @@ equal a's is printed (a redesign that sums in another order moves them);
 at the probe's shape both trees are timed in the same turns. The exit code
 is 1 when either tree strays from plain.
 
+--smith: each tree's `smith_head.cu` is built and called through its C
+interface, `bvt_smith_head`, with the scratch that tree's interface asks
+for (a tree that exports `bvt_smith_head_max_classes` takes the image side
+as the TMA reads it and the class side's TF32 parts; an older one its
+k-major operands), on seeded operands at each of SMITH_SHAPES
+(chip_smoke.py's, then the zero-shot run's 2048 x 100 x 1024) at SigLIP's
+logit scale. Each tree's output is held to the plain version
+(`smith_probit_probs_reference`) at the JAX tolerance (rtol 1e-4, atol
+1e-5, rows summing to 1 within 1e-5) and its worst |d| / (atol + rtol
+|ref|) printed; two calls of a tree must give equal bits. b's bits are not
+compared with a's: a redesign that splits the operands or sums in another
+order moves them. Both trees are timed in the same turns at every shape
+but the ragged one. The exit code is 1 when either tree strays from plain
+or differs between two of its calls.
+
 There is no CPU mode: without a card and nvcc it raises.
 """
 
@@ -136,10 +153,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="compare the attention sublayer kernel's attention_block.cu instead")
     p.add_argument("--packed", action="store_true",
                    help="compare the packed-head probe kernels' packed_heads.cu instead")
+    p.add_argument("--smith", action="store_true",
+                   help="compare the fused probit head's smith_head.cu instead")
     args = p.parse_args(argv)
-    if args.gemm + args.int8 + args.epig + args.block + args.packed > 1:
-        p.error("--gemm, --int8, --epig, --block and --packed compare different kernels: "
-                "pass one")
+    if args.gemm + args.int8 + args.epig + args.block + args.packed + args.smith > 1:
+        p.error("--gemm, --int8, --epig, --block, --packed and --smith compare different "
+                "kernels: pass one")
     return args
 
 
@@ -747,6 +766,126 @@ def report_packed(results: dict) -> int:
     return 0 if right else 1
 
 
+# --smith: (B, C, D) of each case (chip_smoke.py's SMITH_SHAPES, then the
+# zero-shot run's shape), the logit scale (SigLIP's), the JAX tolerance
+# (tests/test_pallas_smith.py:30) and the calls a turn
+SMITH_SHAPES = {"imagenet vit-l/14": (2048, 1000, 768),
+                "flowers102 siglip-l": (2048, 102, 1024),
+                "predict head": (64, 100, 768),
+                "ragged": (37, 13, 80)}
+SMITH_CASES = {**SMITH_SHAPES, "zero-shot run": (2048, 100, 1024)}
+SMITH_LOGIT_SCALE = 4.7651
+SMITH_RTOL, SMITH_ATOL, SMITH_ROW_TOL = 1e-4, 1e-5, 1e-5
+SMITH_ITERS = 50
+
+
+def build_smith(csrc: Path, out: Path) -> ctypes.CDLL:
+    """smith_head.cu of csrc built into out and loaded, its entry point typed
+    for the interface that tree has."""
+    lib = _nvcc_all({"smith_head": "smith_head.cu"}, csrc, out)["smith_head"]
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tf32_split = hasattr(lib, "bvt_smith_head_max_classes")
+    lib.bvt_smith_head.argtypes = ([p, p, i, p, p, p, p, p, p, i, i, i, p] if lib.tf32_split
+                                   else [*[p] * 9, i, i, i, i, i, p])
+    lib.bvt_error_string.argtypes = [i]
+    lib.bvt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def smith_launcher(lib, se, sc, te, tc, log_scale, out):
+    """A call of one tree's fused head on the operands into out, with the
+    scratch its interface asks for."""
+    from bayesvlm_tpu_torch.probforward import kernels as pk
+
+    (B, D), C = se.shape, te.shape[0]
+    if lib.tf32_split:
+        se, sc, lds = pk._tma_rows(se, sc)
+        cp, dp = -(-C // 8) * 8, -(-D // 4) * 4
+        scratch = (torch.empty(6, cp, dp, device="cuda"), torch.empty(2, cp, device="cuda"))
+        args = [se.data_ptr(), sc.data_ptr(), lds, te.data_ptr(), tc.data_ptr(),
+                log_scale.data_ptr(), *(t.data_ptr() for t in scratch), out.data_ptr(),
+                B, C, D]
+    else:
+        ldb, ldc = -(-B // 4) * 4, -(-C // 4) * 4
+        scratch = (torch.empty(3, D, ldb, device="cuda"), torch.empty(3, D, ldc, device="cuda"),
+                   torch.empty(B + C, device="cuda"))
+        args = [se.data_ptr(), sc.data_ptr(), te.data_ptr(), tc.data_ptr(),
+                log_scale.data_ptr(), *(t.data_ptr() for t in scratch), out.data_ptr(),
+                B, C, D, ldb, ldc]
+
+    def call():
+        kernels.check(lib, lib.bvt_smith_head(*args, torch.cuda.current_stream().cuda_stream),
+                      "smith_head kernel")
+
+    call.keep = (se, sc, scratch)  # kept alive with the call
+    return call
+
+
+def run_smith(args) -> dict:
+    """Both trees' fused head at each case: each against plain, each twice
+    for its determinism, and (but the ragged case) both timed in turns."""
+    from bayesvlm_tpu_torch.probforward import kernels as pk
+
+    out = {"cases": {}}
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tmp:
+        libs = {}
+        for tag in ("a", "b"):
+            (Path(tmp) / tag).mkdir()
+            libs[tag] = build_smith(getattr(args, tag), Path(tmp) / tag)
+        log_scale = torch.full((1,), SMITH_LOGIT_SCALE, device="cuda")
+        for label, (B, C, D) in SMITH_CASES.items():
+            gen = torch.Generator(device="cuda").manual_seed(B + C + D)
+            ops = (torch.randn(B, D, generator=gen, device="cuda"),
+                   0.01 + 0.49 * torch.rand(B, D, generator=gen, device="cuda"),
+                   torch.randn(C, D, generator=gen, device="cuda"),
+                   0.01 + 0.49 * torch.rand(C, D, generator=gen, device="cuda"))
+            ref = pk.smith_probit_probs_reference(*ops, SMITH_LOGIT_SCALE)
+            outs = {tag: torch.full_like(ref, float("nan")) for tag in libs}
+            calls = {tag: smith_launcher(libs[tag], *ops, log_scale, outs[tag])
+                     for tag in libs}
+            r = {}
+            for tag, call in calls.items():
+                call()
+                first = outs[tag].clone()
+                call()
+                torch.cuda.synchronize()
+                err = (first - ref).abs()
+                r[f"{tag}_worst"] = float((err / (SMITH_ATOL + SMITH_RTOL * ref.abs())).max())
+                r[f"{tag}_row_err"] = float((first.sum(-1) - 1.0).abs().max())
+                r[f"{tag}_ok"] = r[f"{tag}_worst"] <= 1.0 and r[f"{tag}_row_err"] <= SMITH_ROW_TOL
+                r[f"{tag}_deterministic"] = bool(torch.equal(first, outs[tag]))
+            if label != "ragged":
+                times = {"a": [], "b": []}
+                for tag in TURNS:
+                    times[tag].append(cuda_ms(calls[tag], SMITH_ITERS))
+                r.update({f"{tag}_ms": min(times[tag]) for tag in libs})
+                r.update({f"{tag}_median_ms": statistics.median(times[tag]) for tag in libs})
+            out["cases"][(label, (B, C, D))] = r
+            del outs, calls, ref
+    return out
+
+
+def report_smith(results: dict) -> int:
+    print(f"card: {card_line()}")
+    print(f"fused probit head at s = {SMITH_LOGIT_SCALE} (times best / median of "
+          f"{len(TURNS) // 2} turns of {SMITH_ITERS}; worst: max |d| / (atol + rtol |ref|) "
+          f"against plain, <= 1 passes):")
+    for (label, (B, C, D)), r in results["cases"].items():
+        line = (f"  {label:20s} B={B} C={C} D={D}: a worst {r['a_worst']:.4f} rows "
+                f"{r['a_row_err']:.1e} deterministic {r['a_deterministic']}, b worst "
+                f"{r['b_worst']:.4f} rows {r['b_row_err']:.1e} deterministic "
+                f"{r['b_deterministic']}")
+        if "a_ms" in r:
+            line += (f"; a {r['a_ms']:.4f} / {r['a_median_ms']:.4f} ms, b {r['b_ms']:.4f} / "
+                     f"{r['b_median_ms']:.4f} ms (b/a {r['b_ms'] / r['a_ms']:.3f})")
+        print(line)
+    right = all(r[f"{tag}_ok"] and r[f"{tag}_deterministic"]
+                for r in results["cases"].values() for tag in "ab")
+    print(f"every output right and deterministic in both trees: {right}")
+    return 0 if right else 1
+
+
 def card_line() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -821,9 +960,11 @@ def report(results: dict) -> int:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.gemm or args.int8 or args.epig or args.block or args.packed:
+    if args.gemm or args.int8 or args.epig or args.block or args.packed or args.smith:
         if not torch.cuda.is_available():
             raise RuntimeError("compare_builds times kernels on the card: no CUDA device")
+        if args.smith:
+            return report_smith(run_smith(args))
         if args.packed:
             return report_packed(run_packed(args))
         if args.epig:

@@ -14,8 +14,10 @@ and variance of the Smith forward ever reaching device memory:
 
 with n = e^2 + sigma and E = sum(n) per row. The row-scaling prelude, the
 three products, the probit and the row softmax are the kernel's
-(csrc/smith_head.cu: a pre-pass writes the scaled operands k-major, then
-the fused kernel); the wrapper only checks and allocates.
+(csrc/smith_head.cu: a prepass splits the class side into TF32 parts,
+then the fused kernel runs the products on the tensor cores in three
+TF32 passes); the wrapper checks, pads the image side for the TMA where
+its rows need it, and allocates.
 
 - CUDA tensors launch the kernel or raise; nothing falls back to the
   plain version on the card.
@@ -34,6 +36,7 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from bayesvlm_tpu_torch import kernels
 from bayesvlm_tpu_torch.probforward.smith import _highest_fp32_matmul
@@ -64,25 +67,52 @@ def smith_probit_probs_reference(source_embeds, source_diag_cov, target_embeds,
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = kernels.load("smith_head")
-    lib.bvt_smith_head.argtypes = [
-        *[ctypes.c_void_p] * 9,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    lib.bvt_smith_head.restype = ctypes.c_int
-    lib.bvt_smith_head_smem_bytes.argtypes = [ctypes.c_int]
-    lib.bvt_smith_head_smem_bytes.restype = ctypes.c_long
-    lib.bvt_smith_head_smem_limit.argtypes = []
-    lib.bvt_smith_head_smem_limit.restype = ctypes.c_int
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bvt_smith_head.argtypes = [p, p, i, p, p, p, p, p, p, i, i, i, p]
+    lib.bvt_smith_head.restype = i
+    lib.bvt_smith_head_max_classes.argtypes = []
+    lib.bvt_smith_head_max_classes.restype = i
+    lib.bvt_smith_head_resources.argtypes = [i, i, i, p]
+    lib.bvt_smith_head_resources.restype = i
     return lib
 
 
 def max_classes() -> int:
-    """The largest class count whose [16, C] logits tile fits the current
-    card's shared memory per block (the kernel refuses larger C)."""
+    """The largest class count the kernel takes on the current card (it
+    refuses larger C): past one column tile of 128, each CTA of a cluster
+    of 8 keeps the logits of its tiles, 64 rows each, in shared memory
+    beside a ring of two stages."""
+    n = _library().bvt_smith_head_max_classes()
+    if n < 0:
+        raise RuntimeError(f"smith_head kernel: no device limits (cudaError {-n})")
+    return n
+
+
+RESOURCE_KEYS = ("nt", "tiles", "cluster", "stages", "smem_bytes", "registers",
+                 "local_bytes", "max_active_clusters", "k_stages")
+
+
+def kernel_resources(B: int, C: int, D: int) -> dict:
+    """The plan of a call at B, C, D (column tile NT, column tiles, cluster
+    width, ring stages, k stages of 16) and its kernel's resources (dynamic
+    shared memory, registers and local memory a thread, clusters the card
+    holds at once)."""
     lib = _library()
-    base, per_class = lib.bvt_smith_head_smem_bytes(0), 16 * 4
-    return (lib.bvt_smith_head_smem_limit() - base) // per_class
+    out = (ctypes.c_int * len(RESOURCE_KEYS))()
+    kernels.check(lib, lib.bvt_smith_head_resources(B, C, D, out), "smith_head resources")
+    return dict(zip(RESOURCE_KEYS, out))
+
+
+def _tma_rows(se: torch.Tensor, sc: torch.Tensor):
+    """se, sc [B, D] fp32 as the TMA reads them: rows a multiple of 16 bytes
+    apart from 16-byte aligned bases. Where D % 4 != 0 or a base is
+    misaligned, zero-padded copies [B, D rounded up to 4] (zero columns
+    change neither the products nor E). Returns (se, sc, row stride)."""
+    D = se.shape[1]
+    if D % 4 == 0 and se.data_ptr() % 16 == 0 and sc.data_ptr() % 16 == 0:
+        return se, sc, D
+    lds = -(-D // 4) * 4
+    return F.pad(se, (0, lds - D)), F.pad(sc, (0, lds - D)), lds
 
 
 def fused_probit_probs(source_embeds: torch.Tensor, source_diag_cov: torch.Tensor,
@@ -94,8 +124,8 @@ def fused_probit_probs(source_embeds: torch.Tensor, source_diag_cov: torch.Tenso
     (one on the card is read there, without a host sync).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
-    counted in `fused_probit_probs.launches`, or raise (a C past the
-    card's shared memory, `max_classes()`, among others)."""
+    counted in `fused_probit_probs.launches`, or raise (a C past
+    `max_classes()`, among others)."""
     operands = (source_embeds, source_diag_cov, target_embeds, target_diag_cov)
     if any(t.dim() != 2 for t in operands):
         raise ValueError("embeddings and covariances must be 2-d")
@@ -115,27 +145,25 @@ def fused_probit_probs(source_embeds: torch.Tensor, source_diag_cov: torch.Tenso
 
     lib = _library()
     with torch.cuda.device(device):
-        need, limit = lib.bvt_smith_head_smem_bytes(C), lib.bvt_smith_head_smem_limit()
-        if need > limit:
-            raise ValueError(f"smith_head kernel: C={C} classes need {need} bytes of "
-                             f"shared memory a block, the device allows {limit} "
-                             f"(C <= {max_classes()})")
+        limit = max_classes()
+        if C > limit:
+            raise ValueError(f"smith_head kernel: C={C} classes do not fit the shared "
+                             f"memory of a block beside its ring (C <= {limit})")
         se, sc, te, tc = (t.float().contiguous() for t in operands)
+        se, sc, lds = _tma_rows(se, sc)
         if isinstance(logit_scale, torch.Tensor):
             log_scale = logit_scale.to(device, torch.float32).reshape(1).contiguous()
         else:
             log_scale = torch.full((1,), float(logit_scale), dtype=torch.float32,
                                    device=device)
-        ldb, ldc = -(-B // 4) * 4, -(-C // 4) * 4
-        src = torch.empty(3, D, ldb, dtype=torch.float32, device=device)
-        tgt = torch.empty(3, D, ldc, dtype=torch.float32, device=device)
-        energy = torch.empty(B + C, dtype=torch.float32, device=device)
+        cp, dp = -(-C // 8) * 8, -(-D // 4) * 4
+        cls = torch.empty(6, cp, dp, dtype=torch.float32, device=device)
+        scales = torch.empty(2, cp, dtype=torch.float32, device=device)
         out = torch.empty(B, C, dtype=torch.float32, device=device)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.bvt_smith_head(se.data_ptr(), sc.data_ptr(), te.data_ptr(),
-                                 tc.data_ptr(), log_scale.data_ptr(), src.data_ptr(),
-                                 tgt.data_ptr(), energy.data_ptr(), out.data_ptr(),
-                                 B, C, D, ldb, ldc, stream)
+        err = lib.bvt_smith_head(se.data_ptr(), sc.data_ptr(), lds, te.data_ptr(),
+                                 tc.data_ptr(), log_scale.data_ptr(), cls.data_ptr(),
+                                 scales.data_ptr(), out.data_ptr(), B, C, D, stream)
     kernels.check(lib, err, "smith_head kernel")
     fused_probit_probs.launches += 1
     return out

@@ -65,8 +65,11 @@ Phases (any failure raises and exits non-zero, without the result line):
      vs plain in fp32 at B=2048 with C=1000, D=768 (ImageNet, ViT-L/14
      widths) and C=102, D=1024 (flowers102, SigLIP-L), at predict's head
      (B=64, C=100, D=768) and a ragged B=37, C=13, D=80: max |d| within
-     rtol 1e-4 / atol 1e-5, rows summing to 1 within 1e-5, CUDA-event
-     times and the bound; a C past the shared-memory limit must raise;
+     rtol 1e-4 / atol 1e-5 at SigLIP's logit scale, rows summing to 1
+     within 1e-5, the kernel's resources (registers, shared memory, local
+     memory, cluster width), CUDA-event times and two bounds (3xTF32 on
+     the tensor cores, the old fp32 CUDA-core one); a C past the
+     shared-memory limit must raise;
   6. bf16 main path: ProbabilisticVLM.from_pretrained("clip-large", bf16,
      seeded random towers, synthetic full-dimension K-FAC factors) ->
      set_class_prompts(100 prompts) -> predict on [64, 224, 224, 3]
@@ -204,9 +207,9 @@ INT8_EMBED_COS_MIN = 0.95
 # tiny-clip fp32 on the card vs on the CPU: fp32 summation order only
 TINY_TOL = 1e-4
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and operations/s
-# of the tensor cores by operand type
+# of the tensor cores by operand type (fp32: the CUDA cores)
 HBM_BYTES_S = 3.35e12
-PEAK_OPS_S = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12}
+PEAK_OPS_S = {"bf16": 989e12, "fp32": 67e12, "int8": 1979e12, "tf32": 494.7e12}
 # transcendentals (MUFU lg2) per SM per clock; the card's rate is this
 # times its SM count and maximum SM clock, read in phase_device
 MUFU_PER_SM_CLOCK = 16
@@ -276,10 +279,11 @@ PROBE_EXTRAS = ("smem_bytes", "blocks_per_sm", "base_ms", "vs_base", "tops", "ti
 # that widens their nibbles to s8): "wgmma" where its
 # products run on wgmma fed by TMA with the PTX of csrc/wgmma_gemm.cuh
 # (the attention sublayer's bf16 projections, the int8 lane's two kernels,
-# the EPIG kernel), "mma" where they run on the tensor cores by mma.sync,
-# "simt" where they run as fp32 FMAs on the CUDA cores
+# the EPIG kernel, the fused head's 3xTF32 products), "mma" where they run
+# on the tensor cores by mma.sync, "simt" where they run as fp32 FMAs on
+# the CUDA cores
 SOURCE_BODY = {"attention_block.cu": "wgmma", "mlp_int8.cu": "wgmma", "linear_int8.cu": "wgmma",
-               "xlogy_rowsum.cu": "wgmma", "smith_head.cu": "simt", "packed_heads.cu": "wgmma"}
+               "xlogy_rowsum.cu": "wgmma", "smith_head.cu": "wgmma", "packed_heads.cu": "wgmma"}
 # the packed-head kernels at the probe's shape (first: the one timed) and
 # ragged ones (B, T, H): T mod 4 = 2, 3, 0, 1 (a last strip of one row), T =
 # 1, and T = 577 (two p chunks a side, qk strips of fewer than 64 rows
@@ -931,20 +935,34 @@ def _smith_check(torch, pk, label: str, ops, logit_scale, ref=None) -> dict:
 
 
 def _smith_bound(B: int, C: int, D: int) -> dict:
-    """6 B C D fp32 operations (three products of 2 B C D) against the
-    four fp32 operands read and the [B, C] output written once."""
-    return bound(4 * (2 * B * D + 2 * C * D + B * C), 6 * B * C * D, "fp32")
+    """The least time at the accuracy the head is held to: three TF32
+    passes of the three products, 18 B C D operations at the TF32 tensor
+    rate, against the four fp32 operands read and the [B, C] output written
+    once; beside it (fp32_bound_ms) the old yardstick, 6 B C D fp32
+    operations on the CUDA cores."""
+    nbytes = 4 * (2 * B * D + 2 * C * D + B * C)
+    fp32 = bound(nbytes, 6 * B * C * D, "fp32")
+    return {**bound(nbytes, 18 * B * C * D, "tf32"), "fp32_bound_ms": fp32["bound_ms"],
+            "fp32_bound_by": fp32["bound_by"]}
 
 
 def phase_smith_vs_plain(torch, pk) -> dict:
     """The fused probit head kernel vs plain, fp32, at the CLI's and
     predict's shapes and a ragged one; a C past the limit must raise."""
     logit_scale = 4.7651  # SigLIP's (models/encoders.DEFAULT_LOGIT_SCALE)
-    print("fused probit head (csrc/smith_head.cu) vs plain, fp32:")
+    print("fused probit head (csrc/smith_head.cu: 3xTF32 wgmma, split-k clusters) vs "
+          "plain, fp32:")
     results = {}
     for i, (label, (B, C, D)) in enumerate(SMITH_SHAPES.items()):
         ops = _smith_operands(torch, B, C, D, SEED + 10 + i)
         r = _smith_check(torch, pk, f"{label} B={B} C={C} D={D}", ops, logit_scale)
+        res = pk.kernel_resources(B, C, D)
+        print(f"    resources: {res['registers']} registers, {res['smem_bytes']} B shared "
+              f"memory, {res['local_bytes']} B local a thread; clusters of "
+              f"{res['cluster']} (k split), {res['max_active_clusters']} at once; column "
+              f"tile {res['nt']} x {res['tiles']}, {res['stages']} stages")
+        r.update(registers=res["registers"], smem_bytes=res["smem_bytes"],
+                 local_bytes=res["local_bytes"], cluster=res["cluster"])
         if label == "ragged":
             continue
         r["ms"] = cuda_ms(torch, lambda: pk.fused_probit_probs(*ops, logit_scale))
@@ -952,7 +970,9 @@ def phase_smith_vs_plain(torch, pk) -> dict:
             *ops, logit_scale))
         r.update(_smith_bound(B, C, D))
         print(f"    kernel_ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} (the eager "
-              f"cuBLAS fp32 chain) bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
+              f"cuBLAS fp32 chain) bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, 3xTF32 "
+              f"on the tensor cores) fp32_bound_ms={r['fp32_bound_ms']:.4f} "
+              f"({r['fp32_bound_by']}, fp32 on the CUDA cores)")
         results[label] = r
     limit = pk.max_classes()
     ops = _smith_operands(torch, 4, limit + 1, 16, SEED + 20)
@@ -1039,7 +1059,8 @@ def phase_zeroshot(torch, counters, hessian_dir: str) -> dict:
     fused.update(_smith_bound(B, C, D))
     print(f"  fused head B={B} C={C} D={D}: kernel_ms={fused['ms']:.4f} "
           f"plain_ms={fused['plain_ms']:.4f} bound_ms={fused['bound_ms']:.4f} "
-          f"({fused['bound_by']}); sigma (both sides) {fused['sigma_ms']:.4f} ms; "
+          f"({fused['bound_by']}, 3xTF32) fp32_bound_ms={fused['fp32_bound_ms']:.4f}; "
+          f"sigma (both sides) {fused['sigma_ms']:.4f} ms; "
           f"yardstick (reference only) the CLI's eager chain from the features, "
           f"sigma included: {fused['cli_chain_ms']:.4f} ms")
     return {"launches": launches, "head": fused, "seconds": sec, "img_s": img_s}
@@ -1769,8 +1790,11 @@ def main() -> int:
                     zs_path["launches"]["smith_head"], zs_path["head"], None),
              cli_chain_ms=zs_path["head"]["cli_chain_ms"],
              sigma_ms=zs_path["head"]["sigma_ms"],
+             fp32_bound_ms=zs_path["head"]["fp32_bound_ms"],
              shapes={label: {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                               "bound_ms", "bound_by")}
+                                               "bound_ms", "bound_by", "fp32_bound_ms",
+                                               "registers", "smem_bytes", "local_bytes",
+                                               "cluster")}
                      for label, r in smith.items()}),
         *_probe_entries(probe_path, {**gemm_parts, **packed_parts}),
     ]}))
