@@ -25,6 +25,14 @@ class KroneckerFactorizedCovariance:
     A_inv: torch.Tensor
     B_inv: torch.Tensor
 
+    @property
+    def input_dim(self) -> int:
+        return self.A_inv.shape[0]
+
+    @property
+    def output_dim(self) -> int:
+        return self.B_inv.shape[0]
+
 
 def regularize_kfac_factor(F: torch.Tensor, n, lmbda) -> torch.Tensor:
     """`F * sqrt(n) + sqrt(lambda) * I` (ref:bayesvlm/hessians.py:176-179)."""

@@ -16,6 +16,7 @@ lambda values depend on this convention, so it is kept as it is.
 from __future__ import annotations
 
 import math
+from typing import Iterable
 
 import torch
 
@@ -76,3 +77,14 @@ def optimize_prior_precision(
         neg_marglik.backward()
         opt.step()
     return torch.exp(log_lmbda.detach())
+
+
+def l2_norm_squared(params: Iterable[torch.Tensor]) -> torch.Tensor:
+    """Sum of squared entries over tensors, in fp32
+    (ref:bayesvlm/hessians.py:267-268)."""
+    return sum(p.float().square().sum() for p in params)
+
+
+def param_count(params: Iterable[torch.Tensor]) -> int:
+    """Total number of entries over tensors (ref:bayesvlm/hessians.py:270-271)."""
+    return int(sum(p.numel() for p in params))

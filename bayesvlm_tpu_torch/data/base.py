@@ -1,7 +1,7 @@
 """DataModule base class — the contract every dataset module implements
 (ref:bayesvlm/data/*, SURVEY §2.5):
 
-    ctor(batch_size, num_workers, text_prompt, train_transform,
+    ctor(data_dir, batch_size, num_workers, text_prompt, train_transform,
          test_transform, shuffle_train)
     setup()
     train_dataloader() / val_dataloader() / test_dataloader()
@@ -9,21 +9,26 @@
 
 This replaces LightningDataModule with a plain Python base (no Lightning
 dependency in the compute path). The port's copy of
-`bayesvlm_tpu.data.base`, cut to what the registered in-memory module
-needs: the file-backed modules' options (data directory, subsets,
-few-shot sampling) come with those modules (ROADMAP Queue 1).
+`bayesvlm_tpu.data.base`, cut to what the registered modules need:
+`data_dir` is the module's dataset directory (the factory joins
+`DATA_BASE_DIR` with the module's `DATASET_SUBDIR`); subsets and
+few-shot sampling come with the file-backed modules (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Callable, List, Optional
 
 from bayesvlm_tpu_torch.data.loader import DataLoader
 
 
 class DataModule:
+    DATASET_SUBDIR: str = ""
+
     def __init__(
         self,
+        data_dir: str = "",
         batch_size: int = 32,
         num_workers: int = 4,
         text_prompt: str = "An image of a {class_name}",
@@ -31,6 +36,7 @@ class DataModule:
         test_transform: Optional[Callable] = None,
         shuffle_train: bool = True,
     ):
+        self.data_dir = Path(data_dir) if data_dir else Path(".")
         self.batch_size = batch_size
         self.num_workers = num_workers
         self.text_prompt = text_prompt

@@ -1,21 +1,43 @@
 """Dataset registry + factory (ref:bayesvlm/data/factory.py), the port's
 copy of `bayesvlm_tpu.data.factory`.
 
-Only `synthetic` is registered: the other modules of the JAX package's
-registry read dataset files and are not ported yet (ROADMAP Queue 1);
-the data directory (`DATA_BASE_DIR`) and the subset and few-shot options
-come with them.
+Each module's data directory is the `DATA_BASE_DIR` environment variable
+(read from a `.env` file in the working directory when the environment
+lacks it, parsed without python-dotenv), or the factory's `base_path`,
+joined with the module's DATASET_SUBDIR (ref:factory.py:116-127).
+Registered: `laion400m` (the Stage-1 webdataset tars) and `synthetic`;
+the other modules of the JAX package's registry, and the subset and
+few-shot options, come with the file-backed modules (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
+
+from bayesvlm_tpu_torch.data.laion400m import Laion400mDataModule
 from bayesvlm_tpu_torch.data.synthetic import SyntheticDataModule
 from bayesvlm_tpu_torch.data.transforms import default_transform
 
 SUPPORTED_MODULES = {
+    "laion400m": Laion400mDataModule,
     # testing / benchmarking (no reference counterpart)
     "synthetic": SyntheticDataModule,
 }
+
+
+def _load_dotenv():
+    """Parse a .env file in cwd (python-dotenv replacement,
+    ref:factory.py:117-118); the environment wins."""
+    env_path = Path(".env")
+    if not env_path.exists():
+        return
+    for line in env_path.read_text().splitlines():
+        line = line.strip()
+        if not line or line.startswith("#") or "=" not in line:
+            continue
+        k, v = line.split("=", 1)
+        os.environ.setdefault(k.strip(), v.strip().strip('"').strip("'"))
 
 
 class DataModuleFactory:
@@ -27,7 +49,9 @@ class DataModuleFactory:
         train_transform=None,
         test_transform=None,
         shuffle_train: bool = True,
+        base_path: str = None,
     ):
+        self.base_path = base_path
         self.kwargs = dict(
             batch_size=batch_size,
             num_workers=num_workers,
@@ -44,4 +68,8 @@ class DataModuleFactory:
             raise ValueError(
                 f"Unknown dataset '{name}'. Supported: {sorted(SUPPORTED_MODULES)}"
             )
-        return SUPPORTED_MODULES[name](**{**self.kwargs, **overrides})
+        cls = SUPPORTED_MODULES[name]
+        _load_dotenv()
+        base = self.base_path or os.environ.get("DATA_BASE_DIR", "")
+        data_dir = Path(base) / cls.DATASET_SUBDIR if base else Path(cls.DATASET_SUBDIR)
+        return cls(**{"data_dir": str(data_dir), **self.kwargs, **overrides})

@@ -3,17 +3,18 @@ port's counterpart of `bayesvlm_tpu.inference.precompute`:
 
     embeddings_img.pt activations_img.pt residuals_img.pt class_ids_img.pt
     image_ids.pt embeddings_txt.pt activations_txt.pt
+    activations_{tag}.pt embeddings_{tag}.pt          (Hessian estimation)
 
 Plain tensors in torch's zip format (`torch.save` / `torch.load`), the
 files the reference and the JAX package write and read. A cache hit
 short-circuits as in the reference, so an interrupted run resumes for
-free. `checkpoint_every=k` (with `save_predictions`) also writes the
-accumulated features as atomic part files every k batches
-(`<cache_dir>/_parts_img/part_*.npz`, tmp + rename, the JAX package's
-layout and keys): a restarted pass resumes after the last completed
-part, never re-encodes a sample (the loader is fast-forwarded by exact
-sample count, mid-batch too), and writes the same final files as an
-uninterrupted run. Parts are deleted once the final files land. Needs a
+free. `checkpoint_every=k` (with `save_predictions`, or with
+`compute_features`' `cache_dir`) also writes the accumulated features
+as atomic part files every k batches (`<cache_dir>/_parts_<tag>/
+part_*.npz`, tmp + rename, the JAX package's layout and keys): a
+restarted pass resumes after the last completed part, never re-encodes
+a sample (the loader is fast-forwarded by exact sample count, mid-batch
+too), and writes the same final files as an uninterrupted run. Parts are deleted once the final files land. Needs a
 deterministic loader order.
 
 Eager torch needs no fixed batch shape: the last, short batch is encoded
@@ -218,3 +219,72 @@ def precompute_text_features(
         _save(embeds, embeds_path)
         _save(activations, activations_path)
     return EncoderResult.create(embeds=embeds, activations=activations)
+
+
+def compute_features(
+    encoder,
+    loader: Iterable,
+    tag: str = None,
+    cache_dir: Optional[PathLike] = None,
+    return_tensors: bool = False,
+    modality: str = "image",
+    checkpoint_every: Optional[int] = None,
+):
+    """Streaming feature dump for Hessian estimation
+    (ref:bayesvlm/precompute.py:173-205): the image tower over each
+    batch's "image" (`modality="image"`) or the text tower over its
+    "text". With a `cache_dir`, writes `activations_{tag}.pt` and
+    `embeddings_{tag}.pt` there and returns their paths (the tensors with
+    `return_tensors`); a cache hit returns without encoding. Without one,
+    returns (activations, embeddings) on the encoder's device.
+
+    `checkpoint_every=k` (with a `cache_dir`) writes part files every k
+    batches, and a restarted call resumes after the last one without
+    re-encoding a sample (module docstring)."""
+    if cache_dir is not None:
+        cache_dir = Path(cache_dir)
+        cache_dir.mkdir(parents=True, exist_ok=True)
+        path_activations = cache_dir / f"activations_{tag}.pt"
+        path_embeddings = cache_dir / f"embeddings_{tag}.pt"
+        if path_activations.exists() and path_embeddings.exists():
+            if return_tensors:
+                return (_load(path_activations, encoder.device),
+                        _load(path_embeddings, encoder.device))
+            return str(path_activations), str(path_embeddings)
+
+    parts_dir = (cache_dir / f"_parts_{tag}"
+                 if checkpoint_every and cache_dir is not None else None)
+    acc = _PartedAccumulator(("activations", "embeddings"), parts_dir)
+    skip, consumed = acc.resumed_rows, 0
+    batches_since_flush = 0
+    for batch in loader:
+        if modality == "image":
+            images, consumed = _skip_done(np.asarray(batch["image"]), consumed, skip)
+            if images is None:
+                continue
+            n = len(images)
+            r = encoder(images)
+        else:
+            texts, consumed = _skip_done(batch["text"], consumed, skip)
+            if texts is None:
+                continue
+            n = len(texts)
+            r = encoder.encode_texts(texts)
+        consumed += n
+        acc.push("activations", r.activations)
+        acc.push("embeddings", r.embeds)
+        batches_since_flush += 1
+        if parts_dir is not None and batches_since_flush >= checkpoint_every:
+            acc.flush()
+            batches_since_flush = 0
+
+    activations = acc.concat("activations", encoder.device)
+    embeddings = acc.concat("embeddings", encoder.device)
+    if cache_dir is None:
+        return activations, embeddings
+    _save(activations, path_activations)
+    _save(embeddings, path_embeddings)
+    acc.cleanup()
+    if return_tensors:
+        return activations, embeddings
+    return str(path_activations), str(path_embeddings)

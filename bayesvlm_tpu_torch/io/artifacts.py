@@ -10,29 +10,68 @@ Directory layout (ref:bayesvlm/hessians.py:137-167,203-217):
 
 The `.pt` files are plain tensors in torch's zip format, which both the
 reference's `torch.save` and the JAX package's writer (with or without
-torch installed) produce.
+torch installed) produce. The JAX package's second lane, an orbax
+checkpoint under `<la_dir>/factors_orbax`, is not read here.
 """
 
 from __future__ import annotations
 
 import json
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Literal, Union
 
 import numpy as np
 import torch
 
+from bayesvlm_tpu_torch.bayes.kfac import compute_covariances
+
 PathLike = Union[str, Path]
 
 
-def load_hessians(la_dir: PathLike, tag: Literal["img", "txt"]):
-    """Raw fp32 A, B factors for one direction, on the CPU
+@dataclass
+class HessianArtifacts:
+    A_img: torch.Tensor
+    B_img: torch.Tensor
+    A_txt: torch.Tensor
+    B_txt: torch.Tensor
+    info: dict
+
+
+def load_info(la_dir: PathLike) -> dict:
+    with open(Path(la_dir) / "prior_precision_analytic.json") as f:
+        return json.load(f)
+
+
+def load_hessians(la_dir: PathLike, tag: Literal["img", "txt"],
+                  return_info: bool = False):
+    """Raw fp32 A, B factors for one direction, on the CPU, and with
+    `return_info` the prior-precision info too
     (ref:bayesvlm/hessians.py:203-217)."""
     la_dir = Path(la_dir)
-    return tuple(
-        torch.load(la_dir / f"{name}_{tag}_analytic.pt", map_location="cpu",
-                   weights_only=True).to(torch.float32)
-        for name in ("A", "B"))
+    paths = [la_dir / f"{name}_{tag}_analytic.pt" for name in ("A", "B")]
+    if not all(p.exists() for p in paths) and (la_dir / "factors_orbax").exists():
+        raise FileNotFoundError(
+            f"{la_dir} holds the factors only as an orbax checkpoint "
+            f"(factors_orbax/), which the port does not read yet; write the "
+            f".pt files with the JAX package's artifacts.save_hessians")
+    A, B = (torch.load(p, map_location="cpu", weights_only=True).to(torch.float32)
+            for p in paths)
+    if return_info:
+        return A, B, load_info(la_dir)
+    return A, B
+
+
+def load_covariances(la_dir: PathLike, return_info: bool = False):
+    """All four factors, regularized with the stored (n, lambda) and
+    inverted, on the CPU (ref:bayesvlm/hessians.py:137-167)."""
+    A_img, B_img = load_hessians(la_dir, "img")
+    A_txt, B_txt = load_hessians(la_dir, "txt")
+    info = load_info(la_dir)
+    cov_img, cov_txt = compute_covariances(A_img, B_img, A_txt, B_txt, info)
+    if return_info:
+        return cov_img, cov_txt, info
+    return cov_img, cov_txt
 
 
 def save_hessians(la_dir: PathLike, A, B, tag: Literal["img", "txt"]) -> None:

@@ -21,3 +21,28 @@ MODEL_NAME_MAP = {
 def get_image_size(model_str: str) -> int:
     _, _, size = MODEL_NAME_MAP[model_str]
     return size
+
+
+def get_likelihood(model_type: str) -> str:
+    """'clip' -> info_nce, anything else -> siglip
+    (ref:bayesvlm/utils.py:23-26). A full model name ('tiny-siglip',
+    'clip-base') resolves through its family; a bare 'tiny' is ambiguous
+    (tiny-clip vs tiny-siglip) and raises."""
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+
+    if model_type in CONFIGS_BY_NAME:
+        return get_likelihood_for_model(model_type)
+    if model_type == "tiny":
+        raise ValueError(
+            "'tiny' is ambiguous (tiny-clip vs tiny-siglip); pass the full "
+            "model name or use get_likelihood_for_model()"
+        )
+    return "info_nce" if model_type == "clip" else "siglip"
+
+
+def get_likelihood_for_model(model_str: str) -> str:
+    """The contrastive likelihood of a model name's family."""
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+
+    family = CONFIGS_BY_NAME[model_str].family
+    return "info_nce" if family == "clip" else "siglip"

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Stage-2 and Stage-3 paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's Stage-1, Stage-2 and Stage-3 paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -85,6 +85,22 @@ Phases (any failure raises and exits non-zero, without the result line):
      set_class_prompts -> predict; checks 24 attention_block launches
      and no other per forward, none from the text tower, and the
      embeddings' cosine against the bf16 lane's; prints img/s;
+  7c. Stage 1 at clip-large width through the port's CLI,
+     hessian_estimation.main: seeded bf16 towers, `synthetic` with 8192
+     pairs of 224 px and 8192 distinct captions, batch 64, one class
+     batch of 8192 (GGN block 2048), 300 lambda steps; prints the seconds
+     of each step (features img / txt, GGN img / txt, lambda img / txt),
+     pairs/s of the feature pass and the GGN's share of the wall; checks
+     24 attention launches per image forward (3,072) and no other, the
+     artifact directory (feature caches, A/B factors, prior precision),
+     the factors finite, symmetric and SPD once regularized (Cholesky),
+     and from_pretrained on that directory -> predict on 64 images;
+  7d. kfac_ggn alone at one class batch of 32,768 seeded pairs (block
+     2048): InfoNCE at clip-large's dims (embeddings 768, activations
+     1024) and SigLIP at siglip-large's (1024, 4096 + bias, targets in
+     chunks of 8000), at "highest" (fp32) and "high" (3xTF32): ms and
+     pairs/s beside the fp32 bound, and B against a float64 evaluation of
+     the same formula (max |d| / max |ref| <= 1e-4 and 1e-3);
   8. Stage-3 online EPIG path at clip-large width: from_pretrained, 6000
      pool and 2000 target images of seeded pixels and 65 prompts encoded,
      then select_epig_online(budget=3, num_samples=100,
@@ -144,8 +160,8 @@ Phases (any failure raises and exits non-zero, without the result line):
      body they launched, their shared memory, registers and blocks an
      SM), then the result line {"ok": true, "device": {...}} last.
 
-Each path's launch counts are set to 0 just before it and read just
-after; the launches of phases 3, 4, 5, 5b, 10's and 10b's comparisons
+Each path's launch counts (the Stage-1 CLI's too) are set to 0 just
+before it and read just after; the launches of phases 3, 4, 5, 5b, 10's and 10b's comparisons
 are not counted.
 """
 
@@ -157,6 +173,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -239,6 +256,23 @@ SMITH_SHAPES = {"imagenet vit-l/14": (2048, 1000, 768),
 # Stage-2 zero-shot evaluation (scripts/zeroshot.py's chain) at full width
 ZS_MODEL, ZS_IMAGES, ZS_CLASSES, ZS_BATCH, ZS_IMAGE_SIZE = (
     "siglip-large", 2048, 100, 64, 256)
+# Stage 1 (scripts/hessian_estimation.py) at full width through the CLI:
+# synthetic pairs with distinct captions, one class batch
+S1_MODEL, S1_PAIRS, S1_BATCH, S1_IMAGE_SIZE, S1_LA_BATCH, S1_LAMBDA_STEPS = (
+    "clip-large", 8192, 64, 224, 2048, 300)
+# kfac_ggn alone at the CLI's default class batch (--la_num_classes 32768,
+# --la_batch_size 2048, --siglip_chunk_size 8000): likelihood -> (model
+# whose dims it takes, embedding dim, activation dim, logit scale, bias)
+GGN_PAIRS, GGN_BLOCK, GGN_CHUNK_J = 32768, 2048, 8000
+GGN_CASES = {"info_nce": ("clip-large", 768, 1024, 4.6052, 0.0),
+             "siglip": ("siglip-large", 1024, 4096, 4.7651, -16.5)}
+# max |B - B_fp64| / max |B_fp64|: fp32 at tests/test_hessians.py's rtol,
+# 3xTF32 at the bound of JAX's test_infonce_precision_high_close_to_highest
+GGN_TOL = {"highest": 1e-4, "high": 1e-3}
+# kfac_ggn's device time by kind (torch.profiler kernel names; cuBLAS
+# GEMMs by their library names, anything else "other": elementwise)
+GGN_PARTS = (("GEMM", r"gemm|xmma|cutlass|Kernel2"), ("softmax", r"softmax"),
+             ("reductions", r"reduce"))
 # EPIG past the resident block's shared memory: the streamed instantiation
 EPIG_LONG_POOL, EPIG_LONG_TARG, EPIG_LONG_K = 1000, 500, 400
 # the probes of scripts/dev/, each run through its module's run and report
@@ -1066,6 +1100,162 @@ def phase_zeroshot(torch, counters, hessian_dir: str) -> dict:
     return {"launches": launches, "head": fused, "seconds": sec, "img_s": img_s}
 
 
+def phase_stage1(torch, counters, pixels, prompts) -> dict:
+    """Stage 1 through the port's CLI (`hessian_estimation.main`) at
+    clip-large width: S1_PAIRS synthetic pairs of S1_IMAGE_SIZE px with
+    distinct captions, one class batch, every count set to 0 just before
+    and read just after; then the artifact directory's contract and
+    from_pretrained -> predict on it."""
+    from bayesvlm_tpu_torch import hessian_estimation
+    from bayesvlm_tpu_torch.bayes.kfac import regularize_kfac_factor
+    from bayesvlm_tpu_torch.io.artifacts import load_hessians
+    from bayesvlm_tpu_torch.kernels import BUILD_DIR
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+    from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
+
+    config = CONFIGS_BY_NAME[S1_MODEL]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as hdir:
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = hessian_estimation.main(
+            dataset="synthetic", model_str=S1_MODEL, precompute_batch_size=S1_BATCH,
+            la_num_classes=S1_PAIRS, la_batch_size=S1_LA_BATCH, num_workers=8,
+            hessian_dir=hdir, num_steps=S1_LAMBDA_STEPS, device="cuda",
+            dataset_overrides=dict(image_size=S1_IMAGE_SIZE, num_test=S1_PAIRS,
+                                   num_classes=S1_PAIRS))
+        wall = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+        expected = dict.fromkeys(counters, 0)
+        expected["attention"] = config.vision.num_layers * (S1_PAIRS // S1_BATCH)
+        sec = run["seconds"]
+        feature_s = sec["img features"] + sec["txt features"]
+        ggn_s = sec["GGN img"] + sec["GGN txt"]
+        print(f"Stage-1 path ({S1_MODEL}, bf16 towers, synthetic {S1_PAIRS} pairs of "
+              f"{S1_IMAGE_SIZE} px, batch {S1_BATCH}, one class batch of {S1_PAIRS}, "
+              f"GGN block {S1_LA_BATCH}, {S1_LAMBDA_STEPS} lambda steps): "
+              f"lambda_img={run['lambda_img']!r} lambda_txt={run['lambda_txt']!r} "
+              f"wall_s={wall:.3f} launches={launches}")
+        for step, seconds in sec.items():
+            print(f"  Stage-1 step {step}: {seconds:.3f} s")
+        print(f"  feature pass: {S1_PAIRS / feature_s:.1f} pairs/s (images "
+              f"{S1_PAIRS / sec['img features']:.1f}/s, captions "
+              f"{S1_PAIRS / sec['txt features']:.1f}/s; the text pass redraws the "
+              f"images, as in JAX); GGN share of the wall {ggn_s / wall:.4f}")
+        check(launches == expected, f"Stage-1 launches: expected {expected}, got {launches}")
+
+        names = [f"{k}_{t}.pt" for k in ("activations", "embeddings") for t in ("img", "txt")]
+        names += [f"{f}_{t}_analytic.pt" for f in "AB" for t in ("img", "txt")]
+        names.append("prior_precision_analytic.json")
+        missing = [n for n in names if not (Path(hdir) / n).exists()]
+        check(not missing, f"missing artifacts {missing}")
+        dims = {"img": (config.vision.hidden_size, config.vision.projection_dim),
+                "txt": (config.text.hidden_size, config.text.projection_dim)}
+        for tag in ("img", "txt"):
+            A, B, info = load_hessians(hdir, tag, return_info=True)
+            check((tuple(A.shape), tuple(B.shape)) == tuple((d, d) for d in dims[tag]),
+                  f"{tag} factor shapes {tuple(A.shape)}, {tuple(B.shape)}")
+            for name, F in (("A", A), ("B", B)):
+                F = F.cuda()
+                asym = float((F - F.T).abs().max() / F.abs().max())
+                chol = torch.linalg.cholesky_ex(regularize_kfac_factor(
+                    F, info[f"n_{tag}"], info[f"lambda_{tag}"])).info
+                print(f"  {name}_{tag} {tuple(F.shape)}: max |F - F^T| / max |F| = "
+                      f"{asym:.2e}, Cholesky of F sqrt(n) + sqrt(lambda) I info={int(chol)}")
+                check(bool(torch.isfinite(F).all()), f"{name}_{tag} not finite")
+                check(asym <= 1e-6, f"{name}_{tag} not symmetric ({asym:.2e})")
+                check(int(chol) == 0, f"{name}_{tag}: regularized factor not SPD")
+
+        vlm = ProbabilisticVLM.from_pretrained(S1_MODEL, hdir, device="cuda", seed=SEED)
+        vlm.set_class_prompts(prompts)
+        probs = vlm.predict(pixels)
+        row_err = float((probs.sum(-1) - 1.0).abs().max())
+        print(f"  from_pretrained on the Stage-1 directory -> predict: shape "
+              f"{tuple(probs.shape)}, row_sum_err={row_err:.2e}, lambda_img="
+              f"{vlm.info['lambda_img']!r}")
+        check(tuple(probs.shape) == (BATCH, NUM_PROMPTS), f"shape {tuple(probs.shape)}")
+        check(bool(torch.isfinite(probs).all()), "non-finite probabilities")
+        check(row_err <= 1e-5, f"rows sum to 1 within {row_err:.2e}")
+        del vlm
+    return {"launches": launches, "seconds": sec, "wall_s": wall,
+            "pairs_s": S1_PAIRS / feature_s, "ggn_share": ggn_s / wall}
+
+
+def _ggn_bound(likelihood: str, N: int, D: int, P: int) -> dict:
+    """fp32 bound of one class batch of kfac_ggn, counted from
+    bayes/hessians.py: the [N, C] x [C, D]-shaped products (InfoNCE three:
+    U Y^T, P Y, (P*Z) Y; SigLIP two: U Y^T, (C*Z) Y), the w products, the
+    D x D Grams of the block statistics (InfoNCE four, SigLIP three), the
+    assembly's sqrt(w) Y Gram and the activation Gram (P + 1 wide for
+    SigLIP's bias); bytes: the three inputs read once, both factors
+    written once."""
+    C = N
+    if likelihood == "info_nce":
+        ops = 6 * N * C * D + 2 * N * C + 8 * N * D * D
+    else:
+        P += 1
+        ops = 4 * N * C * D + 2 * N * C + 6 * N * D * D
+    ops += 2 * C * D * D + 2 * N * P * P
+    nbytes = 4 * (2 * N * D + N * P + D * D + P * P)
+    return {**bound(nbytes, ops, "fp32"), "tflop": ops / 1e12}
+
+
+def phase_ggn(torch) -> dict:
+    """kfac_ggn alone at one class batch of GGN_PAIRS seeded pairs (block
+    GGN_BLOCK; SigLIP's targets in chunks of GGN_CHUNK_J), InfoNCE at
+    clip-large's dims and SigLIP at siglip-large's, at both precisions:
+    B held against a float64 evaluation of the same formula, times beside
+    the fp32 bound."""
+    from bayesvlm_tpu_torch.bayes import estimation, hessians
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    N = GGN_PAIRS
+    results = {}
+    for lik, (model, D, P, scale, bias) in GGN_CASES.items():
+        src, tgt = (torch.randn(N, D, generator=gen, device="cuda") for _ in range(2))
+        act = torch.randn(N, P, generator=gen, device="cuda")
+        chunk = GGN_CHUNK_J if lik == "siglip" else None
+        f64 = {"dtype": torch.float64, "device": "cuda"}
+        if lik == "info_nce":
+            ref = hessians._hessian_infonce(src.double(), tgt.double(),
+                                            torch.tensor(scale, **f64), GGN_BLOCK)
+        else:
+            ref = hessians._hessian_siglip(
+                src.double(), torch.arange(N, device="cuda"), tgt.double(),
+                torch.tensor(scale, **f64), torch.tensor(bias, **f64), GGN_BLOCK, chunk)
+        ref = ref / math.sqrt(N)
+        r = _ggn_bound(lik, N, D, P)
+        for precision in ("highest", "high"):
+            def call():
+                return estimation.kfac_ggn(scale, bias, N, src, act, tgt, lik,
+                                           block_size=GGN_BLOCK, chunk_size_j=chunk,
+                                           precision=precision, device="cuda")
+            A, B = call()
+            err = float((B.double() - ref).abs().max() / ref.abs().max())
+            ms = cuda_ms(torch, call, iters=3, warmup=1)
+            parts = _launch_parts(torch, call, GGN_PARTS, calls=1)
+            r[precision] = {"ms": ms, "pairs_s": N / ms * 1e3, "max_rel_err": err,
+                            "parts_ms": parts}
+            print(f"kfac_ggn {lik} ({model} dims: embeddings {D}, activations {P}"
+                  f"{' + bias' if lik == 'siglip' else ''}), {N} pairs in one class batch, "
+                  f"block {GGN_BLOCK}{f', chunk_j {chunk}' if chunk else ''}, precision "
+                  f"{precision}: {ms:.3f} ms, {N / ms * 1e3:.1f} pairs/s; fp32 bound "
+                  f"{r['bound_ms']:.3f} ms ({r['tflop']:.3f} TFLOP at 67 TFLOP/s, "
+                  f"{r['bound_by']}); max |B - B_fp64| / max |B_fp64| = {err:.3e} "
+                  f"(tol {GGN_TOL[precision]})")
+            _print_parts(f"kfac_ggn {lik} {precision}", parts)
+            check(bool(torch.isfinite(A).all() and torch.isfinite(B).all()),
+                  f"kfac_ggn {lik} {precision}: non-finite factors")
+            check(err <= GGN_TOL[precision],
+                  f"kfac_ggn {lik} {precision}: B strays from float64 ({err:.3e})")
+        results[lik] = r
+        del src, tgt, act, ref, A, B
+        torch.cuda.empty_cache()
+    return results
+
+
 def phase_tiny_reference(torch, attention, hessian_dir: str,
                          model: str = "tiny-clip",
                          lanes=("default", "block")) -> None:
@@ -1713,6 +1903,8 @@ def main() -> int:
         block_launches, _ = phase_block_path(
             torch, counters, hdir, pixels, prompts, bf16_embeds, bf16_probs,
             bf16_img_s)
+        stage1 = phase_stage1(torch, all_counters, pixels, prompts)
+        phase_ggn(torch)
         epig_path = phase_epig_path(torch, all_counters, hdir)
         zs_path = phase_zeroshot(torch, all_counters, str(save_synthetic_hessians(
             zs, CONFIGS_BY_NAME[ZS_MODEL], SEED)))
@@ -1752,6 +1944,8 @@ def main() -> int:
                   "body", "smem_bytes", "registers", "blocks_per_sm")
     one_block["shapes"] = {shape: {k: attn[(shape, "bf16")][k] for k in shape_keys}
                            for shape in ("siglip-l/16", "vit-b/32", "vit-l/14-336")}
+    # its launches in the Stage-1 CLI's feature pass
+    one_block["stage1_launches"] = stage1["launches"]["attention"]
     print(json.dumps({"kernels": [
         one_block,
         _entry("fused_attention_split", "bayesvlm_tpu_torch/csrc/attention.cu",
