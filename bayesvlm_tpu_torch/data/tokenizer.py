@@ -1,10 +1,14 @@
-"""Tokenization for the text towers.
+"""Tokenization for the text towers, the port's copy of
+`bayesvlm_tpu.data.tokenizer`.
 
-`HashTokenizer` is the deterministic stand-in the JAX package's tests
-and benchmarks use (`bayesvlm_tpu.data.tokenizer.HashTokenizer`), copied
-so that both packages produce the same ids for the same prompts. Ids are
-always padded to the model max length; for causal CLIP the pooled output
-is taken at the EOS position, which padding after EOS cannot reach.
+Real runs: `HFTokenizer` wraps an HF tokenizer loaded from a *local*
+snapshot directory (offline; `transformers` is imported only there, as a
+host-side text codec). `HashTokenizer` is the deterministic stand-in the
+JAX package's tests and benchmarks use, copied so that both packages
+produce the same ids for the same prompts. Ids are always padded to the
+model max length; for causal CLIP the pooled output is taken at the EOS
+position, which padding after EOS cannot reach, and SigLIP's reference
+pads to max length itself (ref:vlm.py:446).
 """
 
 from __future__ import annotations
@@ -13,6 +17,30 @@ import hashlib
 from typing import List, Sequence
 
 import numpy as np
+
+
+class HFTokenizer:
+    """Adapter: HF tokenizer -> fixed-length int32 id matrix."""
+
+    def __init__(self, tokenizer, max_length: int):
+        self.tokenizer = tokenizer
+        self.max_length = max_length
+
+    @classmethod
+    def from_local(cls, path: str, max_length: int) -> "HFTokenizer":
+        from transformers import AutoTokenizer
+
+        return cls(AutoTokenizer.from_pretrained(path, local_files_only=True), max_length)
+
+    def __call__(self, texts: Sequence[str]) -> np.ndarray:
+        enc = self.tokenizer(
+            text=list(texts),
+            padding="max_length",
+            truncation=True,
+            max_length=self.max_length,
+            return_tensors="np",
+        )
+        return enc["input_ids"].astype(np.int32)
 
 
 class HashTokenizer:
@@ -45,3 +73,13 @@ class HashTokenizer:
             ids = self._tok(t)
             out[i, : len(ids)] = ids
         return out
+
+
+def make_tokenizer(text_config, tokenizer_dir=None):
+    """The text tower's tokenizer, as the JAX entry points pick it: the HF
+    tokenizer of `tokenizer_dir` when given, else `HashTokenizer` over the
+    tower's vocabulary with its EOS id."""
+    if tokenizer_dir is not None:
+        return HFTokenizer.from_local(tokenizer_dir, text_config.max_length)
+    return HashTokenizer(text_config.vocab_size, text_config.max_length,
+                         eos_id=text_config.eos_token_id)

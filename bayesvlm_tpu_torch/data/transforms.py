@@ -11,8 +11,7 @@ Numerics mirror ref:bayesvlm/data/common.py:
 Output layout is NHWC float32, as in the JAX package; the collate layer
 stacks to [B, H, W, 3] and the image encoder takes it as it is. PIL is
 imported inside each transform, so the package imports on a machine
-without it. The uint8 lanes (`*_uint8`, normalisation on the device)
-are not ported.
+without it.
 """
 
 from __future__ import annotations
@@ -84,6 +83,41 @@ def siglip_transform(image_size: int) -> Callable:
         return _normalize(_to_float_array(img), *NORMALIZATION_BY_FAMILY["siglip"])
 
     return _apply
+
+
+def corruption_transform(image_size: int, std: float, seed: int = 0) -> Callable:
+    """CLIP chain + clamped Gaussian noise (ref:data/common.py:78-86).
+
+    The noise is keyed on (seed, image content), not drawn from a shared
+    generator, so identical seeds give identical corrupted inputs whatever
+    the decode order or thread count (the reference seeds a global torch
+    RNG, so only its statistics are matched)."""
+    import zlib
+
+    def _apply(img) -> np.ndarray:
+        img = _resize_shorter(img, image_size)
+        img = _center_crop(img, image_size)
+        img = img.convert("RGB")
+        arr = _to_float_array(img)
+        rng = np.random.default_rng(
+            np.random.SeedSequence([seed, zlib.crc32(arr.tobytes())]))
+        arr = np.clip(arr + rng.normal(0.0, std, arr.shape).astype(np.float32), 0.0, 1.0)
+        return _normalize(arr, *NORMALIZATION_BY_FAMILY["clip"])
+
+    return _apply
+
+
+def revert_normalization(arr: np.ndarray) -> np.ndarray:
+    """ref:data/common.py:48-56 (NHWC layout)."""
+    return arr * np.asarray(DEFAULT_STD, np.float32) + np.asarray(DEFAULT_MEAN, np.float32)
+
+
+def revert_siglip_normalization(arr: np.ndarray) -> np.ndarray:
+    """The reference uses MEAN where STD belongs (ref:data/common.py:58-66);
+    MEAN == STD == 0.5 for IMAGENET_STANDARD, so the correct formula here
+    gives the same output."""
+    return arr * np.asarray(IMAGENET_STANDARD_STD, np.float32) + np.asarray(
+        IMAGENET_STANDARD_MEAN, np.float32)
 
 
 def get_transform(model_type: str, image_size: int) -> Callable:

@@ -17,11 +17,13 @@ checkpoints (`_ggn_steps_{img,txt}`).
 Runs on the card unless `--device` names another. `--dtype` (bf16, the
 JAX CLI's GEMM weights, or fp32) is the towers' compute dtype; the GGN
 always runs in fp32 (`--ggn_precision high`: 3xTF32). One card:
-`--no_mesh` is accepted and changes nothing. Not ported yet, and refused
-before anything is loaded: `--tokenizer_dir` (the HF tokenizer),
-`--native_decode` and `--u8_pipeline` (the native and uint8 ingest
-lanes), `--save_orbax`, `--dist_global_batch` and a multi-host run
-(`COORDINATOR_ADDRESS` set).
+`--no_mesh` is accepted and changes nothing. `--weights_dir` is an HF
+snapshot directory or the port's converted `vision.pt` / `text.pt`;
+`--tokenizer_dir` a local HF tokenizer (needs `transformers`), else the
+deterministic `HashTokenizer`. Not ported yet, and refused before
+anything is loaded: `--native_decode` and `--u8_pipeline` (the native and
+uint8 ingest lanes), `--save_orbax`, `--dist_global_batch` and a
+multi-host run (`COORDINATOR_ADDRESS` set).
 """
 
 from __future__ import annotations
@@ -36,10 +38,9 @@ from typing import Optional
 import torch
 
 
-def _refuse_unported(tokenizer_dir, native_decode, u8_pipeline, save_orbax,
-                     dist_global_batch, use_mesh) -> None:
-    flags = {"--tokenizer_dir (the HF tokenizer)": tokenizer_dir is not None,
-             "--native_decode (the native decode lane)": native_decode,
+def _refuse_unported(native_decode, u8_pipeline, save_orbax, dist_global_batch,
+                     use_mesh) -> None:
+    flags = {"--native_decode (the native decode lane)": native_decode,
              "--u8_pipeline (the uint8 ingest lane)": u8_pipeline,
              "--save_orbax (the orbax factor lane)": save_orbax,
              "--dist_global_batch (multi-host class batches)": dist_global_batch,
@@ -87,15 +88,15 @@ def main(
     "lambda_txt", "seconds"}: the seconds of each step (host clock, the
     card synchronised at each step's end). `dataset_overrides` go to the
     datamodule's constructor (e.g. the synthetic module's `image_size`,
-    `num_test`, `num_classes`). `weights_dir` is a directory of the
-    port's `vision.pt` / `text.pt` (models/bridge.py), or None for
-    seeded random towers."""
-    _refuse_unported(tokenizer_dir, native_decode, u8_pipeline, save_orbax,
-                     dist_global_batch, use_mesh)
+    `num_test`, `num_classes`). `weights_dir` is an HF snapshot or the
+    port's converted `vision.pt` / `text.pt`, or None for seeded random
+    towers; `tokenizer_dir` a local HF tokenizer, else `HashTokenizer`."""
+    _refuse_unported(native_decode, u8_pipeline, save_orbax, dist_global_batch,
+                     use_mesh)
     from bayesvlm_tpu_torch.bayes.estimation import kfac_ggn
     from bayesvlm_tpu_torch.bayes.prior import optimize_prior_precision
     from bayesvlm_tpu_torch.data.factory import DataModuleFactory
-    from bayesvlm_tpu_torch.data.tokenizer import HashTokenizer
+    from bayesvlm_tpu_torch.data.tokenizer import make_tokenizer
     from bayesvlm_tpu_torch.data.transforms import get_transform
     from bayesvlm_tpu_torch.inference.precompute import compute_features
     from bayesvlm_tpu_torch.io.artifacts import (
@@ -128,9 +129,7 @@ def main(
         model_str, weights_dir=weights_dir, dtype=tdtype, device=device,
         mlp_int8=mlp_int8)
     image_encoder.prequantize_int8()  # no-op unless mlp_int8
-    text_encoder.tokenizer = HashTokenizer(
-        config.text.vocab_size, config.text.max_length,
-        eos_id=config.text.eos_token_id)
+    text_encoder.tokenizer = make_tokenizer(config.text, tokenizer_dir)
 
     dm = DataModuleFactory(
         batch_size=precompute_batch_size,
@@ -229,7 +228,7 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--lr", type=float, default=1e-2)
     parser.add_argument("--num_steps", type=int, default=300)
     parser.add_argument("--weights_dir", type=str, default=None,
-                        help="directory of the port's vision.pt / text.pt")
+                        help="an HF snapshot or the port's vision.pt / text.pt")
     parser.add_argument("--tokenizer_dir", type=str, default=None)
     # accepted for the JAX CLI's flags; the port runs on one card
     parser.add_argument("--no_mesh", action="store_true")

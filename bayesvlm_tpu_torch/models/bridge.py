@@ -1,6 +1,6 @@
 """Weight bridge: the JAX package's CLIP and SigLIP parameter trees -> the
-port's state dicts (counterpart of `bayesvlm_tpu.models.convert`, run
-the other way).
+port's state dicts (the tests' way to give both packages the same
+weights; HF snapshots go through `models/convert.py`).
 
 Input: the flax parameter trees of `bayesvlm_tpu.models.clip` or
 `bayesvlm_tpu.models.siglip` towers, with every leaf as a numpy array

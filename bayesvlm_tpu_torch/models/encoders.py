@@ -23,7 +23,7 @@ from torch import nn
 
 from bayesvlm_tpu_torch.models.clip import CLIPTextTower, CLIPVisionTower
 from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME, VLMConfig
-from bayesvlm_tpu_torch.models.layers import MLP
+from bayesvlm_tpu_torch.models.layers import MLP, LayerNormFP32
 from bayesvlm_tpu_torch.models.siglip import SiglipTextTower, SiglipVisionTower
 from bayesvlm_tpu_torch.probforward.smith import ProbabilisticHead
 from bayesvlm_tpu_torch.types import EncoderResult
@@ -190,8 +190,8 @@ def _init_tower(module: nn.Module, gen: torch.Generator) -> None:
     """Random init with the JAX package's initializer scales: lecun-normal
     dense and conv kernels (std 1/sqrt(fan_in)) with zero biases,
     normal(0.02) class/position embeddings and SigLIP probe, normal
-    1/sqrt(vocab) token embeddings (flax's default embed init).
-    LayerNorms keep their unit/zero construction values."""
+    1/sqrt(vocab) token embeddings (flax's default embed init), unit
+    LayerNorm scales with zero biases. Every parameter is written."""
 
     def normal_(t, std):
         t.copy_(torch.randn(t.shape, generator=gen, device=t.device,
@@ -205,6 +205,9 @@ def _init_tower(module: nn.Module, gen: torch.Generator) -> None:
                     sub.bias.zero_()
             elif isinstance(sub, nn.Embedding):
                 normal_(sub.weight, 1.0 / math.sqrt(sub.weight.shape[0]))
+            elif isinstance(sub, LayerNormFP32):
+                sub.weight.fill_(1.0)
+                sub.bias.zero_()
         normal_(module.position_embedding, 0.02)
         for name in ("class_embedding", "probe"):
             if hasattr(module, name):
@@ -232,16 +235,21 @@ def load_model(
     are the same, so weight files are unaffected. The weight cache is
     not filled here (ImageEncoder.prequantize_int8).
 
-    `weights_dir`: a directory holding `vision.pt` and `text.pt`, the
-    towers' state dicts (models/bridge.py writes them from the JAX
-    package's parameter trees), and optionally `head.json`, the trained
-    logit scale and bias, read as the JAX package reads it: a null scale
-    takes the family's default, an absent (or null) bias 0.0, and CLIP
-    keeps no bias. A directory without `head.json` (as written before
-    the file was added) gets the family's default head. When None,
-    parameters are drawn from a `torch.Generator` on `device` seeded
-    with `seed`; the draws differ between devices and from the JAX
-    package's.
+    `weights_dir` takes either of two layouts, checked in this order:
+      - the port's own `vision.pt` and `text.pt`, the towers' state dicts
+        (`convert_weights` writes them from an HF snapshot,
+        models/bridge.py from the JAX package's parameter trees), and
+        optionally `head.json`, the trained logit scale and bias: a null
+        scale takes the family's default, an absent (or null) bias 0.0.
+        A directory without `head.json` gets the family's default head;
+      - an HF snapshot directory (`*.safetensors` or `pytorch_model*.bin`,
+        models/convert.py), read as the JAX package reads it: a snapshot
+        without `logit_scale` takes the family's default scale, one
+        without `logit_bias` the bias 0.0 (not SigLIP's default -16.5).
+    CLIP keeps no bias. Parameters are read as fp32, then the GEMM
+    weights are cast to `dtype`. When None, parameters are drawn from a
+    `torch.Generator` on `device` seeded with `seed`; the draws differ
+    between devices and from the JAX package's.
     """
     config = CONFIGS_BY_NAME[model_str]
     if mlp_int8 or attn_int8:
@@ -250,18 +258,38 @@ def load_model(
             mlp_weight_bits=mlp_weight_bits))
     device = torch.device(device)
     vision_cls, text_cls = TOWERS[config.family]
-    vision = vision_cls(config.vision, dtype=dtype).to(device)
-    text = text_cls(config.text, dtype=dtype).to(device)
+    # built without an init pass (every tensor is read or drawn below) and
+    # allocated where they run
+    with torch.device("meta"):
+        vision = vision_cls(config.vision, dtype=dtype)
+        text = text_cls(config.text, dtype=dtype)
+    vision.to_empty(device=device)
+    text.to_empty(device=device)
     scale = DEFAULT_LOGIT_SCALE[config.family]
     bias = DEFAULT_LOGIT_BIAS[config.family]
     if weights_dir is not None:
         wd = Path(weights_dir)
-        for tower, name in ((vision, "vision.pt"), (text, "text.pt")):
-            tower.load_state_dict(torch.load(wd / name, map_location=device,
-                                             weights_only=True))
-        if (wd / "head.json").exists():
-            # bayesvlm_tpu/models/encoders.py:455-459
-            head_info = json.loads((wd / "head.json").read_text())
+        if (wd / "vision.pt").exists():
+            for tower, name in ((vision, "vision.pt"), (text, "text.pt")):
+                tower.load_state_dict(torch.load(wd / name, map_location=device,
+                                                 weights_only=True))
+            head_info = (json.loads((wd / "head.json").read_text())
+                         if (wd / "head.json").exists() else None)
+        else:
+            from bayesvlm_tpu_torch.models.convert import (
+                CONVERTERS,
+                _load_state_dict,
+                load_logit_scale_bias,
+            )
+
+            sd = _load_state_dict(wd, device=device)
+            for tower, name in ((vision, "vision"), (text, "text")):
+                tower.load_state_dict(CONVERTERS[(config.family, name)](
+                    sd, getattr(config, name).num_layers))
+            head_info = dict(zip(("logit_scale", "logit_bias"), load_logit_scale_bias(sd)))
+            del sd
+        if head_info is not None:
+            # bayesvlm_tpu/models/encoders.py:455-459 and :474-477
             if head_info.get("logit_scale") is not None:
                 scale = head_info["logit_scale"]
             bias = head_info.get("logit_bias")

@@ -23,9 +23,15 @@ package (`--mlp_int8` in its CLIs):
         "clip-large", hessian_dir, dtype="bf16", mlp_int8=True,
         attn_int8=True)
 
-Not ported yet: AOT serving (`compile_serving`, the serving cache),
-meshes and real HF checkpoints (the HF tokenizer and
-`models/convert.py`).
+Real checkpoints: `weights_dir` is an HF snapshot directory
+(`*.safetensors` or `pytorch_model*.bin`) or the port's converted
+`vision.pt` / `text.pt` (`python -m bayesvlm_tpu_torch.convert_weights`),
+and `tokenizer_dir` a local HF tokenizer directory (needs
+`transformers`); without it, prompts go through the deterministic
+`HashTokenizer`.
+
+Not ported yet: AOT serving (`compile_serving`, the serving cache) and
+meshes.
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ class ProbabilisticVLM:
         model_str: str,
         hessian_dir: str,
         weights_dir: Optional[str] = None,
+        tokenizer_dir: Optional[str] = None,
         pseudo_data_count: int = 10,
         dtype: str = "bf16",
         lambda_init: float = 300.0,
@@ -76,11 +83,14 @@ class ProbabilisticVLM:
         compute dtype first, then the MLP weight cache is quantized from
         those rounded values, as on the TPU.
 
+        `weights_dir`: an HF snapshot or the port's converted weights
+        (models/encoders.load_model); `tokenizer_dir`: a local HF
+        tokenizer (data/tokenizer.HFTokenizer), else `HashTokenizer`.
         `seed` only matters when weights_dir is None (random-init towers
         for tests and benchmarks)."""
         from bayesvlm_tpu_torch.bayes.kfac import compute_covariances
         from bayesvlm_tpu_torch.bayes.prior import optimize_prior_precision
-        from bayesvlm_tpu_torch.data.tokenizer import HashTokenizer
+        from bayesvlm_tpu_torch.data.tokenizer import make_tokenizer
         from bayesvlm_tpu_torch.data.transforms import get_transform
         from bayesvlm_tpu_torch.io.artifacts import load_hessians
         from bayesvlm_tpu_torch.models.encoders import load_model
@@ -93,9 +103,7 @@ class ProbabilisticVLM:
             model_str, weights_dir=weights_dir, dtype=_DTYPES[dtype],
             seed=seed, device=device, mlp_int8=mlp_int8, attn_int8=attn_int8)
         image_encoder.prequantize_int8()
-        tcfg = image_encoder.config.text
-        text_encoder.tokenizer = HashTokenizer(
-            tcfg.vocab_size, tcfg.max_length, eos_id=tcfg.eos_token_id)
+        text_encoder.tokenizer = make_tokenizer(image_encoder.config.text, tokenizer_dir)
 
         A_img, B_img = (F.to(device) for F in load_hessians(hessian_dir, "img"))
         A_txt, B_txt = (F.to(device) for F in load_hessians(hessian_dir, "txt"))

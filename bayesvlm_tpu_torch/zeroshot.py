@@ -12,10 +12,11 @@ softmax; [4] ACC / NLPD / ECE (20-bin L1).
 
 Runs on the card unless `--device` names another. One card: `--no_mesh`
 is accepted for the JAX CLI's flags and changes nothing (the mesh path
-is not ported). `--weights_dir` is a directory of the port's `vision.pt`
-/ `text.pt` (models/bridge.py), or none for seeded random towers; the HF
-tokenizer (`--tokenizer_dir`) and the file-backed datasets are not
-ported yet: the registered dataset is `synthetic`. A name outside
+is not ported). `--weights_dir` is an HF snapshot directory or the port's
+converted `vision.pt` / `text.pt` (`convert_weights`, models/bridge.py),
+or none for seeded random towers; `--tokenizer_dir` a local HF tokenizer
+(needs `transformers`), else the deterministic `HashTokenizer`. The
+datasets are read from `DATA_BASE_DIR` (data/factory.py). A name outside
 `SUPPORTED_DATASETS`, the JAX CLI's list, is refused before anything is
 loaded, as the JAX CLI refuses it.
 """
@@ -69,7 +70,7 @@ def run(
     from bayesvlm_tpu_torch.bayes.kfac import compute_covariances
     from bayesvlm_tpu_torch.bayes.prior import optimize_prior_precision
     from bayesvlm_tpu_torch.data.factory import DataModuleFactory
-    from bayesvlm_tpu_torch.data.tokenizer import HashTokenizer
+    from bayesvlm_tpu_torch.data.tokenizer import make_tokenizer
     from bayesvlm_tpu_torch.data.transforms import get_transform
     from bayesvlm_tpu_torch.inference.metrics import evaluate_prediction
     from bayesvlm_tpu_torch.inference.precompute import (
@@ -82,8 +83,6 @@ def run(
     from bayesvlm_tpu_torch.models.encoders import load_model
     from bayesvlm_tpu_torch.utils import get_image_size
 
-    if tokenizer_dir is not None:
-        raise NotImplementedError("the HF tokenizer is not ported yet")
     del use_mesh  # one card: the mesh path is not ported
     device = torch.device(device)
 
@@ -110,9 +109,7 @@ def run(
         model_str, weights_dir=weights_dir, dtype=tdtype, device=device,
         mlp_int8=mlp_int8, attn_int8=attn_int8)
     image_encoder.prequantize_int8()  # no-op unless mlp_int8
-    text_encoder.tokenizer = HashTokenizer(
-        config.text.vocab_size, config.text.max_length,
-        eos_id=config.text.eos_token_id)
+    text_encoder.tokenizer = make_tokenizer(config.text, tokenizer_dir)
 
     A_img, B_img = (F.to(device) for F in load_hessians(hessian_dir, "img"))
     A_txt, B_txt = (F.to(device) for F in load_hessians(hessian_dir, "txt"))

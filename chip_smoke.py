@@ -121,6 +121,20 @@ Phases (any failure raises and exits non-zero, without the result line):
      CLI's (rtol 1e-4, atol 1e-5); prints the seconds of steps [1]-[4],
      img/s of the image features and the head's times at the run's shape
      beside the CLI's eager chain;
+  8c. the HF checkpoint path at clip-large and siglip-large width: each
+     model's seeded towers written as an HF snapshot under HF's names
+     (to_hf_state_dict, below) with a trained-looking head, once
+     as fp32 pytorch_model.bin (torch.save) and once as fp16
+     model.safetensors (this script's writer); load_model (fp32) of each
+     must give back the source tensors bit for bit (fp16-rounded for the
+     safetensors copy) and the head; convert_weights on the snapshot,
+     then load_model of its directory, the same tensors;
+     from_pretrained(bf16, weights_dir=the snapshot) -> predict at B=64
+     must launch #1 24 times and nothing else, and equal bit for bit the
+     probabilities from the converted directory. Prints each file's MB,
+     the seconds load_model takes to read it (MB/s) and convert_weights'
+     seconds, beside the card's name and power limit. No tokenizer or
+     dataset phase: the card machine has no transformers and no PIL;
   9. tiny-clip on the card against tiny-clip on the CPU, in the default
      lane and in the block lane; tiny-siglip the same, default lane;
   10. the attention-schedule probes (bayesvlm_tpu_torch/probes,
@@ -371,7 +385,8 @@ def phase_device(torch) -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(f"card: {smi.stdout.strip().splitlines()[0]}")
+    DEVICE["card"] = smi.stdout.strip().splitlines()[0]
+    print(f"card: {DEVICE['card']}")
     clk = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60)
@@ -1256,6 +1271,207 @@ def phase_ggn(torch) -> dict:
     return results
 
 
+# 8c: the HF checkpoint path at full width. Each model's seeded towers are
+# written as an HF snapshot (fp16 model.safetensors by the writer below,
+# fp32 pytorch_model.bin by torch.save) with a trained-looking head;
+# from_pretrained runs SNAPSHOT_PRIOR_STEPS lambda steps (the same in
+# both of the runs whose probabilities are compared bit for bit)
+SNAPSHOT_MODELS = ("clip-large", "siglip-large")
+SNAPSHOT_HEAD = {"clip": (4.25, None), "siglip": (4.5, -12.0)}
+SNAPSHOT_PRIOR_STEPS = 100
+
+
+def to_hf_state_dict(family: str, vision_sd: dict, text_sd: dict,
+                     num_vision_layers: int, num_text_layers: int,
+                     logit_scale=None, logit_bias=None) -> dict:
+    """The port's two tower state dicts under the HF model's names (the
+    inverse of models/convert.py's `convert_*`; CLIP's pre-LN under HF's
+    `pre_layrnorm`, SigLIP's q/k/v packed into `in_proj`), with the head's
+    `logit_scale` and `logit_bias` as 0-d tensors where given: an HF
+    snapshot's layout."""
+    import torch
+
+    from bayesvlm_tpu_torch.models.convert import _key_map
+
+    out = {}
+    for tower, sd, n in (("vision", vision_sd, num_vision_layers),
+                         ("text", text_sd, num_text_layers)):
+        out.update({hf: sd[port] for hf, port in _key_map(family, tower, n)})
+    if family == "siglip":
+        for p in ("weight", "bias"):
+            out[f"vision_model.head.attention.in_proj_{p}"] = torch.cat(
+                [vision_sd[f"head_attention.{n}.{p}"] for n in ("q_proj", "k_proj", "v_proj")])
+    for name, value in (("logit_scale", logit_scale), ("logit_bias", logit_bias)):
+        if value is not None:
+            out[name] = torch.tensor(value, dtype=torch.float32)
+    return out
+
+
+def write_safetensors_f16(path, sd: dict) -> int:
+    """`sd` as one fp16 `.safetensors` file: an 8-byte little-endian header
+    length, the JSON header (padded with spaces to 8 bytes), then the
+    tensors' little-endian bytes in order. Returns the file's size."""
+    import struct
+
+    header, blobs, offset = {"__metadata__": {"format": "pt"}}, [], 0
+    for name, t in sd.items():
+        blob = t.detach().cpu().half().contiguous().numpy().tobytes()
+        header[name] = {"dtype": "F16", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for blob in blobs:
+            f.write(blob)
+    return 8 + len(raw) + offset
+
+
+def _timed_load(torch, model: str, weights_dir, device):
+    """load_model in fp32 from `weights_dir`: (the towers' state dicts, the
+    head's (scale, bias), seconds, the card synchronised)."""
+    from bayesvlm_tpu_torch.models.encoders import load_model
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, txt, head = load_model(model, weights_dir=weights_dir, dtype=torch.float32,
+                                device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return ({"vision": img.module.state_dict(), "text": txt.module.state_dict()},
+            (float(head.logit_scale), float(head.logit_bias)), seconds)
+
+
+def _check_same(torch, label: str, got: dict, want: dict, round_f16: bool) -> None:
+    """Every tensor of both towers bit for bit (after fp16 rounding of the
+    source for a fp16 snapshot)."""
+    for tower in ("vision", "text"):
+        check(set(got[tower]) == set(want[tower]), f"{label}: {tower} keys")
+        for k, v in want[tower].items():
+            ref = v.half().float() if round_f16 else v
+            check(torch.equal(got[tower][k], ref.to(got[tower][k].device)),
+                  f"{label}: {tower} {k} differs from the source")
+
+
+def snapshot_case(torch, model: str, hessian_dir: str, pixels, prompts, root,
+                  device, counters=None, per_forward=None) -> dict:
+    """One model through the HF checkpoint path: seeded towers -> HF
+    snapshots (fp16 safetensors, fp32 bin) -> load_model bit for bit ->
+    convert_weights -> load_model bit for bit -> from_pretrained on the
+    snapshot and on the converted directory -> predict, the probabilities
+    equal bit for bit, with every count set to 0 just before the snapshot's
+    predict and read just after (`per_forward`: the launches expected)."""
+    from bayesvlm_tpu_torch import convert_weights
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+    from bayesvlm_tpu_torch.models.encoders import load_model
+    from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
+
+    cfg = CONFIGS_BY_NAME[model]
+    img, txt, _ = load_model(model, dtype=torch.float32, device=device, seed=SEED)
+    source = {"vision": {k: v.cpu() for k, v in img.module.state_dict().items()},
+              "text": {k: v.cpu() for k, v in txt.module.state_dict().items()}}
+    del img, txt
+    scale, bias = SNAPSHOT_HEAD[cfg.family]
+    hf = to_hf_state_dict(cfg.family, source["vision"], source["text"],
+                          cfg.vision.num_layers, cfg.text.num_layers,
+                          logit_scale=scale, logit_bias=bias)
+    want_head = (float(np.float32(scale)), float(np.float32(bias or 0.0)))
+    out = {"params": sum(v.numel() for v in hf.values())}
+
+    binary = Path(root) / "bin"
+    binary.mkdir()
+    t0 = time.perf_counter()
+    torch.save(hf, binary / "pytorch_model.bin")
+    out["bin_write_s"] = time.perf_counter() - t0
+    out["bin_mb"] = (binary / "pytorch_model.bin").stat().st_size / 1e6
+    got, head, out["bin_load_s"] = _timed_load(torch, model, binary, device)
+    _check_same(torch, f"{model} pytorch_model.bin", got, source, round_f16=False)
+    check(head == want_head, f"{model} bin head {head} != {want_head}")
+    del got
+    (binary / "pytorch_model.bin").unlink()
+
+    snap = Path(root) / "snapshot"
+    snap.mkdir()
+    t0 = time.perf_counter()
+    write_safetensors_f16(snap / "model.safetensors", hf)
+    out["st_write_s"] = time.perf_counter() - t0
+    out["st_mb"] = (snap / "model.safetensors").stat().st_size / 1e6
+    del hf
+    got, head, out["st_load_s"] = _timed_load(torch, model, snap, device)
+    _check_same(torch, f"{model} fp16 model.safetensors", got, source, round_f16=True)
+    check(head == want_head, f"{model} safetensors head {head} != {want_head}")
+
+    t0 = time.perf_counter()
+    conv = convert_weights.main(model, str(snap), str(Path(root) / "converted"))
+    out["convert_s"] = time.perf_counter() - t0
+    out["converted_mb"] = sum(p.stat().st_size for p in conv.iterdir()) / 1e6
+    got2, head2, out["converted_load_s"] = _timed_load(torch, model, conv, device)
+    _check_same(torch, f"{model} convert_weights", got2, got, round_f16=False)
+    check(head2 == head, f"{model} convert_weights head {head2} != {head}")
+    del got, got2, source
+
+    probs = {}
+    for label, wd in (("snapshot", snap), ("converted", conv)):
+        vlm = ProbabilisticVLM.from_pretrained(
+            model, hessian_dir, weights_dir=str(wd), dtype="bf16", device=device,
+            prior_num_steps=SNAPSHOT_PRIOR_STEPS)
+        vlm.set_class_prompts(prompts)
+        for c in (counters or {}).values():
+            c.launches = 0
+        probs[label] = vlm.predict(pixels)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        if label == "snapshot" and counters is not None:
+            out["launches"] = {n: c.launches for n, c in counters.items()}
+            expected = {**dict.fromkeys(counters, 0), **per_forward}
+            check(out["launches"] == expected, f"{model} snapshot predict launches: "
+                                               f"expected {expected}, got {out['launches']}")
+        del vlm
+    p = probs["snapshot"]
+    check(tuple(p.shape) == (len(pixels), len(prompts)) and bool(torch.isfinite(p).all()),
+          f"{model} snapshot predict: shape {tuple(p.shape)} or non-finite")
+    check(torch.equal(p, probs["converted"]), f"{model}: predict from the snapshot and "
+                                              f"from convert_weights differ")
+    return out
+
+
+def phase_snapshot(torch, counters, hessian_dirs: dict, prompts) -> dict:
+    """8c: the HF checkpoint path at clip-large and siglip-large width."""
+    from bayesvlm_tpu_torch import kernels
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+    from bayesvlm_tpu_torch.utils import get_image_size
+
+    t_phase = time.perf_counter()
+    results = {}
+    for model in SNAPSHOT_MODELS:
+        size = get_image_size(model)
+        pixels = np.random.default_rng(SEED + 3).normal(
+            size=(BATCH, size, size, 3)).astype(np.float32)
+        with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as root:
+            r = snapshot_case(torch, model, hessian_dirs[model], pixels, prompts, root,
+                              torch.device("cuda"), counters,
+                              {"attention": CONFIGS_BY_NAME[model].vision.num_layers})
+        results[model] = r
+        print(f"HF snapshot {model} ({DEVICE['card']}): {r['params'] / 1e6:.1f}M params; "
+              f"fp16 model.safetensors {r['st_mb']:.1f} MB written in "
+              f"{r['st_write_s']:.2f} s, load_model {r['st_load_s']:.2f} s "
+              f"({r['st_mb'] / r['st_load_s']:.0f} MB/s); fp32 pytorch_model.bin "
+              f"{r['bin_mb']:.1f} MB, load_model {r['bin_load_s']:.2f} s "
+              f"({r['bin_mb'] / r['bin_load_s']:.0f} MB/s); convert_weights "
+              f"{r['convert_s']:.2f} s, its {r['converted_mb']:.1f} MB read by "
+              f"load_model in {r['converted_load_s']:.2f} s "
+              f"({r['converted_mb'] / r['converted_load_s']:.0f} MB/s); bit-equal "
+              f"towers and predict (B={BATCH}, bf16), launches "
+              f"{ {n: v for n, v in r['launches'].items() if v} }")
+    print(f"HF snapshot phase: {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
 def phase_tiny_reference(torch, attention, hessian_dir: str,
                          model: str = "tiny-clip",
                          lanes=("default", "block")) -> None:
@@ -1906,8 +2122,10 @@ def main() -> int:
         stage1 = phase_stage1(torch, all_counters, pixels, prompts)
         phase_ggn(torch)
         epig_path = phase_epig_path(torch, all_counters, hdir)
-        zs_path = phase_zeroshot(torch, all_counters, str(save_synthetic_hessians(
-            zs, CONFIGS_BY_NAME[ZS_MODEL], SEED)))
+        zs_hdir = str(save_synthetic_hessians(zs, CONFIGS_BY_NAME[ZS_MODEL], SEED))
+        zs_path = phase_zeroshot(torch, all_counters, zs_hdir)
+        snapshots = phase_snapshot(torch, all_counters, {MODEL: hdir, ZS_MODEL: zs_hdir},
+                                   prompts)
         phase_tiny_reference(torch, attention, str(save_synthetic_hessians(
             tiny, TINY_CLIP_CONFIG, SEED)))
         phase_tiny_reference(torch, attention, str(save_synthetic_hessians(
@@ -1946,6 +2164,9 @@ def main() -> int:
                            for shape in ("siglip-l/16", "vit-b/32", "vit-l/14-336")}
     # its launches in the Stage-1 CLI's feature pass
     one_block["stage1_launches"] = stage1["launches"]["attention"]
+    # and in one predict of each HF snapshot (phase 8c)
+    one_block["snapshot_launches"] = {m: r["launches"]["attention"]
+                                      for m, r in snapshots.items()}
     print(json.dumps({"kernels": [
         one_block,
         _entry("fused_attention_split", "bayesvlm_tpu_torch/csrc/attention.cu",

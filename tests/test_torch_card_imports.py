@@ -1,0 +1,102 @@
+"""The port imports, and reads real checkpoints, on a machine without the
+host-side packages the card machine lacks: `transformers`, `PIL`,
+`sklearn`, `pandas`, `datasets` and `safetensors` are blocked in a fresh
+interpreter (`sys.modules[name] = None`), which then imports every module
+of the package, prints the CLIs' `--help`, and loads fp16 safetensors and
+fp32 `.bin` snapshots of tiny-siglip through `load_model` and
+`convert_weights`. No module of JAX or of the JAX package is loaded on
+the way."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+from bayesvlm_tpu_torch.models.encoders import load_model
+
+REPO = Path(__file__).resolve().parent.parent
+BLOCKED = ("transformers", "PIL", "sklearn", "pandas", "datasets", "safetensors")
+PREAMBLE = textwrap.dedent(f"""
+    import sys
+    for name in {BLOCKED!r}:
+        sys.modules[name] = None
+""")
+
+
+def _run(code: str):
+    proc = subprocess.run([sys.executable, "-c", PREAMBLE + textwrap.dedent(code)],
+                          cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout
+
+
+def test_every_module_imports_without_the_host_packages():
+    out = _run("""
+        import importlib, pkgutil, runpy
+        import bayesvlm_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(bayesvlm_tpu_torch.__path__,
+                                                       "bayesvlm_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        for cli in ("zeroshot", "hessian_estimation", "convert_weights"):
+            sys.argv = [cli, "--help"]
+            try:
+                runpy.run_module(f"bayesvlm_tpu_torch.{cli}", run_name="__main__")
+            except SystemExit as e:
+                assert e.code == 0, (cli, e.code)
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "bayesvlm_tpu")]
+        assert not bad, bad
+        for name in %r:
+            assert sys.modules[name] is None, name
+        print("IMPORTED", len(names))
+    """ % (BLOCKED,))
+    count = int(out.split("IMPORTED ")[1].split()[0])
+    assert count >= 60
+    assert "usage: zeroshot" in out and "--tokenizer_dir" in out and "--snapshot" in out
+
+
+@pytest.mark.parametrize("fmt", ["f16", "bin"])
+def test_snapshot_loads_without_the_host_packages(fmt, tmp_path):
+    """A tiny-siglip snapshot written here (safetensors by the package, fp16)
+    loads in the blocked interpreter to the same tensors as here."""
+    from chip_smoke import to_hf_state_dict
+
+    cfg = CONFIGS_BY_NAME["tiny-siglip"]
+    img, txt, _ = load_model("tiny-siglip", dtype=torch.float32, device="cpu", seed=3)
+    sd = to_hf_state_dict("siglip", img.module.state_dict(), txt.module.state_dict(),
+                          cfg.vision.num_layers, cfg.text.num_layers, logit_scale=2.5,
+                          logit_bias=-4.0)
+    snap = tmp_path / "snap"
+    snap.mkdir()
+    if fmt == "bin":
+        torch.save(sd, snap / "pytorch_model.bin")
+    else:
+        from safetensors.torch import save_file
+
+        save_file({k: v.half().contiguous() for k, v in sd.items()},
+                  str(snap / "model.safetensors"))
+    _run(f"""
+        import torch
+        from bayesvlm_tpu_torch import convert_weights
+        from bayesvlm_tpu_torch.models.encoders import load_model
+        a = load_model("tiny-siglip", weights_dir={str(snap)!r}, dtype=torch.float32,
+                       device="cpu")
+        convert_weights.main("tiny-siglip", {str(snap)!r}, {str(tmp_path / "conv")!r})
+        b = load_model("tiny-siglip", weights_dir={str(tmp_path / "conv")!r},
+                       dtype=torch.float32, device="cpu")
+        for x, y, name in zip(a[:2], b[:2], ("vision", "text")):
+            torch.save(x.module.state_dict(), {str(tmp_path)!r} + f"/{{name}}_a.pt")
+            assert all(torch.equal(v, y.module.state_dict()[k])
+                       for k, v in x.module.state_dict().items())
+        assert (float(a[2].logit_scale), float(a[2].logit_bias)) == (2.5, -4.0)
+        assert float(b[2].logit_bias) == -4.0
+    """)
+    for enc, name in ((img, "vision"), (txt, "text")):
+        got = torch.load(tmp_path / f"{name}_a.pt")
+        for k, v in enc.module.state_dict().items():
+            want = v.half().float() if fmt == "f16" else v
+            assert torch.equal(got[k], want), (name, k)

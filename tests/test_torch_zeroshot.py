@@ -221,7 +221,7 @@ def test_factory_creates_synthetic_with_overrides():
     assert batch["image"].shape == (4, 16, 16, 3)
     assert len(dm.class_prompts) == 3
     with pytest.raises(ValueError, match="Unknown dataset"):
-        DataModuleFactory().create("food101")
+        DataModuleFactory().create("nonsense")
 
 
 @pytest.fixture(scope="module")
