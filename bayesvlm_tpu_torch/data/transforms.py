@@ -1,5 +1,6 @@
 """Image transforms in PIL + NumPy (no torchvision dependency), the port's
-copy of the float lanes of `bayesvlm_tpu.data.transforms`.
+copy of `bayesvlm_tpu.data.transforms`: the float lanes and the uint8
+ingest lane.
 
 Numerics mirror ref:bayesvlm/data/common.py:
   - CLIP ("default") transform: Resize(shorter side, bicubic) -> CenterCrop
@@ -9,7 +10,10 @@ Numerics mirror ref:bayesvlm/data/common.py:
     IMAGENET_STANDARD (0.5, 0.5) (ref:data/common.py:88-94)
 
 Output layout is NHWC float32, as in the JAX package; the collate layer
-stacks to [B, H, W, 3] and the image encoder takes it as it is. PIL is
+stacks to [B, H, W, 3] and the image encoder takes it as it is. The
+`*_uint8` transforms do the geometry only and return [H, W, 3] uint8:
+the encoder normalises those on the device (models/encoders.py), so a
+batch crosses to the card in a quarter of the bytes. PIL is
 imported inside each transform, so the package imports on a machine
 without it.
 """
@@ -120,8 +124,41 @@ def revert_siglip_normalization(arr: np.ndarray) -> np.ndarray:
         IMAGENET_STANDARD_MEAN, np.float32)
 
 
+def default_transform_uint8(image_size: int) -> Callable:
+    """CLIP geometry only: resize -> crop -> RGB -> [H, W, 3] uint8. The
+    /255 and mean / std run on the device (ImageEncoder takes uint8)."""
+
+    def _apply(img) -> np.ndarray:
+        img = _resize_shorter(img, image_size)
+        img = _center_crop(img, image_size)
+        img = img.convert("RGB")
+        return np.asarray(img, dtype=np.uint8)
+
+    return _apply
+
+
+def siglip_transform_uint8(image_size: int) -> Callable:
+    """SigLIP geometry only (square resize); normalised on the device."""
+
+    def _apply(img) -> np.ndarray:
+        from PIL import Image
+
+        img = img.resize((image_size, image_size), Image.BICUBIC)
+        img = img.convert("RGB")
+        return np.asarray(img, dtype=np.uint8)
+
+    return _apply
+
+
 def get_transform(model_type: str, image_size: int) -> Callable:
     """ref:bayesvlm/utils.py:18-21."""
     if model_type == "siglip":
         return siglip_transform(image_size)
     return default_transform(image_size)
+
+
+def get_transform_uint8(model_type: str, image_size: int) -> Callable:
+    """The uint8 (device-normalised) variant of get_transform."""
+    if model_type == "siglip":
+        return siglip_transform_uint8(image_size)
+    return default_transform_uint8(image_size)

@@ -20,9 +20,10 @@ always runs in fp32 (`--ggn_precision high`: 3xTF32). One card:
 `--no_mesh` is accepted and changes nothing. `--weights_dir` is an HF
 snapshot directory or the port's converted `vision.pt` / `text.pt`;
 `--tokenizer_dir` a local HF tokenizer (needs `transformers`), else the
-deterministic `HashTokenizer`. Not ported yet, and refused before
-anything is loaded: `--native_decode` and `--u8_pipeline` (the native and
-uint8 ingest lanes), `--save_orbax`, `--dist_global_batch` and a
+deterministic `HashTokenizer`. `--u8_pipeline` ships uint8 crops that
+the image encoder normalises on the device (`get_transform_uint8`). Not
+ported yet, and refused before anything is loaded: `--native_decode`
+(the native decode lane), `--save_orbax`, `--dist_global_batch` and a
 multi-host run (`COORDINATOR_ADDRESS` set).
 """
 
@@ -38,10 +39,9 @@ from typing import Optional
 import torch
 
 
-def _refuse_unported(native_decode, u8_pipeline, save_orbax, dist_global_batch,
+def _refuse_unported(native_decode, save_orbax, dist_global_batch,
                      use_mesh) -> None:
     flags = {"--native_decode (the native decode lane)": native_decode,
-             "--u8_pipeline (the uint8 ingest lane)": u8_pipeline,
              "--save_orbax (the orbax factor lane)": save_orbax,
              "--dist_global_batch (multi-host class batches)": dist_global_batch,
              "a multi-host run (COORDINATOR_ADDRESS)": use_mesh and bool(
@@ -91,13 +91,12 @@ def main(
     `num_test`, `num_classes`). `weights_dir` is an HF snapshot or the
     port's converted `vision.pt` / `text.pt`, or None for seeded random
     towers; `tokenizer_dir` a local HF tokenizer, else `HashTokenizer`."""
-    _refuse_unported(native_decode, u8_pipeline, save_orbax, dist_global_batch,
-                     use_mesh)
+    _refuse_unported(native_decode, save_orbax, dist_global_batch, use_mesh)
     from bayesvlm_tpu_torch.bayes.estimation import kfac_ggn
     from bayesvlm_tpu_torch.bayes.prior import optimize_prior_precision
     from bayesvlm_tpu_torch.data.factory import DataModuleFactory
     from bayesvlm_tpu_torch.data.tokenizer import make_tokenizer
-    from bayesvlm_tpu_torch.data.transforms import get_transform
+    from bayesvlm_tpu_torch.data.transforms import get_transform, get_transform_uint8
     from bayesvlm_tpu_torch.inference.precompute import compute_features
     from bayesvlm_tpu_torch.io.artifacts import (
         load_hessians,
@@ -122,7 +121,10 @@ def main(
     os.makedirs(hessian_dir, exist_ok=True)
     config = CONFIGS_BY_NAME[model_str]
     likelihood = get_likelihood_for_model(model_str)
-    transform = get_transform(config.family, get_image_size(model_str))
+    # --u8_pipeline: uint8 crops, normalised by the image encoder on the
+    # device (a quarter of the host-to-device bytes)
+    transform = (get_transform_uint8 if u8_pipeline else get_transform)(
+        config.family, get_image_size(model_str))
 
     tdtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype]
     image_encoder, text_encoder, head = load_model(
@@ -245,7 +247,8 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--ggn_checkpoint_every", type=int, default=1,
                         help="GGN step checkpoints every N class batches "
                         "(0 disables)")
-    parser.add_argument("--u8_pipeline", action="store_true")
+    parser.add_argument("--u8_pipeline", action="store_true",
+                        help="ship uint8 crops; the encoder normalises on the device")
     parser.add_argument("--dtype", type=str, default="bf16", choices=["bf16", "fp32"])
     return parser
 

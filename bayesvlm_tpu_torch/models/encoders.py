@@ -74,7 +74,8 @@ class _EncoderBase:
 
 
 class ImageEncoder(_EncoderBase):
-    """Vision tower wrapper. Call with NHWC (or NCHW) float images."""
+    """Vision tower wrapper. Call with NHWC (or NCHW) normalised float
+    images or uint8 crops."""
 
     tower = "vision"
 
@@ -82,6 +83,7 @@ class ImageEncoder(_EncoderBase):
         super().__init__(config, module)
         # what the W8A8 weight cache was quantized from (_weight_key)
         self._quant_src = None
+        self._u8_constants = None
 
     def _int8_mlps(self):
         return [m for m in self.module.modules()
@@ -121,17 +123,46 @@ class ImageEncoder(_EncoderBase):
             RuntimeWarning, stacklevel=3)
         self.prequantize_int8()
 
+    def _uint8_constants(self, device: torch.device) -> tuple:
+        """(255, mean, std) as fp32 tensors on `device`, made once: a
+        division by a tensor is a true division on the card too (a Python
+        scalar would become a multiplication by its reciprocal), so the
+        device normalises a uint8 image to the host float transform's bits."""
+        if self._u8_constants is None or self._u8_constants[0].device != device:
+            from bayesvlm_tpu_torch.data.transforms import NORMALIZATION_BY_FAMILY
+
+            mean, std = NORMALIZATION_BY_FAMILY[self.config.family]
+            self._u8_constants = tuple(torch.tensor(v, dtype=torch.float32, device=device)
+                                       for v in (255.0, mean, std))
+        return self._u8_constants
+
+    def normalize(self, x: torch.Tensor) -> torch.Tensor:
+        """uint8 NHWC pixels -> fp32 normalised with the family's mean and
+        std, in the JAX package's order (`x / 255`, then `(x - mean) /
+        std`; its `_image_forward_graph`); floats are returned as they are."""
+        if x.dtype == torch.uint8:
+            scale, mean, std = self._uint8_constants(x.device)
+            return (x.float() / scale - mean) / std
+        if not torch.is_floating_point(x):
+            raise ValueError(f"pixels must be uint8 or normalized floats, not {x.dtype}")
+        return x
+
+    def forward_pixels(self, x: torch.Tensor) -> EncoderResult:
+        """The tower on NHWC pixels already on its device, uint8 ones
+        normalised first (before the tower's own cast). Shared by
+        `__call__` and the serving programs (pipeline.compile_serving)."""
+        # (embeds, activations) for CLIP, SigLIP adds its residuals
+        return EncoderResult.create(*self.module(self.normalize(x).float()))
+
     @torch.inference_mode()
     def __call__(self, images) -> EncoderResult:
+        """NHWC (or NCHW) images: normalised floats, or uint8 crops (the
+        `*_uint8` transforms), which cross to the device as uint8."""
         self._validate_quant_cache()
         x = torch.as_tensor(images, device=self.device)
-        if not torch.is_floating_point(x):
-            raise ValueError("pixels must be normalized floats (the uint8 "
-                             "ingest lane is not ported yet)")
         if x.dim() == 4 and x.shape[1] == 3 and x.shape[-1] != 3:
             x = x.permute(0, 2, 3, 1)  # NCHW -> NHWC
-        # (embeds, activations) for CLIP, SigLIP adds its residuals
-        return EncoderResult.create(*self.module(x.float()))
+        return self.forward_pixels(x)
 
 
 class TextEncoder(_EncoderBase):

@@ -133,9 +133,11 @@ class MultiHeadAttention(nn.Module):
         q = q.reshape(B, Tq, H, Dh).transpose(1, 2)
         k, v = (t.reshape(B, Tk, H, Dh).transpose(1, 2) for t in (k, v))
         # scores in the compute dtype, divided there, then fp32 — the
-        # order of the JAX einsum path (layers.py:193-198)
-        scores = (q @ k.transpose(-1, -2)) / torch.tensor(
-            math.sqrt(Dh), dtype=q.dtype, device=q.device)
+        # order of the JAX einsum path (layers.py:193-198); the divisor is
+        # filled on the device (no host copy, so a CUDA graph can capture
+        # the SigLIP probe)
+        scores = (q @ k.transpose(-1, -2)) / torch.full(
+            (), math.sqrt(Dh), dtype=q.dtype, device=q.device)
         scores = scores.float()
         if mask is not None:
             scores = scores + mask.float()

@@ -13,7 +13,8 @@ when num_samples=0, Monte-Carlo otherwise).
     logits = vlm.logits(images)           # ProbabilisticLogits (mean+var)
 
 Both families: the CLIP and SigLIP names of `models/configs.py`.
-`predict` takes normalised NHWC float pixels, or PIL images, which go
+`predict` takes normalised NHWC float pixels, uint8 crops (the
+`*_uint8` transforms; normalised on the device), or PIL images, which go
 through the family's transform (`data/transforms.get_transform`).
 
 The W8A8 int8 lane of the vision tower is an opt-in, as in the JAX
@@ -30,8 +31,18 @@ and `tokenizer_dir` a local HF tokenizer directory (needs
 `transformers`); without it, prompts go through the deterministic
 `HashTokenizer`.
 
-Not ported yet: AOT serving (`compile_serving`, the serving cache) and
-meshes.
+Serving: `compile_serving(batch_sizes, input_dtype)` builds one program
+per batch size (pixels -> image tower -> Smith head -> probit softmax).
+On the card each is a CUDA graph captured over a static input buffer,
+the counterpart of the JAX package's AOT ladder; `predict` replays it
+when the call matches its signature, and `serve.BatchingServer` batches
+requests onto it:
+
+    vlm.compile_serving([1, 2, 4, 8], input_dtype=torch.uint8)
+    probs = vlm.predict(uint8_batch_of_8)   # one graph replay
+
+Not ported yet: the persisted serving state (`save_serving`,
+`load_serving`, `from_serving_cache`) and meshes.
 """
 
 from __future__ import annotations
@@ -44,6 +55,47 @@ import torch
 from bayesvlm_tpu_torch.types import EncoderResult, ProbabilisticLogits
 
 _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+# numpy pixel dtypes a serving program can take (by `np.dtype.str`)
+_TORCH_DTYPES = {np.dtype(d).str: t for d, t in (
+    (np.uint8, torch.uint8), (np.float16, torch.float16),
+    (np.float32, torch.float32), (np.float64, torch.float64))}
+
+
+class _EagerProgram:
+    """A ladder size on the CPU: the serving forward, run eagerly."""
+
+    def __init__(self, vlm: "ProbabilisticVLM", dtype: torch.dtype):
+        self.vlm, self.dtype = vlm, dtype
+
+    def __call__(self, pixels) -> torch.Tensor:
+        x = torch.as_tensor(pixels, device=self.vlm.image_encoder.device)
+        return self.vlm._serve_forward(x.to(self.dtype))
+
+
+class _GraphProgram:
+    """A ladder size on the card: one CUDA graph of the serving forward
+    over a static input buffer. Host pixels are copied into a pinned
+    staging buffer, then into the static input on the current stream;
+    the output is cloned off the static buffer, which the next replay
+    overwrites."""
+
+    def __init__(self, graph, static_in: torch.Tensor, static_out: torch.Tensor):
+        self.graph, self.static_in, self.static_out = graph, static_in, static_out
+        self.pinned = torch.empty(static_in.shape, dtype=static_in.dtype, pin_memory=True)
+        self.staged = torch.cuda.Event()  # the last copy out of `pinned`
+        self.staged.record()
+
+    def __call__(self, pixels) -> torch.Tensor:
+        if isinstance(pixels, torch.Tensor) and pixels.device.type == "cuda":
+            self.static_in.copy_(pixels)
+        else:
+            host = pixels.numpy() if isinstance(pixels, torch.Tensor) else np.asarray(pixels)
+            self.staged.synchronize()  # never overwrite a copy still in flight
+            np.copyto(self.pinned.numpy(), host, casting="same_kind")
+            self.static_in.copy_(self.pinned, non_blocking=True)
+            self.staged.record()
+        self.graph.replay()
+        return self.static_out.clone()
 
 
 class ProbabilisticVLM:
@@ -55,6 +107,11 @@ class ProbabilisticVLM:
         self.info = dict(info)
         self.transform = transform
         self._label_features: Optional[EncoderResult] = None
+        self._serving: Optional[dict] = None
+        # predict calls served by the ladder (a graph replay on the card,
+        # its eager program on the CPU) and by the general path
+        self.replays = 0
+        self.eager_calls = 0
 
     @classmethod
     def from_pretrained(
@@ -129,9 +186,10 @@ class ProbabilisticVLM:
     # -- encoding -------------------------------------------------------
 
     def encode_images(self, images, batch_size: int = 256) -> EncoderResult:
-        """Encode NHWC (or NCHW) normalized float pixels, or a list of PIL
-        images (run through the model's transform), in batches of at most
-        `batch_size` (bounded device memory for large inputs)."""
+        """Encode NHWC (or NCHW) normalized float pixels or uint8 crops
+        (normalised on the device), or a list of PIL images (run through
+        the model's transform), in batches of at most `batch_size`
+        (bounded device memory for large inputs)."""
         from bayesvlm_tpu_torch.inference.precompute import encode_images_batched
 
         if isinstance(images, (list, tuple)):
@@ -145,9 +203,156 @@ class ProbabilisticVLM:
         return self.text_encoder.encode_texts(list(prompts))
 
     def set_class_prompts(self, prompts: Sequence[str]) -> "ProbabilisticVLM":
-        """Embed and cache the label set once for repeated predict calls."""
-        self._label_features = self.encode_texts(prompts)
+        """Embed and cache the label set once for repeated predict calls.
+        With a serving ladder, a label set of the same shape is copied into
+        the tensors the ladder reads (the JAX package passes the labels to
+        its programs at run time); another class count drops the ladder,
+        as there (compile_serving again for the fast path)."""
+        new = self.encode_texts(prompts)
+        old = self._label_features
+        fields = ("embeds", "activations", "residuals")
+        if self._serving is not None and old is not None and all(
+                getattr(old, f).shape == getattr(new, f).shape for f in fields):
+            with torch.inference_mode():
+                for f in fields:
+                    getattr(old, f).copy_(getattr(new, f))
+            return self
+        self._serving = None
+        self._label_features = new
         return self
+
+    # -- serving ladder ---------------------------------------------------
+
+    def _serve_forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        """pixels [B, H, W, 3] on the device -> probit probabilities [B, C]:
+        the image tower, then the unfused Smith head, as in the JAX
+        package's serving program (`pipeline.py:334-336` there)."""
+        from bayesvlm_tpu_torch.probforward.smith import probabilistic_logits
+
+        with torch.inference_mode():
+            feats = self.image_encoder.forward_pixels(pixels)
+        return probabilistic_logits(self.head, feats,
+                                    self._label_features).probit_softmax()
+
+    def _runtime_key(self) -> tuple:
+        """Address and layout of every tensor the serving forward reads:
+        the tower's parameters and buffers (the int8 weight cache among
+        them), the label features and the head. A CUDA graph reads them
+        where they were at its capture."""
+        head, labels = self.head, self._label_features
+        tensors = [t for m in self.image_encoder.module.modules()
+                   for d in (m._parameters, m._buffers) for t in d.values()
+                   if t is not None]
+        tensors += [labels.embeds, labels.activations, labels.residuals,
+                    head.logit_scale, head.logit_bias]
+        for cov in (head.source_covariance, head.target_covariance):
+            if cov is not None:
+                tensors += [cov.A_inv, cov.B_inv]
+        # (walking the modules' dicts directly costs about half of
+        # parameters() + buffers())
+        return tuple((t.data_ptr(), t.shape, t.stride(), t.dtype) for t in tensors)
+
+    def compile_serving(self, batch_size,
+                        input_dtype: torch.dtype = torch.float32) -> "ProbabilisticVLM":
+        """Build the serving ladder: one program per batch size (one int
+        or a sequence), pixels [B, H, W, 3] of `input_dtype` -> image tower
+        -> Smith head -> probit softmax. uint8 puts the /255 and mean / std
+        inside the program. A repeat call replaces the whole ladder.
+
+        On the card each size is one CUDA graph (the counterpart of the
+        JAX package's AOT programs, `bayesvlm_tpu/pipeline.py:263`): warmed
+        up eagerly first (kernel builds, shared-memory opt-ins and the
+        tensor-map encoder's lookup happen outside the capture), then
+        captured over a static input buffer, largest size first, all
+        sizes in one memory pool. A failed capture raises, naming the
+        size. On the CPU a size runs the same forward eagerly.
+
+        `predict` takes a program when num_samples == 0, no class_prompts
+        are passed, the images' shape matches and the batch size is on the
+        ladder (floats of another width are cast; uint8 and floats are
+        never converted into each other). The graphs read the weights, the
+        label features and the head where they were captured: in-place
+        updates are served as they are, `set_class_prompts` with the same
+        class count copies the new labels in place, and a tensor that
+        moved (a replaced parameter, head or int8 cache) sends the call to
+        the general path, counted in `eager_calls`."""
+        if self._label_features is None:
+            raise ValueError("call set_class_prompts before compile_serving")
+        batch_sizes = sorted({int(b) for b in (
+            batch_size if isinstance(batch_size, (list, tuple, set, frozenset))
+            else [batch_size])})
+        if not batch_sizes or batch_sizes[0] < 1:
+            raise ValueError(f"batch sizes must be >= 1, got {batch_sizes}")
+        if input_dtype != torch.uint8 and not input_dtype.is_floating_point:
+            raise ValueError(f"serving input must be uint8 or floats, not {input_dtype}")
+        self._serving = None  # a failed capture leaves no ladder
+        enc = self.image_encoder
+        enc._validate_quant_cache()
+        vcfg = enc.config.vision
+        shape = (vcfg.image_size, vcfg.image_size, 3)
+        if enc.device.type == "cuda":
+            programs = self._capture_ladder(batch_sizes, shape, input_dtype)
+        else:
+            programs = {b: _EagerProgram(self, input_dtype) for b in batch_sizes}
+        self._serving = dict(programs=programs, image_shape=shape, dtype=input_dtype,
+                             runtime_key=self._runtime_key())
+        return self
+
+    def _capture_ladder(self, batch_sizes, shape, dtype) -> dict:
+        device = self.image_encoder.device
+        programs, pool = {}, None
+        for b in sorted(batch_sizes, reverse=True):
+            try:
+                static_in = torch.zeros((b, *shape), dtype=dtype, device=device)
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    for _ in range(2):
+                        self._serve_forward(static_in)
+                torch.cuda.current_stream(device).wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph, pool=pool):
+                    static_out = self._serve_forward(static_in)
+                torch.cuda.synchronize(device)
+            except Exception as exc:
+                raise RuntimeError(f"compile_serving: capturing batch size {b} "
+                                   f"failed: {type(exc).__name__}: {exc}") from exc
+            pool = graph.pool()
+            programs[b] = _GraphProgram(graph, static_in, static_out)
+        return programs
+
+    def _predict_fast(self, images, num_samples: int,
+                      class_prompts) -> Optional[torch.Tensor]:
+        """Run the ladder's program when the call matches its signature;
+        None -> the general path."""
+        srv = self._serving
+        if (srv is None or num_samples != 0 or class_prompts is not None
+                or isinstance(images, EncoderResult)):
+            return None
+        if isinstance(images, (list, tuple)):
+            if self.transform is None:
+                return None
+            images = np.stack([self.transform(im) for im in images])
+        if not isinstance(images, torch.Tensor):
+            images = np.asarray(images)
+        if images.ndim != 4 or tuple(images.shape[1:]) != srv["image_shape"]:
+            return None
+        program = srv["programs"].get(int(images.shape[0]))
+        if program is None:
+            return None
+        want = srv["dtype"]
+        got = images.dtype if isinstance(images, torch.Tensor) else _TORCH_DTYPES.get(
+            images.dtype.str)
+        if got is None:
+            return None
+        if got != want and not (got.is_floating_point and want.is_floating_point):
+            # casting across uint8 / float would skip (or fake) the
+            # program's normalisation
+            return None
+        self.image_encoder._validate_quant_cache()
+        if self._runtime_key() != srv["runtime_key"]:
+            return None  # a tensor the program reads has moved
+        return program(images)
 
     # -- inference ------------------------------------------------------
 
@@ -174,6 +379,12 @@ class ProbabilisticVLM:
         """Calibrated class probabilities [B, C] on the model's device:
         probit approximation when num_samples=0
         (ref:scripts/zeroshot.py:119-120), MC softmax otherwise
-        (ref:bayesvlm/vlm.py:80-103)."""
+        (ref:bayesvlm/vlm.py:80-103). A call that matches the serving
+        ladder (compile_serving) runs its program instead."""
+        fast = self._predict_fast(images, num_samples, class_prompts)
+        if fast is not None:
+            self.replays += 1
+            return fast
+        self.eager_calls += 1
         pl = self.logits(images, class_prompts, batch_size=batch_size)
         return pl.softmax(num_samples=num_samples, seed=seed)

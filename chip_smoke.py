@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's Stage-1, Stage-2 and Stage-3 paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's Stage-1, Stage-2 (and its serving path) and Stage-3
+paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -75,16 +76,34 @@ Phases (any failure raises and exits non-zero, without the result line):
      set_class_prompts(100 prompts) -> predict on [64, 224, 224, 3]
      pixels; checks shape, finiteness, row sums, 24 attention launches
      per image-tower forward and agreement with an fp32 predict;
+  6b. serving, on that VLM: the uint8 lane's device-normalised pixels
+     against the host float transform's (ulps) and the H2D ms of a
+     B=64 batch in uint8 and fp32 (pageable and pinned); compile_serving
+     on the pow2 ladder to 64 with uint8 input (one CUDA graph a size):
+     seconds and #1's launches (24) counted while each size is captured,
+     each size's replay equal to eager predict bit for bit; B=1 p50 / p95
+     latency and B=64 img/s, graph against eager (host clock, the card
+     synchronised); serve.BatchingServer with 8 client threads x 32
+     requests at pipeline_depth 0 and 2 (every future resolved, no eager
+     call, each row against eager predict within the run's bf16-vs-fp32
+     log-prob difference, the stats); serve_cli's HTTP app on 127.0.0.1: 16 uint8 octet-stream
+     requests, /healthz, /stats, a /class_prompts swap of the same count
+     (labels copied in place) and of another count (the ladder captured
+     again), rows against eager predict under the new prompts;
   7. int8 main path: the same with mlp_int8=True, attn_int8=True; checks
      24 mlp_int8, 48 linear_int8 and 24 attention launches per forward,
      none from the text tower, and the image embeddings' cosine against
-     the bf16 lane's; prints img/s beside the bf16 lane's;
+     the bf16 lane's; prints img/s beside the bf16 lane's; then a B=64
+     CUDA graph of the lane (24 / 24 / 48 launches at capture, the
+     replay equal to eager predict bit for bit);
   7b. block lane: the bf16 lane's towers, with the vision tower rebuilt
      from dataclasses.replace(vision, attn_pallas_block=True) and the
      same weights (as the JAX package reaches the lane), then
      set_class_prompts -> predict; checks 24 attention_block launches
      and no other per forward, none from the text tower, and the
-     embeddings' cosine against the bf16 lane's; prints img/s;
+     embeddings' cosine against the bf16 lane's; prints img/s; then a
+     B=64 CUDA graph of the lane (24 launches at capture, the replay
+     equal to eager predict bit for bit);
   7c. Stage 1 at clip-large width through the port's CLI,
      hessian_estimation.main: seeded bf16 towers, `synthetic` with 8192
      pairs of 224 px and 8192 distinct captions, batch 64, one class
@@ -128,10 +147,9 @@ Phases (any failure raises and exits non-zero, without the result line):
      model.safetensors (this script's writer); load_model (fp32) of each
      must give back the source tensors bit for bit (fp16-rounded for the
      safetensors copy) and the head; convert_weights on the snapshot,
-     then load_model of its directory, the same tensors;
+     then load_model of its directory, the same tensors bit for bit;
      from_pretrained(bf16, weights_dir=the snapshot) -> predict at B=64
-     must launch #1 24 times and nothing else, and equal bit for bit the
-     probabilities from the converted directory. Prints each file's MB,
+     must launch #1 24 times and nothing else. Prints each file's MB,
      the seconds load_model takes to read it (MB/s) and convert_weights'
      seconds, beside the card's name and power limit. No tokenizer or
      dataset phase: the card machine has no transformers and no PIL;
@@ -175,8 +193,11 @@ Phases (any failure raises and exits non-zero, without the result line):
      SM), then the result line {"ok": true, "device": {...}} last.
 
 Each path's launch counts (the Stage-1 CLI's too) are set to 0 just
-before it and read just after; the launches of phases 3, 4, 5, 5b, 10's and 10b's comparisons
-are not counted.
+before it and read just after; the launches of phases 3, 4, 5, 5b, 10's
+and 10b's comparisons are not counted. A CUDA graph's replay runs no
+Python, so a serving program's kernels are counted while it is captured
+(each size's counts read between its capture's begin and end) and the
+replay is shown to run them by its output, equal to eager predict's.
 """
 
 from __future__ import annotations
@@ -237,6 +258,16 @@ BF16_EMBED_COS_MIN = 0.99
 INT8_EMBED_COS_MIN = 0.95
 # tiny-clip fp32 on the card vs on the CPU: fp32 summation order only
 TINY_TOL = 1e-4
+# serving: the pow2 ladder up to BATCH, 8 clients x 32 requests each
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_WAIT_MS = 8, 32, 2.0
+SERVE_LATENCY_CALLS, SERVE_THROUGHPUT_CALLS = 50, 10
+# A served row (a replay at the row's bucket) vs eager predict of the
+# same image in a batch of BATCH: the same bf16 weights and kernels, but
+# cuBLAS picks its GEMM by M, so a GEMM output may round the other way
+# (one bf16 ulp, 2^-8) wherever its fp32 sum lands near a rounding
+# boundary. Only some roundings flip, where bf16 against fp32 differs at
+# every one, so the bound is the run's own bf16-vs-fp32 max |log p|
+# difference (phase 6), measured on the same weights.
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, and operations/s
 # of the tensor cores by operand type (fp32: the CUDA cores)
 HBM_BYTES_S = 3.35e12
@@ -905,8 +936,8 @@ def phase_main_path(torch, counters, hessian_dir: str, pixels, prompts):
           f"lambda_img_fp32={vlm32.info['lambda_img']!r}")
     check(logp_diff <= BF16_LOGP_ATOL, "bf16 log-probs stray from fp32")
     check(cos >= BF16_EMBED_COS_MIN, "bf16 image embeddings stray from fp32")
-    del vlm, vlm32
-    return launches, img_s, embeds, probs
+    del vlm32
+    return vlm, launches, img_s, embeds, probs, logp_diff
 
 
 def phase_int8_path(torch, counters, hessian_dir: str, pixels, prompts,
@@ -928,8 +959,10 @@ def phase_int8_path(torch, counters, hessian_dir: str, pixels, prompts,
     print(f"int8 vs bf16 lane: min_embed_cos={cos:.6f} (min {INT8_EMBED_COS_MIN}) "
           f"max_abs_logp_diff={logp_diff:.3e}")
     check(cos >= INT8_EMBED_COS_MIN, "int8 image embeddings stray from the bf16 lane")
+    graph = _capture_lane(torch, counters, vlm, pixels, probs, "int8 lane",
+                          {"attention": L, "mlp_int8": L, "linear_int8": 2 * L})
     del vlm
-    return launches, img_s
+    return launches, img_s, graph
 
 
 def phase_block_path(torch, counters, hessian_dir: str, pixels, prompts,
@@ -951,8 +984,314 @@ def phase_block_path(torch, counters, hessian_dir: str, pixels, prompts,
           f"max_abs_logp_diff={logp_diff:.3e}")
     check(cos >= BLOCK_EMBED_COS_MIN, "block-lane image embeddings stray from the "
                                       "bf16 lane")
+    graph = _capture_lane(torch, counters, vlm, pixels, probs, "block lane",
+                          {"attention_block": L})
     del vlm
-    return launches, img_s
+    return launches, img_s, graph
+
+
+class _CaptureLog:
+    """While entered, records each CUDA-graph capture's seconds (capture
+    begin to end) and the launches each counter took inside it: a replay
+    calls no Python, so the kernels a graph holds are counted as it is
+    captured."""
+
+    def __init__(self, torch, counters):
+        self.graph_cls, self.counters, self.captures = torch.cuda.CUDAGraph, counters, []
+
+    def __enter__(self):
+        cls, log = self.graph_cls, self
+        self.saved = (cls.capture_begin, cls.capture_end)
+
+        def begin(graph, *args, **kwargs):
+            log.before = {n: c.launches for n, c in log.counters.items()}
+            log.t0 = time.perf_counter()
+            return log.saved[0](graph, *args, **kwargs)
+
+        def end(graph, *args, **kwargs):
+            out = log.saved[1](graph, *args, **kwargs)
+            log.captures.append((time.perf_counter() - log.t0, {
+                n: c.launches - log.before[n] for n, c in log.counters.items()
+                if c.launches != log.before[n]}))
+            return out
+
+        cls.capture_begin, cls.capture_end = begin, end
+        return self
+
+    def __exit__(self, *exc):
+        self.graph_cls.capture_begin, self.graph_cls.capture_end = self.saved
+
+
+def _capture_lane(torch, counters, vlm, pixels, eager_probs, label: str,
+                  per_program: dict) -> dict:
+    """compile_serving(BATCH) on a lane's VLM (float32 input): the kernels
+    counted while the graph is captured, and its replay against the eager
+    predict of the same pixels, bit for bit."""
+    with _CaptureLog(torch, counters) as log:
+        vlm.compile_serving(BATCH)
+    (seconds, launches), = log.captures
+    replays = vlm.replays
+    out = vlm.predict(pixels)
+    torch.cuda.synchronize()
+    diff = float((out - eager_probs).abs().max())
+    print(f"{label} graph B={BATCH}: capture_s={seconds:.3f} launches={launches} "
+          f"replay vs eager predict: equal={bool(torch.equal(out, eager_probs))} "
+          f"max_abs_diff={diff:.3e}")
+    check(launches == per_program, f"{label} graph launches {launches} != {per_program}")
+    check(vlm.replays == replays + 1, f"{label}: predict did not replay the graph")
+    check(torch.equal(out, eager_probs), f"{label}: the replay differs from eager predict")
+    return launches
+
+
+def _host_ms(torch, fn, calls: int) -> list:
+    """Host-clock ms of each of `calls` calls, the card synchronised."""
+    out = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def _pct(values, q: float) -> float:
+    v = sorted(values)
+    return v[int(q * (len(v) - 1))]
+
+
+def _max_logp_diff(torch, rows, ref) -> float:
+    rows = torch.as_tensor(np.asarray(rows), dtype=torch.float32)
+    return float((rows.log() - ref.float().cpu().log()).abs().max())
+
+
+def _http(port: int, path: str, body, headers: dict):
+    """One request to 127.0.0.1:port (GET without a body): (status, JSON)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST" if body is not None else "GET", path, body=body,
+                     headers=headers)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+def phase_serving(torch, counters, vlm, prompts, logp_tol: float) -> dict:
+    """The serving path on the bf16 main-path VLM: the uint8 lane's
+    normalisation and H2D bytes, compile_serving's pow2 CUDA-graph ladder
+    (launches counted at capture, each size's replay against eager
+    predict), B=1 latency and B=64 throughput graph against eager, the
+    BatchingServer at pipeline_depth 0 and 2, and serve_cli's HTTP app
+    with both kinds of prompt swap. Served rows are held to eager predict
+    within `logp_tol`, the run's bf16-vs-fp32 max |log p| difference."""
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from bayesvlm_tpu_torch import serve_cli
+    from bayesvlm_tpu_torch.data.transforms import NORMALIZATION_BY_FAMILY, _normalize
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+    from bayesvlm_tpu_torch.serve import BatchingServer
+
+    t_phase = time.perf_counter()
+    L = CONFIGS_BY_NAME[MODEL].vision.num_layers
+    size = vlm.image_encoder.config.vision.image_size
+    n_images = SERVE_CLIENTS * SERVE_REQUESTS
+    u8 = np.random.default_rng(SEED + 5).integers(0, 256, (n_images, size, size, 3),
+                                                  dtype=np.uint8)
+    enc = vlm.image_encoder
+
+    # the uint8 lane: the device's normalisation against the host transform's
+    dev = enc.normalize(torch.from_numpy(u8[:BATCH]).cuda()).cpu()
+    host = torch.from_numpy(_normalize(u8[:BATCH].astype(np.float32) / 255.0,
+                                       *NORMALIZATION_BY_FAMILY["clip"]))
+    ulps = (dev.view(torch.int32).long() - host.view(torch.int32).long()).abs()
+    h2d = {}
+    for name, arr in (("uint8", u8[:BATCH]), ("fp32", host.numpy())):
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        pinned = src.pin_memory()
+        h2d[name] = {"pageable": cuda_ms(torch, lambda: src.to("cuda")),
+                     "pinned": cuda_ms(torch, lambda: pinned.to("cuda", non_blocking=True)),
+                     "mb": src.numel() * src.element_size() / 1e6}
+    print(f"uint8 lane ({DEVICE['card']}): device-normalised pixels vs the host float "
+          f"transform: max_ulps={int(ulps.max())} differing={int((ulps > 0).sum())} of "
+          f"{ulps.numel()}; H2D B={BATCH}: " + "; ".join(
+              f"{n} {r['mb']:.2f} MB pageable {r['pageable']:.4f} ms pinned "
+              f"{r['pinned']:.4f} ms" for n, r in h2d.items()))
+    check(int(ulps.max()) == 0, "the uint8 lane's normalisation differs from the host's")
+
+    # eager references (the general path, counted in no predict counter)
+    with torch.no_grad():
+        eager = torch.cat([vlm.logits(u8[i:i + BATCH]).softmax(num_samples=0).cpu()
+                           for i in range(0, n_images, BATCH)])
+
+    # the ladder, launches counted at capture
+    ladder = [1 << k for k in range(BATCH.bit_length()) if 1 << k <= BATCH]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _CaptureLog(torch, counters) as log:
+        vlm.compile_serving(ladder, input_dtype=torch.uint8)
+    compile_s = time.perf_counter() - t0
+    sizes = sorted(ladder, reverse=True)  # captured largest first
+    graph_launches = {b: launches for b, (_, launches) in zip(sizes, log.captures)}
+    capture_s = {b: sec for b, (sec, _) in zip(sizes, log.captures)}
+    print(f"ladder (uint8, pow2 to {BATCH}): compile_serving {compile_s:.2f} s; capture_s "
+          + " ".join(f"B={b}:{capture_s[b]:.3f}" for b in ladder)
+          + f"; launches per captured program {graph_launches}")
+    check(len(log.captures) == len(ladder), f"{len(log.captures)} captures for {ladder}")
+    check(all(graph_launches[b] == {"attention": L} for b in ladder),
+          f"#1 launches per captured program: {graph_launches}")
+    equal, diffs = {}, {}
+    for b in ladder:
+        replays = vlm.replays
+        out = vlm.predict(u8[:b])
+        with torch.no_grad():
+            ref = vlm.logits(u8[:b]).softmax(num_samples=0)
+        torch.cuda.synchronize()
+        check(vlm.replays == replays + 1, f"B={b} did not replay")
+        equal[b], diffs[b] = bool(torch.equal(out, ref)), float((out - ref).abs().max())
+    print("replay vs eager predict, bit for bit: " + " ".join(
+        f"B={b}:{equal[b]}({diffs[b]:.1e})" for b in ladder))
+    check(all(equal.values()), f"a replay differs from eager predict: {diffs}")
+
+    # latency and throughput, graph against eager (the ladder detached)
+    def eager_predict(x):
+        srv, vlm._serving = vlm._serving, None
+        try:
+            return vlm.predict(x)
+        finally:
+            vlm._serving = srv
+
+    times = {}
+    for name, fn in (("graph", vlm.predict), ("eager", eager_predict)):
+        fn(u8[:1])
+        fn(u8[:BATCH])
+        times[name] = {"b1": _host_ms(torch, lambda: fn(u8[:1]), SERVE_LATENCY_CALLS),
+                       "b64": _host_ms(torch, lambda: fn(u8[:BATCH]), SERVE_THROUGHPUT_CALLS)}
+    lat = {n: (_pct(t["b1"], 0.5), _pct(t["b1"], 0.95)) for n, t in times.items()}
+    img_s = {n: BATCH * len(t["b64"]) / sum(t["b64"]) * 1e3 for n, t in times.items()}
+    print(f"B=1 latency ms p50/p95 ({SERVE_LATENCY_CALLS} calls, host clock, card "
+          f"synchronised; {DEVICE['card']}): graph {lat['graph'][0]:.3f}/{lat['graph'][1]:.3f}"
+          f" eager {lat['eager'][0]:.3f}/{lat['eager'][1]:.3f}; B={BATCH} uint8 img/s: "
+          f"graph {img_s['graph']:.1f} eager {img_s['eager']:.1f}")
+    # the host work a graph call does before its replay, at B=64: the
+    # check of the tensors the graph reads, and the copy into the pinned
+    # staging buffer (the H2D copy from it is h2d["uint8"]["pinned"])
+    pinned = vlm._serving["programs"][BATCH].pinned.numpy()
+    host_ms = {}
+    for name, fn in (("runtime_key", vlm._runtime_key),
+                     ("staging_copy", lambda: np.copyto(pinned, u8[:BATCH]))):
+        t0 = time.perf_counter()
+        for _ in range(SERVE_THROUGHPUT_CALLS):
+            fn()
+        host_ms[name] = (time.perf_counter() - t0) * 1e3 / SERVE_THROUGHPUT_CALLS
+    print(f"graph call host work before the replay, B={BATCH}: runtime-key check "
+          f"{host_ms['runtime_key']:.3f} ms, copy into the pinned staging buffer "
+          f"{host_ms['staging_copy']:.3f} ms (then H2D {h2d['uint8']['pinned']:.4f} ms; "
+          f"eager's pageable H2D {h2d['uint8']['pageable']:.4f} ms)")
+
+    # BatchingServer: 8 clients x 32 requests, inline then pipelined
+    server_stats = {}
+    for depth in (0, 2):
+        eager_calls = vlm.eager_calls
+        results = [None] * n_images
+        errors = []
+        with BatchingServer(vlm, BATCH, max_wait_ms=SERVE_WAIT_MS, input_dtype=torch.uint8,
+                            buckets="pow2", pipeline_depth=depth) as srv:
+            def client(c):
+                try:
+                    for r in range(SERVE_REQUESTS):
+                        i = c * SERVE_REQUESTS + r
+                        results[i] = srv.predict(u8[i], timeout=120)
+                except Exception as exc:  # noqa: BLE001 — reported below
+                    errors.append(exc)
+
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(SERVE_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            wall = time.perf_counter() - t0
+            stats = srv.stats()
+        check(not errors and not any(t.is_alive() for t in threads),
+              f"BatchingServer depth {depth}: {errors[:1]}")
+        check(all(r is not None for r in results), "a future did not resolve")
+        logp = _max_logp_diff(torch, results, eager)
+        server_stats[depth] = dict(vars(stats), img_s=n_images / wall,
+                                   max_abs_logp_diff=logp)
+        print(f"BatchingServer pipeline_depth={depth}: {n_images} requests from "
+              f"{SERVE_CLIENTS} clients in {wall:.3f} s ({n_images / wall:.1f} img/s), "
+              f"batches={stats.batches} fill={stats.fill:.3f} padded_rows={stats.padded_rows}"
+              f" latency_ms p50={stats.latency_ms_p50:.3f} p95={stats.latency_ms_p95:.3f} "
+              f"max={stats.latency_ms_max:.3f} errors={stats.errors} eager_calls="
+              f"{vlm.eager_calls - eager_calls}; rows vs eager predict B={BATCH}: "
+              f"max_abs_logp_diff={logp:.3e} (tol {logp_tol:.3e})")
+        check(vlm.eager_calls == eager_calls, "the server ran the eager path")
+        check(stats.requests == n_images and stats.errors == 0, f"stats {stats}")
+        check(logp <= logp_tol, "served rows stray from eager predict")
+
+    # HTTP: serve_cli's app in this process
+    app = serve_cli.ServingApp(vlm, BATCH, SERVE_WAIT_MS, "uint8", buckets="pow2")
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve_cli.make_handler(app))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    port = httpd.server_address[1]
+    octet = {"Content-Type": "application/octet-stream",
+             "X-Image-Shape": f"{size},{size},3", "X-Image-Dtype": "uint8"}
+    http = {}
+    try:
+        eager_calls = vlm.eager_calls
+        replies = [_http(port, "/predict", u8[i].tobytes(), octet) for i in range(16)]
+        check(all(s == 200 for s, _ in replies), f"HTTP statuses {[s for s, _ in replies]}")
+        http["logp"] = _max_logp_diff(torch, [r["probs"] for _, r in replies], eager[:16])
+        check(http["logp"] <= logp_tol, "HTTP rows stray from eager predict")
+        status, health = _http(port, "/healthz", None, {})
+        check(status == 200 and health["ok"] and health["buckets"] == ladder,
+              f"/healthz {status} {health}")
+        status, stats = _http(port, "/stats", None, {})
+        check(status == 200 and stats["requests"] == 16, f"/stats {status} {stats}")
+        for label, new in (("same count", [f"a picture of object {i}"
+                                           for i in range(NUM_PROMPTS)]),
+                           ("another count", [f"a picture of object {i}"
+                                              for i in range(NUM_PROMPTS // 2)])):
+            labels, replays = vlm._label_features, vlm.replays
+            t0 = time.perf_counter()
+            status, out = _http(port, "/class_prompts", json.dumps({"prompts": new}).encode(),
+                                {"Content-Type": "application/json"})
+            swap_s = time.perf_counter() - t0
+            check(status == 200 and out["num_classes"] == len(new), f"swap {status} {out}")
+            replies = [_http(port, "/predict", u8[i].tobytes(), octet) for i in range(4)]
+            check(all(s == 200 for s, _ in replies), "HTTP predict after the swap")
+            with torch.no_grad():
+                want = vlm.logits(u8[:4], class_prompts=new).softmax(num_samples=0)
+            logp = _max_logp_diff(torch, [r["probs"] for _, r in replies], want)
+            in_place = vlm._label_features is labels
+            http[label] = {"swap_s": swap_s, "logp": logp, "labels_in_place": in_place}
+            print(f"HTTP /class_prompts swap ({label}, {len(new)} classes): {swap_s:.3f} s, "
+                  f"labels copied in place={in_place}, replays={vlm.replays - replays}, "
+                  f"rows vs eager predict under the new prompts: max_abs_logp_diff="
+                  f"{logp:.3e}")
+            check(logp <= logp_tol, f"HTTP rows after the {label} swap stray")
+            check(vlm.replays == replays + 4, f"{label} swap: predict did not replay")
+            check(in_place == (label == "same count"), f"{label} swap: labels in place")
+        check(vlm.eager_calls == eager_calls, "the HTTP path ran the eager path")
+        check(sorted(vlm._serving["programs"]) == ladder, "the ladder after the swap")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+        app.server.stop(drain=False, timeout=60)
+    print(f"HTTP serve_cli app: 16 uint8 octet-stream requests, rows vs eager predict "
+          f"max_abs_logp_diff={http['logp']:.3e}; /healthz {health['buckets']}; /stats "
+          f"requests={stats['requests']} fill={stats['fill']:.3f}")
+    print(f"serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"graph_launches": graph_launches, "capture_s": capture_s,
+            "latency_ms": lat, "img_s": img_s, "h2d_ms": h2d, "host_ms": host_ms,
+            "server": server_stats, "http": http}
 
 
 def _smith_operands(torch, B: int, C: int, D: int, seed: int):
@@ -1363,9 +1702,8 @@ def snapshot_case(torch, model: str, hessian_dir: str, pixels, prompts, root,
     """One model through the HF checkpoint path: seeded towers -> HF
     snapshots (fp16 safetensors, fp32 bin) -> load_model bit for bit ->
     convert_weights -> load_model bit for bit -> from_pretrained on the
-    snapshot and on the converted directory -> predict, the probabilities
-    equal bit for bit, with every count set to 0 just before the snapshot's
-    predict and read just after (`per_forward`: the launches expected)."""
+    snapshot -> predict, with every count set to 0 just before the predict
+    and read just after (`per_forward`: the launches expected)."""
     from bayesvlm_tpu_torch import convert_weights
     from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
     from bayesvlm_tpu_torch.models.encoders import load_model
@@ -1415,28 +1753,25 @@ def snapshot_case(torch, model: str, hessian_dir: str, pixels, prompts, root,
     check(head2 == head, f"{model} convert_weights head {head2} != {head}")
     del got, got2, source
 
-    probs = {}
-    for label, wd in (("snapshot", snap), ("converted", conv)):
-        vlm = ProbabilisticVLM.from_pretrained(
-            model, hessian_dir, weights_dir=str(wd), dtype="bf16", device=device,
-            prior_num_steps=SNAPSHOT_PRIOR_STEPS)
-        vlm.set_class_prompts(prompts)
-        for c in (counters or {}).values():
-            c.launches = 0
-        probs[label] = vlm.predict(pixels)
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-        if label == "snapshot" and counters is not None:
-            out["launches"] = {n: c.launches for n, c in counters.items()}
-            expected = {**dict.fromkeys(counters, 0), **per_forward}
-            check(out["launches"] == expected, f"{model} snapshot predict launches: "
-                                               f"expected {expected}, got {out['launches']}")
-        del vlm
-    p = probs["snapshot"]
+    # the converted directory's towers are the snapshot's bit for bit
+    # (_check_same above), so one predict, from the snapshot, covers both
+    vlm = ProbabilisticVLM.from_pretrained(
+        model, hessian_dir, weights_dir=str(snap), dtype="bf16", device=device,
+        prior_num_steps=SNAPSHOT_PRIOR_STEPS)
+    vlm.set_class_prompts(prompts)
+    for c in (counters or {}).values():
+        c.launches = 0
+    p = vlm.predict(pixels)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    if counters is not None:
+        out["launches"] = {n: c.launches for n, c in counters.items()}
+        expected = {**dict.fromkeys(counters, 0), **per_forward}
+        check(out["launches"] == expected, f"{model} snapshot predict launches: "
+                                           f"expected {expected}, got {out['launches']}")
+    del vlm
     check(tuple(p.shape) == (len(pixels), len(prompts)) and bool(torch.isfinite(p).all()),
           f"{model} snapshot predict: shape {tuple(p.shape)} or non-finite")
-    check(torch.equal(p, probs["converted"]), f"{model}: predict from the snapshot and "
-                                              f"from convert_weights differ")
     return out
 
 
@@ -2111,12 +2446,14 @@ def main() -> int:
             tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tiny, \
             tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tiny_siglip:
         hdir = save_synthetic_hessians(big, CONFIGS_BY_NAME[MODEL], SEED)
-        bf16_launches, bf16_img_s, bf16_embeds, bf16_probs = phase_main_path(
-            torch, counters, hdir, pixels, prompts)
-        int8_launches, _ = phase_int8_path(
+        (bf16_vlm, bf16_launches, bf16_img_s, bf16_embeds, bf16_probs,
+         bf16_logp_diff) = phase_main_path(torch, counters, hdir, pixels, prompts)
+        serving = phase_serving(torch, counters, bf16_vlm, prompts, bf16_logp_diff)
+        del bf16_vlm
+        int8_launches, _, int8_graph = phase_int8_path(
             torch, counters, hdir, pixels, prompts, bf16_embeds, bf16_probs,
             bf16_img_s)
-        block_launches, _ = phase_block_path(
+        block_launches, _, block_graph = phase_block_path(
             torch, counters, hdir, pixels, prompts, bf16_embeds, bf16_probs,
             bf16_img_s)
         stage1 = phase_stage1(torch, all_counters, pixels, prompts)
@@ -2144,12 +2481,14 @@ def main() -> int:
     linear_entry["out_proj"] = {k: out_proj[k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "parts_ms")}
     linear_entry["parts_ms"] = qkv["parts_ms"]
+    linear_entry["graph_launches"] = {BATCH: int8_graph["linear_int8"]}
     fused = int8["mlp_int8 fused-LN"]
     mlp_entry = _entry("mlp_int8", "bayesvlm_tpu_torch/csrc/mlp_int8.cu",
                        "bayesvlm_tpu/models/mlp_int8.py:101",
                        int8_launches["mlp_int8"], fused, None)
     mlp_entry["yardsticks"] = int8["mlp_int8 yardsticks"]
-    mlp_entry.update(registers_gemm=fused["registers_gemm"], parts_ms=fused["parts_ms"])
+    mlp_entry.update(registers_gemm=fused["registers_gemm"], parts_ms=fused["parts_ms"],
+                     graph_launches={BATCH: int8_graph["mlp_int8"]})
     split, packed = attn[("vit-l/14", "bf16", "split_key")], attn[
         ("vit-l/14", "bf16", "packed_heads")]
     # #1's row is the main path's shape (ViT-L/14, bf16); its other bf16
@@ -2167,6 +2506,11 @@ def main() -> int:
     # and in one predict of each HF snapshot (phase 8c)
     one_block["snapshot_launches"] = {m: r["launches"]["attention"]
                                       for m, r in snapshots.items()}
+    # and in each captured serving program (counted at capture): the bf16
+    # ladder's sizes, and B=64 of the int8 lane
+    one_block["graph_launches"] = {b: n["attention"]
+                                   for b, n in serving["graph_launches"].items()}
+    one_block["graph_launches_int8"] = {BATCH: int8_graph["attention"]}
     print(json.dumps({"kernels": [
         one_block,
         _entry("fused_attention_split", "bayesvlm_tpu_torch/csrc/attention.cu",
@@ -2186,7 +2530,8 @@ def main() -> int:
                     block_launches["attention_block"], block["bf16"], None),
              chain_ms=block["bf16"]["chain_ms"], core=block["bf16"]["core"],
              gemms=block["bf16"]["gemms"], parts_ms=block["bf16"]["parts_ms"],
-             projections_ms=block["bf16"]["projections_ms"]),
+             projections_ms=block["bf16"]["projections_ms"],
+             graph_launches={BATCH: block_graph["attention_block"]}),
         mlp_entry,
         linear_entry,
         dict(_entry("xlogy_rowsum", "bayesvlm_tpu_torch/csrc/xlogy_rowsum.cu",

@@ -2,10 +2,10 @@
 host-side packages the card machine lacks: `transformers`, `PIL`,
 `sklearn`, `pandas`, `datasets` and `safetensors` are blocked in a fresh
 interpreter (`sys.modules[name] = None`), which then imports every module
-of the package, prints the CLIs' `--help`, and loads fp16 safetensors and
-fp32 `.bin` snapshots of tiny-siglip through `load_model` and
-`convert_weights`. No module of JAX or of the JAX package is loaded on
-the way."""
+of the package (the serving modules among them), prints the CLIs'
+`--help` (`serve_cli` too), and loads fp16 safetensors and fp32 `.bin`
+snapshots of tiny-siglip through `load_model` and `convert_weights`. No
+module of JAX or of the JAX package is loaded on the way."""
 
 import subprocess
 import sys
@@ -42,7 +42,7 @@ def test_every_module_imports_without_the_host_packages():
                                                        "bayesvlm_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        for cli in ("zeroshot", "hessian_estimation", "convert_weights"):
+        for cli in ("zeroshot", "hessian_estimation", "convert_weights", "serve_cli"):
             sys.argv = [cli, "--help"]
             try:
                 runpy.run_module(f"bayesvlm_tpu_torch.{cli}", run_name="__main__")
@@ -57,6 +57,7 @@ def test_every_module_imports_without_the_host_packages():
     count = int(out.split("IMPORTED ")[1].split()[0])
     assert count >= 60
     assert "usage: zeroshot" in out and "--tokenizer_dir" in out and "--snapshot" in out
+    assert "usage: serve_cli" in out and "--pipeline_depth" in out
 
 
 @pytest.mark.parametrize("fmt", ["f16", "bin"])

@@ -379,11 +379,11 @@ def test_cli_defaults_to_the_card_and_laion():
 
 @pytest.mark.parametrize("flag", [
     {"tokenizer_dir": "tok", "native_decode": True}, {"native_decode": True},
-    {"u8_pipeline": True}, {"save_orbax": True}, {"dist_global_batch": True},
-    "COORDINATOR_ADDRESS"])
+    {"u8_pipeline": True, "save_orbax": True}, {"save_orbax": True},
+    {"dist_global_batch": True}, "COORDINATOR_ADDRESS"])
 def test_cli_refuses_unported_flags_before_loading(flag, tmp_path, monkeypatch):
     """Each unported flag is refused by name before anything loads; the
-    ported --tokenizer_dir beside one is not named."""
+    ported --tokenizer_dir and --u8_pipeline beside one are not named."""
     import bayesvlm_tpu_torch.data.factory as factory
     import bayesvlm_tpu_torch.models.encoders as encoders
 
@@ -398,6 +398,7 @@ def test_cli_refuses_unported_flags_before_loading(flag, tmp_path, monkeypatch):
                                 hessian_dir=str(tmp_path / "h"), device="cpu", **flag)
     assert loaded == [] and not (tmp_path / "h").exists()
     assert "tokenizer" not in str(refused.value)
+    assert "u8_pipeline" not in str(refused.value)
 
 
 def test_load_hessians_names_an_orbax_only_directory(tmp_path):
