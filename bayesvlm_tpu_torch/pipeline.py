@@ -41,12 +41,21 @@ requests onto it:
     vlm.compile_serving([1, 2, 4, 8], input_dtype=torch.uint8)
     probs = vlm.predict(uint8_batch_of_8)   # one graph replay
 
-Not ported yet: the persisted serving state (`save_serving`,
-`load_serving`, `from_serving_cache`) and meshes.
+The serving state persists (`save_serving`), and a restart brings it up
+without the Hessian directory, the lambda re-opt or the text tower:
+
+    vlm.save_serving("serving.aotserv")
+    vlm = ProbabilisticVLM.from_serving_cache("clip-large", "serving.aotserv")
+
+A CUDA graph cannot be written to a file, so the file holds the ladder's
+signature and the runtime state, and the ladder is captured again at
+load. Not ported: meshes.
 """
 
 from __future__ import annotations
 
+import os
+import warnings
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -59,6 +68,82 @@ _DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 _TORCH_DTYPES = {np.dtype(d).str: t for d, t in (
     (np.uint8, torch.uint8), (np.float16, torch.float16),
     (np.float32, torch.float32), (np.float64, torch.float64))}
+
+# Bump when the save_serving payload layout changes: load_serving refuses
+# other versions (the JAX package's _AOT_CACHE_VERSION plays this part
+# for its own, unreadable here, .aotserv pickles)
+_SERVING_CACHE_VERSION = 1
+_LABEL_FIELDS = ("embeds", "activations", "residuals")
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _read_serving_file(path) -> dict:
+    """The payload of a save_serving file, read with weights_only=True.
+    A missing file raises FileNotFoundError (the caller's "no cache");
+    anything else it cannot read raises ValueError (the caller's "stale"),
+    the JAX package's .aotserv pickles by name."""
+    path = str(path)
+    with open(path, "rb") as f:
+        head = f.read(4096)
+    try:
+        with warnings.catch_warnings():
+            # a foreign pickle's protocol warning: the refusal below says more
+            warnings.simplefilter("ignore", UserWarning)
+            payload = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as exc:  # noqa: BLE001 — every unreadable file is refused
+        if not head.startswith(b"PK") and b"jax" in head:
+            raise ValueError(
+                f"serving cache {path} is a JAX package .aotserv pickle (compiled "
+                "XLA programs); this package cannot read it: build with "
+                "from_pretrained + compile_serving and save_serving again") from exc
+        raise ValueError(f"serving cache {path} is torn or not a save_serving file "
+                         f"({type(exc).__name__}: {exc})") from exc
+    if not isinstance(payload, dict):
+        raise ValueError(f"serving cache {path} is not a save_serving file")
+    if payload.get("version") != _SERVING_CACHE_VERSION:
+        raise ValueError(f"AOT cache version {payload.get('version')} != "
+                         f"{_SERVING_CACHE_VERSION}")
+    return payload
+
+
+def _device_signature(device: torch.device) -> dict:
+    """What a saved ladder must match on the running process: the JAX
+    package's platform / device_kind / num_devices."""
+    if device.type == "cuda":
+        return {"platform": "cuda", "device_kind": torch.cuda.get_device_name(device),
+                "num_devices": torch.cuda.device_count()}
+    return {"platform": device.type, "device_kind": device.type, "num_devices": 1}
+
+
+def _head_state(head) -> dict:
+    """The head as plain tensors, numbers and dicts (host copies)."""
+    def cov(c):
+        return None if c is None else {"A_inv": c.A_inv.cpu(), "B_inv": c.B_inv.cpu()}
+
+    return {"logit_scale": head.logit_scale.cpu(), "logit_bias": head.logit_bias.cpu(),
+            "source_covariance": cov(head.source_covariance),
+            "target_covariance": cov(head.target_covariance),
+            "source_projection_has_bias": bool(head.source_projection_has_bias),
+            "target_projection_has_bias": bool(head.target_projection_has_bias)}
+
+
+def _head_from_state(state: dict, device: torch.device):
+    from bayesvlm_tpu_torch.bayes.kfac import KroneckerFactorizedCovariance
+    from bayesvlm_tpu_torch.probforward.smith import ProbabilisticHead
+
+    def cov(c):
+        return None if c is None else KroneckerFactorizedCovariance(
+            A_inv=c["A_inv"].to(device), B_inv=c["B_inv"].to(device))
+
+    return ProbabilisticHead(
+        logit_scale=state["logit_scale"].to(device), logit_bias=state["logit_bias"].to(device),
+        source_covariance=cov(state["source_covariance"]),
+        target_covariance=cov(state["target_covariance"]),
+        source_projection_has_bias=state["source_projection_has_bias"],
+        target_projection_has_bias=state["target_projection_has_bias"])
 
 
 class _EagerProgram:
@@ -107,6 +192,7 @@ class ProbabilisticVLM:
         self.info = dict(info)
         self.transform = transform
         self._label_features: Optional[EncoderResult] = None
+        self._class_prompts: Optional[list] = None
         self._serving: Optional[dict] = None
         # predict calls served by the ladder (a graph replay on the card,
         # its eager program on the CPU) and by the general path
@@ -147,21 +233,12 @@ class ProbabilisticVLM:
         for tests and benchmarks)."""
         from bayesvlm_tpu_torch.bayes.kfac import compute_covariances
         from bayesvlm_tpu_torch.bayes.prior import optimize_prior_precision
-        from bayesvlm_tpu_torch.data.tokenizer import make_tokenizer
-        from bayesvlm_tpu_torch.data.transforms import get_transform
         from bayesvlm_tpu_torch.io.artifacts import load_hessians
-        from bayesvlm_tpu_torch.models.encoders import load_model
-        from bayesvlm_tpu_torch.utils import get_image_size
 
-        device = torch.device(device)
-        # load_model casts the GEMM weights to the compute dtype; the
-        # int8 cache is quantized after that
-        image_encoder, text_encoder, head = load_model(
-            model_str, weights_dir=weights_dir, dtype=_DTYPES[dtype],
-            seed=seed, device=device, mlp_int8=mlp_int8, attn_int8=attn_int8)
-        image_encoder.prequantize_int8()
-        text_encoder.tokenizer = make_tokenizer(image_encoder.config.text, tokenizer_dir)
-
+        image_encoder, text_encoder, head, transform = cls._build_towers(
+            model_str, weights_dir, tokenizer_dir, dtype, mlp_int8, attn_int8, seed,
+            device)
+        device = image_encoder.device
         A_img, B_img = (F.to(device) for F in load_hessians(hessian_dir, "img"))
         A_txt, B_txt = (F.to(device) for F in load_hessians(hessian_dir, "txt"))
         info = {"n_img": pseudo_data_count, "n_txt": pseudo_data_count}
@@ -179,9 +256,73 @@ class ProbabilisticVLM:
         ))
         cov_img, cov_txt = compute_covariances(A_img, B_img, A_txt, B_txt, info)
         head = head.set_covariances(cov_img, cov_txt)
-        transform = get_transform(image_encoder.config.family,
-                                  get_image_size(model_str))
         return cls(image_encoder, text_encoder, head, info, transform=transform)
+
+    @classmethod
+    def _build_towers(cls, model_str, weights_dir, tokenizer_dir, dtype, mlp_int8,
+                      attn_int8, seed, device):
+        """Weights-only construction shared by from_pretrained and
+        from_serving_cache (JAX `bayesvlm_tpu/pipeline.py:102`): the towers
+        (GEMM weights cast to the compute dtype, then the int8 cache
+        quantized from those rounded values), the tokenizer, the head
+        without covariances and the transform. No Hessian directory, no
+        lambda re-opt, no forward pass."""
+        from bayesvlm_tpu_torch.data.tokenizer import make_tokenizer
+        from bayesvlm_tpu_torch.data.transforms import get_transform
+        from bayesvlm_tpu_torch.models.encoders import load_model
+        from bayesvlm_tpu_torch.utils import get_image_size
+
+        image_encoder, text_encoder, head = load_model(
+            model_str, weights_dir=weights_dir, dtype=_DTYPES[dtype],
+            seed=seed, device=torch.device(device), mlp_int8=mlp_int8,
+            attn_int8=attn_int8)
+        image_encoder.prequantize_int8()
+        text_encoder.tokenizer = make_tokenizer(image_encoder.config.text, tokenizer_dir)
+        transform = get_transform(image_encoder.config.family, get_image_size(model_str))
+        return image_encoder, text_encoder, head, transform
+
+    @classmethod
+    def from_serving_cache(
+        cls,
+        model_str: str,
+        path,
+        weights_dir: Optional[str] = None,
+        tokenizer_dir: Optional[str] = None,
+        dtype: str = "bf16",
+        mlp_int8: bool = False,
+        attn_int8: bool = False,
+        seed: int = 0,
+        device: Union[str, torch.device] = "cuda",
+    ) -> "ProbabilisticVLM":
+        """Bring a serving VLM up from a `save_serving(...,
+        include_runtime=True)` file (JAX `bayesvlm_tpu/pipeline.py:156`):
+        the towers built from weights alone (`_build_towers`), the label
+        features, the covariance-finalised head, `info` (the lambdas) and
+        the class prompts restored from the file, then `load_serving`
+        captures the ladder. No Hessian directory is read, no lambda
+        re-opt and no text tower runs. Every `load_serving` check applies,
+        so a file of another family, dtype, class count or int8 setting is
+        refused. The weights must be the ones the file was saved with:
+        their shapes are checked, their values are the operator's
+        contract, as with any checkpoint directory (the file holds no
+        weights). `set_class_prompts` works afterwards as ever."""
+        payload = _read_serving_file(path)
+        runtime = payload.get("runtime")
+        if runtime is None:
+            raise ValueError(
+                "AOT cache was saved with include_runtime=False — it has "
+                "no label features / head; use from_pretrained + "
+                "load_serving instead")
+        image_encoder, text_encoder, _, transform = cls._build_towers(
+            model_str, weights_dir, tokenizer_dir, dtype, mlp_int8, attn_int8, seed,
+            device)
+        device = image_encoder.device
+        vlm = cls(image_encoder, text_encoder, _head_from_state(runtime["head"], device),
+                  info=dict(runtime["info"]), transform=transform)
+        vlm._label_features = EncoderResult(**{
+            f: runtime["label_features"][f].to(device) for f in _LABEL_FIELDS})
+        vlm._class_prompts = runtime.get("class_prompts")
+        return vlm._restore_ladder(payload)
 
     # -- encoding -------------------------------------------------------
 
@@ -210,11 +351,11 @@ class ProbabilisticVLM:
         as there (compile_serving again for the fast path)."""
         new = self.encode_texts(prompts)
         old = self._label_features
-        fields = ("embeds", "activations", "residuals")
+        self._class_prompts = list(prompts)
         if self._serving is not None and old is not None and all(
-                getattr(old, f).shape == getattr(new, f).shape for f in fields):
+                getattr(old, f).shape == getattr(new, f).shape for f in _LABEL_FIELDS):
             with torch.inference_mode():
-                for f in fields:
+                for f in _LABEL_FIELDS:
                     getattr(old, f).copy_(getattr(new, f))
             return self
         self._serving = None
@@ -234,12 +375,13 @@ class ProbabilisticVLM:
         return probabilistic_logits(self.head, feats,
                                     self._label_features).probit_softmax()
 
-    def _runtime_key(self) -> tuple:
-        """Address and layout of every tensor the serving forward reads:
-        the tower's parameters and buffers (the int8 weight cache among
-        them), the label features and the head. A CUDA graph reads them
-        where they were at its capture."""
+    def _ladder_tensors(self) -> list:
+        """Every tensor the serving forward reads: the tower's parameters
+        and buffers (the int8 weight cache among them), the label features
+        and the head, in a fixed order."""
         head, labels = self.head, self._label_features
+        # (walking the modules' dicts directly costs about half of
+        # parameters() + buffers())
         tensors = [t for m in self.image_encoder.module.modules()
                    for d in (m._parameters, m._buffers) for t in d.values()
                    if t is not None]
@@ -248,9 +390,18 @@ class ProbabilisticVLM:
         for cov in (head.source_covariance, head.target_covariance):
             if cov is not None:
                 tensors += [cov.A_inv, cov.B_inv]
-        # (walking the modules' dicts directly costs about half of
-        # parameters() + buffers())
-        return tuple((t.data_ptr(), t.shape, t.stride(), t.dtype) for t in tensors)
+        return tensors
+
+    def _runtime_key(self) -> tuple:
+        """Address and layout of every tensor the serving forward reads. A
+        CUDA graph reads them where they were at its capture."""
+        return tuple((t.data_ptr(), t.shape, t.stride(), t.dtype)
+                     for t in self._ladder_tensors())
+
+    def _ladder_avals(self) -> list:
+        """Shape and dtype of every tensor the ladder reads: the JAX
+        package's `arg_avals`."""
+        return [[list(t.shape), _dtype_name(t.dtype)] for t in self._ladder_tensors()]
 
     def compile_serving(self, batch_size,
                         input_dtype: torch.dtype = torch.float32) -> "ProbabilisticVLM":
@@ -320,6 +471,96 @@ class ProbabilisticVLM:
             pool = graph.pool()
             programs[b] = _GraphProgram(graph, static_in, static_out)
         return programs
+
+    def save_serving(self, path, include_runtime: bool = True) -> str:
+        """Write the serving ladder's signature, and with `include_runtime`
+        the serving state, to `path` (JAX `bayesvlm_tpu/pipeline.py:366`).
+
+        A CUDA graph cannot be written to a file, so no program is stored:
+        `load_serving` captures the ladder again. The signature is the
+        version, the platform, the device name and count, the image shape,
+        the input dtype, the ladder's batch sizes, and the shape and dtype
+        of every tensor the ladder reads (`_ladder_avals`; the int8 cache
+        among them). The runtime state is the label features, the
+        covariance-finalised head, `info` (the lambdas) and the class
+        prompts the labels were encoded from, so `from_serving_cache` can
+        bring a server up without the Hessian directory, the lambda re-opt
+        or the text tower. No weights are stored: point
+        `from_serving_cache` at the same weights. Plain tensors, numbers,
+        strings, lists and dicts, readable by `torch.load(...,
+        weights_only=True)`, written atomically (a temporary file, then
+        `os.replace`)."""
+        srv = self._serving
+        if srv is None:
+            raise ValueError("no compiled serving ladder: call "
+                             "compile_serving before save_serving")
+        payload = {
+            "version": _SERVING_CACHE_VERSION,
+            **_device_signature(self.image_encoder.device),
+            "image_shape": list(srv["image_shape"]),
+            "dtype": _dtype_name(srv["dtype"]),
+            "batch_sizes": sorted(srv["programs"]),
+            "arg_avals": self._ladder_avals(),
+        }
+        if include_runtime:
+            labels = self._label_features
+            payload["runtime"] = {
+                "label_features": {f: getattr(labels, f).detach().cpu()
+                                   for f in _LABEL_FIELDS},
+                "head": _head_state(self.head),
+                "info": dict(self.info),
+                # what the labels were encoded from: serve_cli refuses a full
+                # restore when the configured prompt set differs
+                "class_prompts": (list(self._class_prompts)
+                                  if self._class_prompts is not None else None),
+            }
+        path = str(path)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        torch.save(payload, tmp)
+        os.replace(tmp, path)
+        return path
+
+    def load_serving(self, path) -> "ProbabilisticVLM":
+        """Bring the serving ladder of a `save_serving` file up on this VLM
+        (JAX `bayesvlm_tpu/pipeline.py:515`). Raises ValueError, with the
+        JAX package's messages, when the version, the platform, the device
+        name or count, the tensors the ladder reads (their number, shapes
+        or dtypes: another class count, projection or int8 setting) or the
+        image shape differ, and for any file it cannot read (a JAX
+        `.aotserv` pickle by name, a torn file); callers fall back to
+        compile_serving (serve_cli --aot_cache does). Then the ladder is
+        captured afresh through compile_serving, for the file's sizes and
+        input dtype (where JAX loads executables)."""
+        if self._label_features is None:
+            raise ValueError("call set_class_prompts before load_serving")
+        return self._restore_ladder(_read_serving_file(path))
+
+    def _restore_ladder(self, payload: dict) -> "ProbabilisticVLM":
+        for key, want in _device_signature(self.image_encoder.device).items():
+            if payload.get(key) != want:
+                raise ValueError(f"AOT cache {key} mismatch: saved "
+                                 f"{payload.get(key)!r}, runtime {want!r}")
+        enc = self.image_encoder
+        enc._validate_quant_cache()
+        avals, saved = self._ladder_avals(), payload["arg_avals"]
+        if len(avals) != len(saved):
+            raise ValueError("AOT cache runtime-argument structure mismatch "
+                             "(e.g. int8 cache present on one side only)")
+        if avals != saved:
+            i, a, b = next((i, a, b) for i, (a, b) in enumerate(zip(avals, saved))
+                           if a != b)
+            raise ValueError(
+                f"AOT cache runtime-argument shape/dtype mismatch at "
+                f"leaf {i}: runtime {a}, saved {b} "
+                f"(changed class count / projection / weights layout?)")
+        size = enc.config.vision.image_size
+        if list(payload["image_shape"]) != [size, size, 3]:
+            raise ValueError(f"AOT cache image shape {tuple(payload['image_shape'])} "
+                             f"!= model {(size, size, 3)}")
+        dtype = getattr(torch, str(payload["dtype"]), None)
+        if not isinstance(dtype, torch.dtype):
+            raise ValueError(f"AOT cache input dtype {payload['dtype']!r} is not a dtype")
+        return self.compile_serving(payload["batch_sizes"], input_dtype=dtype)
 
     def _predict_fast(self, images, num_samples: int,
                       class_prompts) -> Optional[torch.Tensor]:

@@ -1,38 +1,55 @@
 """HTTP serving front end for probabilistic zero-shot inference, the port
-of the JAX package's `scripts/serve.py` (single-model mode; no reference
-counterpart: the reference has batch scripts only,
-ref:scripts/zeroshot.py:25-128): `serve.BatchingServer` (dynamic
-micro-batching onto the CUDA-graph ladder of
-`pipeline.ProbabilisticVLM.compile_serving`) behind a stdlib
-ThreadingHTTPServer. Runs on the card unless `--device` names another.
+of the JAX package's `scripts/serve.py` (no reference counterpart: the
+reference has batch scripts only, ref:scripts/zeroshot.py:25-128):
+`serve.BatchingServer` (dynamic micro-batching onto the CUDA-graph ladder
+of `pipeline.ProbabilisticVLM.compile_serving`), or for several models
+`multiserve.MultiModelServer`, behind a stdlib ThreadingHTTPServer. Runs
+on the card unless `--device` names another.
 
 Endpoints
 ---------
-POST /predict
+POST /predict            (one model; or a manifest of one model)
+POST /predict/<model>    (manifest mode)
     application/octet-stream: raw image bytes + headers
         X-Image-Shape: "224,224,3"   (row-major, channels-last)
         X-Image-Dtype: "float32" | "uint8"
     application/json: {"image": [[[...]]]}  (nested lists)
     -> {"probs": [...], "class": <argmax>, "latency_ms": ...}
-POST /class_prompts
+POST /class_prompts           (one model)
+POST /class_prompts/<model>   (manifest mode)
     {"prompts": ["a photo of a cat", ...]}: swaps the label set (drains
     in-flight requests, re-encodes the prompts, captures the ladder again
-    if the class count changed)
-GET /healthz   -> {"ok": true, ...the ladder's signature...}
-GET /stats     -> server counters (fill, p50/p95 latency, ...)
+    if the class count changed; in manifest mode the swap pauses every
+    resident model: the lanes share one dispatcher)
+GET /healthz   -> {"ok": true, ...the ladder's signature(s)...}
+GET /stats     -> server counters (fill, p50/p95 latency, ...; per model
+                  in manifest mode)
 
-Not ported yet, and refused by name before anything loads:
-`--models_json` (several models behind one server) and `--aot_cache`
-(the persisted serving state).
+Several models on one card (`--models_json`): a JSON dict name ->
+{model_str, hessian_dir, classes_json, [weights_dir, tokenizer_dir,
+text_prompt, batch_size, buckets, input_dtype, dtype, mlp_int8]};
+omitted fields take the CLI flags' values.
+
+Restarts (`--aot_cache DIR`): the serving state is saved to
+`DIR/serving.aotserv` (`DIR/<name>.aotserv` a model in manifest mode,
+`pipeline.save_serving`); the next start brings each model up from it
+(`from_serving_cache`: towers from weights, labels / head / lambdas from
+the file, no Hessian directory read, no lambda re-opt), captures the
+ladder again, and falls back to a full build when the file is missing,
+stale or was saved from another prompt set.
 
 Example
 -------
   python -m bayesvlm_tpu_torch.serve_cli --model_str clip-large \\
       --hessian_dir hessians/... --classes_json classes.json \\
-      --input_dtype uint8 --buckets pow2 --batch_size 64 --port 8000
+      --input_dtype uint8 --buckets pow2 --batch_size 64 --port 8000 \\
+      --aot_cache serving_cache
   curl -X POST localhost:8000/predict -H 'Content-Type: application/octet-stream' \\
       -H 'X-Image-Shape: 224,224,3' -H 'X-Image-Dtype: uint8' \\
       --data-binary @image.raw
+  # several models:
+  python -m bayesvlm_tpu_torch.serve_cli --models_json fleet.json --port 8000
+  curl -X POST localhost:8000/predict/siglip ...
 """
 
 import argparse
@@ -110,6 +127,78 @@ class ServingApp:
 
     def stats_dict(self) -> dict:
         return vars(self.server.stats())
+
+
+class MultiServingApp:
+    """Owns several resident VLMs behind one MultiModelServer. Same swap
+    contract as ServingApp, but a /class_prompts/<model> swap drains and
+    rebuilds the whole multiplexer (the lanes share one dispatcher), so
+    the other models pause while it runs."""
+
+    def __init__(self, vlms: dict, batch_size, max_wait_ms: float,
+                 input_dtype, predict_timeout_s: float = 120.0,
+                 buckets=None, pipeline_depth: int = 0):
+        from bayesvlm_tpu_torch.multiserve import MultiModelServer
+
+        dt = ({k: _INPUT_DTYPES[v] for k, v in input_dtype.items()}
+              if isinstance(input_dtype, dict) else _INPUT_DTYPES[input_dtype])
+        self.vlms = dict(vlms)
+        self._make = lambda: MultiModelServer(
+            self.vlms, batch_size, max_wait_ms=max_wait_ms,
+            input_dtype=dt, buckets=buckets,
+            pipeline_depth=pipeline_depth,
+        )
+        self.verbose = False
+        self.predict_timeout_s = predict_timeout_s
+        self.server = self._make().start()
+        self._swap_lock = threading.Lock()
+
+    def _resolve(self, model):
+        if model is None:
+            if len(self.vlms) == 1:
+                return next(iter(self.vlms))
+            raise KeyError(
+                f"model name required (POST /predict/<model>); resident: "
+                f"{sorted(self.vlms)}")
+        if model not in self.vlms:
+            raise KeyError(
+                f"unknown model {model!r}; resident: {sorted(self.vlms)}")
+        return model
+
+    def predict(self, image: np.ndarray, model=None) -> np.ndarray:
+        model = self._resolve(model)
+        for _ in range(2):
+            try:
+                return self.server.predict(
+                    model, image, timeout=self.predict_timeout_s)
+            except RuntimeError as exc:
+                if "not accepting" not in str(exc):
+                    raise
+                with self._swap_lock:
+                    pass  # swap (or shutdown) finished; retry once
+        return self.server.predict(model, image,
+                                   timeout=self.predict_timeout_s)
+
+    def set_class_prompts(self, prompts, model=None):
+        """Drain the whole multiplexer (timeout=None: the dispatcher and
+        the resolver have exited, so no replay runs beside a recapture),
+        swap one lane's labels, build and start a new multiplexer (the
+        changed lane captures again if its class count dropped its
+        ladder). The endpoint comes back up even if the swap fails."""
+        model = self._resolve(model)
+        with self._swap_lock:
+            self.server.stop(drain=True, timeout=None)
+            try:
+                self.vlms[model].set_class_prompts(prompts)
+            finally:
+                self.server = self._make().start()
+
+    def signature(self) -> dict:
+        return {"ok": True, "models": self.server.signature(),
+                "hbm_gib": self.server.hbm_footprint()}
+
+    def stats_dict(self) -> dict:
+        return {name: vars(s) for name, s in self.server.stats().items()}
 
 
 def _parse_image(handler: BaseHTTPRequestHandler) -> np.ndarray:
@@ -229,46 +318,175 @@ def _build_prompts(classes_json, text_prompt):
             for c in json.loads(Path(classes_json).read_text())]
 
 
-def _refuse_unported(args) -> None:
-    flags = {"--models_json (several models behind one server)": args.models_json,
-             "--aot_cache (the persisted serving state)": args.aot_cache}
-    asked = [name for name, on in flags.items() if on]
-    if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
-
-
-def _load_vlm(args):
+def _load_vlm(args, model_str, hessian_dir, weights_dir, tokenizer_dir,
+              dtype, mlp_int8, classes_json, text_prompt):
     from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
 
     vlm = ProbabilisticVLM.from_pretrained(
-        args.model_str, args.hessian_dir,
-        weights_dir=args.weights_dir, tokenizer_dir=args.tokenizer_dir,
-        dtype=args.dtype, mlp_int8=args.mlp_int8, device=args.device,
+        model_str, hessian_dir,
+        weights_dir=weights_dir, tokenizer_dir=tokenizer_dir,
+        dtype=dtype, mlp_int8=mlp_int8, device=args.device,
     )
-    return vlm.set_class_prompts(_build_prompts(args.classes_json, args.text_prompt))
+    return vlm.set_class_prompts(_build_prompts(classes_json, text_prompt))
 
 
-def build_app(args) -> ServingApp:
-    """The VLM (from_pretrained -> set_class_prompts) behind a started
-    ServingApp; its BatchingServer captures the ladder."""
-    _refuse_unported(args)
-    app = ServingApp(_load_vlm(args), args.batch_size, args.max_wait_ms,
-                     args.input_dtype,
+def _aot_full_restore(path, verbose, *, model_str, weights_dir, tokenizer_dir,
+                      dtype, mlp_int8, device, prompts):
+    """The restart lane (pipeline.from_serving_cache): towers from weights,
+    labels / head / lambdas from the file, the ladder captured again; no
+    Hessian directory, no lambda re-opt, no text tower. (vlm, its serving
+    dict) or (None, None) when the file is absent or stale, or was saved
+    from another prompt set than the one configured now (its labels would
+    be stale: the caller builds in full, and may still take the file's
+    ladder signature through _aot_restore)."""
+    from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
+
+    try:
+        vlm = ProbabilisticVLM.from_serving_cache(
+            model_str, path, weights_dir=weights_dir,
+            tokenizer_dir=tokenizer_dir, dtype=dtype, mlp_int8=mlp_int8,
+            device=device)
+    except FileNotFoundError:
+        return None, None
+    except Exception as exc:  # noqa: BLE001 — any stale cache -> rebuild
+        print(f"[aot_cache] full restore unavailable ({exc}); building",
+              flush=True)
+        return None, None
+    if vlm._class_prompts != list(prompts):
+        print("[aot_cache] configured prompt set differs from the cached "
+              "labels; rebuilding", flush=True)
+        return None, None
+    if verbose:
+        print(f"[aot_cache] restored the serving state from {path} (no Hessian "
+              "directory read; ladder captured again)", flush=True)
+    return vlm, vlm._serving
+
+
+def _aot_restore(vlm, path, verbose):
+    """The ladder of the file on a fully built VLM (pipeline.load_serving):
+    its serving dict (the sentinel _aot_persist compares with), or None
+    when the file is absent or stale (the BatchingServer then captures
+    the ladder it needs)."""
+    try:
+        vlm.load_serving(path)
+        if verbose:
+            print(f"[aot_cache] restored serving ladder from {path}",
+                  flush=True)
+        return vlm._serving
+    except FileNotFoundError:
+        return None
+    except Exception as exc:  # noqa: BLE001 — any stale cache -> recapture
+        print(f"[aot_cache] stale ({exc}); recompiling", flush=True)
+        return None
+
+
+def _aot_persist(vlm, path, restored, verbose, refresh=False):
+    """Save the serving state iff the BatchingServer captured the ladder
+    again (its serving dict is not the one restored), or when `refresh`
+    says the file's runtime block is missing or stale (the ladder was
+    reused, but the next restart should take the restart lane with the
+    current labels). A failed save is printed; the server comes up."""
+    if vlm._serving is None or (vlm._serving is restored and not refresh):
+        return
+    try:
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        vlm.save_serving(path)
+    except Exception as exc:  # noqa: BLE001 — persistence is best-effort
+        print(f"[aot_cache] save failed ({exc}); serving without cache",
+              flush=True)
+        return
+    if verbose:
+        print(f"[aot_cache] saved serving ladder to {path}", flush=True)
+
+
+def _build_one(args, aot_path, *, model_str, hessian_dir, weights_dir,
+               tokenizer_dir, dtype, mlp_int8, classes_json, text_prompt):
+    """One model's VLM, by the restart lane when `aot_path` allows it:
+    (vlm, restored serving dict or None, refresh)."""
+    vlm = restored = None
+    if aot_path is not None:
+        vlm, restored = _aot_full_restore(
+            aot_path, args.verbose, model_str=model_str, weights_dir=weights_dir,
+            tokenizer_dir=tokenizer_dir, dtype=dtype, mlp_int8=mlp_int8,
+            device=args.device, prompts=_build_prompts(classes_json, text_prompt))
+    refresh = False
+    if vlm is None:
+        if hessian_dir is None:
+            raise KeyError("hessian_dir")  # a full build needs it
+        vlm = _load_vlm(args, model_str, hessian_dir, weights_dir, tokenizer_dir,
+                        dtype, mlp_int8, classes_json, text_prompt)
+        if aot_path is not None:
+            restored = _aot_restore(vlm, aot_path, args.verbose)
+            # ladder reused but the restart lane refused: refresh the
+            # file's runtime block for the next restart
+            refresh = restored is not None
+    return vlm, restored, refresh
+
+
+def build_app(args):
+    """The VLM(s) behind a started ServingApp, or MultiServingApp with
+    `--models_json`; with `--aot_cache` each restored from its file where
+    it can be, and its serving state saved after the build."""
+    aot_cache = args.aot_cache
+    if args.models_json:
+        manifest = json.loads(Path(args.models_json).read_text())
+        if not isinstance(manifest, dict) or not manifest:
+            raise ValueError("--models_json must be a non-empty JSON dict "
+                             "name -> model spec")
+        vlms, batch_size, buckets, input_dtype = {}, {}, {}, {}
+        restored, refresh = {}, {}
+        for name, spec in manifest.items():
+            vlms[name], restored[name], refresh[name] = _build_one(
+                args, Path(aot_cache) / f"{name}.aotserv" if aot_cache else None,
+                model_str=spec.get("model_str", args.model_str),
+                hessian_dir=spec.get("hessian_dir"),
+                weights_dir=spec.get("weights_dir", args.weights_dir),
+                tokenizer_dir=spec.get("tokenizer_dir", args.tokenizer_dir),
+                dtype=spec.get("dtype", args.dtype),
+                mlp_int8=bool(spec.get("mlp_int8", args.mlp_int8)),
+                classes_json=spec["classes_json"],
+                text_prompt=spec.get("text_prompt", args.text_prompt))
+            batch_size[name] = int(spec.get("batch_size", args.batch_size))
+            buckets[name] = _parse_buckets(spec.get("buckets", args.buckets))
+            input_dtype[name] = spec.get("input_dtype", args.input_dtype)
+        app = MultiServingApp(vlms, batch_size, args.max_wait_ms, input_dtype,
+                              predict_timeout_s=args.predict_timeout_s,
+                              buckets=buckets,
+                              pipeline_depth=args.pipeline_depth)
+        app.verbose = args.verbose
+        if aot_cache:
+            for name, vlm in vlms.items():
+                _aot_persist(vlm, Path(aot_cache) / f"{name}.aotserv",
+                             restored[name], args.verbose, refresh=refresh[name])
+        return app
+
+    aot_path = Path(aot_cache) / "serving.aotserv" if aot_cache else None
+    vlm, restored, refresh = _build_one(
+        args, aot_path, model_str=args.model_str, hessian_dir=args.hessian_dir,
+        weights_dir=args.weights_dir, tokenizer_dir=args.tokenizer_dir,
+        dtype=args.dtype, mlp_int8=args.mlp_int8, classes_json=args.classes_json,
+        text_prompt=args.text_prompt)
+    app = ServingApp(vlm, args.batch_size, args.max_wait_ms, args.input_dtype,
                      predict_timeout_s=args.predict_timeout_s,
                      buckets=_parse_buckets(args.buckets),
                      pipeline_depth=args.pipeline_depth)
     app.verbose = args.verbose
+    if aot_path is not None:
+        _aot_persist(vlm, aot_path, restored, args.verbose, refresh=refresh)
     return app
 
 
 def main(args) -> None:
-    _refuse_unported(args)
-    if not (args.hessian_dir and args.classes_json):
-        raise SystemExit("--hessian_dir and --classes_json are required")
+    if not args.models_json and not (args.hessian_dir and args.classes_json):
+        raise SystemExit(
+            "--hessian_dir and --classes_json are required "
+            "(or pass --models_json for multi-model mode)")
     app = build_app(args)
     httpd = ThreadingHTTPServer((args.host, args.port), make_handler(app))
+    what = (f"models={sorted(app.vlms)}" if hasattr(app, "vlms")
+            else f"batch_size={args.batch_size}")
     print(f"serving on {args.host}:{httpd.server_address[1]} "
-          f"(batch_size={args.batch_size}, wait={args.max_wait_ms}ms)", flush=True)
+          f"({what}, wait={args.max_wait_ms}ms)", flush=True)
     try:
         httpd.serve_forever()
     except KeyboardInterrupt:
@@ -282,14 +500,21 @@ def main(args) -> None:
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--model_str", default="clip-base")
-    p.add_argument("--hessian_dir", default=None, help="required")
+    p.add_argument("--hessian_dir", default=None,
+                   help="required unless --models_json is given")
     p.add_argument("--weights_dir", default=None,
                    help="an HF snapshot or the port's vision.pt / text.pt")
     p.add_argument("--tokenizer_dir", default=None)
     p.add_argument("--classes_json", default=None,
-                   help="JSON list of class names (required)")
+                   help="JSON list of class names (required unless "
+                        "--models_json is given)")
     p.add_argument("--models_json", default=None,
-                   help="not ported yet (several models behind one server)")
+                   help="several models on one card: JSON dict name -> "
+                        "{model_str, hessian_dir, classes_json, "
+                        "[weights_dir, tokenizer_dir, text_prompt, "
+                        "batch_size, buckets, input_dtype, dtype, "
+                        "mlp_int8]}; omitted fields take the CLI flags. "
+                        "Serves POST /predict/<name>.")
     p.add_argument("--text_prompt", default="An image of a {class_name}")
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--max_wait_ms", type=float, default=5.0)
@@ -316,8 +541,13 @@ def parse_args(argv=None):
                    help="bound on a single request's wait for its batch "
                         "result; expiry returns HTTP 504 instead of "
                         "leaking a blocked handler thread")
-    p.add_argument("--aot_cache", default=None,
-                   help="not ported yet (the persisted serving state)")
+    p.add_argument(
+        "--aot_cache", default=None,
+        help="directory of the persisted serving state "
+             "(pipeline.save_serving): a restart restores labels, head and "
+             "lambdas from it without the Hessian directory and captures "
+             "the ladder again; a stale or mismatched file falls back to a "
+             "full build. Manifest mode writes <name>.aotserv a model")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--verbose", action="store_true")

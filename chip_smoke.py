@@ -90,6 +90,29 @@ Phases (any failure raises and exits non-zero, without the result line):
      requests, /healthz, /stats, a /class_prompts swap of the same count
      (labels copied in place) and of another count (the ladder captured
      again), rows against eager predict under the new prompts;
+  6c. (run after phase 10b: its ladder captures and child processes
+     leave later torch.profiler sessions of the process short of kernel
+     records) several models on one card: clip-large (pow2 ladder to 64) and
+     siglip-large (google/siglip-large-patch16-256 widths, pow2 to 32),
+     each from_pretrained (bf16, seeded towers, synthetic factors, 100
+     prompts) with its uint8 ladder captured (#1's 24 launches counted at
+     each capture, each replay equal to eager predict bit for bit);
+     multiserve.MultiModelServer(max_wait_ms=2) with 8 closed-loop
+     clients x 32 requests alternating models, at pipeline_depth 0 and 2:
+     every row against its own model's eager predict within 6b's log-p
+     limit, no eager call, img/s, fill and latency p50 / p95 a model,
+     hbm_footprint() beside torch.cuda.memory_allocated(); save_serving
+     and from_serving_cache a model, timed (wall, the card synchronised)
+     against the from_pretrained + prompts + ladder it replaces, the
+     restored replays bit-equal to the saved VLM's; serve_cli's HTTP app
+     built by --models_json naming both with --aot_cache over those files
+     (both restored): /predict/<model>, /predict without a model (400),
+     /healthz with hbm_gib, /stats, a same-count /class_prompts/<model>
+     swap (that lane serves the new labels, the other lane's rows are
+     unchanged); then `python -m bayesvlm_tpu_torch.serve_cli
+     --aot_cache` run twice as a child process on one directory, the
+     second with its Hessian directory deleted: its log says it
+     restored and its answers equal the first run's bit for bit;
   7. int8 main path: the same with mlp_int8=True, attn_int8=True; checks
      24 mlp_int8, 48 linear_int8 and 24 attention launches per forward,
      none from the text tower, and the image embeddings' cosine against
@@ -261,6 +284,12 @@ TINY_TOL = 1e-4
 # serving: the pow2 ladder up to BATCH, 8 clients x 32 requests each
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_WAIT_MS = 8, 32, 2.0
 SERVE_LATENCY_CALLS, SERVE_THROUGHPUT_CALLS = 50, 10
+# 6c: two models resident on one card behind one dispatcher, each on a
+# uint8 pow2 ladder to its batch size (name -> model, batch size); the
+# clients alternate models
+MULTI_MODELS = {"clip": ("clip-large", BATCH), "siglip": ("siglip-large", 32)}
+MULTI_TEXT_PROMPT = "a photo of a {class_name}"
+MULTI_CLI_REQUESTS = 4  # uint8 requests to each serve_cli --aot_cache run
 # A served row (a replay at the row's bucket) vs eager predict of the
 # same image in a batch of BATCH: the same bf16 weights and kernels, but
 # cuBLAS picks its GEMM by M, so a GEMM output may round the other way
@@ -1292,6 +1321,378 @@ def phase_serving(torch, counters, vlm, prompts, logp_tol: float) -> dict:
     return {"graph_launches": graph_launches, "capture_s": capture_s,
             "latency_ms": lat, "img_s": img_s, "h2d_ms": h2d, "host_ms": host_ms,
             "server": server_stats, "http": http}
+
+
+def _multi_clients(predict, names, u8) -> tuple:
+    """SERVE_CLIENTS closed-loop client threads of SERVE_REQUESTS requests
+    each, alternating models: client c's request r goes to model
+    names[(c + r) % 2] with that model's image c * SERVE_REQUESTS + r.
+    -> ({name: {image index: row}}, wall seconds, errors)."""
+    import threading
+
+    rows = {n: {} for n in names}
+    errors = []
+
+    def client(c):
+        try:
+            for r in range(SERVE_REQUESTS):
+                n, i = names[(c + r) % len(names)], c * SERVE_REQUESTS + r
+                rows[n][i] = predict(n, u8[n][i])
+        except Exception as exc:  # noqa: BLE001 — reported by the caller
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        errors.append(RuntimeError("a client thread did not finish in 300 s"))
+    return rows, wall, errors
+
+
+def _read_until(lines, prefix: str, timeout: float) -> list:
+    """Lines of a child's output up to the first one starting with
+    `prefix`; raises if it does not come within `timeout` seconds."""
+    import queue
+
+    seen, deadline = [], time.monotonic() + timeout
+    while not any(x.startswith(prefix) for x in seen):
+        try:
+            seen.append(lines.get(timeout=max(deadline - time.monotonic(), 0.01)))
+        except queue.Empty:
+            raise RuntimeError(f"no {prefix!r} line in {timeout} s: {''.join(seen)[-2000:]}")
+        if seen[-1] is None:
+            raise RuntimeError(f"the child exited before {prefix!r}: {''.join(seen[:-1])[-2000:]}")
+    return seen
+
+
+def _serve_cli_run(argv: list, requests: list, octet: dict) -> tuple:
+    """`python -m bayesvlm_tpu_torch.serve_cli ARGV` from this script's
+    directory: seconds until it prints "serving on", its log to then, and
+    its answers to `requests` (uint8 crops, sent one at a time to
+    /predict). The child is killed before this returns."""
+    import queue
+    import threading
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "bayesvlm_tpu_torch.serve_cli", *argv],
+                            cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+
+    def pump():
+        for x in proc.stdout:
+            lines.put(x)
+        lines.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    try:
+        seen = _read_until(lines, "serving on", 600)
+        ready_s = time.perf_counter() - t0
+        port = int(seen[-1].split(":")[1].split()[0])
+        answers = []
+        for img in requests:
+            status, out = _http(port, "/predict", img.tobytes(), octet)
+            check(status == 200, f"serve_cli answered {status}: {out}")
+            answers.append(out["probs"])
+    finally:
+        proc.kill()
+        proc.communicate(timeout=60)
+    return ready_s, "".join(seen), answers
+
+
+def phase_multiserve(torch, counters, hessian_dirs: dict, work: Path,
+                     logp_tol: float) -> dict:
+    """Phase 6c: MULTI_MODELS resident on one card. Each built by
+    from_pretrained (seeded bf16 towers, the synthetic factors, 100
+    prompts) and its uint8 pow2 ladder captured (#1's launches counted at
+    each capture, each replay equal to eager predict bit for bit);
+    MultiModelServer with SERVE_CLIENTS closed-loop clients alternating
+    models at pipeline_depth 0 and 2 (every row within `logp_tol` of its
+    model's eager predict, no eager call, per-model img/s, fill, latency,
+    hbm_footprint beside torch.cuda.memory_allocated); save_serving and
+    from_serving_cache per model (the restart timed against the build it
+    replaces, the restored replays bit-equal to the saved VLM's); the HTTP
+    app of serve_cli --models_json --aot_cache over those files (each
+    route; a same-count prompt swap of one lane leaves the other lane's
+    rows unchanged); and serve_cli --aot_cache run twice as a child
+    process, the second restoring without its Hessian directory and
+    answering with the first run's bits."""
+    import contextlib
+    import io
+    import shutil
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from bayesvlm_tpu_torch import serve_cli
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+    from bayesvlm_tpu_torch.multiserve import MultiModelServer
+    from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
+
+    t_phase = time.perf_counter()
+    names = list(MULTI_MODELS)
+    models = {n: m for n, (m, _) in MULTI_MODELS.items()}
+    batch = {n: b for n, (_, b) in MULTI_MODELS.items()}
+    ladders = {n: [1 << k for k in range(b.bit_length())] for n, b in batch.items()}
+    layers = {n: CONFIGS_BY_NAME[m].vision.num_layers for n, m in models.items()}
+    size = {n: CONFIGS_BY_NAME[m].vision.image_size for n, m in models.items()}
+    classes = {n: [f"{n} class {i}" for i in range(NUM_PROMPTS)] for n in names}
+    prompts = {n: [MULTI_TEXT_PROMPT.format(class_name=c) for c in classes[n]]
+               for n in names}
+    n_images = SERVE_CLIENTS * SERVE_REQUESTS
+    u8 = {n: np.random.default_rng(SEED + 6 + k).integers(
+        0, 256, (n_images, size[n], size[n], 3), dtype=np.uint8)
+        for k, n in enumerate(names)}
+    octet = {n: {"Content-Type": "application/octet-stream",
+                 "X-Image-Shape": f"{size[n]},{size[n]},3", "X-Image-Dtype": "uint8"}
+             for n in names}
+    out = {"from_pretrained_s": {}, "set_class_prompts_s": {}, "compile_s": {},
+           "graph_launches": {}, "server": {}, "restart": {}}
+    for c in counters.values():
+        c.launches = 0
+
+    # the full build of each model: from_pretrained, prompts, ladder
+    vlms = {}
+    for n in names:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vlms[n] = ProbabilisticVLM.from_pretrained(models[n], str(hessian_dirs[models[n]]),
+                                                   dtype="bf16", device="cuda", seed=SEED)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        vlms[n].set_class_prompts(prompts[n])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with _CaptureLog(torch, counters) as log:
+            vlms[n].compile_serving(ladders[n], input_dtype=torch.uint8)
+        torch.cuda.synchronize()
+        out["from_pretrained_s"][n], out["set_class_prompts_s"][n] = t1 - t0, t2 - t1
+        out["compile_s"][n] = time.perf_counter() - t2
+        sizes = sorted(ladders[n], reverse=True)  # captured largest first
+        graph = {b: launches for b, (_, launches) in zip(sizes, log.captures)}
+        out["graph_launches"][models[n]] = graph
+        check(len(log.captures) == len(ladders[n]), f"{n}: {len(log.captures)} captures")
+        check(all(g == {"attention": layers[n]} for g in graph.values()),
+              f"{n}: #1 launches per captured program {graph}")
+        equal = {}
+        for b in ladders[n]:
+            with torch.no_grad():
+                ref = vlms[n].logits(u8[n][:b]).softmax(num_samples=0)
+            equal[b] = bool(torch.equal(vlms[n].predict(u8[n][:b]), ref))
+        print(f"6c {models[n]} (bf16, uint8, pow2 to {batch[n]}, {NUM_PROMPTS} prompts): "
+              f"from_pretrained {out['from_pretrained_s'][n]:.2f} s, set_class_prompts "
+              f"{t2 - t1:.2f} s, ladder {out['compile_s'][n]:.2f} s; launches per "
+              f"captured program {graph}; replay vs eager predict bit for bit {equal}")
+        check(all(equal.values()), f"{n}: a replay differs from eager predict")
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        eager = {n: torch.cat([vlms[n].logits(u8[n][i:i + batch[n]]).softmax(
+            num_samples=0).float().cpu() for i in range(0, n_images, batch[n])])
+            for n in names}
+
+    # both ladders behind one dispatcher, inline and pipelined
+    ladder_dicts = {n: vlms[n]._serving for n in names}
+    for depth in (0, 2):
+        eager_calls = {n: vlms[n].eager_calls for n in names}
+        with MultiModelServer(vlms, batch_size=batch, max_wait_ms=SERVE_WAIT_MS,
+                              input_dtype=torch.uint8, buckets="pow2",
+                              pipeline_depth=depth) as ms:
+            check(all(vlms[n]._serving is ladder_dicts[n] for n in names),
+                  "MultiModelServer captured a ladder again")
+            rows, wall, errors = _multi_clients(
+                lambda n, img: ms.predict(n, img, timeout=120), names, u8)
+            stats = ms.stats()
+            hbm = ms.hbm_footprint()
+            allocated = torch.cuda.memory_allocated() / 2**30
+            reserved = torch.cuda.memory_reserved() / 2**30
+        check(not errors, f"MultiModelServer depth {depth}: {errors[:1]}")
+        result = {"wall_s": wall, "img_s": n_images / wall, "hbm_gib": hbm,
+                  "memory_allocated_gib": allocated, "memory_reserved_gib": reserved}
+        for n in names:
+            idx = sorted(rows[n])
+            check(len(idx) == n_images // 2, f"{n}: {len(idx)} rows")
+            logp = _max_logp_diff(torch, [rows[n][i] for i in idx], eager[n][idx])
+            s = stats[n]
+            result[n] = dict(vars(s), img_s=len(idx) / wall, max_abs_logp_diff=logp,
+                             eager_calls=vlms[n].eager_calls - eager_calls[n])
+            print(f"6c MultiModelServer pipeline_depth={depth} {models[n]}: {len(idx)} "
+                  f"requests in {wall:.3f} s ({len(idx) / wall:.1f} img/s), batches="
+                  f"{s.batches} fill={s.fill:.3f} padded_rows={s.padded_rows} latency_ms "
+                  f"p50={s.latency_ms_p50:.3f} p95={s.latency_ms_p95:.3f} max="
+                  f"{s.latency_ms_max:.3f} errors={s.errors} eager_calls="
+                  f"{result[n]['eager_calls']}; rows vs eager predict: max_abs_logp_diff="
+                  f"{logp:.3e} (tol {logp_tol:.3e})")
+            check(result[n]["eager_calls"] == 0, f"{n}: the server ran the eager path")
+            check(s.requests == len(idx) and s.errors == 0, f"{n}: stats {s}")
+            check(logp <= logp_tol, f"{n}: served rows stray from eager predict")
+        print(f"6c MultiModelServer pipeline_depth={depth}: {n_images} requests from "
+              f"{SERVE_CLIENTS} clients alternating models in {wall:.3f} s ("
+              f"{n_images / wall:.1f} img/s); hbm_footprint {hbm} GiB; "
+              f"torch.cuda.memory_allocated {allocated:.3f} GiB, reserved {reserved:.3f} "
+              f"GiB ({DEVICE['card']})")
+        check(set(hbm) == {*names, "total"} and all(hbm[n] > 0 for n in names),
+              f"hbm_footprint {hbm}")
+        out["server"][depth] = result
+    del ms, ladder_dicts
+
+    # restart: save_serving, then from_serving_cache, against the full build
+    for n in names:
+        path = work / f"{n}.aotserv"
+        t0 = time.perf_counter()
+        vlms[n].save_serving(path)
+        save_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _CaptureLog(torch, counters) as log:
+            restored = ProbabilisticVLM.from_serving_cache(models[n], path, dtype="bf16",
+                                                           device="cuda", seed=SEED)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(all(launches == {"attention": layers[n]} for _, launches in log.captures)
+              and len(log.captures) == len(ladders[n]),
+              f"{n}: restored captures {[launches for _, launches in log.captures]}")
+        saved_eager = vlms[n].eager_calls
+        equal = {b: bool(torch.equal(restored.predict(u8[n][:b]), vlms[n].predict(u8[n][:b])))
+                 for b in ladders[n]}
+        build_s = (out["from_pretrained_s"][n] + out["set_class_prompts_s"][n]
+                   + out["compile_s"][n])
+        out["restart"][models[n]] = {
+            "save_s": save_s, "file_mb": path.stat().st_size / 1e6,
+            "from_serving_cache_s": restore_s, "full_build_s": build_s,
+            "from_pretrained_s": out["from_pretrained_s"][n], "bit_equal": equal}
+        print(f"6c restart {models[n]}: save_serving {save_s:.3f} s "
+              f"({path.stat().st_size / 1e6:.2f} MB); from_serving_cache {restore_s:.2f} s "
+              f"(ladder captured again, {len(log.captures)} sizes, #1 24 a capture) vs "
+              f"from_pretrained {out['from_pretrained_s'][n]:.2f} s + set_class_prompts + "
+              f"ladder = {build_s:.2f} s (wall, the card synchronised; {DEVICE['card']}); "
+              f"replays vs the saved VLM's, bit for bit {equal}")
+        check(all(equal.values()), f"{n}: a restored replay differs from the saved VLM's")
+        check(restored.eager_calls == 0 and vlms[n].eager_calls == saved_eager,
+              f"{n}: the restart ran the eager path")
+        del restored
+
+    # the HTTP front end: serve_cli --models_json naming both, restored from
+    # the files just saved (--aot_cache)
+    manifest = {}
+    for n in names:
+        (work / f"{n}_classes.json").write_text(json.dumps(classes[n]))
+        manifest[n] = {"model_str": models[n], "hessian_dir": str(hessian_dirs[models[n]]),
+                       "classes_json": str(work / f"{n}_classes.json"),
+                       "text_prompt": MULTI_TEXT_PROMPT, "batch_size": batch[n],
+                       "buckets": "pow2", "input_dtype": "uint8", "dtype": "bf16"}
+    (work / "fleet.json").write_text(json.dumps(manifest))
+    del vlms
+    log = io.StringIO()
+    args = serve_cli.parse_args(["--models_json", str(work / "fleet.json"), "--aot_cache",
+                                 str(work), "--max_wait_ms", str(SERVE_WAIT_MS),
+                                 "--verbose"])
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        app = serve_cli.build_app(args)
+    app_s = time.perf_counter() - t0
+    app.verbose = False  # --verbose was for the [aot_cache] lines, not each request
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), serve_cli.make_handler(app))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    port = httpd.server_address[1]
+    http = {"build_app_s": app_s}
+    try:
+        check(log.getvalue().count("[aot_cache] restored the serving state") == 2
+              and "saved" not in log.getvalue(), f"build_app log: {log.getvalue()}")
+
+        def http_rows(n, lo, hi):
+            replies = [_http(port, f"/predict/{n}", u8[n][i].tobytes(), octet[n])
+                       for i in range(lo, hi)]
+            check(all(st == 200 for st, _ in replies), f"/predict/{n}: {replies[:1]}")
+            return [r["probs"] for _, r in replies]
+
+        for n in names:
+            with torch.no_grad():
+                want = app.vlms[n].logits(u8[n][:8]).softmax(num_samples=0)
+            http[n] = _max_logp_diff(torch, http_rows(n, 0, 8), want)
+            check(http[n] <= logp_tol, f"HTTP /predict/{n} rows stray from eager predict")
+        status, err = _http(port, "/predict", u8[names[0]][0].tobytes(), octet[names[0]])
+        check(status == 400 and "model name required" in err["error"], f"/predict {status}")
+        status, health = _http(port, "/healthz", None, {})
+        check(status == 200 and set(health["models"]) == set(names)
+              and set(health["hbm_gib"]) == {*names, "total"}, f"/healthz {health}")
+        check(all(health["models"][n]["buckets"] == ladders[n] for n in names),
+              f"/healthz ladders {health['models']}")
+        status, stats = _http(port, "/stats", None, {})
+        check(status == 200 and all(stats[n]["requests"] == 8 for n in names),
+              f"/stats {stats}")
+        other = http_rows(names[1], 8, 12)
+        swapped = [f"a picture of thing {i}" for i in range(NUM_PROMPTS)]
+        labels = app.vlms[names[0]]._label_features
+        t0 = time.perf_counter()
+        status, res = _http(port, f"/class_prompts/{names[0]}",
+                            json.dumps({"prompts": swapped}).encode(),
+                            {"Content-Type": "application/json"})
+        http["swap_s"] = time.perf_counter() - t0
+        check(status == 200 and res["num_classes"] == NUM_PROMPTS, f"swap {status} {res}")
+        with torch.no_grad():
+            want = app.vlms[names[0]].logits(u8[names[0]][:4], class_prompts=swapped).softmax(
+                num_samples=0)
+        http["swapped"] = _max_logp_diff(torch, http_rows(names[0], 0, 4), want)
+        http["other_unchanged"] = http_rows(names[1], 8, 12) == other
+        print(f"6c HTTP serve_cli --models_json --aot_cache: build_app {app_s:.2f} s "
+              f"(both restored: {log.getvalue().count('restored the serving state')}); "
+              f"/predict/<model> rows vs eager predict max_abs_logp_diff "
+              + " ".join(f"{n}={http[n]:.3e}" for n in names)
+              + f"; /healthz hbm_gib {health['hbm_gib']}; /class_prompts/{names[0]} swap "
+              f"(same count) {http['swap_s']:.3f} s, labels in place="
+              f"{app.vlms[names[0]]._label_features is labels}, rows vs eager under the new "
+              f"prompts {http['swapped']:.3e}, {names[1]} rows unchanged="
+              f"{http['other_unchanged']}")
+        check(http["swapped"] <= logp_tol, "rows after the swap stray")
+        check(http["other_unchanged"], f"the {names[1]} lane's rows changed in the swap")
+        check(all(v.eager_calls == 0 for v in app.vlms.values()),
+              "the HTTP path ran the eager path")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=60)
+        app.server.stop(drain=False, timeout=60)
+    del app
+    out["http"] = http
+    check(counters["attention"].launches > 0
+          and all(c.launches == 0 for name, c in counters.items() if name != "attention"),
+          f"6c launches {({n: c.launches for n, c in counters.items() if c.launches})}")
+    out["launches"] = {n: c.launches for n, c in counters.items()}
+
+    # serve_cli --aot_cache as a child process, twice on one directory; the
+    # second run without its Hessian directory
+    torch.cuda.empty_cache()
+    name = names[0]
+    cli = work / "cli"
+    shutil.copytree(hessian_dirs[models[name]], cli / "hessians")
+    argv = ["--model_str", models[name], "--hessian_dir", str(cli / "hessians"),
+            "--classes_json", str(work / f"{name}_classes.json"), "--text_prompt",
+            MULTI_TEXT_PROMPT, "--input_dtype", "uint8", "--buckets", "pow2",
+            "--batch_size", str(batch[name]), "--max_wait_ms", str(SERVE_WAIT_MS),
+            "--port", "0", "--verbose", "--aot_cache", str(cli / "aot")]
+    runs = []
+    for run in range(2):
+        runs.append(_serve_cli_run(argv, list(u8[name][:MULTI_CLI_REQUESTS]), octet[name]))
+        if run == 0:
+            shutil.rmtree(cli / "hessians")  # the restart must not need it
+    (first_s, first_log, first), (second_s, second_log, second) = runs
+    out["cli"] = {"build_s": first_s, "restart_s": second_s, "equal": second == first}
+    print(f"6c serve_cli --aot_cache ({models[name]}), as a child process: first run "
+          f"{first_s:.2f} s to 'serving on' (full build, saved: "
+          f"{'[aot_cache] saved serving ladder' in first_log}); second run {second_s:.2f} s "
+          f"with its Hessian directory deleted (restored: "
+          f"{'[aot_cache] restored the serving state' in second_log}); answers to "
+          f"{MULTI_CLI_REQUESTS} requests equal bit for bit: {second == first}")
+    check("[aot_cache] saved serving ladder" in first_log, f"first run: {first_log[-2000:]}")
+    check("[aot_cache] restored the serving state" in second_log,
+          f"second run: {second_log[-2000:]}")
+    check(second == first, "the restored server answers otherwise than the first run")
+    print(f"multi-model serving phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def _smith_operands(torch, B: int, C: int, D: int, seed: int):
@@ -2471,6 +2872,14 @@ def main() -> int:
     packed_parts = phase_packed_heads_vs_plain(torch, ph)
     gemm_parts = phase_gemm_vs_plain(torch, tg)
     probe_path = phase_probes(torch, all_counters)
+    # 6c runs last: after its ladder captures and child processes, the
+    # torch.profiler sessions of this process lose kernel records (the
+    # packed-head phase's read none of its kernels), and 6c reads none
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as multi_dir:
+        multi_hdirs = {m: save_synthetic_hessians(Path(multi_dir) / m, CONFIGS_BY_NAME[m],
+                                                  SEED) for m in (MODEL, ZS_MODEL)}
+        multi = phase_multiserve(torch, counters, multi_hdirs, Path(multi_dir),
+                                 bf16_logp_diff)
 
     qkv, out_proj = int8["linear_int8 qkv"], int8["linear_int8 out_proj"]
     linear_entry = _entry(
@@ -2511,6 +2920,9 @@ def main() -> int:
     one_block["graph_launches"] = {b: n["attention"]
                                    for b, n in serving["graph_launches"].items()}
     one_block["graph_launches_int8"] = {BATCH: int8_graph["attention"]}
+    # and in each ladder of the two resident models (phase 6c), counted at
+    # capture
+    one_block["multi_graph_launches"] = multi["graph_launches"]
     print(json.dumps({"kernels": [
         one_block,
         _entry("fused_attention_split", "bayesvlm_tpu_torch/csrc/attention.cu",

@@ -5,9 +5,15 @@ carrying the JAX towers' through models/bridge.save_weights) and one
 Hessian directory. The same octet-stream (uint8 and float32) and JSON
 requests give probabilities within test_torch_pipeline.py's rtol 1e-4 /
 atol 1e-5; the same bad requests get the same status codes; /healthz,
-/stats and /class_prompts swaps behave alike; `--models_json` and
-`--aot_cache` are refused by name before anything loads. Every request
-has a client timeout and every server is shut down in a finalizer."""
+/stats and /class_prompts swaps behave alike. `--models_json` and
+`--aot_cache` (tests/test_aot_cache.py's restart flow: a full build saves,
+a restart restores without the Hessian directory, a changed prompt set
+rebuilds and refreshes the file, a stale file or a failed save never
+keeps the server down) are driven through build_app and, as a
+subprocess, through `python -m bayesvlm_tpu_torch.serve_cli`; the
+manifest against the JAX CLI is in tests/test_torch_multiserve.py. Every
+request has a client timeout and every server is shut down in a
+finalizer."""
 
 import concurrent.futures
 import http.client
@@ -283,20 +289,195 @@ def test_error_status_and_swap_recovery(dirs, monkeypatch):
         app.server.stop(drain=False, timeout=WAIT)
 
 
-@pytest.mark.parametrize("flag", [["--models_json", "fleet.json"], ["--aot_cache", "cache"],
-                                  ["--models_json", "fleet.json", "--aot_cache", "cache"]])
-def test_unported_flags_refused_by_name(flag, dirs, monkeypatch):
-    loaded = []
-    monkeypatch.setattr(ProbabilisticVLM, "from_pretrained",
-                        classmethod(lambda cls, *a, **k: loaded.append(a)))
-    args = serve_cli.parse_args(["--hessian_dir", str(dirs["hessian_dir"]),
-                                 "--classes_json", str(dirs["classes_json"]), *flag])
-    for entry in (serve_cli.main, serve_cli.build_app):
-        with pytest.raises(NotImplementedError, match="not ported yet") as refused:
-            entry(args)
-        for name in ("--models_json", "--aot_cache"):
-            assert (name in str(refused.value)) == (name in flag)
-    assert loaded == []
+def _manifest(dirs, tmp, names=("tiny",)):
+    """A manifest of tiny-clip lanes on the JAX towers' weights."""
+    path = tmp / "fleet.json"
+    path.write_text(json.dumps({n: {
+        "model_str": "tiny-clip", "hessian_dir": str(dirs["hessian_dir"]),
+        "weights_dir": str(dirs["weights_dir"]), "classes_json": str(dirs["classes_json"]),
+        "batch_size": 2, "buckets": "pow2"} for n in names}))
+    return path
+
+
+@pytest.mark.parametrize("flag", [["--models_json"], ["--aot_cache"],
+                                  ["--models_json", "--aot_cache"]])
+def test_models_json_and_aot_cache_flags_work(flag, dirs, tmp_path, capsys):
+    """Both flags, alone and together, build a working app: a manifest
+    gives a MultiServingApp serving its lane on the same weights, the
+    cache directory gets its file (`serving.aotserv`, or `<name>.aotserv`
+    a lane), and the rows agree with a VLM built directly."""
+    argv = ["--hessian_dir", str(dirs["hessian_dir"]), "--classes_json",
+            str(dirs["classes_json"]), "--weights_dir", str(dirs["weights_dir"]),
+            "--model_str", "tiny-clip", "--device", "cpu", "--dtype", "fp32",
+            "--batch_size", "2", "--verbose"]
+    if "--models_json" in flag:
+        argv += ["--models_json", str(_manifest(dirs, tmp_path))]
+    if "--aot_cache" in flag:
+        argv += ["--aot_cache", str(tmp_path / "cache")]
+    app = serve_cli.build_app(serve_cli.parse_args(argv))
+    img = _images(1, 30)[0]
+    try:
+        multi = "--models_json" in flag
+        assert isinstance(app, serve_cli.MultiServingApp if multi else serve_cli.ServingApp)
+        probs = app.predict(img, model="tiny" if multi else None)
+    finally:
+        app.server.stop(drain=False, timeout=WAIT)
+    direct = ProbabilisticVLM.from_pretrained(
+        "tiny-clip", str(dirs["hessian_dir"]), weights_dir=str(dirs["weights_dir"]),
+        dtype="fp32", device="cpu").set_class_prompts(
+            [f"An image of a thing {i}" for i in range(4)])
+    # the app pads to its bucket of 2: summation order only
+    np.testing.assert_allclose(probs, direct.predict(img[None])[0].numpy(), rtol=1e-5,
+                               atol=1e-6)
+    if "--aot_cache" in flag:
+        name = "tiny.aotserv" if "--models_json" in flag else "serving.aotserv"
+        assert [p.name for p in (tmp_path / "cache").iterdir()] == [name]
+        assert "[aot_cache] saved serving ladder" in capsys.readouterr().out
+
+
+def test_aot_cache_restart_flow(dirs, tmp_path, monkeypatch, capsys):
+    """tests/test_aot_cache.py's flow on the port: the first build runs the
+    Stage-2 preamble and saves; the restart runs none of it (no
+    from_pretrained, no Hessian file read), captures the ladder once
+    (load_serving) and serves the first build's bits; a changed prompt
+    set rebuilds and refreshes the file; the next restart restores the
+    new prompt set."""
+    from bayesvlm_tpu_torch.io import artifacts
+
+    classes = tmp_path / "classes.json"
+    classes.write_text(json.dumps([f"thing {i}" for i in range(4)]))
+    args = serve_cli.parse_args([
+        "--model_str", "tiny-clip", "--hessian_dir", str(dirs["hessian_dir"]),
+        "--weights_dir", str(dirs["weights_dir"]), "--classes_json", str(classes),
+        "--device", "cpu", "--dtype", "fp32", "--batch_size", "4", "--buckets", "2,4",
+        "--max_wait_ms", "0", "--aot_cache", str(tmp_path / "aot"), "--verbose"])
+    calls = {"from_pretrained": 0, "compile_serving": 0, "load_hessians": 0}
+    for owner, name in ((ProbabilisticVLM, "compile_serving"), (artifacts, "load_hessians")):
+        real = getattr(owner, name)
+
+        def counted(*a, _real=real, _name=name, **k):
+            calls[_name] += 1
+            return _real(*a, **k)
+
+        monkeypatch.setattr(owner, name, counted)
+    real_fp = ProbabilisticVLM.from_pretrained.__func__
+
+    def counted_fp(cls, *a, **k):
+        calls["from_pretrained"] += 1
+        return real_fp(cls, *a, **k)
+
+    monkeypatch.setattr(ProbabilisticVLM, "from_pretrained", classmethod(counted_fp))
+    img = _images(1, 31)[0]
+
+    def build(expect_restore):
+        for k in calls:
+            calls[k] = 0
+        app = serve_cli.build_app(args)
+        try:
+            out = capsys.readouterr().out
+            assert ("[aot_cache] restored the serving state" in out) == expect_restore, out
+            return app.predict(img), app.vlm, dict(calls), out
+        finally:
+            app.server.stop(drain=False, timeout=WAIT)
+
+    first, vlm1, c1, _ = build(False)
+    assert c1["from_pretrained"] == 1 and c1["load_hessians"] == 2
+    assert (tmp_path / "aot" / "serving.aotserv").exists()
+    second, vlm2, c2, _ = build(True)
+    assert c2 == {"from_pretrained": 0, "compile_serving": 1, "load_hessians": 0}
+    np.testing.assert_array_equal(second, first)
+    assert vlm2._class_prompts == vlm1._class_prompts and vlm2.info == vlm1.info
+
+    classes.write_text(json.dumps([f"other {i}" for i in range(4)]))
+    third, vlm3, c3, out = build(False)
+    assert "prompt set differs" in out and c3["from_pretrained"] == 1
+    assert "[aot_cache] saved serving ladder" in out  # the runtime block refreshed
+    assert third.shape == (4,) and not np.array_equal(third, first)
+    fourth, vlm4, c4, _ = build(True)
+    assert c4["from_pretrained"] == 0 and vlm4._class_prompts == vlm3._class_prompts
+    np.testing.assert_array_equal(fourth, third)
+
+
+def test_models_json_aot_cache_restores_each_lane(dirs, tmp_path, capsys, monkeypatch):
+    """Manifest mode keeps a file a lane: the restart restores both lanes;
+    a torn file falls back to a full build of that lane alone (and is
+    written again), and a failed save is printed while the server still
+    comes up."""
+    argv = ["--models_json", str(_manifest(dirs, tmp_path, ("a", "b"))), "--device", "cpu",
+            "--dtype", "fp32", "--aot_cache", str(tmp_path / "aot"), "--verbose"]
+    img = _images(1, 32)[0]
+
+    def build():
+        app = serve_cli.build_app(serve_cli.parse_args(argv))
+        try:
+            return {n: app.predict(img, model=n) for n in ("a", "b")}, capsys.readouterr().out
+        finally:
+            app.server.stop(drain=False, timeout=WAIT)
+
+    first, out = build()
+    assert sorted(p.name for p in (tmp_path / "aot").iterdir()) == ["a.aotserv", "b.aotserv"]
+    second, out = build()
+    assert out.count("[aot_cache] restored the serving state") == 2
+    data = (tmp_path / "aot" / "b.aotserv").read_bytes()
+    (tmp_path / "aot" / "b.aotserv").write_bytes(data[:len(data) // 3])
+    third, out = build()
+    assert out.count("[aot_cache] restored the serving state") == 1
+    assert "full restore unavailable" in out and "stale" in out
+    assert "[aot_cache] saved serving ladder to" in out and "b.aotserv" in out
+    for rows in (second, third):
+        for n in ("a", "b"):
+            np.testing.assert_array_equal(rows[n], first[n])
+
+    def fail(self, path, include_runtime=True):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(ProbabilisticVLM, "save_serving", fail)
+    (tmp_path / "aot" / "a.aotserv").unlink()
+    fourth, out = build()
+    assert "[aot_cache] save failed (disk full); serving without cache" in out
+    np.testing.assert_array_equal(fourth["a"], first["a"])
+
+
+def test_cli_aot_cache_restart_reads_no_hessian_dir(dirs, tmp_path):
+    """`python -m bayesvlm_tpu_torch.serve_cli --aot_cache` twice on one
+    directory: the first run builds and saves; the second, with its
+    Hessian directory deleted, says it restored and answers with the
+    first run's bits."""
+    import shutil
+
+    hdir = tmp_path / "hessians"
+    shutil.copytree(dirs["hessian_dir"], hdir)
+    argv = ["--model_str", "tiny-clip", "--hessian_dir", str(hdir), "--classes_json",
+            str(dirs["classes_json"]), "--weights_dir", str(dirs["weights_dir"]),
+            "--device", "cpu", "--dtype", "fp32", "--input_dtype", "uint8",
+            "--buckets", "pow2", "--batch_size", "4", "--port", "0", "--verbose",
+            "--aot_cache", str(tmp_path / "aot")]
+    answers, logs = [], []
+    for run in range(2):
+        proc = subprocess.Popen([sys.executable, "-m", "bayesvlm_tpu_torch.serve_cli",
+                                 *argv], cwd=REPO, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        lines = queue.Queue()
+        threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                         daemon=True).start()
+        try:
+            seen = []
+            while not any(x.startswith("serving on") for x in seen):
+                seen.append(lines.get(timeout=WAIT))
+            port = int(seen[-1].split(":")[1].split()[0])
+            replies = [_request(port, "POST", "/predict", _u8(1, 40 + i)[0].tobytes(),
+                                {**OCTET, "X-Image-Dtype": "uint8"}) for i in range(3)]
+            assert all(status == 200 for status, _ in replies)
+            answers.append([r["probs"] for _, r in replies])
+            logs.append("".join(seen))
+        finally:
+            proc.kill()
+            proc.communicate(timeout=WAIT)
+        if run == 0:
+            shutil.rmtree(hdir)  # the restart must not need it
+    assert "[aot_cache] saved serving ladder" in logs[0]
+    assert "[aot_cache] restored the serving state" in logs[1]
+    assert answers[1] == answers[0]
 
 
 def test_flags_and_defaults_match_jax(monkeypatch):
