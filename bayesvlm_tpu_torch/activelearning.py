@@ -1,0 +1,326 @@
+"""Stage 3: uncertainty-based active fine-tuning, the port of the JAX
+package's `scripts/activelearning.py` (ref:scripts/activelearning.py):
+same flags and defaults, same printed steps, same resumable
+`subset_indices_train.json` and per-subset `img_projection.pt`.
+
+    python -m bayesvlm_tpu_torch.activelearning --model clip-large \\
+        --dataset synthetic --hessian_dir <dir>
+
+[1] features of the train, val and test splits and of the class prompts
+(cached under `<experiment_dir>/<dataset>/base`), lambda re-optimised
+per tower, the covariances; [2] probabilistic and MAP predictions of the
+train and test sets; [3] the strategies: entropy_map (+kNN support
+search in the train pool), entropy_map_train, bald_test (+kNN), epig_knn
+(online EPIG), random_on_test_{0..4} (+kNN), random_on_train_{0..4},
+each saved to the JSON as it is made and skipped when the JSON holds it;
+[4] the image projection fine-tuned on each strategy's train subset,
+skipped where its checkpoint exists.
+
+Runs on the card unless `--device` names another, and refuses to start
+without one. `--dtype` (bf16, the JAX CLI's GEMM weights, or fp32) is
+the towers' compute dtype. `--weights_dir` is an HF snapshot directory
+or the port's converted `vision.pt` / `text.pt`, or none for seeded
+random towers; `--tokenizer_dir` a local HF tokenizer, else the
+deterministic `HashTokenizer`. A multi-process launch
+(`COORDINATOR_ADDRESS`, `NUM_PROCESSES` > 1) is not ported and is
+refused before anything is loaded.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import OrderedDict
+from typing import Optional
+
+import numpy as np
+
+from bayesvlm_tpu_torch.ops import to_numpy as _host
+
+
+def run_knn(embeds_train, embeds_test, indices_test, values_test, k_nearest,
+            source_covariance, method, proj_has_bias=False):
+    """ref:scripts/activelearning.py:228-250."""
+    from bayesvlm_tpu_torch.select.knn import (
+        find_similar_samples_cosine,
+        find_similar_samples_wasserstein,
+    )
+
+    if method == "cosine":
+        fn = find_similar_samples_cosine
+    elif method == "wasserstein":
+        fn = find_similar_samples_wasserstein
+    else:
+        raise ValueError(f"Unknown method {method}")
+    return fn(embeds_train, embeds_test, indices_test, values_test, k_nearest,
+              source_covariance, has_bias=proj_has_bias)
+
+
+class SubsetStore:
+    """The resumable strategy checkpoint `subset_indices_train.json`:
+    strategy name -> {test index: {score, indices, similarities}}, in the
+    order the strategies were made. Keys are written as JSON strings (an
+    int test index too) and read back as strings, as in the JAX CLIs. It
+    also times each strategy made in this run."""
+
+    def __init__(self, path):
+        self.path = path
+        if path.exists():
+            with open(path) as f:
+                self.subsets = json.load(f, object_pairs_hook=OrderedDict)
+        else:
+            self.subsets = OrderedDict()
+        self.seconds = {}
+
+    def make(self, name: str, fn) -> None:
+        """Add strategy `name` as `fn()` and save, unless it is held."""
+        if name in self.subsets:
+            return
+        t0 = time.perf_counter()
+        self.subsets[name] = fn()
+        self.seconds[name] = time.perf_counter() - t0
+        self.save()
+
+    def save(self) -> None:
+        with open(self.path, "w") as f:
+            json.dump(self.subsets, f)
+
+
+def run(
+    model_str: str,
+    dataset: str,
+    hessian_dir: str,
+    experiment_dir: str,
+    project_name: str,
+    hessian_scale: float,
+    subset_size: int,
+    predictions_batch_size: int = 256,
+    precompute_batch_size: int = 256,
+    precompute_num_workers: int = 8,
+    finetune_lr: float = 1e-5,
+    finetune_wd: float = 5e-2,
+    finetune_epochs: int = 100,
+    finetune_batch_size: int = 30,
+    only_deterministic_strategies: bool = False,
+    only_random_strategies: bool = False,
+    only_epig: bool = False,
+    without_epig: bool = False,
+    epig_lr: float = 1e-4,
+    epig_hessian_update_scale: float = 10.0,
+    epig_num_samples: int = 100,
+    k_nearest: int = 1,
+    knn_method: str = "wasserstein",
+    weights_dir=None,
+    tokenizer_dir=None,
+    mlp_int8: bool = False,
+    epig_pool_max_size: int = 40_000,
+    epig_target_max_size: int = 20_000,
+    device: str = "cuda",
+    dtype: str = "bf16",
+    dataset_overrides: Optional[dict] = None,
+) -> dict:
+    """Steps [1]-[4]; returns a dict: `results` (each trained strategy's
+    best test metrics, what `main` returns), `seconds` (each step's, host
+    clock, the card synchronised at each step's end; "[1] features" is
+    the feature pass alone), `strategy_seconds` (each strategy made in
+    this run), `finetune` (each trained strategy's {"seconds", "epochs",
+    "steps"}), `subset_dir` and `subsets` (the JSON's content).
+    `dataset_overrides` go to the datamodule's constructor (e.g. the
+    synthetic module's `image_size`, `num_train`, `num_val`, `num_test`,
+    `num_classes`)."""
+    if only_epig and without_epig:
+        # would select no strategy, after the whole feature pass
+        raise ValueError("Cannot set both only_epig and without_epig")
+    from bayesvlm_tpu_torch.train.al_common import refuse_unported
+
+    device = refuse_unported(device)
+    from bayesvlm_tpu_torch.inference.predictions import make_predictions
+    from bayesvlm_tpu_torch.select.scores import select_random, select_topk
+    from bayesvlm_tpu_torch.train.al_common import (
+        epig_subset,
+        finetune_all_subsets,
+        setup_context,
+        synchronize,
+    )
+
+    ctx = setup_context(
+        model_str, dataset, hessian_dir, experiment_dir, hessian_scale,
+        precompute_batch_size, precompute_num_workers, weights_dir, tokenizer_dir,
+        mlp_int8=mlp_int8, device=device, dtype=dtype,
+        dataset_overrides=dataset_overrides)
+    seconds = {"[1] features": ctx.seconds["features"],
+               "[1] lambda + covariances": ctx.seconds["lambda + covariances"]}
+    head = ctx.head
+    train, test = ctx.image_outputs_train, ctx.image_outputs_test
+
+    t0 = time.perf_counter()
+    print("[2] Making predictions ...")
+
+    def predict(feats, map_est):
+        return make_predictions(head, feats, ctx.label_outputs,
+                                batch_size=predictions_batch_size, map_estimate=map_est)
+
+    prob_logits_train = predict(train, False)
+    prob_logits_train_map = predict(train, True)
+    prob_logits_test = predict(test, False)
+    prob_logits_test_map = predict(test, True)
+    synchronize(device)
+    seconds["[2] predictions"] = time.perf_counter() - t0
+
+    path = (f"subset_{subset_size}_k_{k_nearest}_n_{hessian_scale}_epig_lr_{epig_lr}"
+            f"_epig_update_{epig_hessian_update_scale}_knn_{knn_method}")
+    subset_dir = ctx.run_dir / path
+    subset_dir.mkdir(parents=True, exist_ok=True)
+
+    t0 = time.perf_counter()
+    print("[3] Creating training subsets ...")
+    store = SubsetStore(subset_dir / "subset_indices_train.json")
+
+    def knn(idx, vals):
+        return run_knn(train, test, _host(idx), vals, k_nearest, head.source_covariance,
+                       knn_method, head.source_projection_has_bias)
+
+    def topk_knn(logits, **kw):
+        idx, vals = select_topk(logits, k=subset_size, return_values=True, **kw)
+        return knn(idx, _host(vals))
+
+    def topk_train(logits, **kw):
+        idx, vals = select_topk(logits, k=subset_size, return_values=True, **kw)
+        return {0: dict(score=0.0, indices=_host(idx).tolist(),
+                        similarities=_host(vals).tolist())}
+
+    if not only_random_strategies and not only_epig:
+        print("    - Aleatoric entropy ...", flush=True)
+        store.make("entropy_map", lambda: topk_knn(
+            prob_logits_test_map, variant="entropy", entropy_variant="map_alea"))
+        print("    - Aleatoric entropy on train ...", flush=True)
+        store.make("entropy_map_train", lambda: topk_train(
+            prob_logits_train_map, variant="entropy", entropy_variant="map_alea"))
+        print("    - BALD (on test) ...", flush=True)
+        store.make("bald_test", lambda: topk_knn(
+            prob_logits_test, variant="exp_mutual_info", seed=0))
+
+    if not only_random_strategies and not without_epig:
+        print("    - EPIG KNN...", flush=True)
+
+        store.make("epig_knn", lambda: epig_subset(
+            ctx, subset_size, epig_lr, epig_hessian_update_scale, epig_num_samples,
+            epig_pool_max_size, epig_target_max_size, knn_method))
+
+    if not only_deterministic_strategies and not only_epig:
+        def random_test(i):
+            idx = select_random(prob_logits_test, k=subset_size, seed=i)
+            return knn(idx, np.ones(len(idx)))
+
+        def random_train(i):
+            idx = _host(select_random(prob_logits_train, k=k_nearest * subset_size,
+                                      seed=i))
+            return {0: dict(score=0.0, indices=idx.tolist(),
+                            similarities=[1.0] * len(idx))}
+
+        for i in range(5):
+            store.make(f"random_on_test_{i}", lambda i=i: random_test(i))
+        for i in range(5):
+            store.make(f"random_on_train_{i}", lambda i=i: random_train(i))
+    store.save()
+    synchronize(device)
+    seconds["[3] strategies"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    print("[4] Fine-tuning based on training subsets ...")
+    timings = {}
+    results = finetune_all_subsets(
+        ctx, store.subsets, subset_dir, project_name, dataset,
+        finetune_lr, finetune_wd, finetune_epochs, finetune_batch_size,
+        config=dict(subset_size=subset_size, k_nearest=k_nearest,
+                    hessian_scale=hessian_scale, epig_lr=epig_lr,
+                    epig_hessian_update_scale=epig_hessian_update_scale,
+                    epig_mc_samples=epig_num_samples, knn_method=knn_method),
+        timings=timings)
+    synchronize(device)
+    seconds["[4] fine-tuning"] = time.perf_counter() - t0
+    return dict(results=results, seconds=seconds, strategy_seconds=store.seconds,
+                finetune=timings, subset_dir=subset_dir, subsets=store.subsets)
+
+
+def main(*args, **kwargs) -> dict:
+    """The CLI's entry point: takes `run`'s arguments and returns each
+    trained strategy's best test metrics, as the JAX `main` does."""
+    return run(*args, **kwargs)["results"]
+
+
+def _parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model", type=str, default="clip-base")
+    parser.add_argument("--dataset", type=str, default="homeoffice-da-clipart")
+    parser.add_argument("--hessian_dir", type=str,
+                        default="hessians/hessian_CLIP-ViT-B-32-laion2B-s34B-b79K")
+    parser.add_argument("--experiment_dir", type=str,
+                        default="experiments/active-finetuning")
+    parser.add_argument("--project_name", type=str, default="active-finetuning")
+    parser.add_argument("--subset_size", type=int, default=50)
+    parser.add_argument("--hessian_scale", type=float, default=10)
+    parser.add_argument("--predictions_batch_size", type=int, default=256)
+    parser.add_argument("--precompute_batch_size", type=int, default=256)
+    parser.add_argument("--precompute_num_workers", type=int, default=8)
+    parser.add_argument("--finetune_lr", type=float, default=1e-5)
+    parser.add_argument("--finetune_wd", type=float, default=5e-2)
+    parser.add_argument("--finetune_epochs", type=int, default=100)
+    parser.add_argument("--finetune_batch_size", type=int, default=30)
+    parser.add_argument("--only_deterministic_strategies", action="store_true")
+    parser.add_argument("--only_random_strategies", action="store_true")
+    parser.add_argument("--without_epig", action="store_true")
+    parser.add_argument("--only_epig", action="store_true")
+    parser.add_argument("--epig_lr", type=float, default=1e-4)
+    parser.add_argument("--epig_hessian_update_scale", type=float, default=10.0)
+    parser.add_argument("--k_nearest", type=int, default=1)
+    parser.add_argument("--knn_method", type=str, default="wasserstein")
+    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--dtype", type=str, default="bf16", choices=["bf16", "fp32"])
+    parser.add_argument("--weights_dir", type=str, default=None)
+    parser.add_argument("--tokenizer_dir", type=str, default=None)
+    parser.add_argument("--mlp_int8", action="store_true",
+                        help="W8A8 int8 vision-tower MLPs for the feature pass "
+                        "(csrc/mlp_int8.cu); off by default")
+    parser.add_argument("--epig_num_samples", type=int, default=100,
+                        help="EPIG Monte-Carlo samples (reference default 100)")
+    parser.add_argument("--epig_pool_max_size", type=int, default=40_000)
+    parser.add_argument("--epig_target_max_size", type=int, default=20_000)
+    return parser
+
+
+if __name__ == "__main__":
+    args = _parser().parse_args()
+    main(
+        model_str=args.model,
+        dataset=args.dataset,
+        hessian_dir=args.hessian_dir,
+        experiment_dir=args.experiment_dir,
+        project_name=args.project_name,
+        hessian_scale=args.hessian_scale,
+        subset_size=args.subset_size,
+        predictions_batch_size=args.predictions_batch_size,
+        precompute_batch_size=args.precompute_batch_size,
+        precompute_num_workers=args.precompute_num_workers,
+        finetune_lr=args.finetune_lr,
+        finetune_wd=args.finetune_wd,
+        finetune_epochs=args.finetune_epochs,
+        finetune_batch_size=args.finetune_batch_size,
+        only_deterministic_strategies=args.only_deterministic_strategies,
+        only_random_strategies=args.only_random_strategies,
+        only_epig=args.only_epig,
+        without_epig=args.without_epig,
+        epig_lr=args.epig_lr,
+        epig_hessian_update_scale=args.epig_hessian_update_scale,
+        epig_num_samples=args.epig_num_samples,
+        epig_pool_max_size=args.epig_pool_max_size,
+        epig_target_max_size=args.epig_target_max_size,
+        k_nearest=args.k_nearest,
+        knn_method=args.knn_method,
+        weights_dir=args.weights_dir,
+        tokenizer_dir=args.tokenizer_dir,
+        mlp_int8=args.mlp_int8,
+        device=args.device,
+        dtype=args.dtype,
+    )

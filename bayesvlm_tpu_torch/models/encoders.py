@@ -72,6 +72,80 @@ class _EncoderBase:
     def projection_num_params(self) -> int:
         return sum(p.numel() for p in self.projection().parameters())
 
+    def projection_tree(self) -> dict:
+        """The projection's parameters in the JAX package's layout, as fp32
+        copies: {"kernel": [P, D]}, plus "bias" [D] where the projection
+        has one (SigLIP)."""
+        proj = self.projection()
+        tree = {"kernel": proj.weight.detach().float().T.contiguous()}
+        if proj.bias is not None:
+            tree["bias"] = proj.bias.detach().float().clone()
+        return tree
+
+    def with_projection(self, new_projection: dict) -> "_EncoderBase":
+        """Write `new_projection` (projection_tree's layout) into the
+        projection layer in place, and return the encoder. Keys and shapes
+        are strict: "bias" exactly where the projection has one."""
+        proj = self.projection()
+        expected = {"kernel"} | ({"bias"} if proj.bias is not None else set())
+        if set(new_projection) != expected:
+            raise ValueError(f"projection keys {sorted(new_projection)} do not match "
+                             f"this projection's {sorted(expected)}")
+        kernel = torch.as_tensor(new_projection["kernel"]).T
+        if tuple(kernel.shape) != tuple(proj.weight.shape):
+            raise ValueError(f"projection kernel {tuple(kernel.shape[::-1])} does not "
+                             f"match this projection's {tuple(proj.weight.shape[::-1])}")
+        with torch.no_grad():
+            proj.weight.copy_(kernel)
+            if proj.bias is not None:
+                bias = torch.as_tensor(new_projection["bias"])
+                if tuple(bias.shape) != tuple(proj.bias.shape):
+                    raise ValueError(f"projection bias {tuple(bias.shape)} does not "
+                                     f"match this projection's {tuple(proj.bias.shape)}")
+                proj.bias.copy_(bias)
+        return self
+
+    def save_projection_weights(self, path) -> None:
+        """Write the projection as a torch state dict `.pt`, the
+        reference's `torch.save(projection.state_dict())` contract
+        (ref:bayesvlm/vlm.py:236-253): {"weight": [out, in]}, plus "bias"
+        where the projection has one (SigLIP's head_fc2)."""
+        proj = self.projection()
+        state = {"weight": proj.weight.detach().float().cpu().contiguous()}
+        if proj.bias is not None:
+            state["bias"] = proj.bias.detach().float().cpu().contiguous()
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        torch.save(state, path)
+
+    def load_projection_weights(self, path) -> "_EncoderBase":
+        """Read a projection checkpoint (this package's, the JAX package's
+        or the reference's state dict `.pt`) into the projection, in
+        place, and return the encoder. Keys are strict, as torch's
+        `load_state_dict(strict=True)`, which the reference relies on: a
+        missing or unexpected "bias", or an unknown key, raises. A bare
+        tensor is taken as the weight of a projection without a bias."""
+        loaded = torch.load(path, map_location="cpu", weights_only=True)
+        has_bias = self.projection().bias is not None
+        if isinstance(loaded, dict):
+            expected = {"weight"} | ({"bias"} if has_bias else set())
+            got = set(loaded)
+            if got != expected:
+                raise ValueError(
+                    f"projection checkpoint {path} keys {sorted(got)} do not match "
+                    f"this projection's state_dict keys {sorted(expected)} (missing: "
+                    f"{sorted(expected - got)}, unexpected: {sorted(got - expected)})")
+            tree = {"kernel": loaded["weight"].float().T}
+            if has_bias:
+                tree["bias"] = loaded["bias"].float()
+        else:
+            if has_bias:
+                raise ValueError(
+                    f"projection checkpoint {path} is a bare kernel tensor but this "
+                    "projection has a bias; a full state_dict {'weight', 'bias'} is "
+                    "required (SigLIP head_fc2)")
+            tree = {"kernel": torch.as_tensor(loaded).float().T}
+        return self.with_projection(tree)
+
 
 class ImageEncoder(_EncoderBase):
     """Vision tower wrapper. Call with NHWC (or NCHW) normalised float

@@ -21,24 +21,17 @@ set globally.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional
 
 import torch
 
 from bayesvlm_tpu_torch.bayes.kfac import KroneckerFactorizedCovariance
-from bayesvlm_tpu_torch.types import EncoderResult, ProbabilisticLogits
-
-
-@contextlib.contextmanager
-def _highest_fp32_matmul():
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
+from bayesvlm_tpu_torch.types import (
+    EncoderResult,
+    ProbabilisticLogits,
+    _highest_fp32_matmul,
+)
 
 
 @dataclasses.dataclass

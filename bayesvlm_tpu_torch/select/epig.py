@@ -34,6 +34,7 @@ from bayesvlm_tpu_torch.probforward.smith import (
     _highest_fp32_matmul,
     activation_diag_covariance,
 )
+from bayesvlm_tpu_torch.select import draws
 from bayesvlm_tpu_torch.select.epig_joint import epig_from_probs_fused
 from bayesvlm_tpu_torch.select.knn import expected_cosine_similarity, wdist2
 from bayesvlm_tpu_torch.types import EncoderResult, ProbabilisticLogits
@@ -166,9 +167,11 @@ def select_epig_online(
     names another). `hessian_n0` is the reference's hard-coded
     initial-Hessian sample count (ref:bayesvlm/epig.py:248-251).
 
-    Random subsampling permutes with a `torch.Generator` seeded with
-    `seed` (targets first, then the pool); it draws other permutations
-    than the JAX package's keys.
+    Random subsampling permutes with `draws.permutation(seed, n,
+    stream)`, the streams counted as the JAX package splits its key:
+    stream 0 for the first subsample drawn (the targets when they are
+    cut, else the pool), stream 1 for the pool after cut targets. It
+    draws other permutations than the JAX package's keys.
     """
     device = torch.device(device)
 
@@ -188,7 +191,7 @@ def select_epig_online(
     cov_info = dict(cov_info)
     head = dataclasses.replace(head, logit_scale=dev(head.logit_scale),
                                logit_bias=dev(head.logit_bias))
-    gen = torch.Generator().manual_seed(int(seed))
+    streams = iter(range(2))
 
     cov_img, cov_txt = compute_covariances(A_img, B_img, A_txt, B_txt, cov_info)
     head = head.set_covariances(cov_img, cov_txt)
@@ -198,14 +201,14 @@ def select_epig_online(
 
     # --- target subsampling (ref:bayesvlm/epig.py:99-102) ---
     if target_max_size is not None and target_max_size < n_target:
-        indices_target = torch.randperm(n_target, generator=gen).numpy()[:target_max_size]
+        indices_target = draws.permutation(seed, n_target, next(streams))[:target_max_size]
     else:
         indices_target = np.arange(n_target)
 
     # --- pool subsampling (ref:bayesvlm/epig.py:104-164) ---
     if pool_subsampling == "random":
         if pool_max_size is not None and pool_max_size < n_pool:
-            indices_pool = torch.randperm(n_pool, generator=gen).numpy()[:pool_max_size]
+            indices_pool = draws.permutation(seed, n_pool, next(streams))[:pool_max_size]
         else:
             indices_pool = np.arange(n_pool)
     elif pool_subsampling in ("knn_cosine", "knn_wasserstein"):

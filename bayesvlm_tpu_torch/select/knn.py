@@ -1,19 +1,27 @@
-"""Similarities between probabilistic embeddings (ref:bayesvlm/knn.py).
+"""Probabilistic kNN retrieval (ref:bayesvlm/knn.py), counterpart of
+`bayesvlm_tpu.select.knn`.
 
-Counterpart of the parts of `bayesvlm_tpu.select.knn` that the online
-EPIG loop uses for its kNN pool subsampling:
-
+Two similarity notions between probabilistic embeddings:
   - expected cosine: normalize by the *expected* squared norm
     E||z||^2 = ||mu||^2 + sum(sigma) (the Smith forward's chain)
   - negative squared 2-Wasserstein between diagonal Gaussians
 
-The top-k over these is `torch.topk` in the caller. Not ported yet:
-`find_similar_samples_*` and the host dedup loop.
+The [N_test, N_train] similarities and their top-k stay on the device
+(`ops.topk_exact`, the JAX package's tie order); the grow-k'-until-
+enough-unique-train-indices dedup loop runs on the host
+(data-dependent, ref:bayesvlm/knn.py:93-111). The mesh path (train
+columns sharded over devices) is not ported: `mesh` takes None only.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
+
+import numpy as np
 import torch
+
+from bayesvlm_tpu_torch.ops import to_numpy as _host
+from bayesvlm_tpu_torch.ops import topk_exact
 
 from bayesvlm_tpu_torch.bayes.kfac import KroneckerFactorizedCovariance
 from bayesvlm_tpu_torch.probforward.smith import (
@@ -53,3 +61,102 @@ def expected_cosine_similarity(test: EncoderResult, train: EncoderResult,
     E_test = (test.embeds**2 + test_diag).sum(-1, keepdim=True)
     with _highest_fp32_matmul():
         return (test.embeds / torch.sqrt(E_test)) @ (train.embeds / torch.sqrt(E_train)).T
+
+
+def _refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            "not ported yet: a mesh for the kNN search (train columns "
+            "sharded over devices); pass mesh=None")
+
+
+def _dedup_loop(topk_idx: np.ndarray, topk_val: np.ndarray, k_nearest: int,
+                n_test: int):
+    """Host-side dedup (ref:bayesvlm/knn.py:93-135): grow k' until the
+    column-major flattened top-k' indices hold >= k_nearest * n_test
+    unique entries, then trim from the end.
+
+    DIVERGENCE, kept from the JAX package: the reference's loop has no
+    termination guard. When the fetched top-(k_nearest + buffersize)
+    columns cannot supply enough unique train indices its slice clamps,
+    the unique count stops growing and the loop spins forever
+    (ref:bayesvlm/knn.py:95-110). Here it stops at the fetched width and
+    returns what exists (the k-means variant re-fetches instead,
+    select/knn_kmeans.py:_dedup_refetch)."""
+    goal = k_nearest * n_test
+    k_ = k_nearest
+    max_k = topk_idx.shape[1]
+    while True:
+        flat = topk_idx[:, :k_].T.flatten()
+        if np.unique(flat).size >= goal or k_ >= max_k:
+            break
+        k_ += 1
+    # trim from the end until exactly `goal` unique remain
+    # (ref:bayesvlm/knn.py:22-25)
+    trimmed = flat
+    while np.unique(trimmed).size > goal:
+        trimmed = trimmed[:-1]
+    return k_, set(np.unique(trimmed).tolist())
+
+
+def _collect(topk_idx, topk_val, k_, keep, indices_test, values_test) -> OrderedDict:
+    out = OrderedDict()
+    for i in range(topk_idx.shape[0]):
+        ids = topk_idx[i, :k_]
+        vals = topk_val[i, :k_]
+        keep_ids = [int(x) for x in ids if int(x) in keep]
+        keep_vals = [float(v) for x, v in zip(ids, vals) if int(x) in keep]
+        out[int(indices_test[i])] = dict(
+            score=float(values_test[i]), indices=keep_ids, similarities=keep_vals)
+    return out
+
+
+def _find(sims: torch.Tensor, indices_test, values_test, k_nearest: int,
+          buffersize: int) -> OrderedDict:
+    k_cap = min(k_nearest + buffersize, sims.shape[1])
+    vals, ids = topk_exact(sims, k_cap)
+    ids_np, vals_np = _host(ids), _host(vals)
+    indices_test = _host(indices_test)
+    k_, keep = _dedup_loop(ids_np, vals_np, k_nearest, len(indices_test))
+    return _collect(ids_np, vals_np, k_, keep, indices_test, _host(values_test))
+
+
+def find_similar_samples_cosine(train: EncoderResult, test: EncoderResult,
+                                indices_test, values_test, k_nearest: int,
+                                source_covariance: KroneckerFactorizedCovariance,
+                                buffersize: int = 150, has_bias: bool = False,
+                                mesh=None) -> OrderedDict:
+    """ref:bayesvlm/knn.py:39-137: {test index: {score, indices,
+    similarities}} in the order of `indices_test`."""
+    _refuse_mesh(mesh)
+    test_sub = test[torch.as_tensor(_host(indices_test), device=test.embeds.device)]
+    sims = expected_cosine_similarity(
+        test_sub, train, source_covariance.A_inv,
+        torch.diagonal(source_covariance.B_inv), has_bias=has_bias)
+    return _find(sims, indices_test, values_test, k_nearest, buffersize)
+
+
+def find_similar_samples_wasserstein(train: EncoderResult, test: EncoderResult,
+                                     indices_test, values_test, k_nearest: int,
+                                     source_covariance: KroneckerFactorizedCovariance,
+                                     buffersize: int = 150, has_bias: bool = False,
+                                     mesh=None) -> OrderedDict:
+    """ref:bayesvlm/knn.py:139-220, the similarity -wdist2."""
+    _refuse_mesh(mesh)
+    test_sub = test[torch.as_tensor(_host(indices_test), device=test.embeds.device)]
+    cov = source_covariance
+    test_diag = activation_diag_covariance(test_sub.activations, cov, has_bias)
+    train_diag = activation_diag_covariance(train.activations, cov, has_bias)
+    sims = -wdist2(test_sub.embeds, train.embeds, test_diag, train_diag)
+    return _find(sims, indices_test, values_test, k_nearest, buffersize)
+
+
+def extract_test_train_indices(text_idx_to_train_data) -> dict:
+    """The test indices and the unique train indices of a kNN result
+    (ref:bayesvlm/knn.py:27-37). `train` is `list(set(...))`, as in both
+    other packages: its order decides the fine-tune's data order."""
+    test_indices, train_indices = [], []
+    for test_idx, data in text_idx_to_train_data.items():
+        test_indices.append(int(test_idx))
+        train_indices.extend(int(x) for x in data["indices"])
+    return dict(test=test_indices, train=list(set(train_indices)))

@@ -1,0 +1,7 @@
+"""Active fine-tuning: the projection fine-tune, its logger and the
+setup shared by the active-learning CLIs."""
+
+from bayesvlm_tpu_torch.train.finetune import evaluate_projection, finetune_projection
+from bayesvlm_tpu_torch.train.logging import ExperimentLogger
+
+__all__ = ["evaluate_projection", "finetune_projection", "ExperimentLogger"]

@@ -149,6 +149,24 @@ Phases (any failure raises and exits non-zero, without the result line):
      pool_subsampling="knn_wasserstein", the active-learning defaults);
      checks 3 distinct indices, finite scores, one kernel launch per step
      and pool chunk, and lambda moved; ms per step and its split;
+  8d. active fine-tuning at clip-large width through the port's CLIs:
+     activelearning.run (bf16, seeded towers, phase 6's synthetic
+     full-dimension factors) on `synthetic` with 6000 train, 1000 val
+     and 2000 test images of 224 px and 65 classes (HomeOffice's count),
+     every other setting the CLI's default (subset 50, k_nearest 1, kNN
+     wasserstein, 100 EPIG samples, batch 30, lr 1e-5, wd 5e-2) but 10
+     fine-tune epochs in place of 100; then activelearning_kmeans.run on
+     the same experiment directory (features from the cache) and the
+     main CLI once more (a resume). Checks #1's launches (24 a vision
+     forward of step [1], none from the text tower; none in the k-means
+     run and the resume), #8's (one a step and pool chunk of epig_knn
+     and of epig_direct, none in the resume), no other kernel, the 14
+     strategies of each CLI with 50 unique train indices each, the 28
+     img_projection.pt loaded with strict keys into the port's encoder,
+     the best test accuracy and ECE finite and in [0, 1], and no
+     strategy or subset redone by the resume; prints each step's and
+     strategy's seconds, the feature pass's img/s, the ms of an EPIG
+     step and the fine-tune's s a subset and steps/s;
   8b. Stage-2 zero-shot evaluation at siglip-large width through the
      port's CLI, zeroshot.run (the steps under zeroshot.main): seeded
      bf16 towers (24 x 1024 vision at 256 px / 16, T=256; 24 x 1024
@@ -227,6 +245,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -320,6 +339,11 @@ ROWSUM_RTOL = 1e-4
 # (scripts/activelearning.py:67-71, 185-210)
 EPIG_POOL_IMAGES, EPIG_TARGET_IMAGES, EPIG_CLASSES = 6000, 2000, 65
 EPIG_BUDGET, EPIG_CHUNK = 3, 4096
+# 8d: active fine-tuning through the CLIs (scripts/activelearning.py's
+# defaults; HomeOffice's 65 classes) on synthetic splits of 224 px, cut
+# to 10 fine-tune epochs (the CLI's default is 100)
+AL_SPLITS = dict(num_train=6000, num_val=1000, num_test=2000, num_classes=65)
+AL_SUBSET, AL_EPOCHS, AL_PRECOMPUTE_BATCH = 50, 10, 256
 # fused probit head vs plain: both fp32, summation order only; the JAX
 # package's tolerance (tests/test_pallas_smith.py:30)
 SMITH_RTOL, SMITH_ATOL, SMITH_ROW_TOL = 1e-4, 1e-5, 1e-5
@@ -2552,6 +2576,116 @@ def phase_epig_path(torch, counters, hessian_dir: str) -> dict:
     return {"launches": launches, "ms_per_step": ms_step, "n_pool": n_pool}
 
 
+def _al_checks(torch, label: str, run: dict, encoder, strategies: int) -> None:
+    """The strategies' subsets, their checkpoints and the best metrics of
+    one active-learning run."""
+    from bayesvlm_tpu_torch.select.knn import extract_test_train_indices
+
+    subsets = run["subsets"]
+    check(len(subsets) == strategies, f"{label}: {len(subsets)} strategies")
+    capped = {}
+    for name, by_test in subsets.items():
+        n = len(extract_test_train_indices(by_test)["train"])
+        if "kmeans_knn" in name:
+            # one neighbour kept a test sample (ref:bayesvlm/knn_kmeans.py:205-211):
+            # two test samples may keep the same representative
+            capped[name] = n
+            check(1 <= n <= AL_SUBSET, f"{label} {name}: {n} unique train indices")
+        else:
+            check(n == AL_SUBSET, f"{label} {name}: {n} unique train indices")
+        encoder.load_projection_weights(run["subset_dir"] / name / "img_projection.pt")
+    if capped:
+        print(f"  {label}: unique train indices of the capped kNN strategies {capped}")
+    for name, m in run["results"].items():
+        for k in ("accuracy", "ece"):
+            check(math.isfinite(m[k]) and 0.0 <= m[k] <= 1.0, f"{label} {name} {k} {m[k]}")
+    best = max(run["results"].values(), key=lambda m: m["accuracy"])
+    ft = run["finetune"]
+    ft_s = sum(t["seconds"] for t in ft.values())
+    steps = sum(t["steps"] for t in ft.values())
+    each = [t["seconds"] for t in ft.values()]
+    for step, sec in run["seconds"].items():
+        print(f"  {label} step {step}: {sec:.3f} s")
+    for name, sec in run["strategy_seconds"].items():
+        print(f"  {label} strategy {name}: {sec:.3f} s")
+    print(f"  {label}: {len(ft)} subsets fine-tuned, {ft_s / len(ft):.3f} s a subset, "
+          f"{steps / ft_s:.1f} steps/s ({steps} steps, "
+          f"{sum(t['epochs'] for t in ft.values())} epochs; the first subset "
+          f"{each[0]:.3f} s, the others' median {float(np.median(each[1:])):.3f} s); "
+          f"best test accuracy "
+          f"{best['accuracy']!r}, its ECE {best['ece']!r}; 14 img_projection.pt loaded "
+          f"(strict keys)")
+
+
+def phase_active_learning(torch, counters, hessian_dir: str) -> dict:
+    """Phase 8d: the active-learning CLIs at clip-large width, each run
+    with every count set to 0 just before and read just after."""
+    from bayesvlm_tpu_torch import activelearning, activelearning_kmeans
+    from bayesvlm_tpu_torch.kernels import BUILD_DIR
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+    from bayesvlm_tpu_torch.models.encoders import load_model
+    from bayesvlm_tpu_torch.utils import get_image_size
+
+    L = CONFIGS_BY_NAME[MODEL].vision.num_layers
+    forwards = sum(-(-AL_SPLITS[k] // AL_PRECOMPUTE_BATCH)
+                   for k in ("num_train", "num_val", "num_test"))
+    # the kNN pool subsample is at most one neighbour a target, so EPIG
+    # scores it in one chunk a step
+    epig_chunks = -(-min(AL_SPLITS["num_test"], AL_SPLITS["num_train"]) // EPIG_CHUNK)
+    overrides = dict(AL_SPLITS, image_size=get_image_size(MODEL))
+    # the fine-tune's logger uses wandb where it imports; here it must
+    # stay offline and start no process
+    os.environ["WANDB_MODE"] = "disabled"
+    t_phase = time.perf_counter()
+    encoder = load_model(MODEL, device="cuda", seed=SEED + 11)[0]
+    out = {}
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as exp:
+        kw = dict(model_str=MODEL, dataset="synthetic", hessian_dir=hessian_dir,
+                  experiment_dir=exp, project_name="active-finetuning",
+                  hessian_scale=10.0, subset_size=AL_SUBSET, finetune_epochs=AL_EPOCHS,
+                  precompute_batch_size=AL_PRECOMPUTE_BATCH, device="cuda",
+                  dataset_overrides=overrides)
+        cases = (("main", activelearning, {"attention": L * forwards,
+                                           "xlogy_rowsum": AL_SUBSET * epig_chunks}),
+                 ("kmeans", activelearning_kmeans, {"xlogy_rowsum": AL_SUBSET * epig_chunks}),
+                 ("resume", activelearning, {}))
+        for label, cli, per_run in cases:
+            expected = {**dict.fromkeys(counters, 0), **per_run}
+            for c in counters.values():
+                c.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run = cli.run(**kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {n: c.launches for n, c in counters.items()}
+            print(f"active learning {label} ({MODEL}, bf16, synthetic {AL_SPLITS} at "
+                  f"{overrides['image_size']} px, {AL_EPOCHS} epochs): wall_s={wall:.3f} "
+                  f"launches={launches}")
+            check(launches == expected,
+                  f"active learning {label} launches: expected {expected}, got {launches}")
+            if label == "resume":
+                check(run["strategy_seconds"] == {} and run["finetune"] == {},
+                      f"the resume redid {list(run['strategy_seconds'])} "
+                      f"{list(run['finetune'])}")
+                for step, sec in run["seconds"].items():
+                    print(f"  resume step {step}: {sec:.3f} s")
+            else:
+                _al_checks(torch, f"active learning {label}", run, encoder, 14)
+            out[label] = dict(launches=launches, seconds=run["seconds"], wall_s=wall,
+                              strategy_seconds=run["strategy_seconds"])
+    main = out["main"]
+    n_img = sum(AL_SPLITS[k] for k in ("num_train", "num_val", "num_test"))
+    epig_ms = main["strategy_seconds"]["epig_knn"] / AL_SUBSET * 1e3
+    print(f"  active learning: feature pass {n_img / main['seconds']['[1] features']:.1f} "
+          f"img/s ({n_img} images and {AL_SPLITS['num_classes']} prompts, synthetic "
+          f"images drawn on the host), epig_knn {epig_ms:.2f} ms a step, "
+          f"epig_direct {out['kmeans']['strategy_seconds']['epig_direct'] / AL_SUBSET * 1e3:.2f}"
+          f" ms a step; card {DEVICE['card']}; phase {time.perf_counter() - t_phase:.1f} s")
+    del encoder
+    return out
+
+
 def phase_probes_vs_plain(torch, attention, av) -> None:
     """Each probe kernel vs its plain version at the probes' shape and a
     ragged one, bf16 and fp32, and v2 and v3 in bf16 at T=1024 (Dh 64 and
@@ -2860,6 +2994,7 @@ def main() -> int:
         stage1 = phase_stage1(torch, all_counters, pixels, prompts)
         phase_ggn(torch)
         epig_path = phase_epig_path(torch, all_counters, hdir)
+        al_path = phase_active_learning(torch, all_counters, hdir)
         zs_hdir = str(save_synthetic_hessians(zs, CONFIGS_BY_NAME[ZS_MODEL], SEED))
         zs_path = phase_zeroshot(torch, all_counters, zs_hdir)
         snapshots = phase_snapshot(torch, all_counters, {MODEL: hdir, ZS_MODEL: zs_hdir},
@@ -2912,6 +3047,8 @@ def main() -> int:
                            for shape in ("siglip-l/16", "vit-b/32", "vit-l/14-336")}
     # its launches in the Stage-1 CLI's feature pass
     one_block["stage1_launches"] = stage1["launches"]["attention"]
+    # and in the active-learning CLI's feature pass (phase 8d)
+    one_block["al_launches"] = al_path["main"]["launches"]["attention"]
     # and in one predict of each HF snapshot (phase 8c)
     one_block["snapshot_launches"] = {m: r["launches"]["attention"]
                                       for m, r in snapshots.items()}
@@ -2950,6 +3087,8 @@ def main() -> int:
                     "bayesvlm_tpu/select/epig_pallas.py:43",
                     epig_path["launches"]["xlogy_rowsum"], epig["bf16"], None),
              cublas_bf16_ms=epig["bf16"]["cublas_bf16_ms"],
+             al_launches={k: al_path[k]["launches"]["xlogy_rowsum"]
+                          for k in ("main", "kmeans")},
              **{f"k{EPIG_LONG_K}": epig["bf16"][f"k{EPIG_LONG_K}"]}),
         dict(_entry("xlogy_rowsum_int8", "bayesvlm_tpu_torch/csrc/xlogy_rowsum.cu",
                     "bayesvlm_tpu/select/epig_pallas.py:77", epig["int8"]["launches"],

@@ -1,9 +1,11 @@
 """The port imports, and reads real checkpoints, on a machine without the
 host-side packages the card machine lacks: `transformers`, `PIL`,
-`sklearn`, `pandas`, `datasets` and `safetensors` are blocked in a fresh
-interpreter (`sys.modules[name] = None`), which then imports every module
-of the package (the serving modules among them), prints the CLIs'
-`--help` (`serve_cli` too), and loads fp16 safetensors and fp32 `.bin`
+`sklearn`, `pandas`, `datasets`, `safetensors` and `wandb` are blocked in
+a fresh interpreter (`sys.modules[name] = None`), which then imports every
+module of the package (the serving and active-learning modules among
+them), prints the CLIs' `--help` (`serve_cli` and both active-learning
+CLIs too), writes a fine-tune's `metrics.jsonl` through `ExperimentLogger`
+(wandb blocked), and loads fp16 safetensors and fp32 `.bin`
 snapshots of tiny-siglip through `load_model` and `convert_weights`. No
 module of JAX or of the JAX package is loaded on the way."""
 
@@ -19,7 +21,7 @@ from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
 from bayesvlm_tpu_torch.models.encoders import load_model
 
 REPO = Path(__file__).resolve().parent.parent
-BLOCKED = ("transformers", "PIL", "sklearn", "pandas", "datasets", "safetensors")
+BLOCKED = ("transformers", "PIL", "sklearn", "pandas", "datasets", "safetensors", "wandb")
 PREAMBLE = textwrap.dedent(f"""
     import sys
     for name in {BLOCKED!r}:
@@ -42,12 +44,21 @@ def test_every_module_imports_without_the_host_packages():
                                                        "bayesvlm_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        for cli in ("zeroshot", "hessian_estimation", "convert_weights", "serve_cli"):
+        for cli in ("zeroshot", "hessian_estimation", "convert_weights", "serve_cli",
+                    "activelearning", "activelearning_kmeans"):
             sys.argv = [cli, "--help"]
             try:
                 runpy.run_module(f"bayesvlm_tpu_torch.{cli}", run_name="__main__")
             except SystemExit as e:
                 assert e.code == 0, (cli, e.code)
+        import tempfile
+        from bayesvlm_tpu_torch.train import ExperimentLogger
+        with tempfile.TemporaryDirectory() as d:
+            logger = ExperimentLogger("p", d, name="n", config={"lr": 1.0})
+            logger.log({"val_loss": 0.5}, step=1)
+            logger.finish()
+            with open(d + "/metrics.jsonl") as f:
+                assert len(f.read().splitlines()) == 2
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax", "bayesvlm_tpu")]
         assert not bad, bad
         for name in %r:
@@ -58,6 +69,8 @@ def test_every_module_imports_without_the_host_packages():
     assert count >= 60
     assert "usage: zeroshot" in out and "--tokenizer_dir" in out and "--snapshot" in out
     assert "usage: serve_cli" in out and "--pipeline_depth" in out
+    assert "usage: activelearning " in out and "--epig_pool_max_size" in out
+    assert "usage: activelearning_kmeans" in out and "--use_minibatch_kmeans" in out
 
 
 @pytest.mark.parametrize("fmt", ["f16", "bin"])
