@@ -87,6 +87,128 @@ class SubsetStore:
             json.dump(self.subsets, f)
 
 
+class Strategies:
+    """The strategies the main, EGL and LLM CLIs share, each made into a
+    `SubsetStore` under the JAX CLIs' keys, test-pool selections mapped to
+    train support by the kNN search (ref:scripts/activelearning.py:252-445,
+    ref:scripts/activelearning_elg.py:670-806). `logits` holds the four
+    predictions of step [2]: "train", "train_map", "test", "test_map"."""
+
+    def __init__(self, ctx, store: SubsetStore, logits: dict, subset_size: int,
+                 k_nearest: int, knn_method: str):
+        self.ctx, self.store, self.logits = ctx, store, logits
+        self.subset_size, self.k_nearest, self.knn_method = subset_size, k_nearest, knn_method
+
+    def knn(self, idx, vals) -> dict:
+        ctx = self.ctx
+        return run_knn(ctx.image_outputs_train, ctx.image_outputs_test, _host(idx), vals,
+                       self.k_nearest, ctx.head.source_covariance, self.knn_method,
+                       ctx.head.source_projection_has_bias)
+
+    def _topk(self, logits, **kw):
+        from bayesvlm_tpu_torch.select.scores import select_topk
+
+        idx, vals = select_topk(logits, k=self.subset_size, return_values=True, **kw)
+        return _host(idx), _host(vals)
+
+    def deterministic(self) -> None:
+        """entropy_map (+kNN), entropy_map_train, bald_test (+kNN)."""
+        lg = self.logits
+        print("    - Aleatoric entropy ...", flush=True)
+        self.store.make("entropy_map", lambda: self.knn(*self._topk(
+            lg["test_map"], variant="entropy", entropy_variant="map_alea")))
+
+        def on_train():
+            idx, vals = self._topk(lg["train_map"], variant="entropy",
+                                   entropy_variant="map_alea")
+            return {0: dict(score=0.0, indices=idx.tolist(), similarities=vals.tolist())}
+
+        print("    - Aleatoric entropy on train ...", flush=True)
+        self.store.make("entropy_map_train", on_train)
+        print("    - BALD (on test) ...", flush=True)
+        self.store.make("bald_test", lambda: self.knn(*self._topk(
+            lg["test"], variant="exp_mutual_info", seed=0)))
+
+    def epig(self, lr: float, hessian_update_scale: float, num_samples: int,
+             pool_max_size: int, target_max_size: int) -> None:
+        """epig_knn: online EPIG over the train pool (al_common.epig_subset)."""
+        from bayesvlm_tpu_torch.train.al_common import epig_subset
+
+        print("    - EPIG KNN...", flush=True)
+        self.store.make("epig_knn", lambda: epig_subset(
+            self.ctx, self.subset_size, lr, hessian_update_scale, num_samples,
+            pool_max_size, target_max_size, self.knn_method))
+
+    def random(self) -> None:
+        """random_on_test_{0..4} (+kNN), random_on_train_{0..4}."""
+        from bayesvlm_tpu_torch.select.scores import select_random
+
+        def on_test(i):
+            idx = select_random(self.logits["test"], k=self.subset_size, seed=i)
+            return self.knn(idx, np.ones(len(idx)))
+
+        def on_train(i):
+            idx = _host(select_random(self.logits["train"],
+                                      k=self.k_nearest * self.subset_size, seed=i))
+            return {0: dict(score=0.0, indices=idx.tolist(),
+                            similarities=[1.0] * len(idx))}
+
+        for i in range(5):
+            self.store.make(f"random_on_test_{i}", lambda i=i: on_test(i))
+        for i in range(5):
+            self.store.make(f"random_on_train_{i}", lambda i=i: on_train(i))
+
+
+def run_steps(ctx, subset_name: str, header: str, make_strategies, *,
+              predictions_batch_size: int, subset_size: int, k_nearest: int,
+              knn_method: str, project_name: str, dataset: str, finetune_lr: float,
+              finetune_wd: float, finetune_epochs: int, finetune_batch_size: int,
+              config: dict) -> dict:
+    """Steps [2]-[4] of the main, EGL and LLM CLIs after step [1] (`ctx`):
+    the predictions, `make_strategies(Strategies)` into
+    `<run_dir>/<subset_name>/subset_indices_train.json` (saved after each
+    strategy and once more at the end, as in JAX), and the fine-tune of
+    each subset with `config` logged. Returns `run`'s dict."""
+    from bayesvlm_tpu_torch.inference.predictions import make_predictions
+    from bayesvlm_tpu_torch.train.al_common import finetune_all_subsets, synchronize
+
+    seconds = {"[1] features": ctx.seconds["features"],
+               "[1] lambda + covariances": ctx.seconds["lambda + covariances"]}
+    t0 = time.perf_counter()
+    print("[2] Making predictions ...")
+    logits = {}
+    for split, feats in (("train", ctx.image_outputs_train),
+                         ("test", ctx.image_outputs_test)):
+        for suffix, map_est in (("", False), ("_map", True)):
+            logits[split + suffix] = make_predictions(
+                ctx.head, feats, ctx.label_outputs, batch_size=predictions_batch_size,
+                map_estimate=map_est)
+    synchronize(ctx.device)
+    seconds["[2] predictions"] = time.perf_counter() - t0
+
+    subset_dir = ctx.run_dir / subset_name
+    subset_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    print(header)
+    store = SubsetStore(subset_dir / "subset_indices_train.json")
+    make_strategies(Strategies(ctx, store, logits, subset_size, k_nearest, knn_method))
+    store.save()
+    synchronize(ctx.device)
+    seconds["[3] strategies"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    print("[4] Fine-tuning based on training subsets ...")
+    timings = {}
+    results = finetune_all_subsets(
+        ctx, store.subsets, subset_dir, project_name, dataset,
+        finetune_lr, finetune_wd, finetune_epochs, finetune_batch_size,
+        config=config, timings=timings)
+    synchronize(ctx.device)
+    seconds["[4] fine-tuning"] = time.perf_counter() - t0
+    return dict(results=results, seconds=seconds, strategy_seconds=store.seconds,
+                finetune=timings, subset_dir=subset_dir, subsets=store.subsets)
+
+
 def run(
     model_str: str,
     dataset: str,
@@ -132,116 +254,36 @@ def run(
     if only_epig and without_epig:
         # would select no strategy, after the whole feature pass
         raise ValueError("Cannot set both only_epig and without_epig")
-    from bayesvlm_tpu_torch.train.al_common import refuse_unported
+    from bayesvlm_tpu_torch.train.al_common import refuse_unported, setup_context
 
     device = refuse_unported(device)
-    from bayesvlm_tpu_torch.inference.predictions import make_predictions
-    from bayesvlm_tpu_torch.select.scores import select_random, select_topk
-    from bayesvlm_tpu_torch.train.al_common import (
-        epig_subset,
-        finetune_all_subsets,
-        setup_context,
-        synchronize,
-    )
-
     ctx = setup_context(
         model_str, dataset, hessian_dir, experiment_dir, hessian_scale,
         precompute_batch_size, precompute_num_workers, weights_dir, tokenizer_dir,
         mlp_int8=mlp_int8, device=device, dtype=dtype,
         dataset_overrides=dataset_overrides)
-    seconds = {"[1] features": ctx.seconds["features"],
-               "[1] lambda + covariances": ctx.seconds["lambda + covariances"]}
-    head = ctx.head
-    train, test = ctx.image_outputs_train, ctx.image_outputs_test
 
-    t0 = time.perf_counter()
-    print("[2] Making predictions ...")
+    def make_strategies(st: Strategies) -> None:
+        if not only_random_strategies and not only_epig:
+            st.deterministic()
+        if not only_random_strategies and not without_epig:
+            st.epig(epig_lr, epig_hessian_update_scale, epig_num_samples,
+                    epig_pool_max_size, epig_target_max_size)
+        if not only_deterministic_strategies and not only_epig:
+            st.random()
 
-    def predict(feats, map_est):
-        return make_predictions(head, feats, ctx.label_outputs,
-                                batch_size=predictions_batch_size, map_estimate=map_est)
-
-    prob_logits_train = predict(train, False)
-    prob_logits_train_map = predict(train, True)
-    prob_logits_test = predict(test, False)
-    prob_logits_test_map = predict(test, True)
-    synchronize(device)
-    seconds["[2] predictions"] = time.perf_counter() - t0
-
-    path = (f"subset_{subset_size}_k_{k_nearest}_n_{hessian_scale}_epig_lr_{epig_lr}"
-            f"_epig_update_{epig_hessian_update_scale}_knn_{knn_method}")
-    subset_dir = ctx.run_dir / path
-    subset_dir.mkdir(parents=True, exist_ok=True)
-
-    t0 = time.perf_counter()
-    print("[3] Creating training subsets ...")
-    store = SubsetStore(subset_dir / "subset_indices_train.json")
-
-    def knn(idx, vals):
-        return run_knn(train, test, _host(idx), vals, k_nearest, head.source_covariance,
-                       knn_method, head.source_projection_has_bias)
-
-    def topk_knn(logits, **kw):
-        idx, vals = select_topk(logits, k=subset_size, return_values=True, **kw)
-        return knn(idx, _host(vals))
-
-    def topk_train(logits, **kw):
-        idx, vals = select_topk(logits, k=subset_size, return_values=True, **kw)
-        return {0: dict(score=0.0, indices=_host(idx).tolist(),
-                        similarities=_host(vals).tolist())}
-
-    if not only_random_strategies and not only_epig:
-        print("    - Aleatoric entropy ...", flush=True)
-        store.make("entropy_map", lambda: topk_knn(
-            prob_logits_test_map, variant="entropy", entropy_variant="map_alea"))
-        print("    - Aleatoric entropy on train ...", flush=True)
-        store.make("entropy_map_train", lambda: topk_train(
-            prob_logits_train_map, variant="entropy", entropy_variant="map_alea"))
-        print("    - BALD (on test) ...", flush=True)
-        store.make("bald_test", lambda: topk_knn(
-            prob_logits_test, variant="exp_mutual_info", seed=0))
-
-    if not only_random_strategies and not without_epig:
-        print("    - EPIG KNN...", flush=True)
-
-        store.make("epig_knn", lambda: epig_subset(
-            ctx, subset_size, epig_lr, epig_hessian_update_scale, epig_num_samples,
-            epig_pool_max_size, epig_target_max_size, knn_method))
-
-    if not only_deterministic_strategies and not only_epig:
-        def random_test(i):
-            idx = select_random(prob_logits_test, k=subset_size, seed=i)
-            return knn(idx, np.ones(len(idx)))
-
-        def random_train(i):
-            idx = _host(select_random(prob_logits_train, k=k_nearest * subset_size,
-                                      seed=i))
-            return {0: dict(score=0.0, indices=idx.tolist(),
-                            similarities=[1.0] * len(idx))}
-
-        for i in range(5):
-            store.make(f"random_on_test_{i}", lambda i=i: random_test(i))
-        for i in range(5):
-            store.make(f"random_on_train_{i}", lambda i=i: random_train(i))
-    store.save()
-    synchronize(device)
-    seconds["[3] strategies"] = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    print("[4] Fine-tuning based on training subsets ...")
-    timings = {}
-    results = finetune_all_subsets(
-        ctx, store.subsets, subset_dir, project_name, dataset,
-        finetune_lr, finetune_wd, finetune_epochs, finetune_batch_size,
+    return run_steps(
+        ctx, f"subset_{subset_size}_k_{k_nearest}_n_{hessian_scale}_epig_lr_{epig_lr}"
+             f"_epig_update_{epig_hessian_update_scale}_knn_{knn_method}",
+        "[3] Creating training subsets ...", make_strategies,
+        predictions_batch_size=predictions_batch_size, subset_size=subset_size,
+        k_nearest=k_nearest, knn_method=knn_method, project_name=project_name,
+        dataset=dataset, finetune_lr=finetune_lr, finetune_wd=finetune_wd,
+        finetune_epochs=finetune_epochs, finetune_batch_size=finetune_batch_size,
         config=dict(subset_size=subset_size, k_nearest=k_nearest,
                     hessian_scale=hessian_scale, epig_lr=epig_lr,
                     epig_hessian_update_scale=epig_hessian_update_scale,
-                    epig_mc_samples=epig_num_samples, knn_method=knn_method),
-        timings=timings)
-    synchronize(device)
-    seconds["[4] fine-tuning"] = time.perf_counter() - t0
-    return dict(results=results, seconds=seconds, strategy_seconds=store.seconds,
-                finetune=timings, subset_dir=subset_dir, subsets=store.subsets)
+                    epig_mc_samples=epig_num_samples, knn_method=knn_method))
 
 
 def main(*args, **kwargs) -> dict:

@@ -104,3 +104,24 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what} launch failed: "
                            + lib.bvt_error_string(err).decode())
+
+
+def records_grad(*tensors) -> bool:
+    """Whether autograd records an operation on `tensors` here: grad mode
+    on (not `no_grad`, not `inference_mode`) and one of them requires a
+    gradient. None entries are skipped."""
+    import torch
+
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would record a kernel that has no backward: a
+    ctypes launch writes a tensor autograd knows nothing of, so a gradient
+    would stop there without a word."""
+    if records_grad(*tensors):
+        raise RuntimeError(
+            f"{what} has no backward (nor in the JAX package): run it under "
+            "torch.no_grad() / torch.inference_mode(), or with no input "
+            "requiring grad")

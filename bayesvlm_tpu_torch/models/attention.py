@@ -60,17 +60,19 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor,
     so bf16 products are exact) times the scale, fp32 softmax written as
     exp(s - max) / sum, p rounded to the input dtype, p @ v accumulated
     in fp32 and rounded to the input dtype. Materialises the
-    [B, H, T, T] scores."""
+    [B, H, T, T] scores. Differentiable; float64 inputs are computed in
+    float64 (the backward's gradcheck)."""
     B, T, D = q.shape
     Dh = D // num_heads
+    acc = torch.promote_types(q.dtype, torch.float32)
 
     def heads(x):
-        return x.reshape(B, T, num_heads, Dh).transpose(1, 2).float()
+        return x.reshape(B, T, num_heads, Dh).transpose(1, 2).to(acc)
 
     s = heads(q) @ heads(k).transpose(-1, -2) * (1.0 / math.sqrt(Dh))
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = (e / e.sum(dim=-1, keepdim=True)).to(q.dtype)
-    o = p.float() @ heads(v)
+    o = p.to(acc) @ heads(v)
     return o.transpose(1, 2).reshape(B, T, D).to(q.dtype)
 
 
@@ -150,6 +152,58 @@ def schedule_for(T: int, split_key: bool = False, packed_heads: bool = False) ->
     return SPLIT_KEY if split_key and 0 < t_main < T else ONE_BLOCK
 
 
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+            schedule: int) -> torch.Tensor:
+    """One launch of the kernel at `schedule` on CUDA q, k, v (checked by
+    `fused_attention`), counted in its schedule's count."""
+    B, T, D = q.shape
+    Dh = D // num_heads
+    count = {ONE_BLOCK: "launches", SPLIT_KEY: "launches_split",
+             PACKED_PAIR: "launches_packed"}[schedule]
+    # the tensor-core body copies rows in 16-byte pieces (cp.async); o is a
+    # fresh allocation
+    if (_tensor_core_body(q.device.index, T, Dh, q.dtype, schedule)
+            and any(t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError("attention kernel needs 16-byte aligned operands")
+    lib = _library()
+    o = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.bvt_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                o.data_ptr(), B, T, num_heads, Dh,
+                                _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(Dh),
+                                schedule, stream)
+    kernels.check(lib, err, "attention kernel")
+    setattr(fused_attention, count, getattr(fused_attention, count) + 1)
+    return o
+
+
+class _AttentionWithGrad(torch.autograd.Function):
+    """The kernel's forward with a gradient: the forward is one launch of
+    the kernel (the same launch and count as without a gradient) and saves
+    q, k, v; the backward recomputes the plain version on them with
+    autograd and returns its gradients. The JAX package has no backward
+    kernel either (its towers are differentiated through the einsum
+    path)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int, schedule: int):
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads = num_heads
+        return _launch(q, k, v, num_heads, schedule)
+
+    @staticmethod
+    def backward(ctx, grad_o):
+        saved = ctx.saved_tensors
+        needed = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_(n) for t, n in zip(saved, needed))
+            o = fused_attention_reference(q, k, v, ctx.num_heads)
+            inputs = [t for t, n in zip((q, k, v), needed) if n]
+            grads = iter(torch.autograd.grad(o, inputs, grad_o))
+        return (*(next(grads) if n else None for n in needed), None, None)
+
+
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     num_heads: int, split_key: bool = False,
                     packed_heads: bool = False) -> torch.Tensor:
@@ -162,7 +216,12 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the kernel, counting the launch in `fused_attention.launches` (one
     block), `.launches_split` or `.launches_packed`, or raise. In bf16
     every schedule runs on the tensor cores and needs 16-byte aligned
-    operands."""
+    operands.
+
+    Where autograd records the call (grad mode on, q, k or v requiring
+    grad), the launch goes through `_AttentionWithGrad`, whose backward
+    is the plain version's; elsewhere (`no_grad`, `inference_mode`, the
+    serving programs' capture) it is the bare launch."""
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         # the kernels tile q, k and v from q's length: cross-attention with
         # Tq != Tk (the SigLIP probe) takes the caller's plain path
@@ -189,24 +248,9 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("attention kernel grid takes at most 65535 batch rows "
                          "and heads")
     schedule = schedule_for(T, split_key, packed_heads)
-    count = {ONE_BLOCK: "launches", SPLIT_KEY: "launches_split",
-             PACKED_PAIR: "launches_packed"}[schedule]
-    # the tensor-core body copies rows in 16-byte pieces (cp.async); o is a
-    # fresh allocation
-    if (_tensor_core_body(q.device.index, T, Dh, q.dtype, schedule)
-            and any(t.data_ptr() % 16 for t in (q, k, v))):
-        raise ValueError("attention kernel needs 16-byte aligned operands")
-    lib = _library()
-    o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.bvt_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                o.data_ptr(), B, T, num_heads, Dh,
-                                _DTYPE_CODES[q.dtype], 1.0 / math.sqrt(Dh),
-                                schedule, stream)
-    kernels.check(lib, err, "attention kernel")
-    setattr(fused_attention, count, getattr(fused_attention, count) + 1)
-    return o
+    if kernels.records_grad(q, k, v):
+        return _AttentionWithGrad.apply(q, k, v, num_heads, schedule)
+    return _launch(q, k, v, num_heads, schedule)
 
 
 fused_attention.launches = 0
@@ -313,7 +357,9 @@ def fused_attention_block(x: torch.Tensor, ln_weight, ln_bias, wq, bq, wk, bk,
     tensors take the plain version; CUDA tensors launch the kernel chain
     of csrc/attention_block.cu (counted once per call in
     `fused_attention_block.launches`) or raise: x and the weights must
-    start 16-byte aligned (the bf16 GEMMs read the weights by the TMA)."""
+    start 16-byte aligned (the bf16 GEMMs read the weights by the TMA).
+    The chain has no backward (nor in JAX): where autograd would record
+    it on the card, it raises."""
     if x.dim() != 3:
         raise ValueError(f"x must be [B, T, D], got {tuple(x.shape)}")
     B, T, D = x.shape
@@ -348,6 +394,7 @@ def fused_attention_block(x: torch.Tensor, ln_weight, ln_bias, wq, bq, wk, bk,
         raise ValueError("attention block kernel takes at most 65535 batch rows")
     if x.device.type != "cuda":
         raise ValueError(f"no attention block kernel for device {x.device}")
+    kernels.refuse_grad("fused_attention_block", x, ln_weight, ln_bias, *params)
     _tensor_core_body(x.device.index, T, Dh, x.dtype, ONE_BLOCK)  # the core takes T
     ln_w, ln_b = ln_weight.float().contiguous(), ln_bias.float().contiguous()
     M = B * T

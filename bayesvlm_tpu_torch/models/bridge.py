@@ -124,6 +124,15 @@ def siglip_text_state_dict(params) -> Dict[str, torch.Tensor]:
     return out
 
 
+def vision_state_dict(params) -> Dict[str, torch.Tensor]:
+    """Either family's vision tower params -> state dict (SigLIP told apart
+    by its probe): how a tree the JAX package trained (train/backbone.py)
+    is held against the port's trained tower, name for name."""
+    if "probe" in params:
+        return siglip_vision_state_dict(params)
+    return clip_vision_state_dict(params)
+
+
 def save_weights(weights_dir: Union[str, Path], vision_params, text_params,
                  logit_scale: Optional[float] = None,
                  logit_bias: Optional[float] = None) -> Path:
@@ -138,11 +147,8 @@ def save_weights(weights_dir: Union[str, Path], vision_params, text_params,
     family's default head."""
     wd = Path(weights_dir)
     wd.mkdir(parents=True, exist_ok=True)
-    if "probe" in vision_params:
-        vision, text = siglip_vision_state_dict, siglip_text_state_dict
-    else:
-        vision, text = clip_vision_state_dict, clip_text_state_dict
-    torch.save(vision(vision_params), wd / "vision.pt")
+    text = siglip_text_state_dict if "probe" in vision_params else clip_text_state_dict
+    torch.save(vision_state_dict(vision_params), wd / "vision.pt")
     torch.save(text(text_params), wd / "text.pt")
     if logit_scale is not None or logit_bias is not None:
         (wd / "head.json").write_text(json.dumps(

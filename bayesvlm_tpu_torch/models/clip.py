@@ -37,7 +37,8 @@ def patchify(pixels: torch.Tensor, p: int) -> torch.Tensor:
 
 
 class CLIPVisionTower(nn.Module):
-    def __init__(self, config: VisionConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: VisionConfig, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
@@ -50,7 +51,7 @@ class CLIPVisionTower(nn.Module):
         self.pre_layernorm = LayerNormFP32(D, config.layer_norm_eps)
         # the int8 lanes reach the vision encoder only, as in the JAX
         # package (its load_model replaces config.vision alone)
-        self.encoder = build_encoder(config, attn_kernel=True,
+        self.encoder = build_encoder(config, attn_kernel=True, remat=remat,
                                      mlp_int8=config.mlp_int8,
                                      attn_int8=config.attn_int8,
                                      mlp_weight_bits=config.mlp_weight_bits)
@@ -76,14 +77,15 @@ class CLIPVisionTower(nn.Module):
 
 
 class CLIPTextTower(nn.Module):
-    def __init__(self, config: TextConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: TextConfig, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
         D = config.hidden_size
         self.token_embedding = nn.Embedding(config.vocab_size, D)
         self.position_embedding = nn.Parameter(torch.zeros(config.max_length, D))
-        self.encoder = build_encoder(config, attn_kernel=False)
+        self.encoder = build_encoder(config, attn_kernel=False, remat=remat)
         self.final_layer_norm = LayerNormFP32(D, config.layer_norm_eps)
         self.text_projection = nn.Linear(D, config.projection_dim, bias=False)
 

@@ -275,17 +275,22 @@ def cast_gemm_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return module
 
 
-def rebuild_image_encoder(encoder: ImageEncoder, **vision_fields) -> ImageEncoder:
+def rebuild_image_encoder(encoder: ImageEncoder, remat: Optional[bool] = None,
+                          **vision_fields) -> ImageEncoder:
     """An ImageEncoder whose tower is built from `encoder`'s VisionConfig
     with `vision_fields` replaced, holding the same weights in the same
     dtypes on the same device. This is how a lane that `load_model` has
     no keyword for is reached, as the JAX package reaches it: a tower
     built from `dataclasses.replace(cfg.vision, attn_pallas_block=True)`
-    with the parameters it already has."""
+    with the parameters it already has. `remat` (None: `encoder`'s) as
+    in `load_model`."""
     config = dataclasses.replace(encoder.config, vision=dataclasses.replace(
         encoder.config.vision, **vision_fields))
     old = encoder.module
-    tower = TOWERS[config.family][0](config.vision, dtype=old.dtype).to(encoder.device)
+    if remat is None:
+        remat = old.encoder.remat
+    tower = TOWERS[config.family][0](config.vision, dtype=old.dtype,
+                                     remat=remat).to(encoder.device)
     tower.load_state_dict(old.state_dict())
     cast_gemm_params(tower, old.dtype).eval().requires_grad_(False)
     return ImageEncoder(config, tower).prequantize_int8()
@@ -328,10 +333,16 @@ def load_model(
     mlp_int8: bool = False,
     attn_int8: bool = False,
     mlp_weight_bits: int = 8,
+    remat: bool = False,
 ) -> Tuple[ImageEncoder, TextEncoder, ProbabilisticHead]:
     """Build (image_encoder, text_encoder, similarity head) for a model
     name (ref:bayesvlm/utils.py:28-46) on `device` (the card unless the
     caller asks for another).
+
+    `remat`: both towers' blocks recompute their forward in the backward
+    when a gradient is taken through them (layers.TransformerEncoder;
+    the partial-backbone fine-tune, train/backbone.py). Off by default,
+    as in JAX; nothing changes under `no_grad` / `inference_mode`.
 
     `mlp_int8` / `attn_int8`: run the vision tower's MLP sublayers /
     attention projections through the W8A8 int8 kernels
@@ -366,8 +377,8 @@ def load_model(
     # built without an init pass (every tensor is read or drawn below) and
     # allocated where they run
     with torch.device("meta"):
-        vision = vision_cls(config.vision, dtype=dtype)
-        text = text_cls(config.text, dtype=dtype)
+        vision = vision_cls(config.vision, dtype=dtype, remat=remat)
+        text = text_cls(config.text, dtype=dtype, remat=remat)
     vision.to_empty(device=device)
     text.to_empty(device=device)
     scale = DEFAULT_LOGIT_SCALE[config.family]

@@ -35,6 +35,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from bayesvlm_tpu_torch.models.attention import (
     fused_attention,
@@ -226,14 +227,21 @@ class TransformerBlock(nn.Module):
 class TransformerEncoder(nn.Module):
     """Stack of pre-LN blocks, run as a loop over `layers` (the JAX
     package scans one block over [L, ...]-stacked parameters; the weight
-    bridge unstacks them)."""
+    bridge unstacks them).
+
+    `remat` (JAX layers.py:398-414, `nn.remat` of the scanned block):
+    with grad mode on, each block runs under non-reentrant
+    `torch.utils.checkpoint`, keeping its input and recomputing its
+    forward in the backward (activation memory for compute, in
+    fine-tuning). Under `no_grad` / `inference_mode` it changes nothing."""
 
     def __init__(self, num_layers: int, hidden_size: int, num_heads: int,
                  mlp_dim: int, hidden_act: str, layer_norm_eps: float,
                  mlp_int8: bool = False, attn_int8: bool = False,
                  mlp_weight_bits: int = 8, attn_pallas_block: bool = False,
-                 attn_kernel: bool = True):
+                 attn_kernel: bool = True, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.layers = nn.ModuleList(
             TransformerBlock(hidden_size, num_heads, mlp_dim, hidden_act,
                              layer_norm_eps, mlp_int8, attn_int8,
@@ -243,18 +251,24 @@ class TransformerEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            x = layer(x, mask)
+            if remat:
+                x = checkpoint(layer, x, mask, use_reentrant=False)
+            else:
+                x = layer(x, mask)
         return x
 
 
-def build_encoder(cfg, attn_kernel: bool, **int8) -> TransformerEncoder:
+def build_encoder(cfg, attn_kernel: bool, remat: bool = False,
+                  **int8) -> TransformerEncoder:
     """A tower's encoder from its Vision- or TextConfig; `attn_kernel`
-    for the vision towers, `int8`: their W8A8 lane switches."""
+    for the vision towers, `remat` for fine-tuning, `int8`: the vision
+    towers' W8A8 lane switches."""
     return TransformerEncoder(cfg.num_layers, cfg.hidden_size, cfg.num_heads,
                               cfg.mlp_dim, cfg.hidden_act, cfg.layer_norm_eps,
                               attn_pallas_block=cfg.attn_pallas_block,
-                              attn_kernel=attn_kernel, **int8)
+                              attn_kernel=attn_kernel, remat=remat, **int8)
 
 
 def causal_mask(seq_len: int, device=None) -> torch.Tensor:

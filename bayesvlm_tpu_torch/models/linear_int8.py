@@ -92,7 +92,9 @@ def linear_int8(x: torch.Tensor, w: torch.Tensor,
     a tuple of `chunks` contiguous [..., N / chunks] tensors.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (and count the launch in `linear_int8.launches`) or raise."""
+    (and count the launch in `linear_int8.launches`) or raise. The kernel
+    has no backward (nor in JAX): where autograd would record it on the
+    card, it raises."""
     shape = x.shape
     K = shape[-1]
     N = w.shape[0]
@@ -107,6 +109,7 @@ def linear_int8(x: torch.Tensor, w: torch.Tensor,
         return tuple(t.contiguous() for t in out.chunk(chunks, dim=-1))
     if x.device.type != "cuda":
         raise ValueError(f"no linear_int8 kernel for device {x.device}")
+    kernels.refuse_grad("linear_int8", x, w, b)
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"linear_int8 kernel takes float32 or bfloat16, not {x.dtype}")
     if K % 16:

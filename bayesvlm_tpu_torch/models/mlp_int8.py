@@ -190,7 +190,9 @@ def mlp_int8(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     the output has x's dtype.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (and count the launch in `mlp_int8.launches`) or raise."""
+    (and count the launch in `mlp_int8.launches`) or raise. The kernel
+    has no backward (nor in JAX): where autograd would record it on the
+    card, it raises."""
     act_name = _act_name(act_name)
     if (ln_weight is None) != (ln_eps is None) or (ln_bias is None) != (ln_eps is None):
         raise ValueError("mlp_int8: pass ln_weight, ln_bias and ln_eps together")
@@ -199,6 +201,7 @@ def mlp_int8(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                                   ln_weight, ln_bias, ln_eps, weight_bits)
     if x.device.type != "cuda":
         raise ValueError(f"no mlp_int8 kernel for device {x.device}")
+    kernels.refuse_grad("mlp_int8", x, w1, b1, w2, b2, ln_weight, ln_bias)
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"mlp_int8 kernel takes float32 or bfloat16, not {x.dtype}")
     shape = x.shape

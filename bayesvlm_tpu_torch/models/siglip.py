@@ -39,7 +39,8 @@ from bayesvlm_tpu_torch.models.layers import (
 
 
 class SiglipVisionTower(nn.Module):
-    def __init__(self, config: VisionConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: VisionConfig, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
@@ -48,7 +49,7 @@ class SiglipVisionTower(nn.Module):
         # patches (no cuDNN TF32 convolution for fp32 towers)
         self.patch_embedding = nn.Conv2d(3, D, p, stride=p, bias=True)
         self.position_embedding = nn.Parameter(torch.zeros(config.num_patches, D))
-        self.encoder = build_encoder(config, attn_kernel=True,
+        self.encoder = build_encoder(config, attn_kernel=True, remat=remat,
                                      mlp_int8=config.mlp_int8,
                                      attn_int8=config.attn_int8,
                                      mlp_weight_bits=config.mlp_weight_bits)
@@ -82,14 +83,15 @@ class SiglipVisionTower(nn.Module):
 
 
 class SiglipTextTower(nn.Module):
-    def __init__(self, config: TextConfig, dtype: torch.dtype = torch.float32):
+    def __init__(self, config: TextConfig, dtype: torch.dtype = torch.float32,
+                 remat: bool = False):
         super().__init__()
         self.config = config
         self.dtype = dtype
         D = config.hidden_size
         self.token_embedding = nn.Embedding(config.vocab_size, D)
         self.position_embedding = nn.Parameter(torch.zeros(config.max_length, D))
-        self.encoder = build_encoder(config, attn_kernel=False)
+        self.encoder = build_encoder(config, attn_kernel=False, remat=remat)
         self.final_layer_norm = LayerNormFP32(D, config.layer_norm_eps)
         self.head = nn.Linear(D, config.projection_dim)
 

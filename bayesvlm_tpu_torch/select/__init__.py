@@ -1,6 +1,7 @@
 """Stage-3 selection: uncertainty scores, kNN support search, k-means
-representatives and online EPIG."""
+representatives, online EPIG, closed-form EGL and LLM-scored selection."""
 
+from bayesvlm_tpu_torch.select.egl import expected_gradient_length, select_egl
 from bayesvlm_tpu_torch.select.epig import (
     entropy_from_probs,
     epig_from_logits_using_matmul,
@@ -20,6 +21,11 @@ from bayesvlm_tpu_torch.select.knn import (
     find_similar_samples_cosine,
     find_similar_samples_wasserstein,
     wdist2,
+)
+from bayesvlm_tpu_torch.select.llm import (
+    make_gemini_client,
+    parse_llm_score,
+    select_llm_score,
 )
 from bayesvlm_tpu_torch.select.scores import (
     complexity_score,
@@ -42,12 +48,17 @@ __all__ = [
     "epig_from_logits_using_matmul",
     "epig_from_probs_using_matmul",
     "expected_cosine_similarity",
+    "expected_gradient_length",
     "extract_test_train_indices",
     "find_similar_samples_cosine",
     "find_similar_samples_wasserstein",
     "kmeans_fit",
+    "make_gemini_client",
     "marginal_entropy_from_probs",
+    "parse_llm_score",
+    "select_egl",
     "select_epig_online",
+    "select_llm_score",
     "select_random",
     "select_random_classbalanced",
     "select_topk",

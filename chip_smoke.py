@@ -90,9 +90,9 @@ Phases (any failure raises and exits non-zero, without the result line):
      requests, /healthz, /stats, a /class_prompts swap of the same count
      (labels copied in place) and of another count (the ladder captured
      again), rows against eager predict under the new prompts;
-  6c. (run after phase 10b: its ladder captures and child processes
-     leave later torch.profiler sessions of the process short of kernel
-     records) several models on one card: clip-large (pow2 ladder to 64) and
+  6c. (run last: its ladder captures and child processes leave later
+     torch.profiler sessions of the process short of kernel records)
+     several models on one card: clip-large (pow2 ladder to 64) and
      siglip-large (google/siglip-large-patch16-256 widths, pow2 to 32),
      each from_pretrained (bf16, seeded towers, synthetic factors, 100
      prompts) with its uint8 ladder captured (#1's 24 launches counted at
@@ -166,7 +166,28 @@ Phases (any failure raises and exits non-zero, without the result line):
      the best test accuracy and ECE finite and in [0, 1], and no
      strategy or subset redone by the resume; prints each step's and
      strategy's seconds, the feature pass's img/s, the ms of an EPIG
-     step and the fine-tune's s a subset and steps/s;
+     step and the fine-tune's s a subset and steps/s. Then
+     activelearning_elg.run on a fresh experiment directory with the same
+     settings (its own feature pass: #1 864, #8 50; 15 strategies,
+     egl_test among them) and activelearning_llm.run on that directory
+     (features from the cache: #1 none, #8 50) with run_llm_difficulty and
+     run_llm_value, a deterministic stub client (a score from the
+     prompt's crc32) and no pacing: 16 strategies, 4000 stub calls, every
+     subset's scores finite, 31 more checkpoints loaded strictly; EGL's
+     ms (the strategy, and expected_gradient_length alone at 2000 x 65);
+  8e. the partial-backbone fine-tune (train/backbone.py) at clip-large
+     width: load_model(fp32, seeded), B=32 seeded 224 px images, the CE of
+     cosine logits x 10 against 65 seeded targets, the last 2 layers and
+     the projection trained (AdamW, lr 1e-4, wd 5e-2), three steps: the
+     loss finite and falling, every frozen parameter bit-identical and
+     every trained one moved, #1's 24 launches a forward (the gradient
+     through its autograd.Function); step 1's gradients against the same
+     step through the plain attention (fused_attention_reference) by
+     relative norm a tensor, at BB_GRAD_TOL; the same three steps with
+     remat=True: gradients, losses and parameters bit-equal, 26 launches a
+     step (the two trained blocks recomputed), the device memory the
+     steps add in both; one bf16 step (the tensor-core body differentiated): finite
+     gradients, against the plain version at BB_GRAD_TOL["bf16"];
   8b. Stage-2 zero-shot evaluation at siglip-large width through the
      port's CLI, zeroshot.run (the steps under zeroshot.main): seeded
      bf16 towers (24 x 1024 vision at 256 px / 16, T=256; 24 x 1024
@@ -196,8 +217,10 @@ Phases (any failure raises and exits non-zero, without the result line):
      dataset phase: the card machine has no transformers and no PIL;
   9. tiny-clip on the card against tiny-clip on the CPU, in the default
      lane and in the block lane; tiny-siglip the same, default lane;
-  10. the attention-schedule probes (bayesvlm_tpu_torch/probes,
-     csrc/attention_variants.cu): v2, v3, v4, v5 (H/2 heads a block) and
+  10. (10 and 10b run right after 5, before the paths: torch.profiler
+     sessions, which 10b reads, lost their kernel records in a process
+     that had run 6-8e) the attention-schedule probes
+     (bayesvlm_tpu_torch/probes, csrc/attention_variants.cu): v2, v3, v4, v5 (H/2 heads a block) and
      v6 (2 batch rows a block) vs plain at the probes' shape (B=80,
      T=257, H=16, Dh=64) and a ragged T=50, H=12, bf16 and fp32, v2 and
      v3 also in bf16 at T=1024, Dh 64 and 80; v5 and v6 also equal to #1
@@ -234,7 +257,8 @@ Phases (any failure raises and exits non-zero, without the result line):
      SM), then the result line {"ok": true, "device": {...}} last.
 
 Each path's launch counts (the Stage-1 CLI's too) are set to 0 just
-before it and read just after; the launches of phases 3, 4, 5, 5b, 10's
+before it and read just after; each phase's wall seconds are printed
+("[phase <name>] s"); the launches of phases 3, 4, 5, 5b, 10's
 and 10b's comparisons are not counted. A CUDA graph's replay runs no
 Python, so a serving program's kernels are counted while it is captured
 (each size's counts read between its capture's begin and end) and the
@@ -243,6 +267,7 @@ replay is shown to run them by its output, equal to eager predict's.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -344,6 +369,21 @@ EPIG_BUDGET, EPIG_CHUNK = 3, 4096
 # to 10 fine-tune epochs (the CLI's default is 100)
 AL_SPLITS = dict(num_train=6000, num_val=1000, num_test=2000, num_classes=65)
 AL_SUBSET, AL_EPOCHS, AL_PRECOMPUTE_BATCH = 50, 10, 256
+# 8e: the partial-backbone fine-tune (train/backbone.py) at clip-large
+# width: B seeded 224 px images, tests/test_backbone_finetune.py's loss
+# (CE of cosine logits x 10) against 65 seeded targets, the last 2 layers
+# and the projection trained, at lr 1e-4 (ten times the CLIs' 1e-5, so
+# that three steps move the loss clearly) and the CLIs' wd 5e-2
+BB_BATCH, BB_CLASSES, BB_K, BB_STEPS, BB_LR, BB_WD = 32, 65, 2, 3, 1e-4, 5e-2
+# step 1's gradients through the kernel vs through its plain version, by
+# relative norm a tensor. The backward is the plain version's in both, so
+# they differ only where the forward does: by at most KERNEL_TOL a value
+# of each attention output (phase 3: fp32 summation order; bf16 a rounding
+# flip), in each of the 24 layers that feed the trained blocks. Were every
+# output off by that much, the 24 would add as a random walk, sqrt(24) x
+# KERNEL_TOL relative on what reaches the loss, and the gradients move in
+# proportion; twice that is the bound.
+BB_GRAD_TOL = {k: 2.0 * math.sqrt(24) * v for k, v in KERNEL_TOL.items()}
 # fused probit head vs plain: both fp32, summation order only; the JAX
 # package's tolerance (tests/test_pallas_smith.py:30)
 SMITH_RTOL, SMITH_ATOL, SMITH_ROW_TOL = 1e-4, 1e-5, 1e-5
@@ -2593,6 +2633,8 @@ def _al_checks(torch, label: str, run: dict, encoder, strategies: int) -> None:
             check(1 <= n <= AL_SUBSET, f"{label} {name}: {n} unique train indices")
         else:
             check(n == AL_SUBSET, f"{label} {name}: {n} unique train indices")
+        scores = [v["score"] for v in by_test.values()]
+        check(all(math.isfinite(x) for x in scores), f"{label} {name}: a score not finite")
         encoder.load_projection_weights(run["subset_dir"] / name / "img_projection.pt")
     if capped:
         print(f"  {label}: unique train indices of the capped kNN strategies {capped}")
@@ -2613,14 +2655,52 @@ def _al_checks(torch, label: str, run: dict, encoder, strategies: int) -> None:
           f"{sum(t['epochs'] for t in ft.values())} epochs; the first subset "
           f"{each[0]:.3f} s, the others' median {float(np.median(each[1:])):.3f} s); "
           f"best test accuracy "
-          f"{best['accuracy']!r}, its ECE {best['ece']!r}; 14 img_projection.pt loaded "
-          f"(strict keys)")
+          f"{best['accuracy']!r}, its ECE {best['ece']!r}; {len(subsets)} "
+          f"img_projection.pt loaded (strict keys)")
+
+
+class _StubLLM:
+    """A deterministic stand-in for the LLM of activelearning_llm: a 1-5
+    score from the prompt's crc32 (never `hash`, which is salted per
+    process); it counts its calls and reaches no network."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, prompt: str) -> str:
+        import zlib
+
+        self.calls += 1
+        return f"Score: {1 + zlib.crc32(prompt.encode()) % 9 * 0.5}"
+
+
+def _egl_alone_ms(torch) -> float:
+    """expected_gradient_length alone at 8d's test pool (2000 candidates,
+    65 classes, clip-large's 768-dim embeddings and 1024-dim activations),
+    seeded features, CUDA events."""
+    from bayesvlm_tpu_torch.select.egl import expected_gradient_length
+    from bayesvlm_tpu_torch.types import EncoderResult, ProbabilisticLogits
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    n, c = AL_SPLITS["num_test"], AL_SPLITS["num_classes"]
+    rand = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")
+    img = EncoderResult.create(rand(n, 768), rand(n, 1024))
+    txt = EncoderResult.create(rand(c, 768), rand(c, 1024))
+    logits = ProbabilisticLogits(mean=rand(n, c), var=rand(n, c).abs())
+    out = expected_gradient_length(img, txt, logits, 4.6052)
+    check(bool(torch.isfinite(out).all()), "EGL scores not finite")
+    return cuda_ms(torch, lambda: expected_gradient_length(img, txt, logits, 4.6052))
 
 
 def phase_active_learning(torch, counters, hessian_dir: str) -> dict:
     """Phase 8d: the active-learning CLIs at clip-large width, each run
     with every count set to 0 just before and read just after."""
-    from bayesvlm_tpu_torch import activelearning, activelearning_kmeans
+    from bayesvlm_tpu_torch import (
+        activelearning,
+        activelearning_elg,
+        activelearning_kmeans,
+        activelearning_llm,
+    )
     from bayesvlm_tpu_torch.kernels import BUILD_DIR
     from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
     from bayesvlm_tpu_torch.models.encoders import load_model
@@ -2638,24 +2718,36 @@ def phase_active_learning(torch, counters, hessian_dir: str) -> dict:
     os.environ["WANDB_MODE"] = "disabled"
     t_phase = time.perf_counter()
     encoder = load_model(MODEL, device="cuda", seed=SEED + 11)[0]
+    llm = _StubLLM()
+    features = {"attention": L * forwards, "xlogy_rowsum": AL_SUBSET * epig_chunks}
+    epig_only = {"xlogy_rowsum": AL_SUBSET * epig_chunks}
     out = {}
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as exp:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as exp, \
+            tempfile.TemporaryDirectory(dir=BUILD_DIR) as exp_elg:
         kw = dict(model_str=MODEL, dataset="synthetic", hessian_dir=hessian_dir,
                   experiment_dir=exp, project_name="active-finetuning",
                   hessian_scale=10.0, subset_size=AL_SUBSET, finetune_epochs=AL_EPOCHS,
                   precompute_batch_size=AL_PRECOMPUTE_BATCH, device="cuda",
                   dataset_overrides=overrides)
-        cases = (("main", activelearning, {"attention": L * forwards,
-                                           "xlogy_rowsum": AL_SUBSET * epig_chunks}),
-                 ("kmeans", activelearning_kmeans, {"xlogy_rowsum": AL_SUBSET * epig_chunks}),
-                 ("resume", activelearning, {}))
-        for label, cli, per_run in cases:
+        # the EGL CLI on a directory of its own (its own feature pass), the
+        # LLM CLI after it on that directory (features from the cache): both
+        # LLM strategies, the stub client, no pacing (2 x 2000 calls at the
+        # CLI's 1.1 s would take over an hour)
+        elg_kw = dict(kw, experiment_dir=exp_elg)
+        llm_kw = dict(elg_kw, run_llm_difficulty=True, run_llm_value=True,
+                      llm_client=llm, llm_rate_limit_delay=0.0)
+        cases = (("main", activelearning, kw, features, 14),
+                 ("kmeans", activelearning_kmeans, kw, epig_only, 14),
+                 ("resume", activelearning, kw, {}, None),
+                 ("elg", activelearning_elg, elg_kw, features, 15),
+                 ("llm", activelearning_llm, llm_kw, epig_only, 16))
+        for label, cli, cli_kw, per_run, strategies in cases:
             expected = {**dict.fromkeys(counters, 0), **per_run}
             for c in counters.values():
                 c.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            run = cli.run(**kw)
+            run = cli.run(**cli_kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = {n: c.launches for n, c in counters.items()}
@@ -2671,19 +2763,195 @@ def phase_active_learning(torch, counters, hessian_dir: str) -> dict:
                 for step, sec in run["seconds"].items():
                     print(f"  resume step {step}: {sec:.3f} s")
             else:
-                _al_checks(torch, f"active learning {label}", run, encoder, 14)
+                _al_checks(torch, f"active learning {label}", run, encoder, strategies)
             out[label] = dict(launches=launches, seconds=run["seconds"], wall_s=wall,
                               strategy_seconds=run["strategy_seconds"])
+    n_test = AL_SPLITS["num_test"]
+    check(llm.calls == 2 * n_test, f"the stub LLM took {llm.calls} calls, not {2 * n_test}")
     main = out["main"]
     n_img = sum(AL_SPLITS[k] for k in ("num_train", "num_val", "num_test"))
     epig_ms = main["strategy_seconds"]["epig_knn"] / AL_SUBSET * 1e3
+    egl_ms = _egl_alone_ms(torch)
     print(f"  active learning: feature pass {n_img / main['seconds']['[1] features']:.1f} "
           f"img/s ({n_img} images and {AL_SPLITS['num_classes']} prompts, synthetic "
           f"images drawn on the host), epig_knn {epig_ms:.2f} ms a step, "
           f"epig_direct {out['kmeans']['strategy_seconds']['epig_direct'] / AL_SUBSET * 1e3:.2f}"
-          f" ms a step; card {DEVICE['card']}; phase {time.perf_counter() - t_phase:.1f} s")
+          f" ms a step; EGL CLI feature pass "
+          f"{n_img / out['elg']['seconds']['[1] features']:.1f} img/s, egl_test "
+          f"{out['elg']['strategy_seconds']['egl_test'] * 1e3:.2f} ms (EGL + kNN), "
+          f"expected_gradient_length alone {egl_ms:.4f} ms ({n_test} x "
+          f"{AL_SPLITS['num_classes']}); LLM CLI {llm.calls} stub calls, "
+          f"llm_difficulty_test {out['llm']['strategy_seconds']['llm_difficulty_test']:.3f} s,"
+          f" llm_value_test {out['llm']['strategy_seconds']['llm_value_test']:.3f} s; "
+          f"card {DEVICE['card']}; phase {time.perf_counter() - t_phase:.1f} s")
+    out["egl_ms"] = egl_ms
     del encoder
     return out
+
+
+@contextlib.contextmanager
+def _plain_attention():
+    """Route the towers' attention through the kernel's plain version
+    (`fused_attention_reference`, differentiated by autograd) instead of the
+    kernel, for as long as the context lasts."""
+    from bayesvlm_tpu_torch.models import attention, layers
+
+    kernel = layers.fused_attention
+    layers.fused_attention = (lambda q, k, v, num_heads, **kw:
+                              attention.fused_attention_reference(q, k, v, num_heads))
+    try:
+        yield
+    finally:
+        layers.fused_attention = kernel
+
+
+def _backbone_run(torch, counters, dtype, steps: int, remat: bool = False,
+                  plain: bool = False) -> dict:
+    """`steps` backbone steps on a fresh seeded clip-large vision tower, with
+    every count set to 0 just before and read just after: the losses, the
+    trained parameters' gradients of step 1, the parameters before and
+    after, the launches and the peak device memory the steps add."""
+    from bayesvlm_tpu_torch.models.encoders import load_model
+    from bayesvlm_tpu_torch.train.backbone import make_backbone_train_step
+
+    module = load_model(MODEL, dtype=dtype, seed=SEED + 13, device="cuda",
+                        remat=remat)[0].module
+    rng = np.random.default_rng(SEED + 14)
+    size = module.config.image_size
+    images = torch.from_numpy(rng.normal(size=(BB_BATCH, size, size, 3)).astype(
+        np.float32)).cuda()
+    labels = torch.from_numpy(rng.integers(0, BB_CLASSES, size=BB_BATCH)).cuda()
+    targets = torch.from_numpy(rng.normal(size=(BB_CLASSES, module.config.projection_dim))
+                               .astype(np.float32)).cuda()
+    t = targets / torch.linalg.norm(targets, dim=-1, keepdim=True)
+
+    def loss_fn(m, batch):
+        # tests/test_backbone_finetune.py's loss: CE of cosine logits x 10
+        embeds, _ = m(batch[0])
+        e = embeds / torch.linalg.norm(embeds, dim=-1, keepdim=True)
+        return torch.nn.functional.cross_entropy(e @ t.T * 10.0, batch[1])
+
+    init_state, step = make_backbone_train_step(
+        module, loss_fn, num_layers=module.config.num_layers, k_last_layers=BB_K,
+        projection_names=("visual_projection",), learning_rate=BB_LR,
+        weight_decay=BB_WD)
+    init_state()
+    before = {n: p.detach().clone() for n, p in module.named_parameters()}
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what the steps add (activations, gradients, AdamW's moments) over
+    # what is held before them (the tower, the copies above, other runs')
+    held = torch.cuda.memory_allocated()
+    losses, grads, ms = [], None, []
+    with (_plain_attention() if plain else contextlib.nullcontext()):
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(step((images, labels))))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if grads is None:
+                grads = {n: p.grad.detach().clone() for n, p in module.named_parameters()
+                         if p.grad is not None}
+    launches = {n: c.launches for n, c in counters.items()}
+    return dict(module=module, before=before, losses=losses, grads=grads, ms=ms,
+                launches=launches, max_allocated_mib=torch.cuda.max_memory_allocated() / 2**20,
+                peak_mib=(torch.cuda.max_memory_allocated() - held) / 2**20)
+
+
+def _rel(a: dict, b: dict, names) -> float:
+    """|a - b| / |b| over the named tensors together (fp32)."""
+    num = sum(float((a[n].float() - b[n].float()).square().sum()) for n in names)
+    den = sum(float(b[n].float().square().sum()) for n in names)
+    return math.sqrt(num / den)
+
+
+def phase_backbone(torch, counters) -> dict:
+    """Phase 8e: the partial-backbone fine-tune at clip-large width."""
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+
+    t_phase = time.perf_counter()
+    L = CONFIGS_BY_NAME[MODEL].vision.num_layers
+    trained_layers = {f"encoder.layers.{i}." for i in range(L - BB_K, L)}
+    zero = dict.fromkeys(counters, 0)
+    base = _backbone_run(torch, counters, torch.float32, BB_STEPS)
+    losses = base["losses"]
+    print(f"backbone step ({MODEL} vision, fp32, B={BB_BATCH}, k_last_layers={BB_K} + "
+          f"projection, lr {BB_LR}, wd {BB_WD}): losses {losses}, ms a step "
+          f"{[round(x, 3) for x in base['ms']]}, the steps add {base['peak_mib']:.1f} MiB "
+          f"at their peak, launches {base['launches']}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"backbone losses {losses} not finite or not falling")
+    check(base["launches"] == {**zero, "attention": L * BB_STEPS},
+          f"backbone launches {base['launches']}: expected {L} attention a forward")
+    module, before = base["module"], base["before"]
+    trained = set(base["grads"])
+    expected = {n for n in before if n.startswith("visual_projection.")
+                or ".".join(n.split(".")[:3]) + "." in trained_layers}
+    check(trained == expected, f"trained {sorted(trained ^ expected)[:4]}")
+    for name, p in module.named_parameters():
+        same = torch.equal(p.detach(), before[name])
+        if name not in trained:
+            check(same, f"frozen {name} moved")
+        elif not name.endswith("k_proj.bias"):
+            check(not same, f"trained {name} did not move")
+    kbias = [n for n in trained if n.endswith("k_proj.bias")]
+    names = sorted(trained - set(kbias))
+    # the key bias's gradient is 0 in exact arithmetic (a softmax row does
+    # not move when one term is added to all its scores): rounding-sized
+    kb = max(float(base["grads"][n].norm()) / float(
+        base["grads"][n.replace("k_proj", "q_proj")].norm()) for n in kbias)
+    check(kb < 1e-4, f"key bias gradient {kb} of the query bias's")
+
+    plain = _backbone_run(torch, counters, torch.float32, 1, plain=True)
+    check(plain["launches"] == zero, f"plain backbone launches {plain['launches']}")
+    check(math.isclose(plain["losses"][0], losses[0], rel_tol=BB_GRAD_TOL["fp32"]),
+          f"plain step 1 loss {plain['losses'][0]} vs {losses[0]}")
+    rel = _rel(base["grads"], plain["grads"], names)
+    worst = max((_rel(base["grads"], plain["grads"], [n]), n) for n in names)
+    print(f"  step 1 gradients, kernel vs plain attention: relative norm {rel:.3e} "
+          f"(worst tensor {worst[1]} {worst[0]:.3e}; tolerance {BB_GRAD_TOL['fp32']:.3e}); "
+          f"loss {losses[0]!r} vs {plain['losses'][0]!r}; key bias |g| / |g_q| {kb:.2e}")
+    check(worst[0] <= BB_GRAD_TOL["fp32"], f"fp32 gradients {worst} off the plain version's")
+    del plain
+
+    remat = _backbone_run(torch, counters, torch.float32, BB_STEPS, remat=True)
+    per_step = L + BB_K  # the forward, then the trained blocks recomputed
+    check(remat["launches"] == {**zero, "attention": per_step * BB_STEPS},
+          f"remat launches {remat['launches']}: expected {per_step} a step")
+    check(remat["losses"] == losses, f"remat losses {remat['losses']} vs {losses}")
+    check(all(torch.equal(remat["grads"][n], base["grads"][n]) for n in trained),
+          "remat step 1 gradients differ from the run without remat")
+    after = dict(module.named_parameters())
+    check(all(torch.equal(p.detach(), after[n].detach())
+              for n, p in remat["module"].named_parameters()),
+          "remat parameters after the steps differ")
+    print(f"  remat: gradients and parameters bit-equal, launches "
+          f"{remat['launches']['attention']} ({per_step} a step), ms a step "
+          f"{[round(x, 3) for x in remat['ms']]}; the steps add {remat['peak_mib']:.1f} "
+          f"MiB at their peak, without remat {base['peak_mib']:.1f} "
+          f"(torch.cuda.max_memory_allocated {remat['max_allocated_mib']:.1f} / "
+          f"{base['max_allocated_mib']:.1f} MiB, other runs' tensors included)")
+    base_peak = base["peak_mib"]
+    del base, remat, module, before, after
+
+    bf16 = _backbone_run(torch, counters, torch.bfloat16, 1)
+    bf16_plain = _backbone_run(torch, counters, torch.bfloat16, 1, plain=True)
+    check(bf16["launches"] == {**zero, "attention": L}, f"bf16 launches {bf16['launches']}")
+    finite = all(bool(torch.isfinite(g).all()) for g in bf16["grads"].values())
+    check(finite and math.isfinite(bf16["losses"][0]), "bf16 gradients not finite")
+    rel16 = _rel(bf16["grads"], bf16_plain["grads"], names)
+    worst16 = max((_rel(bf16["grads"], bf16_plain["grads"], [n]), n) for n in names)
+    print(f"  bf16 step: loss {bf16['losses'][0]!r} (plain {bf16_plain['losses'][0]!r}), "
+          f"gradients vs plain attention: relative norm {rel16:.3e} (worst {worst16[1]} "
+          f"{worst16[0]:.3e}; tolerance {BB_GRAD_TOL['bf16']:.3e}); ms {bf16['ms'][0]:.3f}, "
+          f"the step adds {bf16['peak_mib']:.1f} MiB; card {DEVICE['card']}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    check(worst16[0] <= BB_GRAD_TOL["bf16"], f"bf16 gradients {worst16} off the plain "
+                                             f"version's")
+    return dict(launches_forward=L, launches_remat_step=per_step, grad_rel=rel,
+                grad_rel_bf16=rel16, peak_mib=base_peak)
 
 
 def phase_probes_vs_plain(torch, attention, av) -> None:
@@ -2915,6 +3183,14 @@ def _entry(name, source, replaces, launches, r, library_ms):
     return e
 
 
+def _timed(label: str, fn, *args, **kwargs):
+    """Run one phase and print its wall seconds (host clock)."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    print(f"[phase {label}] {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2934,8 +3210,8 @@ def main() -> int:
     from bayesvlm_tpu_torch.select import epig_joint
     from bayesvlm_tpu_torch.utils import get_image_size
 
-    phase_build(kernels, (attention, av, ph, tg, mlp_int8, linear_int8, epig_joint,
-                          smith_head))
+    _timed("build", phase_build, kernels, (attention, av, ph, tg, mlp_int8, linear_int8,
+                                            epig_joint, smith_head))
     attention._block_library()
     fa = attention.fused_attention
     counters = {"attention": fa,
@@ -2958,19 +3234,29 @@ def main() -> int:
                 "tile_gemm_s8": _Count(tg.matmul, "launches_s8"),
                 "tile_gemm_s4": tg.matmul_s4,
                 "tile_gemm_s8s4": _Count(tg.matmul_s4, "launches_s8s4")}
-    attn = phase_attention_vs_plain(torch, attention)
-    pair_designs = phase_packed_pair_designs(torch, attention, av)
-    sched_launches = phase_schedule_paths(torch, attention, counters)
-    block = phase_block_vs_plain(torch, attention)
-    int8 = phase_int8_vs_plain(torch, mlp_int8, linear_int8)
-    smith = phase_smith_vs_plain(torch, smith_head)
+    attn = _timed("attention_vs_plain", phase_attention_vs_plain, torch, attention)
+    pair_designs = _timed("packed_pair_designs", phase_packed_pair_designs, torch,
+                          attention, av)
+    sched_launches = _timed("schedule_paths", phase_schedule_paths, torch, attention,
+                            counters)
+    block = _timed("block_vs_plain", phase_block_vs_plain, torch, attention)
+    int8 = _timed("int8_vs_plain", phase_int8_vs_plain, torch, mlp_int8, linear_int8)
+    smith = _timed("smith_vs_plain", phase_smith_vs_plain, torch, smith_head)
 
     all_counters = {
         **counters,
         "xlogy_rowsum": _Count(epig_joint.joint_xlogy_rowsums, "launches"),
         "xlogy_rowsum_int8": _Count(epig_joint.joint_xlogy_rowsums, "launches_int8"),
     }
-    epig = phase_epig_vs_plain(torch, epig_joint, all_counters)
+    epig = _timed("epig_vs_plain", phase_epig_vs_plain, torch, epig_joint, all_counters)
+    # the probes (10, 10b) run before the paths: 10b reads torch.profiler
+    # sessions, which lose their kernel records in a process that has run
+    # the later phases' graph captures, child processes and training steps
+    _timed("probes_vs_plain", phase_probes_vs_plain, torch, attention, av)
+    packed_parts = _timed("packed_heads_vs_plain", phase_packed_heads_vs_plain, torch,
+                          ph)
+    gemm_parts = _timed("gemm_vs_plain", phase_gemm_vs_plain, torch, tg)
+    probe_path = _timed("probes", phase_probes, torch, all_counters)
     size = get_image_size(MODEL)
     prompts = [f"a photo of a thing of class {i}" for i in range(NUM_PROMPTS)]
     pixels = np.random.default_rng(SEED + 1).normal(
@@ -2982,39 +3268,40 @@ def main() -> int:
             tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as tiny_siglip:
         hdir = save_synthetic_hessians(big, CONFIGS_BY_NAME[MODEL], SEED)
         (bf16_vlm, bf16_launches, bf16_img_s, bf16_embeds, bf16_probs,
-         bf16_logp_diff) = phase_main_path(torch, counters, hdir, pixels, prompts)
-        serving = phase_serving(torch, counters, bf16_vlm, prompts, bf16_logp_diff)
+         bf16_logp_diff) = _timed("main_path", phase_main_path, torch, counters, hdir,
+                                  pixels, prompts)
+        serving = _timed("serving", phase_serving, torch, counters, bf16_vlm, prompts,
+                         bf16_logp_diff)
         del bf16_vlm
-        int8_launches, _, int8_graph = phase_int8_path(
-            torch, counters, hdir, pixels, prompts, bf16_embeds, bf16_probs,
-            bf16_img_s)
-        block_launches, _, block_graph = phase_block_path(
-            torch, counters, hdir, pixels, prompts, bf16_embeds, bf16_probs,
-            bf16_img_s)
-        stage1 = phase_stage1(torch, all_counters, pixels, prompts)
-        phase_ggn(torch)
-        epig_path = phase_epig_path(torch, all_counters, hdir)
-        al_path = phase_active_learning(torch, all_counters, hdir)
+        int8_launches, _, int8_graph = _timed(
+            "int8_path", phase_int8_path, torch, counters, hdir, pixels, prompts,
+            bf16_embeds, bf16_probs, bf16_img_s)
+        block_launches, _, block_graph = _timed(
+            "block_path", phase_block_path, torch, counters, hdir, pixels, prompts,
+            bf16_embeds, bf16_probs, bf16_img_s)
+        stage1 = _timed("stage1", phase_stage1, torch, all_counters, pixels, prompts)
+        _timed("ggn", phase_ggn, torch)
+        epig_path = _timed("epig_path", phase_epig_path, torch, all_counters, hdir)
+        al_path = _timed("active_learning", phase_active_learning, torch, all_counters,
+                         hdir)
+        backbone = _timed("backbone", phase_backbone, torch, all_counters)
         zs_hdir = str(save_synthetic_hessians(zs, CONFIGS_BY_NAME[ZS_MODEL], SEED))
-        zs_path = phase_zeroshot(torch, all_counters, zs_hdir)
-        snapshots = phase_snapshot(torch, all_counters, {MODEL: hdir, ZS_MODEL: zs_hdir},
-                                   prompts)
-        phase_tiny_reference(torch, attention, str(save_synthetic_hessians(
-            tiny, TINY_CLIP_CONFIG, SEED)))
-        phase_tiny_reference(torch, attention, str(save_synthetic_hessians(
-            tiny_siglip, TINY_SIGLIP_CONFIG, SEED)), "tiny-siglip", ("default",))
-    phase_probes_vs_plain(torch, attention, av)
-    packed_parts = phase_packed_heads_vs_plain(torch, ph)
-    gemm_parts = phase_gemm_vs_plain(torch, tg)
-    probe_path = phase_probes(torch, all_counters)
+        zs_path = _timed("zeroshot", phase_zeroshot, torch, all_counters, zs_hdir)
+        snapshots = _timed("snapshot", phase_snapshot, torch, all_counters,
+                           {MODEL: hdir, ZS_MODEL: zs_hdir}, prompts)
+        _timed("tiny_reference", phase_tiny_reference, torch, attention,
+               str(save_synthetic_hessians(tiny, TINY_CLIP_CONFIG, SEED)))
+        _timed("tiny_reference", phase_tiny_reference, torch, attention,
+               str(save_synthetic_hessians(tiny_siglip, TINY_SIGLIP_CONFIG, SEED)),
+               "tiny-siglip", ("default",))
     # 6c runs last: after its ladder captures and child processes, the
-    # torch.profiler sessions of this process lose kernel records (the
-    # packed-head phase's read none of its kernels), and 6c reads none
+    # torch.profiler sessions of this process lose kernel records, and 6c
+    # reads none
     with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as multi_dir:
         multi_hdirs = {m: save_synthetic_hessians(Path(multi_dir) / m, CONFIGS_BY_NAME[m],
                                                   SEED) for m in (MODEL, ZS_MODEL)}
-        multi = phase_multiserve(torch, counters, multi_hdirs, Path(multi_dir),
-                                 bf16_logp_diff)
+        multi = _timed("multiserve", phase_multiserve, torch, counters, multi_hdirs,
+                       Path(multi_dir), bf16_logp_diff)
 
     qkv, out_proj = int8["linear_int8 qkv"], int8["linear_int8 out_proj"]
     linear_entry = _entry(
@@ -3047,8 +3334,15 @@ def main() -> int:
                            for shape in ("siglip-l/16", "vit-b/32", "vit-l/14-336")}
     # its launches in the Stage-1 CLI's feature pass
     one_block["stage1_launches"] = stage1["launches"]["attention"]
-    # and in the active-learning CLI's feature pass (phase 8d)
+    # and in the active-learning CLI's feature pass (phase 8d), the EGL
+    # CLI's (its own) and the LLM CLI's (from the cache)
     one_block["al_launches"] = al_path["main"]["launches"]["attention"]
+    one_block["al_elg_launches"] = al_path["elg"]["launches"]["attention"]
+    one_block["al_llm_launches"] = al_path["llm"]["launches"]["attention"]
+    # and in a backbone step (phase 8e): each forward, and each step with
+    # remat (the trained blocks recomputed in the backward)
+    one_block["backbone_launches"] = {"forward": backbone["launches_forward"],
+                                      "remat_step": backbone["launches_remat_step"]}
     # and in one predict of each HF snapshot (phase 8c)
     one_block["snapshot_launches"] = {m: r["launches"]["attention"]
                                       for m, r in snapshots.items()}
@@ -3088,7 +3382,7 @@ def main() -> int:
                     epig_path["launches"]["xlogy_rowsum"], epig["bf16"], None),
              cublas_bf16_ms=epig["bf16"]["cublas_bf16_ms"],
              al_launches={k: al_path[k]["launches"]["xlogy_rowsum"]
-                          for k in ("main", "kmeans")},
+                          for k in ("main", "kmeans", "elg", "llm")},
              **{f"k{EPIG_LONG_K}": epig["bf16"][f"k{EPIG_LONG_K}"]}),
         dict(_entry("xlogy_rowsum_int8", "bayesvlm_tpu_torch/csrc/xlogy_rowsum.cu",
                     "bayesvlm_tpu/select/epig_pallas.py:77", epig["int8"]["launches"],

@@ -7,7 +7,9 @@ them), prints the CLIs' `--help` (`serve_cli` and both active-learning
 CLIs too), writes a fine-tune's `metrics.jsonl` through `ExperimentLogger`
 (wandb blocked), and loads fp16 safetensors and fp32 `.bin`
 snapshots of tiny-siglip through `load_model` and `convert_weights`. No
-module of JAX or of the JAX package is loaded on the way."""
+module of JAX or of the JAX package is loaded on the way. The EGL and LLM
+selectors, the backbone fine-tune and their CLIs also import with `jax`,
+`triton` and `google.generativeai` blocked."""
 
 import subprocess
 import sys
@@ -71,6 +73,43 @@ def test_every_module_imports_without_the_host_packages():
     assert "usage: serve_cli" in out and "--pipeline_depth" in out
     assert "usage: activelearning " in out and "--epig_pool_max_size" in out
     assert "usage: activelearning_kmeans" in out and "--use_minibatch_kmeans" in out
+
+
+NEW_MODULES = ("bayesvlm_tpu_torch.select.egl", "bayesvlm_tpu_torch.select.llm",
+               "bayesvlm_tpu_torch.train.backbone", "bayesvlm_tpu_torch.activelearning_elg",
+               "bayesvlm_tpu_torch.activelearning_llm")
+
+
+def test_stage3_and_backbone_modules_import_without_jax_triton_or_gemini():
+    """EGL, the LLM scorer, the backbone fine-tune and their CLIs import,
+    and print their --help, with `jax`, `triton` and `google.generativeai`
+    blocked besides the host packages (the Gemini client imports its
+    package only when it is built)."""
+    out = _run("""
+        import importlib, runpy
+        for name in ("jax", "triton", "google.generativeai"):
+            sys.modules[name] = None
+        for name in %r:
+            importlib.import_module(name)
+        for cli in ("activelearning_elg", "activelearning_llm"):
+            sys.argv = [cli, "--help"]
+            try:
+                runpy.run_module(f"bayesvlm_tpu_torch.{cli}", run_name="__main__")
+            except SystemExit as e:
+                assert e.code == 0, (cli, e.code)
+        from bayesvlm_tpu_torch.select import llm
+        try:
+            llm.make_gemini_client()
+        except ImportError:
+            print("GEMINI ABSENT")
+        bad = [m for m in sys.modules if (m.split(".")[0] in
+               ("jax", "flax", "bayesvlm_tpu", "triton")
+               or m.startswith("google.generativeai")) and sys.modules[m] is not None]
+        assert not bad, bad
+    """ % (NEW_MODULES,))
+    assert "usage: activelearning_elg" in out and "--only_egl" in out
+    assert "usage: activelearning_llm" in out and "--run_llm_value" in out
+    assert "GEMINI ABSENT" in out
 
 
 @pytest.mark.parametrize("fmt", ["f16", "bin"])
