@@ -21,9 +21,16 @@ without one. `--dtype` (bf16, the JAX CLI's GEMM weights, or fp32) is
 the towers' compute dtype. `--weights_dir` is an HF snapshot directory
 or the port's converted `vision.pt` / `text.pt`, or none for seeded
 random towers; `--tokenizer_dir` a local HF tokenizer, else the
-deterministic `HashTokenizer`. A multi-process launch
-(`COORDINATOR_ADDRESS`, `NUM_PROCESSES` > 1) is not ported and is
-refused before anything is loaded.
+deterministic `HashTokenizer`.
+
+Several processes, one a card: launch each with `COORDINATOR_ADDRESS`
+(host:port of rank 0), `NUM_PROCESSES` and `PROCESS_ID` (dist/init.py).
+Each rank encodes its stripe of the batches, the features are gathered,
+and the strategies and the fine-tune run replicated (the sharded EPIG,
+kNN and k-means over the ranks); rank 0 alone writes the caches, the
+JSON and the checkpoints, the others' fine-tune logs go to
+`_replica_host{rank}` (train/al_common.py). The ranks share the
+experiment directory.
 """
 
 from __future__ import annotations
@@ -62,10 +69,11 @@ class SubsetStore:
     strategy name -> {test index: {score, indices, similarities}}, in the
     order the strategies were made. Keys are written as JSON strings (an
     int test index too) and read back as strings, as in the JAX CLIs. It
-    also times each strategy made in this run."""
+    also times each strategy made in this run. Only the `primary` process
+    writes it."""
 
-    def __init__(self, path):
-        self.path = path
+    def __init__(self, path, primary: bool = True):
+        self.path, self.primary = path, primary
         if path.exists():
             with open(path) as f:
                 self.subsets = json.load(f, object_pairs_hook=OrderedDict)
@@ -83,6 +91,8 @@ class SubsetStore:
         self.save()
 
     def save(self) -> None:
+        if not self.primary:
+            return  # the replicas make the same subsets; rank 0 keeps them
         with open(self.path, "w") as f:
             json.dump(self.subsets, f)
 
@@ -170,7 +180,11 @@ def run_steps(ctx, subset_name: str, header: str, make_strategies, *,
     strategy and once more at the end, as in JAX), and the fine-tune of
     each subset with `config` logged. Returns `run`'s dict."""
     from bayesvlm_tpu_torch.inference.predictions import make_predictions
-    from bayesvlm_tpu_torch.train.al_common import finetune_all_subsets, synchronize
+    from bayesvlm_tpu_torch.train.al_common import (
+        barrier,
+        finetune_all_subsets,
+        synchronize,
+    )
 
     seconds = {"[1] features": ctx.seconds["features"],
                "[1] lambda + covariances": ctx.seconds["lambda + covariances"]}
@@ -190,7 +204,8 @@ def run_steps(ctx, subset_name: str, header: str, make_strategies, *,
     subset_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     print(header)
-    store = SubsetStore(subset_dir / "subset_indices_train.json")
+    store = SubsetStore(subset_dir / "subset_indices_train.json", ctx.is_primary)
+    barrier()
     make_strategies(Strategies(ctx, store, logits, subset_size, k_nearest, knn_method))
     store.save()
     synchronize(ctx.device)
@@ -254,14 +269,23 @@ def run(
     if only_epig and without_epig:
         # would select no strategy, after the whole feature pass
         raise ValueError("Cannot set both only_epig and without_epig")
+    from bayesvlm_tpu_torch.dist.init import initialize_distributed
     from bayesvlm_tpu_torch.train.al_common import refuse_unported, setup_context
 
     device = refuse_unported(device)
+    # a launch of several processes (COORDINATOR_ADDRESS / NUM_PROCESSES /
+    # PROCESS_ID): the feature pass striped over the ranks, the selection
+    # and fine-tune replicated, rank 0 alone writing; a no-op for one
+    dist_ctx = initialize_distributed(device=device)
+    if dist_ctx.num_hosts <= 1:
+        dist_ctx = None
+    else:
+        device = dist_ctx.device
     ctx = setup_context(
         model_str, dataset, hessian_dir, experiment_dir, hessian_scale,
         precompute_batch_size, precompute_num_workers, weights_dir, tokenizer_dir,
         mlp_int8=mlp_int8, device=device, dtype=dtype,
-        dataset_overrides=dataset_overrides)
+        dataset_overrides=dataset_overrides, dist_ctx=dist_ctx)
 
     def make_strategies(st: Strategies) -> None:
         if not only_random_strategies and not only_epig:

@@ -13,8 +13,10 @@ place of the reference's one backward pass per candidate and class) on
 the test pool, its top `subset_size` mapped to train support by the kNN
 search. `--only_egl` makes EGL alone. The subsets go to
 `elg_subset_{n}_k_{k}_n_{scale}_knn_{method}`. Device, dtype, weights,
-tokenizer, `dataset_overrides` and the multi-process refusal as in
-`bayesvlm_tpu_torch.activelearning`.
+tokenizer and `dataset_overrides` as in
+`bayesvlm_tpu_torch.activelearning`. One process: like the JAX CLI, it
+never calls `initialize_distributed`, so a multi-process launch runs it
+whole in every process.
 """
 
 from __future__ import annotations

@@ -13,8 +13,10 @@ representatives only and its hits are mapped back to train indices
 early after `--early_stopping_patience` epochs without a strict val-loss
 improvement (ref:activelearning_kmeans.py:367). `--use_minibatch_kmeans`
 and `--kmeans_batch_size` are accepted and unused, as in the JAX CLI
-(there is no minibatch variant). Device, dtype, weights, tokenizer and
-the multi-process refusal as in `bayesvlm_tpu_torch.activelearning`.
+(there is no minibatch variant). Device, dtype, weights and tokenizer as
+in `bayesvlm_tpu_torch.activelearning`. One process: like the JAX CLI,
+it never calls `initialize_distributed`, so a multi-process launch runs
+it whole in every process.
 """
 
 from __future__ import annotations

@@ -18,8 +18,10 @@ client makes `llm_score_type`'s strategy alone; the command line passes
 none, so it needs a flag. `--llm_batch_size` is accepted and unused, as
 in JAX (the scorer paces each call by `--llm_rate_limit_delay`). The
 subsets go to `llm_{type}_subset_{n}_k_{k}_n_{scale}_knn_{method}`.
-Device, dtype, weights, tokenizer, `dataset_overrides` and the
-multi-process refusal as in `bayesvlm_tpu_torch.activelearning`.
+Device, dtype, weights, tokenizer and `dataset_overrides` as in
+`bayesvlm_tpu_torch.activelearning`. One process: like the JAX CLI, it
+never calls `initialize_distributed`, so a multi-process launch runs it
+whole in every process.
 """
 
 from __future__ import annotations

@@ -12,6 +12,12 @@ intermediates; the Gram reformulation (bayes/hessians.py) has none, so
 the inner block is thousands of rows, sized for the [block, C] logits
 buffers.
 
+Each class batch goes through dist/hessian_allreduce.py: with a mesh
+(dist/mesh.py) its source rows are split over the ranks and the [C] /
+[D, D] partials `all_reduce`d, so every rank holds the same factors;
+with none (None) the functions are one device's, with the bits of
+bayes/hessians.py's dense ones.
+
 Step checkpoints: with a `checkpoint_dir`, the running float64 sums are
 written every `checkpoint_every` completed class batches as one atomic
 `step_{k:08d}.pt` (`torch.save` to a temporary name, then `os.replace`;
@@ -34,10 +40,10 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from bayesvlm_tpu_torch.bayes.hessians import (
-    activation_gram,
-    hessian_infonce,
-    hessian_siglip,
+from bayesvlm_tpu_torch.dist.hessian_allreduce import (
+    sharded_activation_gram,
+    sharded_hessian_infonce,
+    sharded_hessian_siglip,
 )
 
 _LIKELIHOOD_IDS = {"info_nce": 0, "siglip": 1}
@@ -95,14 +101,6 @@ def _restore_ggn_state(ckpt_dir: Path, num_classes: int, n_sources: int,
     return state["A"].to(device), state["B"].to(device), done
 
 
-def _single_device(mesh) -> None:
-    """Sharded accumulation is not ported: a mesh must span one device."""
-    if mesh is not None and mesh.size() > 1:
-        raise NotImplementedError(
-            f"kfac_ggn over a mesh of {mesh.size()} devices is not ported yet; "
-            f"pass mesh=None (one device)")
-
-
 def kfac_ggn(
     logit_scale,
     logit_bias,
@@ -126,12 +124,12 @@ def kfac_ggn(
     `block_size` chunks the source axis (the CLI's --la_batch_size),
     `chunk_size_j` the SigLIP target axis (--siglip_chunk_size); results
     are invariant to both. `precision`: "highest" (fp32, the default) or
-    "high" (3xTF32). `mesh`: None or a mesh of one device.
+    "high" (3xTF32). `mesh`: shards each class batch's source rows over
+    the mesh's ranks (None or a mesh of one rank: one device).
     `checkpoint_dir` / `checkpoint_every`: the step checkpoints (module
     docstring). `device`: where the sums run; by default the device of
     `source_embeds` when it is a tensor, else the card.
     """
-    _single_device(mesh)
     if likelihood not in _LIKELIHOOD_IDS:
         raise ValueError(f"Invalid likelihood: {likelihood}, must be one of "
                          f"{sorted(_LIKELIHOOD_IDS)}.")
@@ -153,6 +151,8 @@ def kfac_ggn(
             f"{num_classes} datapoints."
         )
 
+    if mesh is not None and mesh.size() == 1:
+        mesh = None  # one device: no collective
     n_sources = len(source_embeds)
     A = B = None
     start_batch = 0
@@ -172,14 +172,15 @@ def kfac_ggn(
         src = source_embeds[start:end]
         act = source_activations[start:end]
         if likelihood == "info_nce":
-            H = hessian_infonce(src, tgt, scale, block_size=block_size,
-                                precision=precision)
-            G = activation_gram(act)
+            H = sharded_hessian_infonce(src, tgt, scale, mesh, block_size=block_size,
+                                        precision=precision)
+            G = sharded_activation_gram(act, mesh)
         else:
             indices = torch.arange(len(src), device=device)
-            H = hessian_siglip(src, indices, tgt, scale, bias, block_size=block_size,
-                               chunk_size_j=chunk_size_j, precision=precision)
-            G = activation_gram(act, append_bias_column=True)
+            H = sharded_hessian_siglip(src, indices, tgt, scale, bias, mesh,
+                                       block_size=block_size, chunk_j=chunk_size_j,
+                                       precision=precision)
+            G = sharded_activation_gram(act, mesh, append_bias_column=True)
         # fp32 -> fp64 is exact; the adds are IEEE fp64, as numpy's
         H, G = H.double(), G.double()
         B = H if B is None else B + H

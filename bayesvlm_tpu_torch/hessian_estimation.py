@@ -16,15 +16,23 @@ checkpoints (`_ggn_steps_{img,txt}`).
 
 Runs on the card unless `--device` names another. `--dtype` (bf16, the
 JAX CLI's GEMM weights, or fp32) is the towers' compute dtype; the GGN
-always runs in fp32 (`--ggn_precision high`: 3xTF32). One card:
-`--no_mesh` is accepted and changes nothing. `--weights_dir` is an HF
-snapshot directory or the port's converted `vision.pt` / `text.pt`;
+always runs in fp32 (`--ggn_precision high`: 3xTF32). `--weights_dir` is
+an HF snapshot directory or the port's converted `vision.pt` / `text.pt`;
 `--tokenizer_dir` a local HF tokenizer (needs `transformers`), else the
 deterministic `HashTokenizer`. `--u8_pipeline` ships uint8 crops that
-the image encoder normalises on the device (`get_transform_uint8`). Not
-ported yet, and refused before anything is loaded: `--native_decode`
-(the native decode lane), `--save_orbax`, `--dist_global_batch` and a
-multi-host run (`COORDINATOR_ADDRESS` set).
+the image encoder normalises on the device (`get_transform_uint8`).
+
+Several processes, one a card (`COORDINATOR_ADDRESS`, `NUM_PROCESSES`,
+`PROCESS_ID`; dist/init.py): each takes its share of the tars
+(`shard_for_host`), caches its features as `*_{img,txt}_host{rank}.pt`
+and accumulates a local GGN, and `allreduce_factors` combines the
+factors; with `--dist_global_batch` the features are gathered instead
+and the class batches span the whole dataset, sharded over the ranks.
+The GGN step checkpoints run on one process only; only rank 0 writes the
+factors, `prior_precision_analytic.json` and the final JSON line.
+`--no_mesh` runs one process whatever the environment says. Not ported
+yet, and refused before anything is loaded: `--native_decode` (the
+native decode lane) and `--save_orbax`.
 """
 
 from __future__ import annotations
@@ -39,14 +47,9 @@ from typing import Optional
 import torch
 
 
-def _refuse_unported(native_decode, save_orbax, dist_global_batch,
-                     use_mesh) -> None:
+def _refuse_unported(native_decode, save_orbax) -> None:
     flags = {"--native_decode (the native decode lane)": native_decode,
-             "--save_orbax (the orbax factor lane)": save_orbax,
-             "--dist_global_batch (multi-host class batches)": dist_global_batch,
-             "a multi-host run (COORDINATOR_ADDRESS)": use_mesh and bool(
-                 os.environ.get("COORDINATOR_ADDRESS")
-                 or os.environ.get("JAX_COORDINATOR_ADDRESS"))}
+             "--save_orbax (the orbax factor lane)": save_orbax}
     asked = [name for name, on in flags.items() if on]
     if asked:
         raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
@@ -84,19 +87,28 @@ def main(
     dtype: str = "bf16",
     dataset_overrides: Optional[dict] = None,
 ) -> dict:
-    """The JAX `main`'s steps on one device; returns {"lambda_img",
-    "lambda_txt", "seconds"}: the seconds of each step (host clock, the
-    card synchronised at each step's end). `dataset_overrides` go to the
+    """The JAX `main`'s steps; returns {"lambda_img", "lambda_txt",
+    "seconds"}: the seconds of each step (host clock, the card
+    synchronised at each step's end). `dataset_overrides` go to the
     datamodule's constructor (e.g. the synthetic module's `image_size`,
     `num_test`, `num_classes`). `weights_dir` is an HF snapshot or the
     port's converted `vision.pt` / `text.pt`, or None for seeded random
-    towers; `tokenizer_dir` a local HF tokenizer, else `HashTokenizer`."""
-    _refuse_unported(native_decode, save_orbax, dist_global_batch, use_mesh)
+    towers; `tokenizer_dir` a local HF tokenizer, else `HashTokenizer`.
+    With `use_mesh`, a launch named by the environment (or a process group
+    the caller initialised) runs as one rank of several (module
+    docstring); rank r works on `cuda:{r % device_count()}` when `device`
+    is "cuda"."""
+    _refuse_unported(native_decode, save_orbax)
     from bayesvlm_tpu_torch.bayes.estimation import kfac_ggn
     from bayesvlm_tpu_torch.bayes.prior import optimize_prior_precision
     from bayesvlm_tpu_torch.data.factory import DataModuleFactory
     from bayesvlm_tpu_torch.data.tokenizer import make_tokenizer
     from bayesvlm_tpu_torch.data.transforms import get_transform, get_transform_uint8
+    from bayesvlm_tpu_torch.dist.init import (
+        allgather_rows,
+        allreduce_factors,
+        initialize_distributed,
+    )
     from bayesvlm_tpu_torch.inference.precompute import compute_features
     from bayesvlm_tpu_torch.io.artifacts import (
         load_hessians,
@@ -107,7 +119,11 @@ def main(
     from bayesvlm_tpu_torch.models.encoders import load_model
     from bayesvlm_tpu_torch.utils import get_image_size, get_likelihood_for_model
 
-    device = torch.device(device)
+    # one process unless a launch is named (no-op then); the rank's card
+    ctx = initialize_distributed(device=device) if use_mesh else None
+    multi_host = ctx is not None and ctx.num_hosts > 1
+    primary = ctx is None or ctx.is_primary
+    device = ctx.device if multi_host else torch.device(device)
     seconds = {}
     clock = [time.perf_counter()]
 
@@ -144,16 +160,31 @@ def main(
         print(f"Reducing number of files from {len(dm.data_path)} to {num_files}")
         dm.data_path = dm.data_path[:num_files]
     dm.setup()
+    if multi_host:
+        if not hasattr(dm, "shard_for_host"):
+            # without a per-host split every host would take the whole
+            # dataset, and allreduce_factors would combine duplicated sums
+            # as if disjoint: factors inflated by sqrt(num_hosts)
+            raise ValueError(
+                f"multi-host runs need per-host data sharding, but dataset "
+                f"'{dataset}' does not support shard_for_host (currently "
+                f"only the webdataset-tar modules do); run single-host or "
+                f"use a shardable dataset")
+        dm.shard_for_host(ctx.host_id, ctx.num_hosts)
+        print(f"[dist] host {ctx.host_id}/{ctx.num_hosts} takes "
+              f"{len(dm.dataset.tar_paths)} tar shards")
     loader = dm.test_dataloader()
     step_done("load")
 
+    # several processes: each caches the features of its own shard
+    host_tag = f"_host{ctx.host_id}" if multi_host else ""
     fce = feature_checkpoint_every if feature_checkpoint_every > 0 else None
     path_act_img, path_emb_img = compute_features(
-        image_encoder, loader, tag="img", cache_dir=hessian_dir,
+        image_encoder, loader, tag="img" + host_tag, cache_dir=hessian_dir,
         modality="image", checkpoint_every=fce)
     step_done("img features")
     path_act_txt, path_emb_txt = compute_features(
-        text_encoder, loader, tag="txt", cache_dir=hessian_dir,
+        text_encoder, loader, tag="txt" + host_tag, cache_dir=hessian_dir,
         modality="text", checkpoint_every=fce)
     step_done("txt features")
 
@@ -162,8 +193,29 @@ def main(
         torch.load(p, map_location=device, weights_only=True)[:max_datapoints]
         for p in (path_act_img, path_emb_img, path_act_txt, path_emb_txt))
 
+    # --dist_global_batch: every host's features gathered in rank order, so
+    # that the class batches span the whole dataset, sharded over the
+    # ranks; otherwise each host forms its class batches from its own
+    # shard and the factors are combined afterwards
+    global_batch = multi_host and dist_global_batch
+    if global_batch:
+        activations_img, embeddings_img, activations_txt, embeddings_txt = (
+            allgather_rows(x, ctx.num_hosts) for x in (
+                activations_img, embeddings_img, activations_txt, embeddings_txt))
+        print(f"[dist] global class batches over {len(embeddings_img)} "
+              f"gathered pairs, mesh {tuple(ctx.mesh.shape)}")
+    mesh = ctx.mesh if global_batch else None  # else one device a rank
+
+    def global_factors(A, B, n_local):
+        if not multi_host or global_batch:
+            return A, B  # one host, or class batches already over all hosts
+        A, B = allreduce_factors(A, B, n_local, num_hosts=ctx.num_hosts)
+        return torch.from_numpy(A).to(device), torch.from_numpy(B).to(device)
+
+    # GGN step checkpoints: one process only (several keep the
+    # whole-artifact gating, which the per-host feature parts shorten)
     def ggn_ckpt_dir(direction):
-        if ggn_checkpoint_every <= 0:
+        if multi_host or ggn_checkpoint_every <= 0:
             return None
         return Path(hessian_dir) / f"_ggn_steps_{direction}"
 
@@ -175,13 +227,16 @@ def main(
             factors[tag] = [F.to(device) for F in load_hessians(hessian_dir, tag)]
         else:
             print(f"Computing Hessian for {title} encoder...")
-            factors[tag] = kfac_ggn(
+            A, B = kfac_ggn(
                 head.logit_scale, head.logit_bias, la_num_classes, src, act, tgt,
                 likelihood, block_size=la_batch_size,
                 chunk_size_j=siglip_chunk_size_j, precision=ggn_precision,
-                progress=True, checkpoint_dir=ggn_ckpt_dir(tag),
+                mesh=mesh, progress=True, checkpoint_dir=ggn_ckpt_dir(tag),
                 checkpoint_every=ggn_checkpoint_every, device=device)
-            save_hessians(hessian_dir, *factors[tag], tag)
+            n_local = (len(src) // la_num_classes) * la_num_classes
+            factors[tag] = global_factors(A, B, n_local)
+            if primary:
+                save_hessians(hessian_dir, *factors[tag], tag)
         step_done(f"GGN {tag}")
 
     lambdas = {}
@@ -194,9 +249,10 @@ def main(
             encoder.projection_l2(), encoder.projection_num_params(),
             A=A, B=B, lmbda_init=lmbda_init, n=n, lr=lr, num_steps=num_steps))
         step_done(f"lambda {tag}")
-    save_prior_precision(hessian_dir, lambdas["img"], n_init_img, lambdas["txt"],
-                         n_init_txt)
-    print(json.dumps({"lambda_img": lambdas["img"], "lambda_txt": lambdas["txt"]}))
+    if primary:
+        save_prior_precision(hessian_dir, lambdas["img"], n_init_img, lambdas["txt"],
+                             n_init_txt)
+        print(json.dumps({"lambda_img": lambdas["img"], "lambda_txt": lambdas["txt"]}))
     return {"lambda_img": lambdas["img"], "lambda_txt": lambdas["txt"],
             "seconds": seconds}
 
@@ -232,9 +288,13 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--weights_dir", type=str, default=None,
                         help="an HF snapshot or the port's vision.pt / text.pt")
     parser.add_argument("--tokenizer_dir", type=str, default=None)
-    # accepted for the JAX CLI's flags; the port runs on one card
-    parser.add_argument("--no_mesh", action="store_true")
-    parser.add_argument("--dist_global_batch", action="store_true")
+    parser.add_argument("--no_mesh", action="store_true",
+                        help="one process, whatever the launch environment says")
+    parser.add_argument(
+        "--dist_global_batch", action="store_true",
+        help="several processes: gather every host's features and shard the "
+        "class batches over the ranks (the whole dataset's batch composition) "
+        "instead of per-host batches and a factor reduction")
     parser.add_argument("--ggn_precision", type=str, default="highest",
                         choices=["highest", "high"],
                         help="GGN products: 'highest' fp32, 'high' 3xTF32")

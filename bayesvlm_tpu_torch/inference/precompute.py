@@ -119,6 +119,26 @@ def encode_images_batched(image_encoder, images, batch_size: int) -> EncoderResu
     ])
 
 
+def image_cache_paths(cache_dir: PathLike) -> dict:
+    """The image feature cache's files under `cache_dir`, by field."""
+    cache_dir = Path(cache_dir)
+    return {"embeds": cache_dir / "embeddings_img.pt",
+            "activations": cache_dir / "activations_img.pt",
+            "residuals": cache_dir / "residuals_img.pt",
+            "class_ids": cache_dir / "class_ids_img.pt",
+            "image_ids": cache_dir / "image_ids.pt"}
+
+
+def save_image_features(cache_dir: PathLike, result: EncoderResult,
+                        class_ids: torch.Tensor, image_ids: torch.Tensor) -> None:
+    """Write features in the files `precompute_image_features` reads."""
+    Path(cache_dir).mkdir(parents=True, exist_ok=True)
+    t = {"embeds": result.embeds, "activations": result.activations,
+         "residuals": result.residuals, "class_ids": class_ids, "image_ids": image_ids}
+    for k, p in image_cache_paths(cache_dir).items():
+        _save(t[k], p)
+
+
 def precompute_image_features(
     image_encoder,
     loader: Iterable,
@@ -138,13 +158,7 @@ def precompute_image_features(
 
     if cache_dir is not None:
         cache_dir = Path(cache_dir)
-        paths = {
-            "embeds": cache_dir / "embeddings_img.pt",
-            "activations": cache_dir / "activations_img.pt",
-            "residuals": cache_dir / "residuals_img.pt",
-            "class_ids": cache_dir / "class_ids_img.pt",
-            "image_ids": cache_dir / "image_ids.pt",
-        }
+        paths = image_cache_paths(cache_dir)
         if all(p.exists() for p in paths.values()):
             t = {k: _load(p, device) for k, p in paths.items()}
             return (EncoderResult(t["embeds"], t["activations"], t["residuals"]),
@@ -181,12 +195,11 @@ def precompute_image_features(
             batches_since_flush = 0
 
     t = {k: acc.concat(k, device) for k in keys}
+    result = EncoderResult(t["embeds"], t["activations"], t["residuals"])
     if save_predictions and cache_dir is not None:
-        for k, p in paths.items():
-            _save(t[k], p)
+        save_image_features(cache_dir, result, t["class_ids"], t["image_ids"])
         acc.cleanup()
-    return (EncoderResult(t["embeds"], t["activations"], t["residuals"]),
-            t["class_ids"], t["image_ids"])
+    return result, t["class_ids"], t["image_ids"]
 
 
 def precompute_text_features(

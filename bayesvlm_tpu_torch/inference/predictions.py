@@ -8,7 +8,10 @@ the mean and variance are read from / written to `logits_mean.pt` and
 `logits_var.pt`, plain fp32 tensors in torch's zip format: the
 reference's files and the JAX package's, which each reads too. Eager
 torch needs no fixed-shape padding of the last batch.
-`make_predictions_sharded` (the JAX package's mesh path) is not ported.
+
+`make_predictions_sharded` splits the image rows over a mesh's ranks
+(the text replicated) and gathers the logits, so every rank holds all
+of them.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Optional, Union
 
 import torch
 
+from bayesvlm_tpu_torch.dist.mesh import all_gather_rows, local_rows
 from bayesvlm_tpu_torch.probforward.smith import ProbabilisticHead
 from bayesvlm_tpu_torch.types import EncoderResult, ProbabilisticLogits
 
@@ -52,3 +56,25 @@ def make_predictions(
         torch.save(logits.mean.detach().cpu().contiguous(), mean_path)
         torch.save(logits.var.detach().cpu().contiguous(), var_path)
     return logits
+
+
+def make_predictions_sharded(
+    head: ProbabilisticHead,
+    image_outputs: EncoderResult,
+    text_outputs: EncoderResult,
+    mesh,
+    batch_size: int = 2048,
+) -> ProbabilisticLogits:
+    """The probabilistic predictions with the image rows sharded over the
+    mesh's ranks: the rows padded to a multiple of the world size with the
+    last row repeated (as JAX pads them), each rank's block through the
+    Smith forward in batches of `batch_size`, the text replicated; the
+    logits gathered in rank order and the padding cut. Every rank takes
+    the full features and returns the full logits. With no mesh (None),
+    `make_predictions` on the whole set."""
+    n = len(image_outputs)
+    local = EncoderResult(*(local_rows(x, mesh, fill="edge")[0] for x in (
+        image_outputs.embeds, image_outputs.activations, image_outputs.residuals)))
+    logits = make_predictions(head, local, text_outputs, batch_size=batch_size)
+    return ProbabilisticLogits(mean=all_gather_rows(logits.mean, mesh)[:n],
+                               var=all_gather_rows(logits.var, mesh)[:n])

@@ -21,8 +21,10 @@ deterministic logits of the CE. The products are plain `torch.matmul`
 in fp32, as the JAX package computes them outside any Pallas kernel;
 the [N, C] scores are chunked over N.
 
-One device: a multi-device mesh (the JAX package's candidate rows sharded
-over its data axis) is not ported yet.
+EGL is per candidate row, so with a mesh of several ranks each chunk's
+candidate rows are sharded over the ranks (padded with ones and uniform
+probabilities, as JAX pads them), the text replicated, and the scores
+gathered.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from typing import Tuple
 
 import torch
 
+from bayesvlm_tpu_torch.dist.mesh import all_gather_rows, local_rows, resolve_auto_mesh
 from bayesvlm_tpu_torch.ops import topk_exact
 from bayesvlm_tpu_torch.types import EncoderResult, ProbabilisticLogits
 
@@ -73,12 +76,10 @@ def expected_gradient_length(
 
     `prob_logits` are the candidates' probabilistic logits; their probit
     softmax weighs the classes (ref:scripts/activelearning_elg.py:392,461).
-    `mesh`: "auto" and None score on one device (no mesh is resolved, as
-    the port's EPIG); an explicit mesh is refused."""
-    if mesh not in ("auto", None):
-        raise NotImplementedError(
-            "not ported yet (ROADMAP Queue 1 item 8): expected_gradient_length "
-            "over a device mesh; pass mesh=None or 'auto' to score on one device")
+    `mesh`: each chunk's candidate rows sharded over a mesh's ranks
+    ("auto": the world mesh when a group of more than one rank is
+    initialised; None: one device)."""
+    mesh = resolve_auto_mesh(mesh)
     dev = image_outputs.embeds.device
     f32 = dict(device=dev, dtype=torch.float32)
     Y = text_outputs.embeds.to(**f32)
@@ -86,13 +87,20 @@ def expected_gradient_length(
     probs = prob_logits.probit_softmax().to(**f32)
     s = torch.as_tensor(logit_scale, **f32)
     b = torch.as_tensor(logit_bias, **f32)
+
+    def score_rows(emb, act, prb):
+        # no mesh: this device's block is every row, the gather a no-op
+        local = (local_rows(emb, mesh)[0], local_rows(act, mesh)[0],
+                 local_rows(prb, mesh, fill=1.0 / prb.shape[-1])[0])
+        scores = _egl_chunk(*local, Yn, s, b, proj_has_bias)
+        return all_gather_rows(scores, mesh)[:emb.shape[0]]
+
     N = len(image_outputs)
     out = []
     for start in range(0, N, chunk_size):
         sl = slice(start, min(start + chunk_size, N))
-        out.append(_egl_chunk(image_outputs.embeds[sl].to(**f32),
-                              image_outputs.activations[sl].to(**f32),
-                              probs[sl], Yn, s, b, proj_has_bias))
+        out.append(score_rows(image_outputs.embeds[sl].to(**f32),
+                              image_outputs.activations[sl].to(**f32), probs[sl]))
     return torch.cat(out, dim=0)
 
 

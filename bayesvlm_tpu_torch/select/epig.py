@@ -14,8 +14,11 @@ run the probabilistic forward, the EPIG scores, one SGD step on the
 image projection, the online Hessian update, the 20-step lambda
 re-optimization and the covariance refresh.
 
-Not ported yet: meshes and `epig_from_probs_sharded` (pool rows sharded
-over devices).
+With a mesh of several ranks (dist/mesh.py) each step's pool rows are
+scored sharded (`epig_from_probs_sharded`): each rank takes the joint row
+sums of its block of the rows, and the row sums are gathered. EPIG is
+per pool row (the targets enter through replicated reductions), so the
+scores are those of one device.
 """
 
 from __future__ import annotations
@@ -29,13 +32,19 @@ import torch
 from bayesvlm_tpu_torch.bayes.hessians import hessian_infonce
 from bayesvlm_tpu_torch.bayes.kfac import compute_covariances
 from bayesvlm_tpu_torch.bayes.prior import optimize_prior_precision
+from bayesvlm_tpu_torch.dist.mesh import all_gather_rows, local_rows, resolve_auto_mesh
 from bayesvlm_tpu_torch.probforward.smith import (
     ProbabilisticHead,
     _highest_fp32_matmul,
     activation_diag_covariance,
 )
 from bayesvlm_tpu_torch.select import draws
-from bayesvlm_tpu_torch.select.epig_joint import epig_from_probs_fused
+from bayesvlm_tpu_torch.select.epig_joint import (
+    _flatten,
+    epig_from_probs_fused,
+    joint_xlogy_rowsums,
+    scores_from_rowsums,
+)
 from bayesvlm_tpu_torch.select.knn import expected_cosine_similarity, wdist2
 from bayesvlm_tpu_torch.types import EncoderResult, ProbabilisticLogits
 
@@ -62,20 +71,43 @@ def epig_from_probs_using_matmul(probs_pool: torch.Tensor,
     return epig_from_probs_fused(probs_pool, probs_targ)
 
 
+def epig_from_probs_sharded(probs_pool: torch.Tensor, probs_targ: torch.Tensor,
+                            mesh) -> torch.Tensor:
+    """EPIG scores [N_p] with the pool rows sharded over a mesh's ranks:
+    the pool padded with uniform rows (1 / C) to a multiple of the world
+    size, each rank's block of rows through the joint row sums (the
+    kernel on the card: the whole [N_p*C, N_t*C] joint's work), the row
+    sums gathered in rank order and the padding cut; the entropies, a
+    pass over the probabilities, are computed whole on every rank. So a
+    score takes the operations of the one-device call on the same shapes,
+    and a row's joint sum is the kernel's for that row wherever it lies.
+    Every rank takes the same full inputs and returns the full scores.
+    With no mesh (None) it is `epig_from_probs_using_matmul`, the same
+    operations on the same rows."""
+    n, K, C = probs_pool.shape
+    local, _ = local_rows(probs_pool, mesh, fill=1.0 / C)
+    pool_flat, targ_flat = _flatten(probs_pool), _flatten(probs_targ)
+    rows = joint_xlogy_rowsums(_flatten(local), targ_flat, K).reshape(-1, C)
+    rowsums = all_gather_rows(rows, mesh)[:n].reshape(-1)
+    return scores_from_rowsums(pool_flat, targ_flat, rowsums, n, probs_targ.shape[0], C)
+
+
 def epig_from_logits_using_matmul(logits_pool: ProbabilisticLogits,
                                   logits_targ: ProbabilisticLogits, seed: int,
-                                  num_samples: int,
-                                  chunk_size: int = 4096) -> torch.Tensor:
+                                  num_samples: int, chunk_size: int = 4096,
+                                  mesh=None) -> torch.Tensor:
     """Chunked-over-pool EPIG from logit distributions
     (ref:bayesvlm/epig.py:313-340): chunk i draws the targets' and its
-    pool rows' samples with seed + i."""
+    pool rows' samples with seed + i. With `mesh`, each chunk's scores
+    are computed pool-row-sharded (the samples are drawn whole on every
+    rank, so the chunks and seeds are those of one device)."""
     N_p = logits_pool.mean.shape[0]
     scores = []
     for i in range(0, N_p, chunk_size):
         probs_targ = logits_targ.sample_probas(num_samples, seed=seed + i)
         chunk = logits_pool[i:min(i + chunk_size, N_p)]
         probs_pool = chunk.sample_probas(num_samples, seed=seed + i)
-        scores.append(epig_from_probs_using_matmul(probs_pool, probs_targ))
+        scores.append(epig_from_probs_sharded(probs_pool, probs_targ, mesh))
     return torch.cat(scores, dim=0)
 
 
@@ -158,6 +190,7 @@ def select_epig_online(
     k_nearest_neighbors: int = 1,
     proj_has_bias: bool = False,
     hessian_n0: int = 327_680,
+    mesh="auto",
     device: Union[str, torch.device] = "cuda",
 ):
     """Online EPIG active learning (ref:bayesvlm/epig.py:44-273).
@@ -172,7 +205,13 @@ def select_epig_online(
     stream 0 for the first subsample drawn (the targets when they are
     cut, else the pool), stream 1 for the pool after cut targets. It
     draws other permutations than the JAX package's keys.
+
+    `mesh`: the mesh each step's scores are sharded over
+    (`epig_from_probs_sharded`); "auto" (the default) is the world mesh
+    when a process group of more than one rank is initialised, None one
+    device.
     """
+    mesh = resolve_auto_mesh(mesh)
     device = torch.device(device)
 
     def dev(x):
@@ -247,7 +286,7 @@ def select_epig_online(
 
         epig = epig_from_logits_using_matmul(
             logits_pool, logits_targ, num_samples=num_samples,
-            chunk_size=chunk_size, seed=seed + i)
+            chunk_size=chunk_size, seed=seed + i, mesh=mesh)
         # a stable ascending sort, reversed, as the JAX package's order
         order = torch.argsort(epig, stable=True).cpu().numpy()[::-1]
         best = None

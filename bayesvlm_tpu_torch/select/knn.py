@@ -9,8 +9,13 @@ Two similarity notions between probabilistic embeddings:
 The [N_test, N_train] similarities and their top-k stay on the device
 (`ops.topk_exact`, the JAX package's tie order); the grow-k'-until-
 enough-unique-train-indices dedup loop runs on the host
-(data-dependent, ref:bayesvlm/knn.py:93-111). The mesh path (train
-columns sharded over devices) is not ported: `mesh` takes None only.
+(data-dependent, ref:bayesvlm/knn.py:93-111). With a mesh of several
+ranks the train columns are sharded over the ranks (`_sims_topk_sharded`):
+every rank holds the same result, and it is one device's up to the
+rounding of the similarity GEMM, whose bits depend on the width of a
+rank's column block. Exact ties keep one device's order, but two
+similarities that one device rounds apart may round otherwise on a
+rank, so a near-tie can pick other ids than a one-device run.
 """
 
 from __future__ import annotations
@@ -24,6 +29,13 @@ from bayesvlm_tpu_torch.ops import to_numpy as _host
 from bayesvlm_tpu_torch.ops import topk_exact
 
 from bayesvlm_tpu_torch.bayes.kfac import KroneckerFactorizedCovariance
+from bayesvlm_tpu_torch.dist.mesh import (
+    all_gather_rows,
+    local_rows,
+    mesh_size,
+    resolve_auto_mesh,
+    row_block,
+)
 from bayesvlm_tpu_torch.probforward.smith import (
     _highest_fp32_matmul,
     activation_diag_covariance,
@@ -63,11 +75,38 @@ def expected_cosine_similarity(test: EncoderResult, train: EncoderResult,
         return (test.embeds / torch.sqrt(E_test)) @ (train.embeds / torch.sqrt(E_train)).T
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "not ported yet: a mesh for the kNN search (train columns "
-            "sharded over devices); pass mesh=None")
+def _sims_topk_sharded(sims_fn, train: EncoderResult, k_cap: int, mesh):
+    """The [N_test, N_train] similarities' top-k_cap with the TRAIN rows
+    sharded over the mesh's ranks (JAX's `_sims_topk_sharded`): each rank
+    takes `ops.topk_exact` of its local columns (pad columns, zero rows
+    past n_train, masked to -inf by global id), the k_cap candidates of
+    every rank are gathered in rank order, which is global column order,
+    and a second stable top-k picks the result, so ties resolve as in the
+    dense top-k (for the values the ranks computed: these may differ from
+    one device's by the GEMM's rounding, see the module docstring). A pad
+    column can never surface: rank 0 alone brings k_cap real columns
+    ahead of every pad (pads lie at the tail of the last rank's block),
+    and both stages keep ties in index order. NaN similarities are
+    unspecified, as in the dense top-k. The dense top-k with no mesh
+    (None), one rank, or a rank's width under k_cap. Returns (values,
+    global ids), replicated. `sims_fn(train_rows)` computes row-wise
+    similarity columns."""
+    n_dev, n_train = mesh_size(mesh), len(train)
+    gid0, width = row_block(n_train, mesh)
+    if n_dev < 2 or width < k_cap:
+        return topk_exact(sims_fn(train), k_cap)
+    local = EncoderResult(*(local_rows(x, mesh, fill=0.0)[0] for x in (
+        train.embeds, train.activations, train.residuals)))
+    sims = sims_fn(local)                                        # [N_t, width]
+    gid = gid0 + torch.arange(width, device=sims.device)
+    sims = torch.where(gid[None, :] < n_train, sims, -torch.inf)
+    v, i = topk_exact(sims, k_cap)
+    n_t = v.shape[0]
+    # [n_dev * N_t, k] in rank order -> [N_t, n_dev * k] in global column order
+    vg = all_gather_rows(v, mesh).reshape(n_dev, n_t, k_cap).transpose(0, 1)
+    gg = all_gather_rows(i + gid0, mesh).reshape(n_dev, n_t, k_cap).transpose(0, 1)
+    v2, i2 = topk_exact(vg.reshape(n_t, n_dev * k_cap), k_cap)
+    return v2, torch.take_along_dim(gg.reshape(n_t, n_dev * k_cap), i2, dim=1)
 
 
 def _dedup_loop(topk_idx: np.ndarray, topk_val: np.ndarray, k_nearest: int,
@@ -111,10 +150,10 @@ def _collect(topk_idx, topk_val, k_, keep, indices_test, values_test) -> Ordered
     return out
 
 
-def _find(sims: torch.Tensor, indices_test, values_test, k_nearest: int,
-          buffersize: int) -> OrderedDict:
-    k_cap = min(k_nearest + buffersize, sims.shape[1])
-    vals, ids = topk_exact(sims, k_cap)
+def _find(sims_fn, train: EncoderResult, indices_test, values_test, k_nearest: int,
+          buffersize: int, mesh) -> OrderedDict:
+    k_cap = min(k_nearest + buffersize, len(train))
+    vals, ids = _sims_topk_sharded(sims_fn, train, k_cap, resolve_auto_mesh(mesh))
     ids_np, vals_np = _host(ids), _host(vals)
     indices_test = _host(indices_test)
     k_, keep = _dedup_loop(ids_np, vals_np, k_nearest, len(indices_test))
@@ -125,30 +164,36 @@ def find_similar_samples_cosine(train: EncoderResult, test: EncoderResult,
                                 indices_test, values_test, k_nearest: int,
                                 source_covariance: KroneckerFactorizedCovariance,
                                 buffersize: int = 150, has_bias: bool = False,
-                                mesh=None) -> OrderedDict:
+                                mesh="auto") -> OrderedDict:
     """ref:bayesvlm/knn.py:39-137: {test index: {score, indices,
-    similarities}} in the order of `indices_test`."""
-    _refuse_mesh(mesh)
+    similarities}} in the order of `indices_test`. `mesh`: shard the
+    train pool's similarity columns over a mesh's ranks ("auto": the world
+    mesh when a group of more than one rank is initialised; replicated on
+    every rank, one device's up to the GEMM's rounding, see
+    `_sims_topk_sharded`)."""
     test_sub = test[torch.as_tensor(_host(indices_test), device=test.embeds.device)]
-    sims = expected_cosine_similarity(
-        test_sub, train, source_covariance.A_inv,
-        torch.diagonal(source_covariance.B_inv), has_bias=has_bias)
-    return _find(sims, indices_test, values_test, k_nearest, buffersize)
+    A_inv, B_diag = source_covariance.A_inv, torch.diagonal(source_covariance.B_inv)
+    return _find(lambda tr: expected_cosine_similarity(test_sub, tr, A_inv, B_diag,
+                                                       has_bias=has_bias),
+                 train, indices_test, values_test, k_nearest, buffersize, mesh)
 
 
 def find_similar_samples_wasserstein(train: EncoderResult, test: EncoderResult,
                                      indices_test, values_test, k_nearest: int,
                                      source_covariance: KroneckerFactorizedCovariance,
                                      buffersize: int = 150, has_bias: bool = False,
-                                     mesh=None) -> OrderedDict:
-    """ref:bayesvlm/knn.py:139-220, the similarity -wdist2."""
-    _refuse_mesh(mesh)
+                                     mesh="auto") -> OrderedDict:
+    """ref:bayesvlm/knn.py:139-220, the similarity -wdist2. `mesh`: as
+    in find_similar_samples_cosine."""
     test_sub = test[torch.as_tensor(_host(indices_test), device=test.embeds.device)]
     cov = source_covariance
     test_diag = activation_diag_covariance(test_sub.activations, cov, has_bias)
-    train_diag = activation_diag_covariance(train.activations, cov, has_bias)
-    sims = -wdist2(test_sub.embeds, train.embeds, test_diag, train_diag)
-    return _find(sims, indices_test, values_test, k_nearest, buffersize)
+
+    def sims_fn(tr):
+        tr_diag = activation_diag_covariance(tr.activations, cov, has_bias)
+        return -wdist2(test_sub.embeds, tr.embeds, test_diag, tr_diag)
+
+    return _find(sims_fn, train, indices_test, values_test, k_nearest, buffersize, mesh)
 
 
 def extract_test_train_indices(text_idx_to_train_data) -> dict:

@@ -10,15 +10,20 @@ then the covariances; [2] precompute the test images' and the class
 prompts' features; [3] probabilistic predictions, then the probit
 softmax; [4] ACC / NLPD / ECE (20-bin L1).
 
-Runs on the card unless `--device` names another. One card: `--no_mesh`
-is accepted for the JAX CLI's flags and changes nothing (the mesh path
-is not ported). `--weights_dir` is an HF snapshot directory or the port's
-converted `vision.pt` / `text.pt` (`convert_weights`, models/bridge.py),
-or none for seeded random towers; `--tokenizer_dir` a local HF tokenizer
-(needs `transformers`), else the deterministic `HashTokenizer`. The
-datasets are read from `DATA_BASE_DIR` (data/factory.py). A name outside
-`SUPPORTED_DATASETS`, the JAX CLI's list, is refused before anything is
-loaded, as the JAX CLI refuses it.
+Runs on the card unless `--device` names another. Several processes, one
+a card (`COORDINATOR_ADDRESS`, `NUM_PROCESSES`, `PROCESS_ID`, or a
+process group the caller initialised; dist/init.py): each rank encodes
+its stripe of the test batches, the features are gathered, the
+predictions run with the image rows sharded over the ranks
+(`make_predictions_sharded`), and rank 0 prints the metrics; every rank
+returns them. `--no_mesh` runs one process. `--weights_dir` is an HF
+snapshot directory or the port's converted `vision.pt` / `text.pt`
+(`convert_weights`, models/bridge.py), or none for seeded random towers;
+`--tokenizer_dir` a local HF tokenizer (needs `transformers`), else the
+deterministic `HashTokenizer`. The datasets are read from
+`DATA_BASE_DIR` (data/factory.py). A name outside `SUPPORTED_DATASETS`,
+the JAX CLI's list, is refused before anything is loaded, as the JAX CLI
+refuses it.
 """
 
 from __future__ import annotations
@@ -77,14 +82,21 @@ def run(
         precompute_image_features,
         precompute_text_features,
     )
-    from bayesvlm_tpu_torch.inference.predictions import make_predictions
+    from bayesvlm_tpu_torch.dist.init import initialize_distributed
+    from bayesvlm_tpu_torch.inference.predictions import make_predictions_sharded
     from bayesvlm_tpu_torch.io.artifacts import load_hessians
     from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
     from bayesvlm_tpu_torch.models.encoders import load_model
     from bayesvlm_tpu_torch.utils import get_image_size
 
-    del use_mesh  # one card: the mesh path is not ported
-    device = torch.device(device)
+    # several ranks: the test images striped over them, the predictions
+    # sharded (JAX: batch-sharded inference over the data mesh)
+    ctx = initialize_distributed(device=device) if use_mesh else None
+    mesh = ctx.mesh if ctx is not None and ctx.num_hosts > 1 else None
+    primary = ctx is None or ctx.is_primary
+    device = ctx.device if mesh is not None else torch.device(device)
+    if mesh is not None:
+        print(f"[mesh] batch-sharded inference over {tuple(mesh.shape)}")
 
     def sync():
         if device.type == "cuda":
@@ -140,9 +152,15 @@ def run(
 
     t0 = time.perf_counter()
     print("[2] Precomputing features...")
-    image_outputs, class_ids, _ = precompute_image_features(
-        image_encoder, dm.test_dataloader()
-    )
+    if mesh is None:
+        image_outputs, class_ids, _ = precompute_image_features(
+            image_encoder, dm.test_dataloader()
+        )
+    else:
+        from bayesvlm_tpu_torch.train.al_common import encode_striped
+
+        image_outputs, class_ids, _ = encode_striped(image_encoder,
+                                                     dm.test_dataloader(), ctx)
     sync()
     seconds["[2] image features"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -154,9 +172,8 @@ def run(
 
     t0 = time.perf_counter()
     print("[3] Making predictions...")
-    prob_logits = make_predictions(
-        head, image_outputs, label_outputs, batch_size=batch_size
-    )
+    prob_logits = make_predictions_sharded(
+        head, image_outputs, label_outputs, mesh, batch_size=batch_size)
 
     # probit approximation (ref:zeroshot.py:119-120)
     kappa = 1.0 / torch.sqrt(1.0 + math.pi / 8 * prob_logits.var)
@@ -168,10 +185,11 @@ def run(
     print("[4] Evaluate model ...")
     acc, nlpd, ece = evaluate_prediction(pred, class_ids, num_classes=len(dm.class_prompts))
     acc, nlpd = acc.cpu().numpy(), nlpd.cpu().numpy()
-    print(f"Zero shot CLIP on {dataset}")
-    print(f"ACC: {float(np.mean(acc))}, {float(np.std(acc))}")
-    print(f"NLPD: {float(np.mean(nlpd))}, {float(np.std(nlpd))}")
-    print(f"ECE: {ece}")
+    if primary:
+        print(f"Zero shot CLIP on {dataset}")
+        print(f"ACC: {float(np.mean(acc))}, {float(np.std(acc))}")
+        print(f"NLPD: {float(np.mean(nlpd))}, {float(np.std(nlpd))}")
+        print(f"ECE: {ece}")
     seconds["[4] metrics"] = time.perf_counter() - t0
     return dict(metrics=(float(np.mean(acc)), float(np.mean(nlpd)), ece),
                 info=info, head=head, image_outputs=image_outputs,
@@ -202,8 +220,8 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--weights_dir", type=str, default=None)
     parser.add_argument("--tokenizer_dir", type=str, default=None)
     parser.add_argument("--dtype", type=str, default="bf16", choices=["bf16", "fp32"])
-    # accepted for the JAX CLI's flags; the port runs on one card
-    parser.add_argument("--no_mesh", action="store_true")
+    parser.add_argument("--no_mesh", action="store_true",
+                        help="one process, whatever the launch environment says")
     parser.add_argument("--mlp_int8", action="store_true")
     parser.add_argument("--attn_int8", action="store_true")
     return parser

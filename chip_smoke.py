@@ -252,6 +252,28 @@ Phases (any failure raises and exits non-zero, without the result line):
      call of the same function where there is one: torch.baddbmm (fp32
      out) for qk, torch.mm (fp32 out) for the bf16 GEMM, torch._int_mm
      for s8), with every count set to 0 just before and read just after;
+  12. (last, after 6c: its child processes leave nothing in this
+     process) distribution (dist/) in child processes started as
+     `chip_smoke.py --dist-worker nccl|gloo <spec>`: (a) NCCL at world
+     size 1 through initialize_distributed's tcp://127.0.0.1 rendezvous
+     (NCCL_SOCKET_IFNAME=lo): kfac_ggn(mesh=world) and the sharded GGN
+     (its all_reduce) at 8192 pairs against one device's kfac_ggn, A and
+     B within 1e-4 of their largest entry; epig_from_probs_sharded (its
+     all_gather) at 4000 x 2000 against the dense scores, #8 counted;
+     (b) two gloo ranks on cuda:0 (NCCL takes one rank a card, so this
+     checks the multi-rank logic), joined through COORDINATOR_ADDRESS /
+     NUM_PROCESSES / PROCESS_ID: each rank encodes its stripe of 2048
+     synthetic pairs into its per-host caches (#1 counted a rank), then
+     the Stage-1 CLI in both modes (empty tars name the shards; the
+     caches make it skip its feature pass), its factors against a replay
+     on the card (per host: one device's kfac_ggn on each shard and the
+     allreduce arithmetic in float64; --dist_global_batch: float64, at 4x
+     one device's own fp32 error), rank 1 writing nothing;
+     select_epig_online over the world mesh equal to mesh=None (#8 a
+     rank); the activelearning CLI in 8d's configuration, its indices
+     and test metrics equal to 8d's main run, its files outside
+     `_replica_host1` 8d's, rank 1's only its fine-tune logs there;
+     each step's seconds a rank and the phase's;
   11. prints the kernels line (the attention and probe entries with the
      body they launched, their shared memory, registers and blocks an
      SM), then the result line {"ok": true, "device": {...}} last.
@@ -413,6 +435,19 @@ GGN_PARTS = (("GEMM", r"gemm|xmma|cutlass|Kernel2"), ("softmax", r"softmax"),
              ("reductions", r"reduce"))
 # EPIG past the resident block's shared memory: the streamed instantiation
 EPIG_LONG_POOL, EPIG_LONG_TARG, EPIG_LONG_K = 1000, 500, 400
+# the dist phase (12): Stage 1 on two ranks at S1_MODEL's widths, DIST_S1_PAIRS
+# synthetic pairs striped over the ranks by batch, class batches of
+# DIST_S1_CLASSES (two a rank, four when gathered), DIST_S1_LAMBDA_STEPS
+# lambda steps; each child's time limit
+DIST_S1_PAIRS, DIST_S1_CLASSES, DIST_S1_LAMBDA_STEPS = 2048, 512, 50
+DIST_TIMEOUT_S = 420
+# a factor against its replay, and (a)'s sharded factors against one
+# device's: 1e-4 of the largest entry (B at CLIP's scale is a difference of
+# terms ~1e4 times larger than itself)
+DIST_FACTOR_TOL = 1e-4
+# the AL subsets' kNN similarities against one device's (the indices are
+# held equal)
+DIST_SIM_RTOL = 1e-4
 # the probes of scripts/dev/, each run through its module's run and report
 PROBES = ("bench_attn_variants", "bench_attn_variants2", "bench_attn_variants3",
           "bench_split_attn", "probe_packed_heads", "bench_int8_mxu", "bench_int8_sweep",
@@ -812,29 +847,35 @@ BLOCK_PARTS = (("QKV (wgmma_gemm_kernel, EpiBias<false>)", r"EpiBias<false>"),
                ("attention core (mha_mma_kernel)", r"mha_mma_kernel|mha_kernel"))
 
 
-def _launch_parts(torch, fn, table=INT8_PARTS, calls: int = 5) -> dict:
+def _launch_parts(torch, fn, table=INT8_PARTS, calls: int = 5,
+                  sessions: int = 3) -> dict:
     """Each launch of a kernel call timed apart: torch.profiler over
     `calls` calls, device ms a call by `table` (anything else under
-    "other")."""
+    "other"). A profiler session now and then records no device event
+    at all; such a session is taken again, up to `sessions` in all."""
     import re
 
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    parts: dict = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        us = e.self_cuda_time_total if us is None else us
-        label = next((lb for lb, pat in table if re.search(pat, e.key)), "other")
-        parts[label] = parts.get(label, 0.0) + us / 1e3 / calls
-    check(sum(parts.values()) > 0, "the profiler recorded no device time for a kernel call")
-    return parts
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        parts: dict = {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            label = next((lb for lb, pat in table if re.search(pat, e.key)), "other")
+            parts[label] = parts.get(label, 0.0) + us / 1e3 / calls
+        if sum(parts.values()) > 0:
+            return parts
+        print("  torch.profiler recorded no device time; session taken again")
+    check(False, f"the profiler recorded no device time for a kernel call in "
+                 f"{sessions} sessions")
 
 
 def _print_parts(label: str, parts: dict) -> None:
@@ -2766,6 +2807,13 @@ def phase_active_learning(torch, counters, hessian_dir: str) -> dict:
                 _al_checks(torch, f"active learning {label}", run, encoder, strategies)
             out[label] = dict(launches=launches, seconds=run["seconds"], wall_s=wall,
                               strategy_seconds=run["strategy_seconds"])
+            if label == "main":
+                # the dist phase's two-rank run is held to these
+                out[label].update(
+                    subsets=json.loads(json.dumps(run["subsets"])),
+                    results=json.loads(json.dumps(run["results"])),
+                    files=sorted(str(f.relative_to(exp)) for f in Path(exp).rglob("*")
+                                 if f.is_file()))
     n_test = AL_SPLITS["num_test"]
     check(llm.calls == 2 * n_test, f"the stub LLM took {llm.calls} calls, not {2 * n_test}")
     main = out["main"]
@@ -3147,6 +3195,557 @@ def phase_probes(torch, counters) -> dict:
     return {"launches": launches, "results": results}
 
 
+# 12: distribution (dist/), run last in child processes: (a) NCCL at world
+# size 1, (b) two gloo ranks on cuda:0 (NCCL takes one rank a card)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _counted(counters) -> dict:
+    return {n: c.launches for n, c in counters.items()}
+
+
+def _dist_counters():
+    from bayesvlm_tpu_torch.models import attention
+    from bayesvlm_tpu_torch.select import epig_joint
+
+    return {"attention": attention.fused_attention,
+            "xlogy_rowsum": epig_joint.joint_xlogy_rowsums}
+
+
+def _rel_err(torch, got, ref) -> float:
+    return float((got.double() - ref.double()).abs().max() / ref.double().abs().max())
+
+
+def _dist_nccl(torch, spec: dict) -> dict:
+    """(a): the NCCL backend at world size 1 through initialize_distributed's
+    tcp:// rendezvous: kfac_ggn(mesh=world) and the sharded GGN (its
+    all_reduce over NCCL) at the Stage-1 phase's shapes against one
+    device's kfac_ggn; epig_from_probs_sharded (its all_gather) at
+    EPIG_POOL x EPIG_TARG against the dense scores."""
+    import torch.distributed as dist
+
+    from bayesvlm_tpu_torch.bayes import estimation
+    from bayesvlm_tpu_torch.dist import hessian_allreduce as sharded
+    from bayesvlm_tpu_torch.dist.init import initialize_distributed
+    from bayesvlm_tpu_torch.select import epig as epig_mod
+
+    out, steps = {}, {}
+    clock = [time.perf_counter()]
+
+    def step(name):
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - clock[0]
+        clock[0] = time.perf_counter()
+
+    ctx = initialize_distributed(coordinator_address=f"127.0.0.1:{spec['port']}",
+                                 num_processes=1, process_id=0, device="cuda")
+    try:
+        out["backend"] = dist.get_backend()
+        out["world"] = ctx.num_hosts
+        step("init")
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+        N, D, P = S1_PAIRS, 768, 1024  # clip-large: embeddings, activations
+        src, tgt = (torch.randn(N, D, generator=gen, device="cuda") for _ in range(2))
+        act = torch.randn(N, P, generator=gen, device="cuda")
+        scale = 4.6052
+        A1, B1 = estimation.kfac_ggn(scale, 0.0, N, src, act, tgt, "info_nce",
+                                     block_size=S1_LA_BATCH, device="cuda")
+        step("kfac_ggn one device")
+        Aw, Bw = estimation.kfac_ggn(scale, 0.0, N, src, act, tgt, "info_nce",
+                                     block_size=S1_LA_BATCH, mesh=ctx.mesh,
+                                     device="cuda")
+        step("kfac_ggn(mesh=world)")
+        root = math.sqrt(N)
+        Bs = sharded.sharded_hessian_infonce(src, tgt, scale, ctx.mesh,
+                                             block_size=S1_LA_BATCH) / root
+        As = sharded.sharded_activation_gram(act, ctx.mesh) / root
+        step("sharded GGN (NCCL all_reduce)")
+        out["ggn"] = {"A_world": _rel_err(torch, Aw, A1), "B_world": _rel_err(torch, Bw, B1),
+                      "A_sharded": _rel_err(torch, As, A1),
+                      "B_sharded": _rel_err(torch, Bs, B1)}
+        del src, tgt, act
+        gen.manual_seed(SEED + 21)
+        pool = torch.softmax(torch.randn(EPIG_POOL, EPIG_K, EPIG_C, generator=gen,
+                                         device="cuda"), -1)
+        targ = torch.softmax(torch.randn(EPIG_TARG, EPIG_K, EPIG_C, generator=gen,
+                                         device="cuda"), -1)
+        counters = _dist_counters()
+        for c in counters.values():
+            c.launches = 0
+        dense = epig_mod.epig_from_probs_using_matmul(pool, targ)
+        step("EPIG dense")
+        launches_dense = _counted(counters)
+        sharded_scores = epig_mod.epig_from_probs_sharded(pool, targ, ctx.mesh)
+        step("EPIG sharded (NCCL all_gather)")
+        out["epig"] = {"bit_equal": bool(torch.equal(sharded_scores, dense)),
+                       "max_abs_diff": float((sharded_scores - dense).abs().max()),
+                       "max_abs_score": float(dense.abs().max()),
+                       "launches_dense": launches_dense,
+                       "launches": {n: _counted(counters)[n] - launches_dense[n]
+                                    for n in counters}}
+    finally:
+        dist.destroy_process_group()
+    out["steps"] = steps
+    return out
+
+
+def _record_writes() -> list:
+    """The factor and prior-precision writes of this process, in order."""
+    from bayesvlm_tpu_torch.io import artifacts
+
+    writes = []
+    for name in ("save_hessians", "save_prior_precision"):
+        fn = getattr(artifacts, name)
+        setattr(artifacts, name, lambda *a, _fn=fn, _n=name, **k: (writes.append(_n),
+                                                                   _fn(*a, **k))[1])
+    return writes
+
+
+def _dist_stage1(torch, ctx, spec: dict, counters, step) -> dict:
+    """(b) Stage 1: this rank's stripe of DIST_S1_PAIRS synthetic pairs
+    encoded on the card into its per-host caches (#1 counted), then the
+    Stage-1 CLI in both modes on LAION-style tar names (one tar a rank; the
+    caches make the CLI skip its feature pass, as its file-gated resume
+    does), then (rank 0) the factors against a replay on the card: kfac_ggn
+    on each rank's shard and the allreduce_factors arithmetic in float64,
+    or kfac_ggn on the gathered rows."""
+    import contextlib
+    import io
+    import shutil
+
+    import torch.distributed as dist
+
+    from bayesvlm_tpu_torch import hessian_estimation
+    from bayesvlm_tpu_torch.bayes.estimation import kfac_ggn
+    from bayesvlm_tpu_torch.bayes.hessians import _hessian_infonce
+    from bayesvlm_tpu_torch.data.factory import DataModuleFactory
+    from bayesvlm_tpu_torch.data.tokenizer import make_tokenizer
+    from bayesvlm_tpu_torch.data.transforms import get_transform
+    from bayesvlm_tpu_torch.inference.precompute import compute_features
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+    from bayesvlm_tpu_torch.models.encoders import load_model
+    from bayesvlm_tpu_torch.train.al_common import _stripe_batches
+    from bayesvlm_tpu_torch.utils import get_image_size
+
+    r, H = ctx.host_id, ctx.num_hosts
+    out = {}
+    config = CONFIGS_BY_NAME[S1_MODEL]
+    img_enc, txt_enc, head = load_model(S1_MODEL, dtype=torch.bfloat16, device=ctx.device)
+    txt_enc.tokenizer = make_tokenizer(config.text, None)
+    transform = get_transform(config.family, get_image_size(S1_MODEL))
+    dm = DataModuleFactory(batch_size=S1_BATCH, num_workers=8, shuffle_train=False,
+                           train_transform=transform, test_transform=transform).create(
+        "synthetic", image_size=S1_IMAGE_SIZE, num_test=DIST_S1_PAIRS,
+        num_classes=DIST_S1_PAIRS)
+    dm.setup()
+    feats = Path(spec["work"]) / "features"
+    for c in counters.values():
+        c.launches = 0
+    for tag, enc, modality in (("img", img_enc, "image"), ("txt", txt_enc, "text")):
+        compute_features(enc, _stripe_batches(dm.test_dataloader(), r, H, []),
+                         tag=f"{tag}_host{r}", cache_dir=feats, modality=modality)
+    out["feature_launches"] = _counted(counters)
+    del img_enc, txt_enc
+    step("stage1 feature pass (this rank's stripe)")
+    writes = _record_writes()
+    modes = {"per_host": False, "global_batch": True}
+    for mode, global_batch in modes.items():
+        hdir = Path(spec["work"]) / f"stage1_{mode}"
+        hdir.mkdir(parents=True, exist_ok=True)
+        for name in ("activations", "embeddings"):
+            for tag in ("img", "txt"):
+                shutil.copy(feats / f"{name}_{tag}_host{r}.pt", hdir)
+        for c in counters.values():
+            c.launches = 0
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            run = hessian_estimation.main(
+                dataset="laion400m", model_str=S1_MODEL, precompute_batch_size=S1_BATCH,
+                la_num_classes=DIST_S1_CLASSES, la_batch_size=S1_LA_BATCH,
+                num_workers=0, hessian_dir=str(hdir), num_steps=DIST_S1_LAMBDA_STEPS,
+                device="cuda", dist_global_batch=global_batch)
+        out[mode] = {"launches": _counted(counters), "printed": printed.getvalue(),
+                     "lambdas": [run["lambda_img"], run["lambda_txt"]],
+                     "seconds": run["seconds"]}
+        step(f"stage1 CLI {mode}")
+    out["writes"] = writes
+    dist.barrier()
+    if r == 0:
+        load = lambda p: torch.load(p, map_location=ctx.device, weights_only=True)
+        scale = torch.as_tensor(head.logit_scale, device=ctx.device)
+        C = DIST_S1_CLASSES
+
+        def factors64(emb, act, tgt):
+            """kfac_ggn's sums in float64 (the GGN's formula in the
+            operands' dtype), divided by sqrt(n)."""
+            n = (len(emb) // C) * C
+            A = sum(act[i:i + C].double().T @ act[i:i + C].double()
+                    for i in range(0, n, C))
+            B = sum(_hessian_infonce(emb[i:i + C].double(), tgt[i:i + C].double(),
+                                     scale.double(), S1_LA_BATCH) for i in range(0, n, C))
+            return A / math.sqrt(n), B / math.sqrt(n), n
+
+        for mode, global_batch in modes.items():
+            hdir = Path(spec["work"]) / f"stage1_{mode}"
+            errs = {}
+            for tag, other in (("img", "txt"), ("txt", "img")):
+                shards = [[load(hdir / f"{n}_host{h}.pt") for n in (
+                    f"embeddings_{tag}", f"activations_{tag}", f"embeddings_{other}")]
+                    for h in range(H)]
+                if global_batch:
+                    shards = [[torch.cat(x) for x in zip(*shards)]]
+                # one device's fp32 kfac_ggn on each shard and float64,
+                # combined by the allreduce_factors arithmetic in float64
+                parts32, parts64 = [], []
+                for emb, act, tgt in shards:
+                    A_h, B_h = kfac_ggn(head.logit_scale, head.logit_bias, C, emb, act,
+                                        tgt, "info_nce", block_size=S1_LA_BATCH,
+                                        device=ctx.device)
+                    A64, B64, n = factors64(emb, act, tgt)
+                    parts32.append((A_h.double() * math.sqrt(n), B_h.double() * math.sqrt(n)))
+                    parts64.append((A64 * math.sqrt(n), B64 * math.sqrt(n)))
+                root = math.sqrt(sum((len(e) // C) * C for e, _, _ in shards))
+                for i, name in enumerate("AB"):
+                    got = load(hdir / f"{name}_{tag}_analytic.pt")
+                    ref32 = sum(p[i] for p in parts32) / root
+                    ref64 = sum(p[i] for p in parts64) / root
+                    errs[f"{name}_{tag}"] = {"vs_fp32_replay": _rel_err(torch, got, ref32),
+                                             "vs_float64": _rel_err(torch, got, ref64),
+                                             "fp32_replay_vs_float64":
+                                                 _rel_err(torch, ref32, ref64)}
+            out[mode]["replay_rel_err"] = errs
+        step("stage1 replay (rank 0)")
+    del head
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_epig(torch, ctx, spec: dict, counters, step) -> dict:
+    """(b) select_epig_online over the explicit world mesh (#8 counted on
+    this rank) and with mesh=None, at the EPIG path's sizes on seeded
+    clip-large-wide features and the synthetic factors."""
+    from bayesvlm_tpu_torch.io.artifacts import load_hessians, load_info
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+    from bayesvlm_tpu_torch.probforward.smith import ProbabilisticHead
+    from bayesvlm_tpu_torch.select.epig import select_epig_online
+    from bayesvlm_tpu_torch.types import EncoderResult
+
+    config = CONFIGS_BY_NAME[MODEL]
+    P, Pt, D = config.vision.hidden_size, config.text.hidden_size, config.vision.projection_dim
+    dev = ctx.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    kernel = torch.randn(P, D, generator=gen, device=dev) / math.sqrt(P)
+    kernel_txt = torch.randn(Pt, D, generator=gen, device=dev) / math.sqrt(Pt)
+
+    def features(n, w, p):
+        act = torch.randn(n, p, generator=gen, device=dev)
+        return EncoderResult.create(act @ w, act)
+
+    pool, targ = features(EPIG_POOL_IMAGES, kernel, P), features(EPIG_TARGET_IMAGES, kernel, P)
+    labels = features(EPIG_CLASSES, kernel_txt, Pt)
+    A_img, B_img = load_hessians(spec["hessian_dir"], "img")
+    A_txt, B_txt = load_hessians(spec["hessian_dir"], "txt")
+    info = load_info(spec["hessian_dir"])
+    class_ids = np.random.default_rng(SEED + 7).integers(0, EPIG_CLASSES,
+                                                          size=EPIG_POOL_IMAGES)
+    kw = dict(label_features=labels, pool_features=pool, target_features=targ,
+              pool_class_ids=class_ids, projection_kernel=kernel, projection_bias=None,
+              head=ProbabilisticHead.create(4.6052, 0.0, device=dev), A_img=A_img,
+              A_txt=A_txt, B_img=B_img, B_txt=B_txt,
+              cov_info={k: info[k] for k in ("lambda_img", "lambda_txt", "n_img", "n_txt")},
+              budget=EPIG_BUDGET, lr=1e-4, hessian_update_scale=10.0, num_samples=EPIG_K,
+              seed=0, projection_l2=float((kernel**2).sum()),
+              projection_num_params=kernel.numel(), chunk_size=EPIG_CHUNK,
+              pool_subsampling="knn_wasserstein", k_nearest_neighbors=1, device=dev)
+    for c in counters.values():
+        c.launches = 0
+    sharded = select_epig_online(**kw, mesh=ctx.mesh)
+    launches = _counted(counters)
+    step("select_epig_online over the world mesh")
+    dense = select_epig_online(**kw, mesh=None)
+    step("select_epig_online on one device")
+    return {"sharded": sharded, "dense": dense, "launches": launches}
+
+
+def _dist_al(torch, ctx, spec: dict, counters, step) -> dict:
+    """(b) the activelearning CLI as one of two ranks, in phase 8d's
+    configuration (8d's main run is its reference)."""
+    from bayesvlm_tpu_torch import activelearning
+    from bayesvlm_tpu_torch.utils import get_image_size
+
+    overrides = dict(AL_SPLITS, image_size=get_image_size(MODEL))
+    for c in counters.values():
+        c.launches = 0
+    run = activelearning.run(
+        model_str=MODEL, dataset="synthetic", hessian_dir=spec["hessian_dir"],
+        experiment_dir=spec["al_dir"], project_name="active-finetuning",
+        hessian_scale=10.0, subset_size=AL_SUBSET, finetune_epochs=AL_EPOCHS,
+        precompute_batch_size=AL_PRECOMPUTE_BATCH, device="cuda",
+        dataset_overrides=overrides)
+    launches = _counted(counters)
+    step("activelearning CLI")
+    return {"launches": launches, "seconds": run["seconds"],
+            "subsets": json.loads(json.dumps(run["subsets"])),
+            "results": json.loads(json.dumps(run["results"]))}
+
+
+def _dist_gloo(torch, spec: dict) -> dict:
+    """(b): one of two gloo ranks on cuda:0, joined through the
+    environment as a launch names them (COORDINATOR_ADDRESS, NUM_PROCESSES,
+    PROCESS_ID), then Stage 1, select_epig_online and the activelearning
+    CLI."""
+    import torch.distributed as dist
+
+    from bayesvlm_tpu_torch.dist.init import initialize_distributed
+
+    steps = {}
+    clock = [time.perf_counter()]
+
+    def step(name):
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - clock[0]
+        clock[0] = time.perf_counter()
+
+    os.environ["WANDB_MODE"] = "disabled"
+    ctx = initialize_distributed(backend="gloo", device="cuda")
+    out = {"rank": ctx.host_id, "world": ctx.num_hosts, "device": str(ctx.device),
+           "backend": dist.get_backend()}
+    counters = _dist_counters()
+    try:
+        step("init")
+        out["stage1"] = _dist_stage1(torch, ctx, spec, counters, step)
+        out["epig"] = _dist_epig(torch, ctx, spec, counters, step)
+        out["al"] = _dist_al(torch, ctx, spec, counters, step)
+    finally:
+        dist.destroy_process_group()
+    out["steps"] = steps
+    return out
+
+
+def dist_worker(role: str, spec_path: str) -> int:
+    """A child of phase 12: runs `role` ("nccl" or "gloo") and writes its
+    outcome as JSON to the spec's `out`."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False  # as phase 1 sets it in the parent
+    spec = json.loads(Path(spec_path).read_text())
+    out = (_dist_nccl if role == "nccl" else _dist_gloo)(torch, spec)
+    Path(spec["out"]).write_text(json.dumps(out))
+    return 0
+
+
+def _run_children(cmds, envs, logs, timeout: float) -> None:
+    """Start the children together, wait for all (killing them all past
+    `timeout`) and fail with each failing child's log tail."""
+    procs = []
+    for cmd, env, log in zip(cmds, envs, logs):
+        with open(log, "w") as fh:
+            procs.append(subprocess.Popen(cmd, env=env, stdout=fh,
+                                          stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            tail = Path(log).read_text()[-4000:]
+            raise RuntimeError(f"check failed: dist child {log} exit {p.returncode}:\n{tail}")
+
+
+def phase_dist(torch, al_main: dict) -> dict:
+    """Phase 12: distribution in child processes (module docstring)."""
+    import tarfile
+
+    from bayesvlm_tpu_torch.io.artifacts import save_synthetic_hessians
+    from bayesvlm_tpu_torch.kernels import BUILD_DIR
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the children allocate on the same card
+    script = str(Path(__file__).resolve())
+    env = dict(os.environ)
+    # NCCL bootstraps over the loopback interface: one host, no network
+    env.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    out = {}
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        work = Path(work)
+        # (a) NCCL, world size 1
+        spec = {"port": _free_port(), "out": str(work / "nccl.json")}
+        (work / "nccl_spec.json").write_text(json.dumps(spec))
+        t0 = time.perf_counter()
+        _run_children([[sys.executable, script, "--dist-worker", "nccl",
+                        str(work / "nccl_spec.json")]], [env], [str(work / "nccl.log")],
+                      DIST_TIMEOUT_S)
+        a = json.loads((work / "nccl.json").read_text())
+        a_wall = time.perf_counter() - t0
+        print(f"dist (a): backend {a['backend']}, world {a['world']}, {S1_MODEL} widths, "
+              f"{S1_PAIRS} pairs in one class batch: max |F - F_one_device| / max "
+              f"|F_one_device| {a['ggn']} (tol {DIST_FACTOR_TOL}); EPIG {EPIG_POOL} x "
+              f"{EPIG_TARG} (C={EPIG_C}, K={EPIG_K}) sharded vs dense: bit_equal="
+              f"{a['epig']['bit_equal']} max |d|={a['epig']['max_abs_diff']!r} "
+              f"launches {a['epig']['launches']}; child wall {a_wall:.1f} s")
+        for name, sec in a["steps"].items():
+            print(f"  dist (a) step {name}: {sec:.3f} s")
+        check(a["backend"] == "nccl" and a["world"] == 1, f"(a) ran {a['backend']}")
+        for name, err in a["ggn"].items():
+            check(err <= DIST_FACTOR_TOL, f"(a) {name} strays ({err:.3e})")
+        # a score differs from the dense one only through its C row sums,
+        # the kernel's at another M (summation order); held to the
+        # kernel's ROWSUM_RTOL of the largest score
+        check(a["epig"]["max_abs_diff"] <= ROWSUM_RTOL * a["epig"]["max_abs_score"],
+              f"(a) sharded EPIG strays ({a['epig']['max_abs_diff']!r})")
+        check(a["epig"]["launches"] == {"attention": 0, "xlogy_rowsum": 1},
+              f"(a) sharded EPIG launches {a['epig']['launches']}")
+        out["a"] = a
+
+        # (b) two gloo ranks on cuda:0
+        hdir = save_synthetic_hessians(work / "hessians", CONFIGS_BY_NAME[MODEL], SEED)
+        laion = work / "data" / "laion400m"
+        laion.mkdir(parents=True)
+        for i in range(2):  # tar names for shard_for_host; the caches are hits
+            tarfile.open(laion / f"{i:05d}.tar", "w").close()
+        port = _free_port()
+        cmds, envs, logs = [], [], []
+        for rank in range(2):
+            spec = {"work": str(work), "hessian_dir": str(hdir),
+                    "al_dir": str(work / "al"), "out": str(work / f"gloo{rank}.json")}
+            (work / f"gloo{rank}_spec.json").write_text(json.dumps(spec))
+            cmds.append([sys.executable, script, "--dist-worker", "gloo",
+                         str(work / f"gloo{rank}_spec.json")])
+            envs.append(dict(env, COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                             NUM_PROCESSES="2", PROCESS_ID=str(rank),
+                             DATA_BASE_DIR=str(work / "data")))
+            logs.append(str(work / f"gloo{rank}.log"))
+        t0 = time.perf_counter()
+        _run_children(cmds, envs, logs, DIST_TIMEOUT_S)
+        b_wall = time.perf_counter() - t0
+        ranks = [json.loads((work / f"gloo{r}.json").read_text()) for r in range(2)]
+        out["b"] = _dist_gloo_checks(ranks, al_main, work)
+        al_files = sorted(str(f.relative_to(work / "al")) for f in (work / "al").rglob("*")
+                          if f.is_file())
+    replica = [f for f in al_files if "_replica_host1" in Path(f).parts]
+    outside = [f for f in al_files if f not in replica]
+    print(f"dist (b): activelearning files outside _replica_host1 {len(outside)} "
+          f"(8d's main run {len(al_main['files'])}), under it {len(replica)}; "
+          f"children wall {b_wall:.1f} s")
+    check(outside == al_main["files"], "(b) the two-rank run wrote other files than 8d's "
+          f"main run: {sorted(set(outside) ^ set(al_main['files']))[:10]}")
+    check(replica and all(Path(f).name == "metrics.jsonl" for f in replica),
+          f"(b) rank 1 wrote {replica[:5]} under _replica_host1")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"dist phase: {out['wall_s']:.1f} s (a {a_wall:.1f} s, b {b_wall:.1f} s); "
+          f"card {DEVICE['card']}")
+    return out
+
+
+def _dist_gloo_checks(ranks: list, al_main: dict, work: Path) -> dict:
+    """(b)'s checks on the two ranks' outcomes; returns each rank's
+    launches."""
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+
+    L = CONFIGS_BY_NAME[S1_MODEL].vision.num_layers
+    s1_batches = DIST_S1_PAIRS // S1_BATCH
+    al_forwards = [sum(len(range(r, -(-AL_SPLITS[k] // AL_PRECOMPUTE_BATCH), 2))
+                   for k in ("num_train", "num_val", "num_test")) for r in range(2)]
+    epig_chunks = -(-min(AL_SPLITS["num_test"], AL_SPLITS["num_train"]) // EPIG_CHUNK)
+    launches = {}
+    for r, o in enumerate(ranks):
+        check((o["rank"], o["world"], o["device"], o["backend"]) == (r, 2, "cuda:0", "gloo"),
+              f"(b) rank {r}: {o['rank']}/{o['world']} on {o['device']} {o['backend']}")
+        s1 = o["stage1"]
+        mine = len(range(r, s1_batches, 2))
+        check(s1["feature_launches"] == {"attention": L * mine, "xlogy_rowsum": 0},
+              f"(b) rank {r} stage-1 feature pass launches {s1['feature_launches']}")
+        for mode in ("per_host", "global_batch"):
+            check(s1[mode]["launches"] == {"attention": 0, "xlogy_rowsum": 0},
+                  f"(b) rank {r} stage-1 CLI {mode} launches {s1[mode]['launches']}")
+            check(f"[dist] host {r}/2 takes 1 tar shards" in s1[mode]["printed"],
+                  f"(b) rank {r} {mode}: no tar-shard line")
+            last = s1[mode]["printed"].strip().splitlines()[-1]
+            check(last.startswith('{"lambda_img"') == (r == 0),
+                  f"(b) rank {r} {mode}: last line {last!r}")
+            check(s1[mode]["lambdas"] == ranks[0]["stage1"][mode]["lambdas"],
+                  f"(b) {mode}: the ranks' lambdas differ")
+        check(s1["writes"] == ([] if r else ["save_hessians", "save_hessians",
+                                             "save_prior_precision"] * 2),
+              f"(b) rank {r} wrote {s1['writes']}")
+        ep = o["epig"]
+        check(ep["sharded"] == ep["dense"],
+              f"(b) rank {r}: sharded EPIG selected {ep['sharded']}, one device {ep['dense']}")
+        check(ep["launches"] == {"attention": 0, "xlogy_rowsum": EPIG_BUDGET},
+              f"(b) rank {r} select_epig_online launches {ep['launches']}")
+        al = o["al"]
+        want = {"attention": L * al_forwards[r], "xlogy_rowsum": AL_SUBSET * epig_chunks}
+        check(al["launches"] == want, f"(b) rank {r} AL launches {al['launches']} != {want}")
+        launches[r] = {"smoke_feature_pass": s1["feature_launches"]["attention"],
+                       "al_attention": al["launches"]["attention"],
+                       "epig_xlogy": ep["launches"]["xlogy_rowsum"],
+                       "al_xlogy": al["launches"]["xlogy_rowsum"]}
+    s1 = ranks[0]["stage1"]
+    for mode in ("per_host", "global_batch"):
+        errs = s1[mode]["replay_rel_err"]
+        print(f"dist (b) stage-1 {mode}: max |F - F_replay| / max |F_replay| {errs} "
+              f"(tol {DIST_FACTOR_TOL}); lambdas {s1[mode]['lambdas']}")
+        for name, e in errs.items():
+            if mode == "per_host":
+                # each rank's kfac_ggn is the replay's own call on the same
+                # shard: only the factor combination differs
+                check(e["vs_fp32_replay"] <= DIST_FACTOR_TOL,
+                      f"(b) stage-1 {mode} {name} strays ({e})")
+            else:
+                # the class batches' sums over the ranks come in another
+                # order than one device's: B at CLIP's scale is a
+                # difference of far larger terms, so the reassociation
+                # shows as fp32's own error does; held to float64 at
+                # 4x one device's fp32 error (or the tolerance)
+                bound = max(DIST_FACTOR_TOL, 4 * e["fp32_replay_vs_float64"])
+                check(e["vs_float64"] <= bound, f"(b) stage-1 {mode} {name} strays ({e})")
+    check("[dist] global class batches over 2048 gathered pairs"
+          in s1["global_batch"]["printed"], "(b) no global-batch line")
+    ep = ranks[0]["epig"]
+    print(f"dist (b) select_epig_online: sharded {ep['sharded']}, one device "
+          f"{ep['dense']}")
+    al0, al1 = ranks[0]["al"], ranks[1]["al"]
+    check(al0["subsets"] == al1["subsets"] and al0["results"] == al1["results"],
+          "(b) the AL ranks differ")
+    subsets_equal = al0["subsets"] == al_main["subsets"]
+    for name, by_test in al_main["subsets"].items():
+        got = al0["subsets"].get(name, {})
+        check(list(got) == list(by_test), f"(b) AL {name}: other test keys")
+        for key, entry in by_test.items():
+            check(got[key]["indices"] == entry["indices"],
+                  f"(b) AL {name}[{key}]: indices differ from 8d's")
+            # a rank computes its train columns' similarities in a GEMM of
+            # another width than one device's, rounded otherwise: -wdist2
+            # is a difference of squared norms of its own size
+            np.testing.assert_allclose(got[key]["similarities"], entry["similarities"],
+                                       rtol=DIST_SIM_RTOL, atol=0,
+                                       err_msg=f"(b) AL {name}")
+    check(al0["results"] == al_main["results"],
+          f"(b) AL test metrics differ from 8d's: {al0['results']} vs {al_main['results']}")
+    print(f"dist (b) activelearning: {len(al0['subsets'])} strategies, indices equal to "
+          f"8d's, subsets JSON bit-equal {subsets_equal}, test metrics equal; launches "
+          f"per rank {launches}")
+    for r, o in enumerate(ranks):
+        for name, sec in o["steps"].items():
+            print(f"  dist (b) rank {r} step {name}: {sec:.3f} s")
+    return {"launches": launches}
+
+
 def _probe_entries(probe_path: dict, parts: dict) -> list:
     """Each probe kernel's line, from its probe's numbers; the GEMMs that
     the sweep also runs carry its tiles, the s4 kinds and the packed-head
@@ -3302,6 +3901,8 @@ def main() -> int:
                                                   SEED) for m in (MODEL, ZS_MODEL)}
         multi = _timed("multiserve", phase_multiserve, torch, counters, multi_hdirs,
                        Path(multi_dir), bf16_logp_diff)
+    # 12 runs after 6c: its child processes leave nothing in this process
+    dist_path = _timed("dist", phase_dist, torch, al_path["main"])
 
     qkv, out_proj = int8["linear_int8 qkv"], int8["linear_int8 out_proj"]
     linear_entry = _entry(
@@ -3354,6 +3955,17 @@ def main() -> int:
     # and in each ladder of the two resident models (phase 6c), counted at
     # capture
     one_block["multi_graph_launches"] = multi["graph_launches"]
+    # and in each rank of the two-rank run (phase 12b): this script's own
+    # feature pass that writes the Stage-1 CLI's per-host caches
+    # (compute_features with the CLI's host tags over the rank's batch
+    # stripe; the CLI's shard_for_host pass reads LAION tars, which the
+    # card's machine cannot decode), and the activelearning CLI's own
+    # striped feature pass
+    dist_b = dist_path["b"]["launches"]
+    one_block["dist_launches"] = {
+        f"rank{r}": {"smoke_feature_pass": n["smoke_feature_pass"],
+                     "al": n["al_attention"]}
+        for r, n in dist_b.items()}
     print(json.dumps({"kernels": [
         one_block,
         _entry("fused_attention_split", "bayesvlm_tpu_torch/csrc/attention.cu",
@@ -3383,6 +3995,13 @@ def main() -> int:
              cublas_bf16_ms=epig["bf16"]["cublas_bf16_ms"],
              al_launches={k: al_path[k]["launches"]["xlogy_rowsum"]
                           for k in ("main", "kmeans", "elg", "llm")},
+             # phase 12: (a) epig_from_probs_sharded over NCCL at world 1;
+             # (b) each rank's rows in select_epig_online and in the
+             # activelearning CLI's epig_knn
+             dist_launches={"nccl_world1": dist_path["a"]["epig"]["launches"]["xlogy_rowsum"],
+                            **{f"rank{r}": {"epig_online": n["epig_xlogy"],
+                                            "al": n["al_xlogy"]}
+                               for r, n in dist_b.items()}},
              **{f"k{EPIG_LONG_K}": epig["bf16"][f"k{EPIG_LONG_K}"]}),
         dict(_entry("xlogy_rowsum_int8", "bayesvlm_tpu_torch/csrc/xlogy_rowsum.cu",
                     "bayesvlm_tpu/select/epig_pallas.py:77", epig["int8"]["launches"],
@@ -3409,4 +4028,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--dist-worker":
+        sys.exit(dist_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -223,13 +223,27 @@ def _stub_loaders(monkeypatch) -> list:
                                  {"NUM_PROCESSES": "2"}])
 @pytest.mark.parametrize("cli", [activelearning, activelearning_kmeans])
 def test_multi_process_launch_is_refused_before_loading(cli, env, monkeypatch, tmp_path):
+    """The multi-process launch is ported (tests/test_torch_dist_activelearning.py):
+    the main CLI refuses a launch named in part (an address without
+    NUM_PROCESSES / PROCESS_ID, or NUM_PROCESSES > 1 without an address)
+    before anything loads; the k-means CLI, like the JAX one, never joins
+    a launch and starts loading as one process."""
     loaded = _stub_loaders(monkeypatch)
+    for k in ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS", "NUM_PROCESSES",
+              "PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(**KW, hessian_dir=str(tmp_path / "h"),
-                 experiment_dir=str(tmp_path / "exp"), device="cpu")
-    assert loaded == [] and not (tmp_path / "exp").exists()
+    kw = dict(**KW, hessian_dir=str(tmp_path / "h"), experiment_dir=str(tmp_path / "exp"),
+              device="cpu")
+    if cli is activelearning:
+        with pytest.raises(ValueError, match="names a launch"):
+            cli.main(**kw)
+        assert loaded == [] and not (tmp_path / "exp").exists()
+    else:
+        with pytest.raises(AttributeError):  # the stubbed factory returns None
+            cli.main(**kw)
+        assert loaded == ["DataModuleFactory"]
 
 
 @pytest.mark.parametrize("cli", [activelearning, activelearning_kmeans])

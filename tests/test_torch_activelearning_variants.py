@@ -257,11 +257,14 @@ def test_no_card_or_several_processes_are_refused_before_loading(cli, monkeypatc
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(**kw)
     monkeypatch.setenv("NUM_PROCESSES", "2")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        cli.main(**kw, device="cpu")
     with pytest.raises(ValueError, match="Unknown knn_method"):
         cli.main(**kw, device="cpu", knn_method="l2")
     assert loaded == [] and not (tmp_path / "exp").exists()
+    # several processes are not refused: like the JAX CLI, this one never
+    # joins a launch and starts loading as one process
+    with pytest.raises(AttributeError):  # the stubbed factory returns None
+        cli.main(**kw, device="cpu")
+    assert loaded == ["DataModuleFactory"]
 
 
 def test_clis_run_without_jax(tmp_path):

@@ -9,7 +9,8 @@ CLIs too), writes a fine-tune's `metrics.jsonl` through `ExperimentLogger`
 snapshots of tiny-siglip through `load_model` and `convert_weights`. No
 module of JAX or of the JAX package is loaded on the way. The EGL and LLM
 selectors, the backbone fine-tune and their CLIs also import with `jax`,
-`triton` and `google.generativeai` blocked."""
+`triton` and `google.generativeai` blocked, and so do `dist/` and the
+modules whose mesh paths it serves."""
 
 import subprocess
 import sys
@@ -110,6 +111,37 @@ def test_stage3_and_backbone_modules_import_without_jax_triton_or_gemini():
     assert "usage: activelearning_elg" in out and "--only_egl" in out
     assert "usage: activelearning_llm" in out and "--run_llm_value" in out
     assert "GEMINI ABSENT" in out
+
+
+DIST_MODULES = ("bayesvlm_tpu_torch.dist", "bayesvlm_tpu_torch.dist.mesh",
+                "bayesvlm_tpu_torch.dist.init", "bayesvlm_tpu_torch.dist.hessian_allreduce",
+                "bayesvlm_tpu_torch.bayes.estimation", "bayesvlm_tpu_torch.select.epig",
+                "bayesvlm_tpu_torch.select.knn", "bayesvlm_tpu_torch.select.egl",
+                "bayesvlm_tpu_torch.select.kmeans",
+                "bayesvlm_tpu_torch.inference.predictions",
+                "bayesvlm_tpu_torch.train.al_common", "bayesvlm_tpu_torch.hessian_estimation",
+                "bayesvlm_tpu_torch.activelearning", "bayesvlm_tpu_torch.zeroshot")
+
+
+def test_dist_modules_import_without_jax_or_triton():
+    """`dist/` and the modules whose mesh paths it serves import with
+    `jax` and `triton` blocked besides the host packages, and start no
+    process group on import."""
+    out = _run("""
+        import importlib
+        for name in ("jax", "triton"):
+            sys.modules[name] = None
+        for name in %r:
+            importlib.import_module(name)
+        import torch.distributed as dist
+        from bayesvlm_tpu_torch.dist import __all__ as exports
+        assert not dist.is_initialized()
+        bad = [m for m in sys.modules if m.split(".")[0] in
+               ("jax", "flax", "bayesvlm_tpu", "triton") and sys.modules[m] is not None]
+        assert not bad, bad
+        print("EXPORTS", ",".join(exports))
+    """ % (DIST_MODULES,))
+    assert "make_mesh,local_rows,sharded_hessian_infonce" in out
 
 
 @pytest.mark.parametrize("fmt", ["f16", "bin"])

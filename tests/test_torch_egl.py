@@ -127,8 +127,20 @@ def test_select_egl_indices_and_ties_match_jax():
 
 
 def test_a_mesh_is_not_ported():
+    """The mesh path is ported (tests/test_torch_dist_selection.py runs it
+    over 2 and 3 ranks): without a process group "auto" is one device, the
+    same scores as None, and a mesh of more than one rank needs a group."""
     _, _, pt = _case(7)
-    for mesh in (None, "auto"):
-        assert egl.expected_gradient_length(*pt, 1.0, mesh=mesh).shape == (37,)
-    with pytest.raises(NotImplementedError, match="not ported yet.*item 8"):
-        egl.expected_gradient_length(*pt, 1.0, mesh=object())
+    dense = egl.expected_gradient_length(*pt, 1.0, mesh=None)
+    assert dense.shape == (37,)
+    assert torch.equal(egl.expected_gradient_length(*pt, 1.0, mesh="auto"), dense)
+
+    class _Mesh:
+        def size(self):
+            return 2
+
+        def get_local_rank(self):
+            return 0
+
+    with pytest.raises((ValueError, RuntimeError)):
+        egl.expected_gradient_length(*pt, 1.0, mesh=_Mesh())

@@ -244,7 +244,9 @@ def _crash_at(monkeypatch, name, k):
 @pytest.mark.parametrize("likelihood", ["info_nce", "siglip"])
 def test_kfac_ggn_resume_is_bit_for_bit(likelihood, tmp_path, monkeypatch):
     kw = _ggn_kw(likelihood)  # 4 class batches
-    fn = "hessian_infonce" if likelihood == "info_nce" else "hessian_siglip"
+    # kfac_ggn's B factor of a class batch (one device: mesh None)
+    fn = ("sharded_hessian_infonce" if likelihood == "info_nce"
+          else "sharded_hessian_siglip")
     A_ref, B_ref = est.kfac_ggn(**kw, device="cpu")
     ckpt = tmp_path / "_ggn_steps_img"
     _crash_at(monkeypatch, fn, 4)
@@ -262,7 +264,7 @@ def test_kfac_ggn_resume_is_bit_for_bit(likelihood, tmp_path, monkeypatch):
 
 
 def _stale(ckpt, kw, monkeypatch):
-    _crash_at(monkeypatch, "hessian_infonce", 2)
+    _crash_at(monkeypatch, "sharded_hessian_infonce", 2)
     with pytest.raises(RuntimeError):
         est.kfac_ggn(**kw, checkpoint_dir=ckpt, device="cpu")
     monkeypatch.undo()
@@ -307,10 +309,13 @@ class _Mesh:
 
 
 def test_kfac_ggn_mesh_must_be_one_device():
+    """A mesh of one device is the single-device path; a mesh of more than
+    one rank takes the sharded path (tests/test_torch_dist.py), which needs
+    an initialised process group."""
     kw = _ggn_kw("info_nce")
     A, _ = est.kfac_ggn(**kw, mesh=_Mesh(1), device="cpu")
     assert torch.equal(A, est.kfac_ggn(**kw, device="cpu")[0])
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="process group"):
         est.kfac_ggn(**kw, mesh=_Mesh(4), device="cpu")
     with pytest.raises(ValueError, match="Invalid likelihood"):
         est.kfac_ggn(**{**kw, "likelihood": "hinge"}, device="cpu")

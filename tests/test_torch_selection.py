@@ -326,8 +326,11 @@ def test_find_similar_samples_match_jax(method, k_nearest, buffersize, has_bias)
                                 buffersize=buffersize, has_bias=has_bias, mesh=None)
     _assert_knn_equal(got, want)
     assert knn.extract_test_train_indices(got) == jax_knn.extract_test_train_indices(want)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        getattr(knn, fn)(ptr, pte, idx_test, vals_test, k_nearest, pcov, mesh="auto")
+    # without a process group "auto" is one device (the sharded search runs
+    # over ranks in tests/test_torch_dist_selection.py)
+    auto = getattr(knn, fn)(ptr, pte, torch.from_numpy(idx_test), vals_test, k_nearest,
+                            pcov, buffersize=buffersize, has_bias=has_bias, mesh="auto")
+    assert auto == got
 
 
 def test_dedup_loop_terminates_when_the_pool_cannot_reach_the_goal():

@@ -383,19 +383,43 @@ def test_cli_defaults_to_the_card_and_laion():
     {"dist_global_batch": True}, "COORDINATOR_ADDRESS"])
 def test_cli_refuses_unported_flags_before_loading(flag, tmp_path, monkeypatch):
     """Each unported flag is refused by name before anything loads; the
-    ported --tokenizer_dir and --u8_pipeline beside one are not named."""
+    ported --tokenizer_dir and --u8_pipeline beside one are not named.
+    The distribution is ported: --dist_global_batch on one process is
+    taken (it changes nothing there, as in JAX) and loading starts, and a
+    launch named in part (COORDINATOR_ADDRESS without NUM_PROCESSES /
+    PROCESS_ID) is refused before anything loads."""
     import bayesvlm_tpu_torch.data.factory as factory
     import bayesvlm_tpu_torch.models.encoders as encoders
 
+    class _Loaded(Exception):
+        pass
+
     loaded = []
+
+    def stub(*a, _n=None, **k):
+        loaded.append(_n)
+        raise _Loaded
+
     for mod, attr in ((factory, "DataModuleFactory"), (encoders, "load_model")):
-        monkeypatch.setattr(mod, attr, lambda *a, _n=attr, **k: loaded.append(_n))
+        monkeypatch.setattr(mod, attr, lambda *a, _n=attr, **k: stub(_n=_n))
+    for k in ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS", "NUM_PROCESSES",
+              "PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
+    kw = dict(**CLI_KW, model_str="tiny-clip", hessian_dir=str(tmp_path / "h"),
+              device="cpu")
     if flag == "COORDINATOR_ADDRESS":
         monkeypatch.setenv("COORDINATOR_ADDRESS", "localhost:1234")
-        flag = {}
+        with pytest.raises(ValueError, match="NUM_PROCESSES and PROCESS_ID"):
+            hessian_estimation.main(**kw)
+        assert loaded == [] and not (tmp_path / "h").exists()
+        return
+    if flag == {"dist_global_batch": True}:
+        with pytest.raises(_Loaded):
+            hessian_estimation.main(**kw, **flag)
+        assert loaded == ["load_model"]
+        return
     with pytest.raises(NotImplementedError, match="not ported yet") as refused:
-        hessian_estimation.main(**CLI_KW, model_str="tiny-clip",
-                                hessian_dir=str(tmp_path / "h"), device="cpu", **flag)
+        hessian_estimation.main(**kw, **flag)
     assert loaded == [] and not (tmp_path / "h").exists()
     assert "tokenizer" not in str(refused.value)
     assert "u8_pipeline" not in str(refused.value)
