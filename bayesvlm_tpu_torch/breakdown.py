@@ -81,7 +81,7 @@ def profile_lane(lane: str, hessian_dir, pixels, prompts) -> None:
 
     keywords, vision = LANES[lane]
     vlm = ProbabilisticVLM.from_pretrained(MODEL, hessian_dir, dtype="bf16",
-                                           device="cuda", seed=0, **keywords)
+                                           device="cuda", seed=0, mesh=None, **keywords)
     if vision:
         vlm.image_encoder = rebuild_image_encoder(vlm.image_encoder, **vision)
     vlm.set_class_prompts(prompts)

@@ -5,7 +5,9 @@ JAX has two levels: a mesh over a process's local chips (`shard_map`)
 and processes joined by `jax.distributed`. In the torch idiom the unit
 is one process per card, so the port's mesh is a 1-D
 `torch.distributed.device_mesh.DeviceMesh` named ("data",) over the
-ranks of the launch, one device a rank.
+ranks of the launch, one device a rank; tensor parallelism lays the
+ranks out in 2-D, ("data", "model") (`make_mesh(axis_names, shape)`,
+dist/tp.py).
 
 A sharded function takes the same full inputs on every rank. It computes
 its rank's contiguous block of rows, padded to a multiple of the world
@@ -27,7 +29,8 @@ and back, so gloo also serves ranks whose tensors are on a card.
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+import math
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -43,18 +46,32 @@ def _group_ready() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def make_mesh():
-    """The 1-D mesh ("data",) over every rank of the initialised process
-    group: of device type "cuda" under NCCL and "cpu" under gloo (JAX's
-    `make_mesh()` / `default_mesh()`: every device on the data axis)."""
+def make_mesh(axis_names: Sequence[str] = (AXIS,),
+              shape: Optional[Sequence[int]] = None):
+    """A mesh over every rank of the initialised process group, ranks laid
+    out row-major in `shape` (default: every rank on the first axis), of
+    device type "cuda" under NCCL and "cpu" under gloo: JAX's
+    `make_mesh(devices, axis_names, shape)` with one device a rank. The
+    default is the 1-D ("data",) mesh (JAX's `make_mesh()` /
+    `default_mesh()`); ("data", "model") with a shape gives the 2-D mesh
+    of tensor parallelism (dist/tp.py), whose axes are its sub-meshes
+    (`mesh["model"]`)."""
     if not _group_ready():
         raise ValueError("a mesh needs an initialised process group: call "
                          "dist.init.initialize_distributed first")
     from torch.distributed.device_mesh import DeviceMesh
 
+    world = dist.get_world_size()
+    axis_names = tuple(axis_names)
+    if shape is None:
+        shape = [world] + [1] * (len(axis_names) - 1)
+    shape = [int(n) for n in shape]
+    if len(shape) != len(axis_names) or math.prod(shape) != world:
+        raise ValueError(f"mesh shape {shape} over axes {axis_names} does not "
+                         f"hold the {world} ranks")
     device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return DeviceMesh(device_type, list(range(dist.get_world_size())),
-                      mesh_dim_names=(AXIS,))
+    return DeviceMesh(device_type, torch.arange(world).reshape(shape),
+                      mesh_dim_names=axis_names)
 
 
 def resolve_auto_mesh(mesh):

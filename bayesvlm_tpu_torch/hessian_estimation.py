@@ -32,7 +32,9 @@ The GGN step checkpoints run on one process only; only rank 0 writes the
 factors, `prior_precision_analytic.json` and the final JSON line.
 `--no_mesh` runs one process whatever the environment says. Not ported
 yet, and refused before anything is loaded: `--native_decode` (the
-native decode lane) and `--save_orbax`.
+native decode lane). `--save_orbax` keeps the JAX flag's spelling: it
+also writes the factors as the port's DCP checkpoint,
+`<hessian_dir>/factors_dcp/` (io/dcp_ckpt.py), from rank 0.
 """
 
 from __future__ import annotations
@@ -47,12 +49,10 @@ from typing import Optional
 import torch
 
 
-def _refuse_unported(native_decode, save_orbax) -> None:
-    flags = {"--native_decode (the native decode lane)": native_decode,
-             "--save_orbax (the orbax factor lane)": save_orbax}
-    asked = [name for name, on in flags.items() if on]
-    if asked:
-        raise NotImplementedError(f"not ported yet: {', '.join(asked)}")
+def _refuse_unported(native_decode) -> None:
+    if native_decode:
+        raise NotImplementedError(
+            "not ported yet: --native_decode (the native decode lane)")
 
 
 def main(
@@ -98,7 +98,7 @@ def main(
     the caller initialised) runs as one rank of several (module
     docstring); rank r works on `cuda:{r % device_count()}` when `device`
     is "cuda"."""
-    _refuse_unported(native_decode, save_orbax)
+    _refuse_unported(native_decode)
     from bayesvlm_tpu_torch.bayes.estimation import kfac_ggn
     from bayesvlm_tpu_torch.bayes.prior import optimize_prior_precision
     from bayesvlm_tpu_torch.data.factory import DataModuleFactory
@@ -252,6 +252,13 @@ def main(
     if primary:
         save_prior_precision(hessian_dir, lambdas["img"], n_init_img, lambdas["txt"],
                              n_init_txt)
+        if save_orbax:
+            # the production lane beside the .pt contract files (JAX
+            # scripts/hessian_estimation.py:281-287); load_hessians falls
+            # back to it when the .pt files are absent
+            from bayesvlm_tpu_torch.io.dcp_ckpt import save_hessians_dcp
+
+            save_hessians_dcp(hessian_dir, *factors["img"], *factors["txt"])
         print(json.dumps({"lambda_img": lambdas["img"], "lambda_txt": lambdas["txt"]}))
     return {"lambda_img": lambdas["img"], "lambda_txt": lambdas["txt"],
             "seconds": seconds}
@@ -301,7 +308,11 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--mlp_int8", action="store_true",
                         help="W8A8 int8 vision-tower MLPs for the feature pass")
     parser.add_argument("--native_decode", action="store_true")
-    parser.add_argument("--save_orbax", action="store_true")
+    parser.add_argument(
+        "--save_orbax", action="store_true",
+        help="also write the K-FAC factors as a torch.distributed.checkpoint "
+             "under <hessian_dir>/factors_dcp (the JAX flag's name; its orbax "
+             "lane's counterpart); the .pt files stay the reference contract")
     parser.add_argument("--feature_checkpoint_every", type=int, default=256,
                         help="feature part files every N batches (0 disables)")
     parser.add_argument("--ggn_checkpoint_every", type=int, default=1,

@@ -10,8 +10,11 @@ Directory layout (ref:bayesvlm/hessians.py:137-167,203-217):
 
 The `.pt` files are plain tensors in torch's zip format, which both the
 reference's `torch.save` and the JAX package's writer (with or without
-torch installed) produce. The JAX package's second lane, an orbax
-checkpoint under `<la_dir>/factors_orbax`, is not read here.
+torch installed) produce. The port's second lane is a
+torch.distributed.checkpoint under `<la_dir>/factors_dcp` (io/dcp_ckpt.py),
+which `load_hessians` reads when the `.pt` files are absent, as the JAX
+package falls back to its orbax lane. That orbax checkpoint,
+`<la_dir>/factors_orbax`, is not read here.
 """
 
 from __future__ import annotations
@@ -47,14 +50,23 @@ def load_hessians(la_dir: PathLike, tag: Literal["img", "txt"],
                   return_info: bool = False):
     """Raw fp32 A, B factors for one direction, on the CPU, and with
     `return_info` the prior-precision info too
-    (ref:bayesvlm/hessians.py:203-217)."""
+    (ref:bayesvlm/hessians.py:203-217). Without the `.pt` files, read from
+    the DCP lane `<la_dir>/factors_dcp` (JAX `io/artifacts.py:47-57`)."""
     la_dir = Path(la_dir)
     paths = [la_dir / f"{name}_{tag}_analytic.pt" for name in ("A", "B")]
-    if not all(p.exists() for p in paths) and (la_dir / "factors_orbax").exists():
-        raise FileNotFoundError(
-            f"{la_dir} holds the factors only as an orbax checkpoint "
-            f"(factors_orbax/), which the port does not read yet; write the "
-            f".pt files with the JAX package's artifacts.save_hessians")
+    if not all(p.exists() for p in paths):
+        if (la_dir / "factors_dcp").exists():
+            from bayesvlm_tpu_torch.io.dcp_ckpt import load_hessians_dcp
+
+            A, B = (F.to(torch.float32) for F in load_hessians_dcp(la_dir, tag))
+            return (A, B, load_info(la_dir)) if return_info else (A, B)
+        if (la_dir / "factors_orbax").exists():
+            raise FileNotFoundError(
+                f"{la_dir} holds the factors only as the JAX package's orbax "
+                f"checkpoint (factors_orbax/), which the port cannot read; write "
+                f"the .pt files with the JAX package's scripts/convert_artifacts.py "
+                f"--to pt, then `python -m bayesvlm_tpu_torch.convert_artifacts "
+                f"--to orbax` gives the port's factors_dcp/")
     A, B = (torch.load(p, map_location="cpu", weights_only=True).to(torch.float32)
             for p in paths)
     if return_info:

@@ -82,14 +82,15 @@ def _ladder_bytes(vlm) -> int:
     segments of the ladder's CUDA-graph pool (each program's activations
     and output), which `torch.cuda.memory_snapshot()` lists by pool."""
     programs = vlm._serving["programs"].values()
-    tensors = vlm._ladder_tensors()
-    tensors += [p.static_in for p in programs if hasattr(p, "static_in")]
+    tensors = vlm._ladder_tensors()  # every replica's on a serving mesh
+    parts = [part for p in programs for part in getattr(p, "parts", ())]
+    tensors += [part.static_in for part in parts]
     storages = {}
     for t in tensors:
         st = t.untyped_storage()
         storages[(t.device, st.data_ptr())] = st.nbytes()
     total = sum(storages.values())
-    pools = {tuple(p.graph.pool()) for p in programs if hasattr(p, "graph")}
+    pools = {tuple(part.graph.pool()) for part in parts}
     if pools:
         total += sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                      if tuple(seg["segment_pool_id"]) in pools)

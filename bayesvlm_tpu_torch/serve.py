@@ -136,9 +136,9 @@ class BatchingServer:
         static shapes, so a partial batch pads to the smallest size that
         fits instead of to batch_size. None (default): batch_size only;
         "pow2": a power-of-two ladder up to batch_size; a list of ints as
-        it is (batch_size is always included). The port has no mesh, so
-        the step of the ladder is 1 (the JAX package's is the mesh's data
-        axis).
+        it is (batch_size is always included). On a serving mesh of n
+        replicas every size is a multiple of n, and "pow2" starts at n
+        (JAX `serve.py:192-199`).
     pipeline_depth : 0 (default) resolves each batch inline: the
         dispatcher waits for the batch's probabilities before it takes
         the next batch. >0 starts a resolver thread (`_resolve_loop`):
@@ -163,7 +163,8 @@ class BatchingServer:
         self._host_ring: list = [None] * (self.pipeline_depth + 2)
         self._ring_next = 0
         self.batch_size = int(batch_size)
-        self._buckets = self._build_ladder(buckets)
+        mesh = getattr(vlm, "mesh", None)
+        self._buckets = self._build_ladder(buckets, 1 if mesh is None else mesh.size)
         srv = vlm._serving
         if (srv is None or srv["dtype"] != input_dtype
                 or not set(self._buckets).issubset(srv["programs"])):
@@ -180,11 +181,15 @@ class BatchingServer:
         self._lat_n = 0
         self._stats = ServerStats()
 
-    def _build_ladder(self, buckets) -> list:
-        """Sorted batch-size ladder ending at batch_size (step 1: no mesh)."""
+    def _build_ladder(self, buckets, step: int = 1) -> list:
+        """Sorted batch-size ladder ending at batch_size; every size a
+        multiple of `step`, the serving mesh's size."""
         if self.batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {self.batch_size}")
-        step = 1
+        if step > 1 and self.batch_size % step != 0:
+            raise ValueError(
+                f"batch_size {self.batch_size} must be divisible by "
+                f"the {step}-way 'data' mesh axis")
         if buckets is None:
             return [self.batch_size]
         if buckets == "pow2":

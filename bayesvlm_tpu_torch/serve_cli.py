@@ -30,6 +30,12 @@ Several models on one card (`--models_json`): a JSON dict name ->
 text_prompt, batch_size, buckets, input_dtype, dtype, mlp_int8]};
 omitted fields take the CLI flags' values.
 
+Several cards: with more than one card visible each model is served on
+the serving mesh (`pipeline.from_pretrained(mesh="auto")`: a replica of
+its image tower a card, every batch split over them, so `--batch_size`
+and the buckets must be multiples of the card count); `--no_mesh` serves
+on the one card `--device` names.
+
 Restarts (`--aot_cache DIR`): the serving state is saved to
 `DIR/serving.aotserv` (`DIR/<name>.aotserv` a model in manifest mode,
 `pipeline.save_serving`); the next start brings each model up from it
@@ -326,12 +332,13 @@ def _load_vlm(args, model_str, hessian_dir, weights_dir, tokenizer_dir,
         model_str, hessian_dir,
         weights_dir=weights_dir, tokenizer_dir=tokenizer_dir,
         dtype=dtype, mlp_int8=mlp_int8, device=args.device,
+        mesh="auto" if args.use_mesh else None,
     )
     return vlm.set_class_prompts(_build_prompts(classes_json, text_prompt))
 
 
 def _aot_full_restore(path, verbose, *, model_str, weights_dir, tokenizer_dir,
-                      dtype, mlp_int8, device, prompts):
+                      dtype, mlp_int8, device, use_mesh, prompts):
     """The restart lane (pipeline.from_serving_cache): towers from weights,
     labels / head / lambdas from the file, the ladder captured again; no
     Hessian directory, no lambda re-opt, no text tower. (vlm, its serving
@@ -345,7 +352,7 @@ def _aot_full_restore(path, verbose, *, model_str, weights_dir, tokenizer_dir,
         vlm = ProbabilisticVLM.from_serving_cache(
             model_str, path, weights_dir=weights_dir,
             tokenizer_dir=tokenizer_dir, dtype=dtype, mlp_int8=mlp_int8,
-            device=device)
+            device=device, mesh="auto" if use_mesh else None)
     except FileNotFoundError:
         return None, None
     except Exception as exc:  # noqa: BLE001 — any stale cache -> rebuild
@@ -408,7 +415,8 @@ def _build_one(args, aot_path, *, model_str, hessian_dir, weights_dir,
         vlm, restored = _aot_full_restore(
             aot_path, args.verbose, model_str=model_str, weights_dir=weights_dir,
             tokenizer_dir=tokenizer_dir, dtype=dtype, mlp_int8=mlp_int8,
-            device=args.device, prompts=_build_prompts(classes_json, text_prompt))
+            device=args.device, use_mesh=args.use_mesh,
+            prompts=_build_prompts(classes_json, text_prompt))
     refresh = False
     if vlm is None:
         if hessian_dir is None:
@@ -522,8 +530,10 @@ def parse_args(argv=None):
                    default="float32")
     p.add_argument("--dtype", choices=["bf16", "fp32"], default="bf16")
     p.add_argument("--no_mesh", dest="use_mesh", action="store_false",
-                   help="accepted for the JAX CLI's flags; the port builds no "
-                        "mesh, so it changes nothing")
+                   help="serve on one card: without it, every visible card "
+                        "holds a replica of the image tower and each batch is "
+                        "split over them (the serving mesh; batch sizes and "
+                        "buckets must then be multiples of the card count)")
     p.add_argument("--mlp_int8", action="store_true")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' runs the ladder eagerly")

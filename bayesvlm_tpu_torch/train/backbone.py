@@ -56,6 +56,12 @@ def trainable_parameters(
 def _refuse_kernel_lanes(module: nn.Module) -> None:
     from bayesvlm_tpu_torch.models.layers import MLP, MultiHeadAttention
 
+    if getattr(module, "tensor_parallel", None):
+        raise ValueError(
+            "the backbone fine-tune cannot train a tensor-parallel (TP) tower "
+            "(dist.tp.shard_tower_params): a backward through its split sublayers "
+            "is not ported; TP covers the forward and the projection's gradient")
+
     lanes = sorted({lane for m in module.modules() for lane, on in (
         ("mlp_int8", isinstance(m, MLP) and m.use_int8),
         ("attn_int8", isinstance(m, MultiHeadAttention) and m.use_int8_proj),

@@ -3,6 +3,8 @@
 paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mesh-cards   # a host of several cards: the
+                                         # serving mesh over all of them
 
 Phases (any failure raises and exits non-zero, without the result line):
   1. device: a CUDA card is required; prints its name and power limit;
@@ -274,6 +276,34 @@ Phases (any failure raises and exits non-zero, without the result line):
      and test metrics equal to 8d's main run, its files outside
      `_replica_host1` 8d's, rank 1's only its fine-tune logs there;
      each step's seconds a rank and the phase's;
+  13. `parallel` (right after 6, before any graph capture or child
+     process of this process, so that its trace reads torch.profiler's
+     kernel records): the last modules of the port on one bf16 clip-large
+     VLM on the serving mesh ["cuda:0", "cuda:0"] (two replicas on the
+     one card; prior re-opt cut to 100 steps). (d) profiling first:
+     `trace` over one eager sharded predict writes a Chrome trace that
+     lists mha_mma_kernel, `debug_nans` raises on log(-1) on the card
+     and lets a predict through, `StepTimer` over 5 predicts; (a) the
+     serving mesh: the eager sharded predict (#1 24 launches a replica a
+     forward) within phase 6's bf16-vs-fp32 max |log p| of the mesh-less
+     predict, the uint8 ladder [2, 64] captured a replica (24 launches
+     each) with each replay bit-equal to the eager sharded predict, B=64
+     img/s against one replica's graph, a BatchingServer on the mesh,
+     save_serving -> from_serving_cache bit-equal and a mesh of 3
+     refused, and the int8 and block lanes of the same weights on the
+     mesh (each replica its own int8 cache; launches eager and at
+     capture; replay bit-equal); (b) tensor parallelism: two gloo ranks
+     on cuda:0 (`chip_smoke.py --dist-worker tp <spec>`), the vision
+     tower split over ("data", "model") = (1, 2), B=8, #1 24 launches a
+     rank on 8 heads, held to the unsplit tower at TP_COS_MIN and
+     TP_MAX_REL, forward ms a rank beside the unsplit; (c) the DCP lane: clip-large-sized
+     factors .pt -> factors_dcp -> .pt bit for bit, an async save from
+     the card read back bit-equal; (e) the preflight
+     (`preflight.main`) on 8c's seeded clip-large snapshot (fp16
+     safetensors and its config.json) with 128 synthetic images and
+     --skip_parity (the parity step, fp32 on the CPU, is held by the CPU
+     tests; at this width its elementwise tolerance is met by fp32
+     summation order alone: preflight.step_parity), said so;
   11. prints the kernels line (the attention and probe entries with the
      body they launched, their shared memory, registers and blocks an
      SM), then the result line {"ok": true, "device": {...}} last.
@@ -1012,7 +1042,7 @@ def _drive(torch, counters, hessian_dir: str, pixels, prompts, per_forward: dict
         c.launches = 0
     t0 = time.perf_counter()
     vlm = ProbabilisticVLM.from_pretrained(MODEL, hessian_dir, dtype="bf16",
-                                           device="cuda", seed=SEED, **lanes)
+                                           device="cuda", seed=SEED, mesh=None, **lanes)
     if vision:
         vlm.image_encoder = rebuild_image_encoder(vlm.image_encoder, **vision)
     torch.cuda.synchronize()
@@ -1055,7 +1085,7 @@ def phase_main_path(torch, counters, hessian_dir: str, pixels, prompts):
     embeds = vlm.encode_images(pixels).embeds
 
     vlm32 = ProbabilisticVLM.from_pretrained(MODEL, hessian_dir, dtype="fp32",
-                                             device="cuda", seed=SEED)
+                                             device="cuda", seed=SEED, mesh=None)
     vlm32.set_class_prompts(prompts)
     probs32 = vlm32.predict(pixels)
     logp_diff = float((probs.float().log() - probs32.log()).abs().max())
@@ -1565,7 +1595,8 @@ def phase_multiserve(torch, counters, hessian_dirs: dict, work: Path,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         vlms[n] = ProbabilisticVLM.from_pretrained(models[n], str(hessian_dirs[models[n]]),
-                                                   dtype="bf16", device="cuda", seed=SEED)
+                                                   dtype="bf16", device="cuda", seed=SEED,
+                                                   mesh=None)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         vlms[n].set_class_prompts(prompts[n])
@@ -1653,7 +1684,8 @@ def phase_multiserve(torch, counters, hessian_dirs: dict, work: Path,
         t0 = time.perf_counter()
         with _CaptureLog(torch, counters) as log:
             restored = ProbabilisticVLM.from_serving_cache(models[n], path, dtype="bf16",
-                                                           device="cuda", seed=SEED)
+                                                           device="cuda", seed=SEED,
+                                                           mesh=None)
         torch.cuda.synchronize()
         restore_s = time.perf_counter() - t0
         check(all(launches == {"attention": layers[n]} for _, launches in log.captures)
@@ -2027,7 +2059,8 @@ def phase_stage1(torch, counters, pixels, prompts) -> dict:
                 check(asym <= 1e-6, f"{name}_{tag} not symmetric ({asym:.2e})")
                 check(int(chol) == 0, f"{name}_{tag}: regularized factor not SPD")
 
-        vlm = ProbabilisticVLM.from_pretrained(S1_MODEL, hdir, device="cuda", seed=SEED)
+        vlm = ProbabilisticVLM.from_pretrained(S1_MODEL, hdir, device="cuda", seed=SEED,
+                                               mesh=None)
         vlm.set_class_prompts(prompts)
         probs = vlm.predict(pixels)
         row_err = float((probs.sum(-1) - 1.0).abs().max())
@@ -2263,7 +2296,7 @@ def snapshot_case(torch, model: str, hessian_dir: str, pixels, prompts, root,
     # (_check_same above), so one predict, from the snapshot, covers both
     vlm = ProbabilisticVLM.from_pretrained(
         model, hessian_dir, weights_dir=str(snap), dtype="bf16", device=device,
-        prior_num_steps=SNAPSHOT_PRIOR_STEPS)
+        prior_num_steps=SNAPSHOT_PRIOR_STEPS, mesh=None)
     vlm.set_class_prompts(prompts)
     for c in (counters or {}).values():
         c.launches = 0
@@ -2333,7 +2366,7 @@ def phase_tiny_reference(torch, attention, hessian_dir: str,
     gpu = ProbabilisticVLM.from_pretrained(model, hessian_dir,
                                            weights_dir=hessian_dir,
                                            dtype="fp32", device="cuda",
-                                           prior_num_steps=50)
+                                           prior_num_steps=50, mesh=None)
     prompts = ["a cat", "a dog", "a bird"]
     pixels = np.random.default_rng(SEED + 2).normal(
         size=(8, 32, 32, 3)).astype(np.float32)
@@ -2535,7 +2568,7 @@ def phase_epig_path(torch, counters, hessian_dir: str) -> dict:
 
     t0 = time.perf_counter()
     vlm = ProbabilisticVLM.from_pretrained(MODEL, hessian_dir, dtype="bf16",
-                                           device="cuda", seed=SEED)
+                                           device="cuda", seed=SEED, mesh=None)
     size = get_image_size(MODEL)
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
 
@@ -3530,13 +3563,13 @@ def _dist_gloo(torch, spec: dict) -> dict:
 
 
 def dist_worker(role: str, spec_path: str) -> int:
-    """A child of phase 12: runs `role` ("nccl" or "gloo") and writes its
-    outcome as JSON to the spec's `out`."""
+    """A child of phase 12 ("nccl" or "gloo") or of phase 13 ("tp"): runs
+    `role` and writes its outcome as JSON to the spec's `out`."""
     import torch
 
     torch.backends.cudnn.allow_tf32 = False  # as phase 1 sets it in the parent
     spec = json.loads(Path(spec_path).read_text())
-    out = (_dist_nccl if role == "nccl" else _dist_gloo)(torch, spec)
+    out = {"nccl": _dist_nccl, "gloo": _dist_gloo, "tp": _tp_worker}[role](torch, spec)
     Path(spec["out"]).write_text(json.dumps(out))
     return 0
 
@@ -3746,6 +3779,549 @@ def _dist_gloo_checks(ranks: list, al_main: dict, work: Path) -> dict:
     return {"launches": launches}
 
 
+# 13: the serving mesh, tensor parallelism, the DCP lane, profiling and
+# the preflight (the last modules of the port), in one phase
+PAR_MESH = ("cuda:0", "cuda:0")  # two replicas on the one card
+PAR_LADDER = [2, BATCH]
+PAR_PRIOR_STEPS = SNAPSHOT_PRIOR_STEPS
+PAR_TIMER_STEPS = 5  # StepTimer steps (its first 2 discarded)
+PAR_REQUESTS = 8  # single-image requests to the BatchingServer on the mesh
+PAR_THROUGHPUT_CALLS = 10
+PAR_TP_BATCH = 8
+PAR_TP_CALLS = 5
+PAR_TP_TIMEOUT_S = 300
+PAR_PREFLIGHT = dict(dataset="synthetic", batch_size=32, num_workers=2, num_test=128)
+# TP vs the unsplit tower of the same bf16 weights: a split column
+# product (q, k, v, fc1) sums the same terms per output as the unsplit
+# one; a split row product (out_proj, fc2) rounds each rank's partial sum
+# to bf16 (2^-9 relative) before the fp32 sum and the bias, one more
+# rounding per sublayer than the unsplit product. That is the block
+# lane's kind of error against the bf16 lane (BLOCK_EMBED_COS_MIN's
+# argument: a value moved by an ulp at a few points a layer, a random
+# walk over 24 layers, a cosine above 0.9999), so the embeddings and
+# activations are held to the same cosine; a wrong slice, head count or
+# reduction gives one far below it. The largest element error, relative
+# to the tensor's largest magnitude, is bounded too: the H100 run
+# (NVIDIA H100 80GB HBM3, 700.00 W) read embed / act cosines 0.999914 /
+# 0.999913 and max rel 1.199e-02 / 1.948e-02 at B=8 on both ranks;
+# TP_MAX_REL is 2.5x the larger, and a wrong slice moves it by O(1).
+TP_COS_MIN = BLOCK_EMBED_COS_MIN
+TP_MAX_REL = 0.05
+
+
+def _mesh_lane(torch, counters, vlm, u8, label: str, per_forward: dict,
+               **vision) -> dict:
+    """A kernel lane of the bf16 VLM's weights on the serving mesh: the
+    eager sharded predict (each replica's launches), its B=BATCH graphs
+    (launches at capture, one a replica) and the replay equal to it bit
+    for bit; each replica's int8 cache on its own device and storage."""
+    from bayesvlm_tpu_torch.models.encoders import rebuild_image_encoder
+    from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
+
+    enc = rebuild_image_encoder(vlm.image_encoder, **vision)
+    lane = ProbabilisticVLM(enc, vlm.text_encoder, vlm.head, vlm.info, mesh=PAR_MESH)
+    lane._label_features = vlm._label_features
+    reps = lane._replicas()
+    caches = [[t for n, t in r.encoder.module.named_buffers() if n.endswith("w1q")]
+              for r in reps]
+    check(all(t.device == reps[0].device for c in caches for t in c)
+          and not {t.data_ptr() for t in caches[0]} & {t.data_ptr() for t in caches[1]},
+          f"{label}: the replicas' int8 caches must be their own, on their device")
+    for c in counters.values():
+        c.launches = 0
+    eager = lane.predict(u8)
+    torch.cuda.synchronize()
+    launches = _counted(counters)
+    want = {**dict.fromkeys(counters, 0), **{n: 2 * v for n, v in per_forward.items()}}
+    check(launches == want, f"{label} mesh predict launches {launches} != {want}")
+    with _CaptureLog(torch, counters) as log:
+        lane.compile_serving([BATCH], input_dtype=torch.uint8)
+    check([n for _, n in log.captures] == [per_forward] * 2,
+          f"{label} mesh graph launches {[n for _, n in log.captures]}")
+    out = lane.predict(u8)
+    check(lane.replays == 1 and torch.equal(out, eager),
+          f"{label}: the mesh replay differs from the eager sharded predict")
+    print(f"mesh {label} lane: eager launches {_nonzero(launches)}, graph B={BATCH} "
+          f"captures {[round(s, 3) for s, _ in log.captures]} s with "
+          f"{[n for _, n in log.captures]}; replay bit-equal to the eager sharded predict")
+    return {"eager": _nonzero(launches), "graph": [n for _, n in log.captures]}
+
+
+def _nonzero(launches: dict) -> dict:
+    return {n: v for n, v in launches.items() if v}
+
+
+def _parallel_profiling(torch, vlm, u8, work: Path) -> dict:
+    """(d): trace, debug_nans and StepTimer over the mesh VLM's eager
+    predict (run first: no graph is captured in this process yet)."""
+    from bayesvlm_tpu_torch.profiling import StepTimer, debug_nans, trace
+
+    L = vlm.image_encoder.config.vision.num_layers
+    vlm.predict(u8)
+    with trace(str(work / "trace")):
+        vlm.predict(u8)
+    files = list((work / "trace").glob("*.json"))
+    check(len(files) == 1, f"trace wrote {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    mma = sum("mha_mma_kernel" in str(e.get("name", "")) for e in events)
+    print(f"profiling.trace over one mesh predict: {files[0].stat().st_size / 1e6:.1f} MB "
+          f"Chrome trace, {len(events)} events, mha_mma_kernel {mma} (the predict "
+          f"launches #1 {2 * L} times)")
+    check(mma > 0, "the trace lists no mha_mma_kernel")
+    try:
+        with debug_nans():
+            torch.log(torch.tensor(-1.0, device="cuda"))
+        raised = False
+    except FloatingPointError:
+        raised = True
+    check(raised, "debug_nans did not raise on log(-1)")
+    with debug_nans():
+        clean = vlm.predict(u8[:2])
+    check(bool(torch.isfinite(clean).all()), "debug_nans: the predict went non-finite")
+    timer = StepTimer()
+    for _ in range(PAR_TIMER_STEPS):
+        with timer.step() as s:
+            s["result"] = vlm.predict(u8)
+    summary = timer.summary(items_per_step=BATCH)
+    check(summary["steps"] == PAR_TIMER_STEPS - timer.warmup, f"StepTimer {summary}")
+    print(f"debug_nans: FloatingPointError on log(-1) on the card; a predict of 2 under "
+          f"it clean. StepTimer over {PAR_TIMER_STEPS} mesh predicts (B={BATCH} uint8, "
+          f"eager sharded, host clock, result synchronised; {DEVICE['card']}): {summary}")
+    return {"trace_mha_mma_events": mma, "timer": summary}
+
+
+def _parallel_mesh(torch, counters, vlm, u8, logp_tol: float, work: Path) -> dict:
+    """(a): the serving mesh at full width: eager sharded predict, the
+    uint8 ladder a replica, replays, the mesh-less predict, img/s against
+    one replica, the BatchingServer, the saved serving state and the
+    kernel lanes."""
+    from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
+    from bayesvlm_tpu_torch.serve import BatchingServer
+
+    L = vlm.image_encoder.config.vision.num_layers
+    out = {}
+    reps = vlm._replicas()
+    check(len(reps) == 2 and all(str(r.device) == "cuda:0" for r in reps)
+          and reps[1].encoder.projection_weight().data_ptr()
+          != reps[0].encoder.projection_weight().data_ptr(),
+          "the mesh must hold two replicas of their own on cuda:0")
+    eager = {}
+    for b in PAR_LADDER:
+        for c in counters.values():
+            c.launches = 0
+        eager[b] = vlm.predict(u8[:b])
+        torch.cuda.synchronize()
+        got = _nonzero(_counted(counters))
+        check(got == {"attention": 2 * L}, f"mesh predict B={b} launches {got}")
+        out.setdefault("eager", {})[b] = got
+    single = ProbabilisticVLM(vlm.image_encoder, vlm.text_encoder, vlm.head, vlm.info,
+                              transform=vlm.transform, mesh=None)
+    single._label_features = vlm._label_features
+    ref = single.predict(u8)
+    logp = float((eager[BATCH].float().log() - ref.float().log()).abs().max())
+    print(f"mesh {list(PAR_MESH)} eager sharded predict B={BATCH} uint8 vs the mesh-less "
+          f"predict: max |log p| diff {logp:.3e} (tol {logp_tol:.3e}, phase 6's bf16-vs-"
+          f"fp32); #1 launches {L} a replica a forward")
+    check(logp <= logp_tol, "the mesh predict strays from the mesh-less predict")
+
+    with _CaptureLog(torch, counters) as log:
+        t0 = time.perf_counter()
+        vlm.compile_serving(PAR_LADDER, input_dtype=torch.uint8)
+        out["compile_s"] = time.perf_counter() - t0
+    out["captures"] = [(round(s, 4), n) for s, n in log.captures]
+    check([n for _, n in log.captures] == [{"attention": L}] * (2 * len(PAR_LADDER)),
+          f"mesh ladder capture launches {out['captures']}")
+    for b in PAR_LADDER:
+        replays = vlm.replays
+        got = vlm.predict(u8[:b])
+        check(vlm.replays == replays + 1, f"mesh B={b}: predict did not replay")
+        check(torch.equal(got, eager[b]), f"mesh B={b}: the replay differs from the eager "
+                                           "sharded predict")
+    single.compile_serving([BATCH], input_dtype=torch.uint8)
+    times = {"mesh": _host_ms(torch, lambda: vlm.predict(u8), PAR_THROUGHPUT_CALLS),
+             "one_replica": _host_ms(torch, lambda: single.predict(u8), PAR_THROUGHPUT_CALLS)}
+    out["img_s"] = {n: BATCH * len(t) / sum(t) * 1e3 for n, t in times.items()}
+    print(f"mesh ladder {PAR_LADDER} uint8: compile_serving {out['compile_s']:.2f} s, "
+          f"captures (s, launches) {out['captures']}; each replay bit-equal to the eager "
+          f"sharded predict. B={BATCH} img/s over {PAR_THROUGHPUT_CALLS} calls (host "
+          f"clock, card synchronised; two replicas on one card: the logic, not the "
+          f"scaling; {DEVICE['card']}): mesh {out['img_s']['mesh']:.1f}, one replica "
+          f"{out['img_s']['one_replica']:.1f}")
+
+    programs = dict(vlm._serving["programs"])
+    with BatchingServer(vlm, batch_size=BATCH, buckets=PAR_LADDER, max_wait_ms=2.0,
+                        input_dtype=torch.uint8) as srv:
+        check(srv._buckets == PAR_LADDER, f"BatchingServer ladder {srv._buckets}")
+        rows = np.stack([f.result(timeout=120) for f in
+                         [srv.submit(u8[i]) for i in range(PAR_REQUESTS)]])
+        stats = srv.stats()
+    logp = _max_logp_diff(torch, rows, eager[BATCH][:PAR_REQUESTS])
+    print(f"BatchingServer on the mesh: {PAR_REQUESTS} requests in {stats.batches} "
+          f"batches, rows vs eager predict max |log p| diff {logp:.3e} (tol "
+          f"{logp_tol:.3e}); the mesh ladder reused")
+    check(logp <= logp_tol, "BatchingServer rows on the mesh stray")
+    check(vlm._serving["programs"] == programs, "the BatchingServer captured again")
+
+    path = vlm.save_serving(work / "mesh.aotserv")
+    from bayesvlm_tpu_torch.pipeline import _read_serving_file
+
+    layout = _read_serving_file(path)["mesh"]
+    check(layout == {"axis": "data", "size": 2}, f"saved mesh layout {layout}")
+    t0 = time.perf_counter()
+    restored = ProbabilisticVLM.from_serving_cache(MODEL, path, dtype="bf16",
+                                                   device="cuda", seed=SEED, mesh=PAR_MESH)
+    out["restore_s"] = time.perf_counter() - t0
+    check(torch.equal(restored.predict(u8), vlm.predict(u8)) and restored.replays == 1,
+          "from_serving_cache on the mesh: its replay differs from the saved VLM's")
+    del restored
+    other = ProbabilisticVLM(vlm.image_encoder, vlm.text_encoder, vlm.head, vlm.info,
+                             mesh=["cuda:0"] * 3)
+    other._label_features = vlm._label_features
+    try:
+        other.load_serving(path)
+        refused = ""
+    except ValueError as exc:
+        refused = str(exc)
+    check(refused.startswith("AOT cache mesh mismatch"),
+          f"a mesh of 3 took a file saved on a mesh of 2 ({refused!r})")
+    print(f"save_serving -> from_serving_cache on the mesh: {out['restore_s']:.2f} s, "
+          f"replay bit-equal; a mesh of 3 refused: {refused}")
+    del other, single
+    vlm._serving = None
+    torch.cuda.empty_cache()
+    out["lanes"] = {
+        "int8": _mesh_lane(torch, counters, vlm, u8, "int8",
+                           {"attention": L, "mlp_int8": L, "linear_int8": 2 * L},
+                           mlp_int8=True, attn_int8=True),
+        "block": _mesh_lane(torch, counters, vlm, u8, "block", {"attention_block": L},
+                            attn_pallas_block=True)}
+    return out
+
+
+def _tp_worker(torch, spec: dict) -> dict:
+    """(b), one of two gloo ranks on cuda:0: the clip-large vision tower
+    unsplit, then split over the ("data", "model") = (1, 2) mesh, on the
+    same seeded pixels."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from bayesvlm_tpu_torch.dist.mesh import make_mesh
+    from bayesvlm_tpu_torch.dist.tp import shard_tower_params
+    from bayesvlm_tpu_torch.models import attention
+    from bayesvlm_tpu_torch.models.encoders import load_model
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{spec['port']}",
+                            world_size=2, rank=spec["rank"],
+                            timeout=timedelta(seconds=PAR_TP_TIMEOUT_S))
+    try:
+        mesh = make_mesh(("data", "model"), (1, 2))
+        img, _, _ = load_model(MODEL, dtype=torch.bfloat16, device=torch.device("cuda"),
+                               seed=SEED)
+        size = img.config.vision.image_size
+        x = torch.from_numpy(np.random.default_rng(SEED + 6).normal(
+            size=(PAR_TP_BATCH, size, size, 3)).astype(np.float32)).cuda()
+
+        def forward_ms():
+            times, res = [], None
+            for _ in range(PAR_TP_CALLS + 1):
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                res = img(x)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return res, times[1:]
+
+        ref, ref_ms = forward_ms()
+        shard_tower_params(img.module, mesh)
+        attention.fused_attention.launches = 0
+        got = img(x)
+        torch.cuda.synchronize()
+        launches = attention.fused_attention.launches
+        _, tp_ms = forward_ms()
+        attn = img.module.encoder.layers[0].self_attn
+
+        def cos_min(a, b):
+            return float(torch.nn.functional.cosine_similarity(
+                a.float(), b.float(), dim=-1).min())
+
+        return {"rank": spec["rank"], "launches": launches, "heads": attn.num_heads,
+                "q_rows": attn.q_proj.weight.shape[0],
+                "embed_cos_min": cos_min(got.embeds, ref.embeds),
+                "act_cos_min": cos_min(got.activations, ref.activations),
+                "embed_max_rel": _rel_err(torch, got.embeds, ref.embeds),
+                "act_max_rel": _rel_err(torch, got.activations, ref.activations),
+                "unsplit_ms": ref_ms, "tp_ms": tp_ms}
+    finally:
+        dist.destroy_process_group()
+
+
+def _parallel_tp(torch, work: Path) -> dict:
+    """(b): tensor parallelism over two gloo ranks on the one card (child
+    processes, as phase 12 starts them)."""
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+
+    vcfg = CONFIGS_BY_NAME[MODEL].vision
+    torch.cuda.empty_cache()  # the children allocate on the same card
+    script = str(Path(__file__).resolve())
+    port = _free_port()
+    cmds, logs = [], []
+    for rank in range(2):
+        spec = {"port": port, "rank": rank, "out": str(work / f"tp{rank}.json")}
+        (work / f"tp{rank}_spec.json").write_text(json.dumps(spec))
+        cmds.append([sys.executable, script, "--dist-worker", "tp",
+                     str(work / f"tp{rank}_spec.json")])
+        logs.append(str(work / f"tp{rank}.log"))
+    t0 = time.perf_counter()
+    _run_children(cmds, [dict(os.environ)] * 2, logs, PAR_TP_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    ranks = [json.loads((work / f"tp{r}.json").read_text()) for r in range(2)]
+    for r in ranks:
+        print(f"TP rank {r['rank']} of 2 (gloo, cuda:0; {MODEL} vision, B={PAR_TP_BATCH}, "
+              f"bf16): #1 launches {r['launches']} with {r['heads']} heads, q_proj rows "
+              f"{r['q_rows']}; vs the unsplit tower: embed cos min {r['embed_cos_min']:.6f}, "
+              f"act cos min {r['act_cos_min']:.6f} (min {TP_COS_MIN}), max rel "
+              f"{r['embed_max_rel']:.3e} / {r['act_max_rel']:.3e} (max {TP_MAX_REL}); "
+              f"forward ms (host clock, "
+              f"synchronised, {PAR_TP_CALLS} calls; {DEVICE['card']}): TP "
+              f"{[round(t, 3) for t in r['tp_ms']]} unsplit "
+              f"{[round(t, 3) for t in r['unsplit_ms']]}")
+        check(r["launches"] == vcfg.num_layers, f"TP rank {r['rank']}: #1 launches "
+                                                f"{r['launches']} != {vcfg.num_layers}")
+        check(r["heads"] == vcfg.num_heads // 2 and r["q_rows"] == vcfg.hidden_size // 2,
+              f"TP rank {r['rank']} is not split in two")
+        check(min(r["embed_cos_min"], r["act_cos_min"]) >= TP_COS_MIN
+              and max(r["embed_max_rel"], r["act_max_rel"]) <= TP_MAX_REL,
+              f"TP rank {r['rank']} strays from the unsplit tower")
+    print(f"TP children wall {wall:.1f} s")
+    return {"ranks": ranks, "wall_s": wall}
+
+
+def _parallel_dcp(torch, work: Path) -> dict:
+    """(c): clip-large-sized factors .pt -> factors_dcp -> .pt bit for bit,
+    then an async save of them from the card, waited on and read back."""
+    from bayesvlm_tpu_torch.io import artifacts, dcp_ckpt
+    from bayesvlm_tpu_torch.io.artifacts import save_synthetic_hessians
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+
+    hdir = save_synthetic_hessians(work / "dcp_pt", CONFIGS_BY_NAME[MODEL], SEED)
+    want = {tag: artifacts.load_hessians(hdir, tag) for tag in ("img", "txt")}
+    out = {"mb": sum(F.numel() * 4 for pair in want.values() for F in pair) / 1e6}
+    t0 = time.perf_counter()
+    dcp_ckpt.hessians_to_dcp(hdir)
+    out["to_dcp_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dcp_ckpt.dcp_to_hessians(hdir, work / "dcp_back")
+    out["to_pt_s"] = time.perf_counter() - t0
+    for tag, (A, B) in want.items():
+        back = artifacts.load_hessians(work / "dcp_back", tag)
+        lane = dcp_ckpt.load_hessians_dcp(hdir, tag)
+        check(all(torch.equal(a, b) for a, b in zip((A, B), back))
+              and all(torch.equal(a, b) for a, b in zip((A, B), lane)),
+              f"DCP round trip of the {tag} factors is not bit-equal")
+    tree = {f"{n}_{tag}": F.cuda() for tag, pair in want.items() for n, F in zip("AB", pair)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handle = dcp_ckpt.async_save_pytree(work / "dcp_async", tree)
+    out["async_return_s"] = time.perf_counter() - t0
+    handle.wait()
+    out["async_total_s"] = time.perf_counter() - t0
+    got = dcp_ckpt.load_pytree(work / "dcp_async")
+    check(all(torch.equal(got[k], v.cpu()) for k, v in tree.items()),
+          "the async save from the card read back differently")
+    print(f"DCP lane ({MODEL} factors, {out['mb']:.1f} MB fp32): .pt -> factors_dcp "
+          f"{out['to_dcp_s']:.3f} s, -> .pt {out['to_pt_s']:.3f} s, bit-equal; "
+          f"async_save_pytree from the card returned in {out['async_return_s']:.3f} s, "
+          f"done in {out['async_total_s']:.3f} s, read back bit-equal (host clock; "
+          f"{DEVICE['card']})")
+    return out
+
+
+def _hf_clip_config(cfg) -> dict:
+    """An HF snapshot's config.json for a CLIP model of `cfg`'s widths (what
+    `transformers.CLIPModel.from_pretrained` reads beside the weights)."""
+    v, t = cfg.vision, cfg.text
+    return {"model_type": "clip", "architectures": ["CLIPModel"],
+            "projection_dim": v.projection_dim,
+            "vision_config": {"model_type": "clip_vision_model", "hidden_size": v.hidden_size,
+                              "intermediate_size": v.mlp_dim,
+                              "num_hidden_layers": v.num_layers,
+                              "num_attention_heads": v.num_heads, "image_size": v.image_size,
+                              "patch_size": v.patch_size, "hidden_act": v.hidden_act,
+                              "layer_norm_eps": v.layer_norm_eps,
+                              "projection_dim": v.projection_dim, "num_channels": 3},
+            "text_config": {"model_type": "clip_text_model", "vocab_size": t.vocab_size,
+                            "hidden_size": t.hidden_size, "intermediate_size": t.mlp_dim,
+                            "num_hidden_layers": t.num_layers,
+                            "num_attention_heads": t.num_heads,
+                            "max_position_embeddings": t.max_length,
+                            "hidden_act": t.hidden_act, "layer_norm_eps": t.layer_norm_eps,
+                            "projection_dim": t.projection_dim,
+                            "eos_token_id": t.eos_token_id, "bos_token_id": t.eos_token_id - 1,
+                            "pad_token_id": 1}}
+
+
+def _parallel_preflight(torch, counters, hessian_dir: str, work: Path) -> dict:
+    """(e): the preflight on phase 8c's seeded clip-large snapshot (fp16
+    safetensors under HF's names, with its config.json), synthetic data,
+    with --skip_parity: its parity step, both models in fp32 on the CPU,
+    is held by the CPU tests on tiny towers; at this width its elementwise
+    tolerance is reached by fp32 summation order alone (preflight.py,
+    `step_parity`)."""
+    from bayesvlm_tpu_torch import preflight
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+    from bayesvlm_tpu_torch.models.encoders import load_model
+    from bayesvlm_tpu_torch.utils import get_image_size
+
+    cfg = CONFIGS_BY_NAME[MODEL]
+    img, txt, _ = load_model(MODEL, dtype=torch.float32, device=torch.device("cuda"),
+                             seed=SEED)
+    scale, bias = SNAPSHOT_HEAD[cfg.family]
+    snap = work / "snapshot"
+    snap.mkdir()
+    write_safetensors_f16(snap / "model.safetensors", to_hf_state_dict(
+        cfg.family, img.module.state_dict(), txt.module.state_dict(),
+        cfg.vision.num_layers, cfg.text.num_layers, logit_scale=scale, logit_bias=bias))
+    (snap / "config.json").write_text(json.dumps(_hf_clip_config(cfg)))
+    del img, txt
+    kw = dict(PAR_PREFLIGHT)
+    overrides = {"image_size": get_image_size(MODEL), "num_test": kw.pop("num_test")}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    summary = preflight.main(model_str=MODEL, snapshot=str(snap), hessian_dir=hessian_dir,
+                             dtype="bf16", use_mesh=False, device="cuda", skip_parity=True,
+                             dataset_overrides=overrides, **kw)
+    seconds = time.perf_counter() - t0
+    launches = _nonzero(_counted(counters))
+    forwards = -(-overrides["num_test"] // kw["batch_size"])
+    check(summary["parity"] is None, f"parity {summary['parity']}")
+    check(0.0 <= summary["acc"] <= 1.0 and math.isfinite(summary["nlpd"])
+          and math.isfinite(summary["ece"]), f"preflight summary {summary}")
+    check(launches == {"attention": cfg.vision.num_layers * forwards},
+          f"preflight launches {launches}")
+    print(f"preflight on the seeded {MODEL} snapshot ({overrides['num_test']} synthetic "
+          f"images; --skip_parity): {seconds:.1f} s, #1 launches {launches['attention']}, "
+          f"summary {summary}")
+    return {"seconds": seconds, "launches": launches, "summary": summary}
+
+
+def phase_parallel(torch, counters, hessian_dir: str, prompts, logp_tol: float) -> dict:
+    """13: (d) profiling, (a) the serving mesh, (b) tensor parallelism, (c)
+    the DCP lane, (e) the preflight (module docstring)."""
+    from bayesvlm_tpu_torch import kernels
+    from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
+    from bayesvlm_tpu_torch.utils import get_image_size
+
+    size = get_image_size(MODEL)
+    u8 = np.random.default_rng(SEED + 5).integers(0, 256, (BATCH, size, size, 3),
+                                                  dtype=np.uint8)
+    out, seconds = {}, {}
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as work:
+        work = Path(work)
+        t0 = time.perf_counter()
+        vlm = ProbabilisticVLM.from_pretrained(
+            MODEL, hessian_dir, dtype="bf16", device="cuda", seed=SEED,
+            prior_num_steps=PAR_PRIOR_STEPS, mesh=list(PAR_MESH)).set_class_prompts(prompts)
+        seconds["build"] = time.perf_counter() - t0
+        for name, fn, args in (
+                ("profiling", _parallel_profiling, (torch, vlm, u8, work)),
+                ("mesh", _parallel_mesh, (torch, counters, vlm, u8, logp_tol, work))):
+            t0 = time.perf_counter()
+            out[name] = fn(*args)
+            seconds[name] = time.perf_counter() - t0
+        del vlm
+        torch.cuda.empty_cache()
+        for name, fn, args in (
+                ("tp", _parallel_tp, (torch, work)),
+                ("dcp", _parallel_dcp, (torch, work)),
+                ("preflight", _parallel_preflight, (torch, counters, hessian_dir, work))):
+            t0 = time.perf_counter()
+            out[name] = fn(*args)
+            seconds[name] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    print(f"parallel phase parts (s): { {k: round(v, 2) for k, v in seconds.items()} }")
+    return out
+
+
+MESH_CARDS_CALLS, MESH_CARDS_ROUNDS = 20, 3
+
+
+def mesh_cards() -> int:
+    """`chip_smoke.py --mesh-cards` (a host of more than one card; not in
+    the default run): the serving mesh over every visible card
+    (`mesh="auto"`). tiny-clip fp32: each ladder size's replay equal to
+    the eager sharded predict and to each card's row block, bit for bit;
+    clip-large bf16 at B=64 uint8: the replay equal to the eager sharded
+    predict, the eager sharded predict against one card's, and the graph's
+    img/s on the mesh against one card's, in turns (host clock, the cards
+    synchronised)."""
+    import torch
+
+    phase_device(torch)
+    from bayesvlm_tpu_torch import kernels
+    from bayesvlm_tpu_torch.io.artifacts import save_synthetic_hessians
+    from bayesvlm_tpu_torch.models import attention
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME, TINY_CLIP_CONFIG
+    from bayesvlm_tpu_torch.pipeline import ProbabilisticVLM
+
+    n = torch.cuda.device_count()
+    check(n > 1, f"--mesh-cards needs more than one card, found {n}")
+    phase_build(kernels, (attention,))
+    prompts = [f"a photo of a thing of class {i}" for i in range(NUM_PROMPTS)]
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=kernels.BUILD_DIR) as work:
+        hdir = save_synthetic_hessians(Path(work) / "tiny", TINY_CLIP_CONFIG, SEED)
+        vlm = ProbabilisticVLM.from_pretrained("tiny-clip", str(hdir), dtype="fp32",
+                                               prior_num_steps=20, device="cuda")
+        vlm.set_class_prompts(prompts[:4])
+        reps = vlm._replicas()
+        check([r.device.index for r in reps] == list(range(n)), f"mesh {vlm.mesh}")
+        u8 = np.random.default_rng(SEED + 7).integers(0, 256, (2 * n, 32, 32, 3),
+                                                      dtype=np.uint8)
+        eager = {b: vlm.predict(u8[:b]) for b in (n, 2 * n)}
+        vlm.compile_serving([n, 2 * n], input_dtype=torch.uint8)
+        for b in (n, 2 * n):
+            rows = b // n
+            blocks = torch.cat([vlm._serve_forward(
+                torch.as_tensor(u8[i * rows:(i + 1) * rows]).to(r.device), r).to(reps[0].device)
+                for i, r in enumerate(reps)])
+            out = vlm.predict(u8[:b])
+            check(torch.equal(out, eager[b]) and torch.equal(out, blocks),
+                  f"tiny-clip B={b}: the mesh replay differs")
+        print(f"tiny-clip on {vlm.mesh}: each replay bit-equal to the eager sharded "
+              f"predict and to each card's row block")
+        del vlm
+        hdir = save_synthetic_hessians(Path(work) / "large", CONFIGS_BY_NAME[MODEL], SEED)
+        vlm = ProbabilisticVLM.from_pretrained(MODEL, str(hdir), dtype="bf16", device="cuda",
+                                               seed=SEED, prior_num_steps=PAR_PRIOR_STEPS)
+        vlm.set_class_prompts(prompts)
+        one = ProbabilisticVLM(vlm.image_encoder, vlm.text_encoder, vlm.head, vlm.info,
+                               mesh=None)
+        one._label_features = vlm._label_features
+        size = vlm.image_encoder.config.vision.image_size
+        x = np.random.default_rng(SEED + 5).integers(0, 256, (BATCH, size, size, 3),
+                                                     dtype=np.uint8)
+        eager, ref = vlm.predict(x), one.predict(x)
+        logp = float((eager.float().log() - ref.float().log()).abs().max())
+        vlm.compile_serving([BATCH], input_dtype=torch.uint8)
+        one.compile_serving([BATCH], input_dtype=torch.uint8)
+        check(torch.equal(vlm.predict(x), eager), f"{MODEL}: the mesh replay differs")
+        print(f"{MODEL} bf16 on {n} cards: replay bit-equal to the eager sharded "
+              f"predict; eager sharded vs one card max |log p| {logp:.3e}")
+        for rnd in range(MESH_CARDS_ROUNDS):
+            t = {name: _host_ms(torch, lambda v=v: v.predict(x), MESH_CARDS_CALLS)
+                 for name, v in (("mesh", vlm), ("one card", one))}
+            print(f"round {rnd}: B={BATCH} uint8 graph img/s ({MESH_CARDS_CALLS} calls, host "
+                  f"clock, synchronised; {DEVICE['card']} x{n}): " + ", ".join(
+                      f"{name} {BATCH * len(v) / sum(v) * 1e3:.1f} (median "
+                      f"{_pct(v, 0.5):.3f} ms)" for name, v in t.items()))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
+    return 0
+
+
 def _probe_entries(probe_path: dict, parts: dict) -> list:
     """Each probe kernel's line, from its probe's numbers; the GEMMs that
     the sweep also runs carry its tiles, the s4 kinds and the packed-head
@@ -3869,6 +4445,10 @@ def main() -> int:
         (bf16_vlm, bf16_launches, bf16_img_s, bf16_embeds, bf16_probs,
          bf16_logp_diff) = _timed("main_path", phase_main_path, torch, counters, hdir,
                                   pixels, prompts)
+        # 13 runs here, before any graph capture or child process of this
+        # process: its trace reads torch.profiler's kernel records
+        parallel = _timed("parallel", phase_parallel, torch, counters, str(hdir), prompts,
+                          bf16_logp_diff)
         serving = _timed("serving", phase_serving, torch, counters, bf16_vlm, prompts,
                          bf16_logp_diff)
         del bf16_vlm
@@ -3914,13 +4494,19 @@ def main() -> int:
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "parts_ms")}
     linear_entry["parts_ms"] = qkv["parts_ms"]
     linear_entry["graph_launches"] = {BATCH: int8_graph["linear_int8"]}
+    linear_entry["mesh_launches"] = {
+        k: [n["linear_int8"] for n in v] if k == "graph" else v["linear_int8"]
+        for k, v in parallel["mesh"]["lanes"]["int8"].items()}
     fused = int8["mlp_int8 fused-LN"]
     mlp_entry = _entry("mlp_int8", "bayesvlm_tpu_torch/csrc/mlp_int8.cu",
                        "bayesvlm_tpu/models/mlp_int8.py:101",
                        int8_launches["mlp_int8"], fused, None)
     mlp_entry["yardsticks"] = int8["mlp_int8 yardsticks"]
     mlp_entry.update(registers_gemm=fused["registers_gemm"], parts_ms=fused["parts_ms"],
-                     graph_launches={BATCH: int8_graph["mlp_int8"]})
+                     graph_launches={BATCH: int8_graph["mlp_int8"]},
+                     mesh_launches={k: [n["mlp_int8"] for n in v] if k == "graph"
+                                    else v["mlp_int8"]
+                                    for k, v in parallel["mesh"]["lanes"]["int8"].items()})
     split, packed = attn[("vit-l/14", "bf16", "split_key")], attn[
         ("vit-l/14", "bf16", "packed_heads")]
     # #1's row is the main path's shape (ViT-L/14, bf16); its other bf16
@@ -3966,6 +4552,18 @@ def main() -> int:
         f"rank{r}": {"smoke_feature_pass": n["smoke_feature_pass"],
                      "al": n["al_attention"]}
         for r, n in dist_b.items()}
+    # and in phase 13: the serving mesh (an eager sharded predict, both
+    # replicas together, and each ladder size's graph a replica, counted at
+    # capture), each TP rank's forward on its H/2 heads, and the
+    # preflight's zero-shot run
+    mesh = parallel["mesh"]
+    one_block["parallel_launches"] = {
+        # both replicas' launches in one eager sharded predict, by batch size
+        "mesh_eager_per_predict": {str(b): n["attention"] for b, n in mesh["eager"].items()},
+        "mesh_graph_captures": [n.get("attention", 0) for _, n in mesh["captures"]],
+        "mesh_int8_graph_captures": [n["attention"] for n in mesh["lanes"]["int8"]["graph"]],
+        "tp_ranks": [r["launches"] for r in parallel["tp"]["ranks"]],
+        "preflight": parallel["preflight"]["launches"]["attention"]}
     print(json.dumps({"kernels": [
         one_block,
         _entry("fused_attention_split", "bayesvlm_tpu_torch/csrc/attention.cu",
@@ -3986,7 +4584,8 @@ def main() -> int:
              chain_ms=block["bf16"]["chain_ms"], core=block["bf16"]["core"],
              gemms=block["bf16"]["gemms"], parts_ms=block["bf16"]["parts_ms"],
              projections_ms=block["bf16"]["projections_ms"],
-             graph_launches={BATCH: block_graph["attention_block"]}),
+             graph_launches={BATCH: block_graph["attention_block"]},
+             mesh_launches=parallel["mesh"]["lanes"]["block"]),
         mlp_entry,
         linear_entry,
         dict(_entry("xlogy_rowsum", "bayesvlm_tpu_torch/csrc/xlogy_rowsum.cu",
@@ -4030,4 +4629,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == "--dist-worker":
         sys.exit(dist_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:] == ["--mesh-cards"]:
+        sys.exit(mesh_cards())
     sys.exit(main())

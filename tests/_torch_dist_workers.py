@@ -482,5 +482,188 @@ def job_activelearning(rank: int, world: int, spec: dict, out: dict) -> None:
     _check(out, "cli", cli)
 
 
-JOBS = {"core": job_core, "selection": job_selection, "stage1": job_stage1,
+# -- tests/test_torch_tp.py: dist/tp.py ----------------------------------------------
+
+
+def _tp_tower(wd: str, mesh=None, **lanes):
+    """The tiny-clip vision encoder with the bridged weights (fp32, CPU),
+    split over the mesh's "model" axis when a mesh is given."""
+    from bayesvlm_tpu_torch.dist.tp import shard_tower_params
+    from bayesvlm_tpu_torch.models.encoders import load_model, rebuild_image_encoder
+
+    block = lanes.pop("attn_pallas_block", False)
+    img, _, _ = load_model("tiny-clip", weights_dir=wd, dtype=torch.float32,
+                           device="cpu", **lanes)
+    if block:
+        img = rebuild_image_encoder(img, attn_pallas_block=True)
+    if mesh is not None:
+        shard_tower_params(img.module, mesh)
+    return img
+
+
+def job_tp(rank: int, world: int, spec: dict, out: dict) -> None:
+    """Tensor parallelism on a ("data", "model") = spec["shape"] mesh: each
+    rank feeds its data block through a tower split over its model group."""
+    from bayesvlm_tpu_torch.dist.mesh import all_gather_rows, make_mesh
+    from bayesvlm_tpu_torch.dist.tp import all_reduce_mean
+    from bayesvlm_tpu_torch.models.mlp_int8 import FLIP_TOL_MAX, FLIP_TOL_MEAN
+    from bayesvlm_tpu_torch.train.backbone import make_backbone_train_step
+
+    a = dict(np.load(spec["npz"]))
+    wd = spec["weights_dir"]
+    mesh = make_mesh(("data", "model"), spec["shape"])
+    data = mesh["data"]
+    d = int(data.size())
+    rows = a["pixels"].shape[0] // d
+    lo = int(data.get_local_rank()) * rows
+    block = torch.from_numpy(a["pixels"][lo:lo + rows])
+
+    def gathered(img):
+        res = img(block)
+        return (all_gather_rows(res.embeds, data).numpy(),
+                all_gather_rows(res.activations, data).numpy())
+
+    def flip_close(got, want):
+        scale = np.abs(want).max()
+        diff = np.abs(got - want)
+        assert diff.max() <= FLIP_TOL_MAX * scale and diff.mean() <= FLIP_TOL_MEAN * scale
+
+    def check_mesh():
+        assert mesh.mesh_dim_names == ("data", "model")
+        assert mesh.mesh.tolist() == np.arange(world).reshape(spec["shape"]).tolist()
+        assert int(mesh["model"].size()) == spec["shape"][1]
+
+    img = _tp_tower(wd, mesh)
+
+    def check_split():
+        m = spec["shape"][1]
+        attn = img.module.encoder.layers[0].self_attn
+        D = img.config.vision.hidden_size
+        assert img.module.tensor_parallel == ("model", m)
+        assert attn.num_heads == img.config.vision.num_heads // m
+        assert tuple(attn.q_proj.weight.shape) == (D // m, D)
+        assert tuple(attn.out_proj.weight.shape) == (D, D // m)
+        mlp = img.module.encoder.layers[0].mlp
+        assert tuple(mlp.fc1.weight.shape) == (img.config.vision.mlp_dim // m, D)
+        assert tuple(img.module.visual_projection.weight.shape) == (
+            img.config.vision.projection_dim, D)
+
+    def check_forward():
+        embeds, acts = gathered(img)
+        _close(embeds, a["ref_embeds"], rtol=1e-5, atol=1e-5)
+        _close(acts, a["ref_acts"], rtol=1e-5, atol=1e-5)
+
+    def check_sgd_step():
+        with torch.inference_mode():
+            acts = img(block).activations
+        acts = acts.clone()
+        labels = torch.from_numpy(a["labels"][lo:lo + rows]).long()
+        text = torch.from_numpy(a["text"])
+        kernel = img.module.visual_projection.weight.detach().T.clone().requires_grad_(True)
+        e = acts @ kernel
+        e = e / e.norm(dim=-1, keepdim=True)
+        t = text / text.norm(dim=-1, keepdim=True)
+        logits = e @ t.T * torch.exp(torch.tensor(float(a["logit_scale"])))
+        logp = torch.log_softmax(logits, dim=-1)
+        loss = -logp[torch.arange(rows), labels].mean()
+        loss.backward()
+        grad = all_reduce_mean(kernel.grad, mesh, "data")
+        loss = all_reduce_mean(loss.detach(), mesh, "data")
+        new_kernel = kernel.detach() - 1e-2 * grad
+        np.testing.assert_allclose(float(loss), float(a["ref_loss"]), rtol=1e-5)
+        _close(new_kernel.numpy(), a["ref_kernel"], rtol=1e-5, atol=1e-6)
+
+    def check_block_lane():
+        embeds, acts = gathered(_tp_tower(wd, mesh, attn_pallas_block=True))
+        _close(embeds, a["block_embeds"], rtol=1e-5, atol=1e-5)
+        _close(acts, a["block_acts"], rtol=1e-5, atol=1e-5)
+
+    def check_int8_lanes():
+        tp = gathered(_tp_tower(wd, mesh, mlp_int8=True, attn_int8=True))
+        whole = gathered(_tp_tower(wd, mlp_int8=True, attn_int8=True))
+        for got, same, want in zip(tp, whole, (a["int8_embeds"], a["int8_acts"])):
+            assert np.array_equal(got, same)  # every sublayer runs whole
+            flip_close(got, want)
+
+    def check_mlp_int8_lane():
+        tp = gathered(_tp_tower(wd, mesh, mlp_int8=True))
+        for got, want in zip(tp, (a["mlp8_embeds"], a["mlp8_acts"])):
+            flip_close(got, want)
+
+    def check_backbone_refused():
+        try:
+            make_backbone_train_step(img.module, lambda m, b: None, 2, 1,
+                                     ("visual_projection",))
+        except ValueError as exc:
+            assert "tensor-parallel (TP)" in str(exc)
+        else:
+            raise AssertionError("a TP tower was taken")
+
+    for name, fn in (("mesh_2d", check_mesh), ("split", check_split),
+                     ("forward", check_forward), ("sgd_step", check_sgd_step),
+                     ("block_lane", check_block_lane), ("int8_lanes", check_int8_lanes),
+                     ("mlp_int8_lane", check_mlp_int8_lane),
+                     ("backbone_refused", check_backbone_refused)):
+        _check(out, name, fn)
+
+
+# -- tests/test_torch_dcp_ckpt.py: io/dcp_ckpt.py ----------------------------------
+
+
+def dcp_rows(n: int = 9, d: int = 3) -> np.ndarray:
+    """The row-sharded tensor of the DCP checks (odd rows: uneven shards)."""
+    return np.arange(n * d, dtype=np.float32).reshape(n, d) / 7.0
+
+
+def job_dcp(rank: int, world: int, spec: dict, out: dict) -> None:
+    """A row-sharded save over the world mesh, then restores at this world
+    size: sharded (each rank its rows), whole, and into a `like` tree; and
+    a checkpoint saved by one process restored sharded here."""
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+    from bayesvlm_tpu_torch.dist.mesh import make_mesh
+    from bayesvlm_tpu_torch.io import dcp_ckpt
+
+    mesh = make_mesh()
+    full = torch.from_numpy(dcp_rows())
+    rows = torch.chunk(full, world)[rank]  # DTensor Shard(0)'s blocks
+    path = Path(spec["dir"]) / "sharded"
+
+    def check_sharded_save():
+        tree = {"w": distribute_tensor(full, mesh, [Shard(0)]),
+                "bias": torch.ones(3), "step": 3}
+        dcp_ckpt.save_pytree(path, tree)
+        assert path.is_dir() and not path.with_name(".sharded.tmp").exists()
+
+    def check_sharded_restore():
+        got = dcp_ckpt.load_pytree(path, shardings=mesh)
+        assert isinstance(got["w"], DTensor) and got["w"].placements == (Shard(0),)
+        assert torch.equal(got["w"].to_local(), rows)
+        assert tuple(got["w"].shape) == tuple(full.shape) and got["step"] == 3
+
+    def check_whole_restore():
+        got = dcp_ckpt.load_pytree(path)
+        assert torch.equal(got["w"], full) and torch.equal(got["bias"], torch.ones(3))
+
+    def check_like_restore():
+        like = {"w": distribute_tensor(torch.zeros_like(full), mesh, [Shard(0)]),
+                "bias": torch.zeros(3), "step": 0}
+        got = dcp_ckpt.load_pytree(path, like=like)
+        assert torch.equal(got["w"].to_local(), rows) and got["step"] == 3
+
+    def check_other_world_restore():
+        got = dcp_ckpt.load_hessians_dcp(spec["one_process_dir"], "img", shardings=mesh)
+        want = dcp_ckpt.load_hessians_dcp(spec["one_process_dir"], "img")
+        for g, w in zip(got, want):
+            assert torch.equal(g.to_local(), torch.chunk(w, world)[rank])
+
+    for name, fn in (("sharded_save", check_sharded_save),
+                     ("sharded_restore", check_sharded_restore),
+                     ("whole_restore", check_whole_restore),
+                     ("like_restore", check_like_restore),
+                     ("other_world_restore", check_other_world_restore)):
+        _check(out, name, fn)
+
+
+JOBS = {"dcp": job_dcp, "tp": job_tp, "core": job_core, "selection": job_selection, "stage1": job_stage1,
         "activelearning": job_activelearning}

@@ -10,7 +10,9 @@ snapshots of tiny-siglip through `load_model` and `convert_weights`. No
 module of JAX or of the JAX package is loaded on the way. The EGL and LLM
 selectors, the backbone fine-tune and their CLIs also import with `jax`,
 `triton` and `google.generativeai` blocked, and so do `dist/` and the
-modules whose mesh paths it serves."""
+modules whose mesh paths it serves, and the serving mesh, `dist/tp.py`,
+the checkpoint lane with `convert_artifacts`, `profiling` and the
+preflight (whose two CLIs print their --help)."""
 
 import subprocess
 import sys
@@ -142,6 +144,40 @@ def test_dist_modules_import_without_jax_or_triton():
         print("EXPORTS", ",".join(exports))
     """ % (DIST_MODULES,))
     assert "make_mesh,local_rows,sharded_hessian_infonce" in out
+
+
+LAST_MODULES = ("bayesvlm_tpu_torch.serving_mesh", "bayesvlm_tpu_torch.pipeline",
+                "bayesvlm_tpu_torch.dist.tp", "bayesvlm_tpu_torch.io.dcp_ckpt",
+                "bayesvlm_tpu_torch.convert_artifacts", "bayesvlm_tpu_torch.profiling",
+                "bayesvlm_tpu_torch.preflight")
+
+
+def test_last_modules_import_without_jax_or_triton():
+    """The serving mesh, tensor parallelism, the checkpoint lane with its
+    converter, profiling and the preflight import, and the two CLIs print
+    their --help, with `jax` and `triton` blocked besides the host
+    packages; the preflight then knows `transformers` is absent (its
+    parity step is skipped on the card's machine)."""
+    out = _run("""
+        import importlib, runpy
+        for name in ("jax", "triton"):
+            sys.modules[name] = None
+        for name in %r:
+            importlib.import_module(name)
+        for cli in ("preflight", "convert_artifacts"):
+            sys.argv = [cli, "--help"]
+            try:
+                runpy.run_module(f"bayesvlm_tpu_torch.{cli}", run_name="__main__")
+            except SystemExit as e:
+                assert e.code == 0, (cli, e.code)
+        from bayesvlm_tpu_torch import preflight
+        assert not preflight._has_transformers()
+        bad = [m for m in sys.modules if m.split(".")[0] in
+               ("jax", "flax", "bayesvlm_tpu", "triton") and sys.modules[m] is not None]
+        assert not bad, bad
+    """ % (LAST_MODULES,))
+    assert "usage: preflight" in out and "--skip_parity" in out and "--device" in out
+    assert "usage: convert_artifacts" in out and "factors_dcp" in out
 
 
 @pytest.mark.parametrize("fmt", ["f16", "bin"])

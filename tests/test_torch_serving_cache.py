@@ -120,7 +120,7 @@ def test_file_is_plain_data_with_the_ladders_signature(saved):
     dicts; the signature names every tensor the ladder reads."""
     src, path = saved
     payload = torch.load(path, weights_only=True)
-    assert payload["version"] == 1
+    assert payload["version"] == 2 and payload["mesh"] is None
     assert (payload["platform"], payload["device_kind"], payload["num_devices"]) == (
         "cpu", "cpu", 1)
     assert payload["image_shape"] == [32, 32, 3] and payload["dtype"] == "float32"

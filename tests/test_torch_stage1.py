@@ -384,8 +384,9 @@ def test_cli_defaults_to_the_card_and_laion():
 def test_cli_refuses_unported_flags_before_loading(flag, tmp_path, monkeypatch):
     """Each unported flag is refused by name before anything loads; the
     ported --tokenizer_dir and --u8_pipeline beside one are not named.
-    The distribution is ported: --dist_global_batch on one process is
-    taken (it changes nothing there, as in JAX) and loading starts, and a
+    The distribution and the checkpoint lane are ported: --dist_global_batch
+    on one process (it changes nothing there, as in JAX) and --save_orbax
+    (the factors_dcp/ lane) are taken and loading starts, and a
     launch named in part (COORDINATOR_ADDRESS without NUM_PROCESSES /
     PROCESS_ID) is refused before anything loads."""
     import bayesvlm_tpu_torch.data.factory as factory
@@ -413,7 +414,7 @@ def test_cli_refuses_unported_flags_before_loading(flag, tmp_path, monkeypatch):
             hessian_estimation.main(**kw)
         assert loaded == [] and not (tmp_path / "h").exists()
         return
-    if flag == {"dist_global_batch": True}:
+    if flag == {"dist_global_batch": True} or "save_orbax" in flag:
         with pytest.raises(_Loaded):
             hessian_estimation.main(**kw, **flag)
         assert loaded == ["load_model"]
