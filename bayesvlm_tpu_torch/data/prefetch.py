@@ -88,7 +88,9 @@ class PrefetchLoader:
     def __iter__(self) -> Iterator:
         q: queue.Queue = queue.Queue(maxsize=self.depth)
         stop = threading.Event()
-        t = threading.Thread(target=_produce, args=(self.loader, q, stop),
+        # iter() here, in the consumer's thread: a loader may note where
+        # its batches are read (NativeDecodeLoader: the consumer's stream)
+        t = threading.Thread(target=_produce, args=(iter(self.loader), q, stop),
                              daemon=True, name="bvt-prefetch")
         t.start()
         try:

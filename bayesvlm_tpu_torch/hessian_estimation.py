@@ -30,11 +30,14 @@ factors; with `--dist_global_batch` the features are gathered instead
 and the class batches span the whole dataset, sharded over the ranks.
 The GGN step checkpoints run on one process only; only rank 0 writes the
 factors, `prior_precision_analytic.json` and the final JSON line.
-`--no_mesh` runs one process whatever the environment says. Not ported
-yet, and refused before anything is loaded: `--native_decode` (the
-native decode lane). `--save_orbax` keeps the JAX flag's spelling: it
-also writes the factors as the port's DCP checkpoint,
-`<hessian_dir>/factors_dcp/` (io/dcp_ckpt.py), from rank 0.
+`--no_mesh` runs one process whatever the environment says.
+`--native_decode` decodes whole batches of the LAION JPEGs natively
+(data/native_io.py, bilinear): on the card with nvJPEG and the
+resize_crop kernel, each rank onto its own card, or with `--device cpu`
+through libjpeg; `--num_workers` is its CPU decode threads and
+`--u8_pipeline` makes it ship uint8 crops. `--save_orbax` keeps the JAX
+flag's spelling: it also writes the factors as the port's DCP
+checkpoint, `<hessian_dir>/factors_dcp/` (io/dcp_ckpt.py), from rank 0.
 """
 
 from __future__ import annotations
@@ -47,12 +50,6 @@ from pathlib import Path
 from typing import Optional
 
 import torch
-
-
-def _refuse_unported(native_decode) -> None:
-    if native_decode:
-        raise NotImplementedError(
-            "not ported yet: --native_decode (the native decode lane)")
 
 
 def main(
@@ -98,7 +95,6 @@ def main(
     the caller initialised) runs as one rank of several (module
     docstring); rank r works on `cuda:{r % device_count()}` when `device`
     is "cuda"."""
-    _refuse_unported(native_decode)
     from bayesvlm_tpu_torch.bayes.estimation import kfac_ggn
     from bayesvlm_tpu_torch.bayes.prior import optimize_prior_precision
     from bayesvlm_tpu_torch.data.factory import DataModuleFactory
@@ -160,6 +156,14 @@ def main(
         print(f"Reducing number of files from {len(dm.data_path)} to {num_files}")
         dm.data_path = dm.data_path[:num_files]
     dm.setup()
+    if native_decode:
+        if not hasattr(dm, "enable_native_decode"):
+            raise ValueError(f"--native_decode not supported for {dataset}")
+        dm.enable_native_decode(get_image_size(model_str), family=config.family,
+                                num_threads=num_workers, out_uint8=u8_pipeline,
+                                device=device)
+        print("[native] batched C++ JPEG decode lane enabled "
+              "(bilinear; see BASELINE.md for the measured delta)")
     if multi_host:
         if not hasattr(dm, "shard_for_host"):
             # without a per-host split every host would take the whole
@@ -307,7 +311,10 @@ def _parser() -> argparse.ArgumentParser:
                         help="GGN products: 'highest' fp32, 'high' 3xTF32")
     parser.add_argument("--mlp_int8", action="store_true",
                         help="W8A8 int8 vision-tower MLPs for the feature pass")
-    parser.add_argument("--native_decode", action="store_true")
+    parser.add_argument(
+        "--native_decode", action="store_true",
+        help="decode the LAION JPEGs in whole batches natively (nvJPEG on the "
+        "card, libjpeg with --device cpu; bilinear, not PIL's bicubic)")
     parser.add_argument(
         "--save_orbax", action="store_true",
         help="also write the K-FAC factors as a torch.distributed.checkpoint "

@@ -98,6 +98,13 @@ class _PartedAccumulator:
             shutil.rmtree(self.parts_dir)
 
 
+def _pixels(batch):
+    """A batch's "image": a tensor as it is (the native lane's crops may
+    already be on the card), anything else as a numpy array."""
+    images = batch["image"]
+    return images if isinstance(images, torch.Tensor) else np.asarray(images)
+
+
 def _skip_done(batch, consumed: int, skip: int):
     """Fast-forward helper: (the rows of `batch` not yet encoded, or None
     if the whole batch is done; the new cursor)."""
@@ -174,7 +181,7 @@ def precompute_image_features(
     skip, consumed = acc.resumed_rows, 0
     batches_since_flush = 0
     for batch in loader:
-        images = np.asarray(batch["image"])
+        images = _pixels(batch)
         labels = np.asarray(batch["class_id"]).reshape(-1)
         img_ids = np.asarray(batch["image_id"]).reshape(-1)
         images, _ = _skip_done(images, consumed, skip)
@@ -272,7 +279,7 @@ def compute_features(
     batches_since_flush = 0
     for batch in loader:
         if modality == "image":
-            images, consumed = _skip_done(np.asarray(batch["image"]), consumed, skip)
+            images, consumed = _skip_done(_pixels(batch), consumed, skip)
             if images is None:
                 continue
             n = len(images)

@@ -11,9 +11,10 @@ Phases (any failure raises and exits non-zero, without the result line):
   2. build: compiles every kernel of the paths (csrc/attention.cu,
      csrc/attention_block.cu, csrc/attention_variants.cu,
      csrc/mlp_int8.cu, csrc/linear_int8.cu, csrc/xlogy_rowsum.cu,
-     csrc/smith_head.cu, csrc/packed_heads.cu, csrc/tile_gemm.cu; nvcc,
-     sm_90a, one process each, all started together) from this checkout,
-     with each one's time;
+     csrc/smith_head.cu, csrc/packed_heads.cu, csrc/tile_gemm.cu,
+     csrc/jpeg_decode.cu (linked to the toolkit's nvJPEG); nvcc, sm_90a,
+     one process each, all started together) and the tar reader
+     (csrc/host_io.cc, g++) from this checkout, with each one's time;
   3. attention kernel vs plain at the ViT-L/14 shape (B=64, T=257, H=16,
      Dh=64) and the ViT-B/32 shape (T=50, H=12), bf16 and fp32, with
      errors and CUDA-event times; F.scaled_dot_product_attention timed
@@ -139,6 +140,30 @@ Phases (any failure raises and exits non-zero, without the result line):
      artifact directory (feature caches, A/B factors, prior precision),
      the factors finite, symmetric and SPD once regularized (Cholesky),
      and from_pretrained on that directory -> predict on 64 images;
+  7e. the native decode lane (data/native_io.py): (b) nvJPEG's planes and
+     ycc_to_rgb on the JPEG fixtures of tests/torch_jpeg/ (4:2:0, 4:4:4,
+     4:2:2, progressive, grey, iid noise, 500x1 and 1x300 strips, cut in
+     half, CMYK, not a JPEG): statuses equal to the goldens (the JAX
+     lane's, libjpeg), the RGB against libjpeg's by chroma subsampling
+     (max and mean |d|, share exact) within NATIVE_RGB_BOUND, the half-cut
+     image's planes equal to NATIVE_TRUNCATED_SHA256, each 224 crop's
+     difference printed; (c) ycc_to_rgb (csrc/jpeg_decode.cu) bit-equal to
+     its plain version on the same nvJPEG planes at the lane's batch
+     (B=64), and resize_crop on the same nvJPEG RGB (224 crops, uint8 and
+     fp32), each directly and in a CUDA graph: CUDA-event times of the
+     kernel alone (the graph's replay) and of the wrapper, the bound (for
+     resize_crop on the source bytes under the crops' grids), the
+     F.interpolate (+ crop slice) yardstick a image; nvJPEG's img/s alone
+     and with ycc_to_rgb, the loader's samples/s; (d) the Stage-1 CLI,
+     hessian_estimation.main (dataset="laion400m", native_decode=True,
+     u8_pipeline=True) at clip-large on a tar of 1024 samples written from
+     the fixtures (838 decode; the rest dropped with a warning, as the JAX
+     lane drops them), batch 64, one class batch of 512, 100 lambda steps:
+     #1's 24 launches a batch, ycc_to_rgb's and resize_crop's one a batch
+     and pass, the artifact set, finite factors, the feature pass's img/s
+     beside 7c's; (e) clip-large (bf16, seeded) embeddings of nvJPEG's
+     crops against the goldens' crops, cosine >= NATIVE_COS_MIN a fixture,
+     but for those in NATIVE_COS_APART (each with its range and reason);
   7d. kfac_ggn alone at one class batch of 32,768 seeded pairs (block
      2048): InfoNCE at clip-large's dims (embeddings 768, activations
      1024) and SigLIP at siglip-large's (1024, 4096 + bias, targets in
@@ -320,6 +345,7 @@ replay is shown to run them by its output, equal to eager predict's.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import math
 import os
@@ -450,6 +476,36 @@ ZS_MODEL, ZS_IMAGES, ZS_CLASSES, ZS_BATCH, ZS_IMAGE_SIZE = (
 # synthetic pairs with distinct captions, one class batch
 S1_MODEL, S1_PAIRS, S1_BATCH, S1_IMAGE_SIZE, S1_LA_BATCH, S1_LAMBDA_STEPS = (
     "clip-large", 8192, 64, 224, 2048, 300)
+# the native decode lane (phase 7e): the Stage-1 CLI with --native_decode
+# --u8_pipeline at S1_MODEL's widths over one tar of NATIVE_SAMPLES samples
+# that cycle through tests/torch_jpeg/'s fixtures (two of the eleven fail to
+# decode, as a web crawl's do), batch NATIVE_BATCH, one class batch of
+# NATIVE_CLASSES, NATIVE_LAMBDA_STEPS lambda steps
+NATIVE_SAMPLES, NATIVE_BATCH, NATIVE_CLASSES, NATIVE_LAMBDA_STEPS = 1024, 64, 512, 100
+NATIVE_FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_jpeg"
+NATIVE_GRAPH_LAUNCHES = 20  # a kernel's launches in the graph that times it (_graph_ms)
+# nvJPEG's planes + ycc_to_rgb against libjpeg's RGB (the JAX lane's
+# decoder, the goldens' same-size square decodes), by chroma subsampling:
+# (max |d|, mean |d|) allowed. The colour stage is libjpeg's, integer for
+# integer, so what is left is the two IDCTs' rounding. Set from the first
+# measurement on an H100 (nvJPEG of CUDA 12.9: 3 / 0.0288, 3 / 0.0266, 3 /
+# 0.0268; nvJPEG's own RGBI read 15 / 2.125, 4 / 0.510, 13 / 1.438) and
+# never to be loosened
+NATIVE_RGB_BOUND = {"4:2:0": (3, 0.03), "4:4:4": (3, 0.03), "4:2:2": (3, 0.03)}
+NATIVE_COS_MIN = 0.999  # clip-large embeddings, nvJPEG crops vs the goldens'
+# the fixture where the decoders part, with its range and the reason, set
+# from the first measurement on an H100 (cosine 0.392697) and never to be
+# loosened. The range pins it both ways, with the bits of its planes
+# (NATIVE_TRUNCATED_SHA256), so that any change in how nvJPEG fills past
+# the cut fails the phase
+NATIVE_COS_APART = {
+    "truncated.jpg": ((0.383, 0.403), "an open fault (ROADMAP Queue 3): past the cut "
+                      "libjpeg fills grey (128), nvJPEG keeps each component's last DC "
+                      "value, a flat tint"),
+}
+# sha256 of nvJPEG's planes (Y, Cb, Cr) of tests/torch_jpeg/truncated.jpg
+# (CUDA 12.9 on an H100; deterministic, whatever the buffer held before)
+NATIVE_TRUNCATED_SHA256 = "8072b985bf80a7fa69774be01a10091ec2ce53ec10fbff7abde7005b68afb6cf"
 # kfac_ggn alone at the CLI's default class batch (--la_num_classes 32768,
 # --la_batch_size 2048, --siglip_chunk_size 8000): likelihood -> (model
 # whose dims it takes, embedding dim, activation dim, logit scale, bias)
@@ -520,7 +576,8 @@ PROBE_EXTRAS = ("smem_bytes", "blocks_per_sm", "base_ms", "vs_base", "tops", "ti
 # on the tensor cores by mma.sync, "simt" where they run as fp32 FMAs on
 # the CUDA cores
 SOURCE_BODY = {"attention_block.cu": "wgmma", "mlp_int8.cu": "wgmma", "linear_int8.cu": "wgmma",
-               "xlogy_rowsum.cu": "wgmma", "smith_head.cu": "wgmma", "packed_heads.cu": "wgmma"}
+               "xlogy_rowsum.cu": "wgmma", "smith_head.cu": "wgmma", "packed_heads.cu": "wgmma",
+               "jpeg_decode.cu": "simt"}
 # the packed-head kernels at the probe's shape (first: the one timed) and
 # ragged ones (B, T, H): T mod 4 = 2, 3, 0, 1 (a last strip of one row), T =
 # 1, and T = 577 (two p chunks a side, qk strips of fewer than 64 rows
@@ -603,8 +660,11 @@ def phase_build(kernels, modules) -> None:
     print(f"build: {len(seconds)} kernels in {wall:.2f} s wall (in parallel)")
     check(set(seconds) == {"attention", "attention_block", "attention_variants",
                            "mlp_int8", "linear_int8", "xlogy_rowsum", "smith_head",
-                           "packed_heads", "tile_gemm"},
+                           "packed_heads", "tile_gemm", "jpeg_decode"},
           f"kernel sources {sorted(seconds)}")
+    sec = kernels.build_host("host_io")  # the tar reader (g++)
+    took = "already built" if sec is None else f"{sec:.2f} s"
+    print(f"build: {kernels.host_library_path('host_io').name} {took} (g++)")
     for module in modules:
         module._library()
 
@@ -2073,6 +2133,345 @@ def phase_stage1(torch, counters, pixels, prompts) -> dict:
         del vlm
     return {"launches": launches, "seconds": sec, "wall_s": wall,
             "pairs_s": S1_PAIRS / feature_s, "ggn_share": ggn_s / wall}
+
+
+def _native_tar(path: Path) -> list:
+    """One LAION-style shard of NATIVE_SAMPLES samples ({key}.jpg +
+    {key}.txt) cycling through the fixtures; returns the JPEGs in order."""
+    import io
+    import tarfile
+
+    names = list(np.load(NATIVE_FIXTURES / "goldens.npz")["names"])
+    data = [(NATIVE_FIXTURES / n).read_bytes() for n in names]
+    jpegs = []
+    with tarfile.open(path, "w") as tf:
+        for i in range(NATIVE_SAMPLES):
+            jpeg = data[i % len(data)]
+            jpegs.append(jpeg)
+            for name, payload in ((f"{i:09d}.jpg", jpeg),
+                                  (f"{i:09d}.txt", f"a photo number {i} of a thing".encode())):
+                info = tarfile.TarInfo(name=name)
+                info.size = len(payload)
+                tf.addfile(info, io.BytesIO(payload))
+    return jpegs
+
+
+def _native_fixtures(torch, nio) -> None:
+    """(b) nvJPEG on the fixtures: statuses against the goldens, the RGB
+    against libjpeg's by chroma subsampling, each crop's difference."""
+    gold = np.load(NATIVE_FIXTURES / "goldens.npz")
+    names = list(gold["names"])
+    jpegs = [(NATIVE_FIXTURES / n).read_bytes() for n in names]
+    rgbs, status = nio.decode_rgb(jpegs, "cuda")
+    torch.cuda.synchronize()
+    print(f"  nvJPEG statuses {dict(zip(names, status.tolist()))}")
+    check(status.tolist() == gold["status"].tolist(),
+          f"nvJPEG statuses {status.tolist()} != libjpeg's {gold['status'].tolist()}")
+    for chroma, (max_ok, mean_ok) in NATIVE_RGB_BOUND.items():
+        stem = {"4:2:0": "smooth_420", "4:4:4": "smooth_444", "4:2:2": "smooth_422"}[chroma]
+        ref = torch.from_numpy(gold[f"rgb_{stem}"]).cuda().int()
+        d = (rgbs[names.index(f"{stem}.jpg")].int() - ref).abs()
+        dmax, dmean = int(d.max()), float(d.float().mean())
+        print(f"  nvJPEG vs libjpeg RGB {chroma} ({stem}.jpg {tuple(ref.shape)}): max |d| "
+              f"{dmax}, mean |d| {dmean:.4f}, exact {float((d == 0).float().mean()):.4f} "
+              f"(bound {max_ok} / {mean_ok})")
+        check(dmax <= max_ok and dmean <= mean_ok, f"{chroma} RGB past its bound")
+    cut = nio.decode_planes([jpegs[names.index("truncated.jpg")]], "cuda")[0][0]
+    sha = hashlib.sha256(b"".join(t.cpu().numpy().tobytes()
+                                  for t in (cut.y, cut.cb, cut.cr))).hexdigest()
+    print(f"  nvJPEG planes of truncated.jpg (Y {tuple(cut.y.shape)}, Cb / Cr "
+          f"{tuple(cut.cb.shape)}): sha256 {sha}")
+    check(sha == NATIVE_TRUNCATED_SHA256, f"truncated.jpg decodes to other bits than "
+          f"NATIVE_TRUNCATED_SHA256 ({sha}): nvJPEG's fill past the cut changed")
+    crops = nio.resize_crop(rgbs, 224, out_uint8=True).int()
+    ref = torch.from_numpy(gold["u8_crop224"]).cuda().int()
+    for i, name in enumerate(names):
+        d = (crops[i] - ref[i]).abs()
+        print(f"  224 crop vs the golden {name}: max |d| {int(d.max())}, mean |d| "
+              f"{float(d.float().mean()):.4f}, exact {float((d == 0).float().mean()):.4f}")
+
+
+def _footprint_bytes(torch, nio, rgbs: list, S: int, square: bool) -> int:
+    """The source bytes the crops need: for each decoded image, the rows and
+    the columns its S x S grid samples (both neighbours; sample_grid, the
+    plain version's and the kernel's), 3 bytes a pixel where they cross."""
+    total = 0
+    for r in rgbs:
+        if r is None:
+            continue
+        (y0, y1, _), (x0, x1, _) = nio.sample_grid(int(r.shape[0]), int(r.shape[1]), S,
+                                                   square, "cpu")
+        total += (torch.unique(torch.cat([y0, y1])).numel()
+                  * torch.unique(torch.cat([x0, x1])).numel() * 3)
+    return total
+
+
+def _graph_ms(torch, launch) -> float:
+    """A kernel's device time alone: NATIVE_GRAPH_LAUNCHES bare launches
+    captured in one CUDA graph, the replay timed by CUDA events."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(NATIVE_GRAPH_LAUNCHES):
+            launch()
+    graph.replay()
+    torch.cuda.synchronize()
+    return cuda_ms(torch, graph.replay, iters=5, warmup=1) / NATIVE_GRAPH_LAUNCHES
+
+
+def _native_colour(torch, nio, jpegs: list) -> dict:
+    """(c) ycc_to_rgb vs its plain version on the same nvJPEG planes at the
+    path's batch (B=NATIVE_BATCH), bit for bit, directly and in a CUDA
+    graph; the kernel's device time (_graph_ms), the wrapper's (each call
+    prepares its metadata and output) and the plain version's; the bound
+    on the planes read once and the RGB written once. No PyTorch call
+    computes the same function (library_ms null)."""
+    planes, status = nio.decode_planes(jpegs[:NATIVE_BATCH], "cuda")
+    ref = nio.ycc_to_rgb_reference(planes)
+    present = [i for i, r in enumerate(ref) if r is not None]
+
+    def same(out):
+        return all(torch.equal(out[i], ref[i]) for i in present)
+
+    out = nio.ycc_to_rgb(planes)
+    torch.cuda.synchronize()
+    err = max(float((out[i].int() - ref[i].int()).abs().max()) for i in present)
+    check(same(out), f"ycc_to_rgb != plain (max |d| {err})")
+    wrapper_ms = cuda_ms(torch, lambda: nio.ycc_to_rgb(planes))
+    launch, graph_out = nio.ycc_to_rgb_launcher(
+        planes, torch.device("cuda", torch.cuda.current_device()))
+    launch()
+    ms = _graph_ms(torch, launch)
+    check(same(graph_out), "ycc_to_rgb in a CUDA graph != plain")
+    plain_ms = cuda_ms(torch, lambda: nio.ycc_to_rgb_reference(planes), iters=3, warmup=1)
+    src = sum(pl.y.numel() + (2 * pl.cb.numel() if pl.hf else 0)
+              for pl in planes if pl is not None)
+    dst = sum(3 * pl.y.numel() for pl in planes if pl is not None)
+    # ~30 integer operations an output pixel (upsampling and the fixed-point
+    # conversion), at the CUDA cores' rate
+    r = dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+             **bound(src + dst, 30.0 * dst / 3, "fp32"), src_bytes=src, dst_bytes=dst,
+             library_ms=None)
+    print(f"  ycc_to_rgb at B={len(planes)} ({len(present)} decoded, {src / 1e6:.4f} MB "
+          f"of planes -> {dst / 1e6:.4f} MB of RGB): bit-equal to plain, device "
+          f"{ms:.4f} ms (a CUDA graph of {NATIVE_GRAPH_LAUNCHES} launches), through the "
+          f"wrapper {wrapper_ms:.4f} ms (plain {plain_ms:.2f} ms, bound "
+          f"{r['bound_ms']:.4f} ms by {r['bound_by']}) on {DEVICE['card']}")
+    return r
+
+
+def _native_kernel(torch, nio, jpegs: list) -> dict:
+    """(c) resize_crop vs its plain version on the same nvJPEG RGB at the
+    path's shape (B=NATIVE_BATCH, 224 crops), bit for bit, u8 and fp32;
+    the kernel's device time (_graph_ms), the wrapper's (each call
+    prepares its metadata and output), the bound on the bytes the crops
+    need, and
+    F.interpolate (+ the crop slice) as the yardstick."""
+    import torch.nn.functional as F
+
+    from bayesvlm_tpu_torch.data.transforms import DEFAULT_MEAN, DEFAULT_STD
+    from bayesvlm_tpu_torch.utils import get_image_size
+
+    S = get_image_size(S1_MODEL)
+    rgbs, status = nio.decode_rgb(jpegs[:NATIVE_BATCH], "cuda")
+    src = _footprint_bytes(torch, nio, rgbs, S, False)
+    decoded = sum(int(r.numel()) for r in rgbs if r is not None)
+    out = {}
+    for u8 in (True, False):
+        args = (rgbs, S, False, DEFAULT_MEAN, DEFAULT_STD, u8)
+        k = nio.resize_crop(*args)
+        p = nio.resize_crop_reference(*args)
+        torch.cuda.synchronize()
+        err = float((k.float() - p.float()).abs().max())
+        check(torch.equal(k, p), f"resize_crop {'u8' if u8 else 'fp32'} != plain "
+              f"(max |d| {err})")
+        wrapper_ms = cuda_ms(torch, lambda: nio.resize_crop(*args))
+        launch, graph_out = nio.resize_crop_launcher(
+            *args, torch.device("cuda", torch.cuda.current_device()))
+        launch()
+        ms = _graph_ms(torch, launch)
+        check(torch.equal(graph_out, p), "resize_crop in a CUDA graph != plain")
+        plain_ms = cuda_ms(torch, lambda: nio.resize_crop_reference(*args), iters=3, warmup=1)
+        dst = len(rgbs) * S * S * 3
+        # ~20 fp32 operations an output value: three lerps and the quantise
+        # or normalise; each needed source byte read once, each output
+        # written once
+        b = bound(src + dst * (1 if u8 else 4), 20.0 * dst, "fp32")
+        out["u8" if u8 else "fp32"] = dict(max_abs_err=err, ms=ms, wrapper_ms=wrapper_ms,
+                                           plain_ms=plain_ms, **b, src_bytes=src,
+                                           decoded_bytes=decoded)
+    present = [r for r in rgbs if r is not None]
+
+    def library():
+        for r in present:  # shorter side to S, then the centre crop
+            h, w = r.shape[:2]
+            nh, nw = (max(S, round(h * S / w)), S) if w <= h else (S, max(S, round(w * S / h)))
+            x = F.interpolate(r.permute(2, 0, 1)[None].float(), size=(nh, nw),
+                              mode="bilinear", antialias=False, align_corners=False)
+            x[..., (nh - S) // 2:(nh - S) // 2 + S, (nw - S) // 2:(nw - S) // 2 + S]
+
+    library_ms = cuda_ms(torch, library, iters=5)
+    for lane, r in out.items():
+        r["library_ms"] = library_ms
+        print(f"  resize_crop {lane} at B={len(rgbs)} ({len(present)} decoded, "
+              f"{decoded / 1e6:.4f} MB of RGB, {src / 1e6:.4f} MB of it under the crops' "
+              f"grids) -> {S} crops: bit-equal to plain, device {r['ms']:.4f} ms (a CUDA "
+              f"graph of {NATIVE_GRAPH_LAUNCHES} launches), through the wrapper "
+              f"{r['wrapper_ms']:.4f} ms (plain {r['plain_ms']:.2f} ms, F.interpolate + "
+              f"crop a image {library_ms:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+              f"{r['bound_by']}) on {DEVICE['card']}")
+    return out
+
+
+def _native_cli(torch, counters, work: Path) -> dict:
+    """(d) the Stage-1 CLI with --native_decode --u8_pipeline over the tar,
+    every count set to 0 just before and read just after; the decode rate
+    of the loader alone and of nvJPEG alone."""
+    from bayesvlm_tpu_torch import hessian_estimation
+    from bayesvlm_tpu_torch.data import native_io as nio
+    from bayesvlm_tpu_torch.data.prefetch import PrefetchLoader
+    from bayesvlm_tpu_torch.data.transforms import DEFAULT_MEAN, DEFAULT_STD
+    from bayesvlm_tpu_torch.data.wds import NativeDecodeLoader, WebDataset
+    from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME
+    from bayesvlm_tpu_torch.utils import get_image_size
+
+    tar = work / "laion400m" / "00000.tar"
+    S = get_image_size(S1_MODEL)
+    good = 0
+    for b in PrefetchLoader(NativeDecodeLoader(WebDataset([tar]), NATIVE_BATCH, S,
+                                               DEFAULT_MEAN, DEFAULT_STD, out_uint8=True)):
+        good += len(b["image_id"])  # a warm-up pass, which also counts the kept
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = 0
+    for b in PrefetchLoader(NativeDecodeLoader(WebDataset([tar]), NATIVE_BATCH, S,
+                                               DEFAULT_MEAN, DEFAULT_STD, out_uint8=True)):
+        batches += 1
+    torch.cuda.synchronize()
+    loader_s = time.perf_counter() - t0
+    jpegs = [(NATIVE_FIXTURES / n).read_bytes()
+             for n in np.load(NATIVE_FIXTURES / "goldens.npz")["names"]]
+    batch = [jpegs[i % len(jpegs)] for i in range(NATIVE_BATCH)]
+    rate = {}
+    for label, decode in (("nvjpeg", nio.decode_planes), ("rgb", nio.decode_rgb)):
+        decode(batch, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            decode(batch, "cuda")
+        torch.cuda.synchronize()
+        rate[label] = 5 * NATIVE_BATCH / (time.perf_counter() - t0)
+    nvjpeg_img_s = rate["nvjpeg"]
+    print(f"  decode: nvJPEG alone {nvjpeg_img_s:.1f} img/s, with ycc_to_rgb "
+          f"{rate['rgb']:.1f} img/s (B={NATIVE_BATCH} of the fixtures, failures "
+          f"included); the loader (tar index + pread + nvJPEG + ycc_to_rgb + "
+          f"resize_crop, prefetch depth 2) {NATIVE_SAMPLES / loader_s:.1f} samples/s, "
+          f"{good} of {NATIVE_SAMPLES} kept in {batches} batches, on {DEVICE['card']}")
+
+    config = CONFIGS_BY_NAME[S1_MODEL]
+    old = os.environ.get("DATA_BASE_DIR")
+    os.environ["DATA_BASE_DIR"] = str(work)
+    try:
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = hessian_estimation.main(
+            dataset="laion400m", model_str=S1_MODEL, precompute_batch_size=NATIVE_BATCH,
+            la_num_classes=NATIVE_CLASSES, la_batch_size=NATIVE_CLASSES, num_workers=8,
+            hessian_dir=str(work / "hessians"), num_steps=NATIVE_LAMBDA_STEPS,
+            native_decode=True, u8_pipeline=True, device="cuda")
+        wall = time.perf_counter() - t0
+        launches = {n: c.launches for n, c in counters.items()}
+    finally:
+        if old is None:
+            os.environ.pop("DATA_BASE_DIR")
+        else:
+            os.environ["DATA_BASE_DIR"] = old
+    expected = dict.fromkeys(counters, 0)
+    expected["attention"] = config.vision.num_layers * batches
+    # the text pass decodes again, as in JAX
+    expected["ycc_to_rgb"] = expected["resize_crop"] = 2 * batches
+    sec = run["seconds"]
+    print(f"  Stage-1 CLI --native_decode --u8_pipeline ({S1_MODEL}, bf16 towers, "
+          f"{NATIVE_SAMPLES} samples, {good} decoded): lambda_img={run['lambda_img']!r} "
+          f"lambda_txt={run['lambda_txt']!r} wall_s={wall:.3f} launches="
+          f"{ {k: v for k, v in launches.items() if v} }")
+    for step, seconds in sec.items():
+        print(f"    step {step}: {seconds:.3f} s")
+    img_s = good / sec["img features"]
+    print(f"  feature pass on the native lane: {img_s:.1f} img/s (the image pass, "
+          f"decode included) on {DEVICE['card']}")
+    check(launches == expected, f"native Stage-1 launches: expected {expected}, got {launches}")
+    hdir = work / "hessians"
+    names = [f"{k}_{t}.pt" for k in ("activations", "embeddings") for t in ("img", "txt")]
+    names += [f"{f}_{t}_analytic.pt" for f in "AB" for t in ("img", "txt")]
+    names.append("prior_precision_analytic.json")
+    missing = [n for n in names if not (hdir / n).exists()]
+    check(not missing, f"missing artifacts {missing}")
+    act = torch.load(hdir / "activations_img.pt", weights_only=True)
+    check(act.shape[0] == good, f"{act.shape[0]} image rows, {good} decoded")
+    for f in ("A_img", "B_img", "A_txt", "B_txt"):
+        F_ = torch.load(hdir / f"{f}_analytic.pt", weights_only=True)
+        check(bool(torch.isfinite(F_).all()), f"{f} not finite")
+    return {"launches": launches, "seconds": sec, "img_s": img_s,
+            "loader_samples_s": NATIVE_SAMPLES / loader_s, "nvjpeg_img_s": nvjpeg_img_s,
+            "rgb_img_s": rate["rgb"]}
+
+
+def _native_cosine(torch, nio) -> float:
+    """(e) clip-large image embeddings (bf16, seeded) on nvJPEG's 224 crops
+    against those on the goldens' (libjpeg's) crops, per decoded fixture."""
+    from bayesvlm_tpu_torch.models.encoders import load_model
+
+    gold = np.load(NATIVE_FIXTURES / "goldens.npz")
+    names = list(gold["names"])
+    ok = [i for i, s in enumerate(gold["status"]) if s == 0]
+    jpegs = [(NATIVE_FIXTURES / names[i]).read_bytes() for i in ok]
+    crops, _ = nio.decode_batch_u8(jpegs, 224, device="cuda")
+    image_encoder, _, _ = load_model(S1_MODEL, device="cuda", seed=SEED)
+    with torch.no_grad():
+        ours = image_encoder(crops).embeds.float()
+        theirs = image_encoder(torch.from_numpy(gold["u8_crop224"][ok]).cuda()).embeds.float()
+    cos = dict(zip((names[i] for i in ok),
+                   torch.nn.functional.cosine_similarity(ours, theirs, dim=-1).tolist()))
+    del image_encoder
+    for name, c in cos.items():
+        (lo, hi), reason = NATIVE_COS_APART.get(name, ((NATIVE_COS_MIN, 1.0), ""))
+        print(f"  embedding cosine, nvJPEG vs golden crop, {name}: {c:.6f} (range "
+              f"[{lo}, {hi}]{'; ' + reason if reason else ''})")
+        check(lo <= c <= hi + 1e-6, f"{name}: embedding cosine {c} outside [{lo}, {hi}]")
+    return min(c for name, c in cos.items() if name not in NATIVE_COS_APART)
+
+
+def phase_native_decode(torch, counters, synthetic_img_s: float) -> dict:
+    """The native decode lane: (a) built in phase 2 (csrc/jpeg_decode.cu by
+    nvcc, csrc/host_io.cc by g++); (b) nvJPEG on the fixtures; (c) the
+    resize_crop kernel vs plain; (d) the Stage-1 CLI with --native_decode
+    over a tar of real JPEGs, beside phase 7c's feature pass on synthetic
+    pixels (`synthetic_img_s`); (e) embeddings on nvJPEG crops vs the
+    goldens'. The loader's warnings (one a failed decode) are counted."""
+    import warnings
+
+    from bayesvlm_tpu_torch.data import native_io as nio
+    from bayesvlm_tpu_torch.kernels import BUILD_DIR
+
+    _native_fixtures(torch, nio)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work, \
+            warnings.catch_warnings(record=True) as dropped:
+        warnings.simplefilter("always")
+        work = Path(work)
+        (work / "laion400m").mkdir()
+        jpegs = _native_tar(work / "laion400m" / "00000.tar")
+        colour = _native_colour(torch, nio, jpegs)
+        kernel = _native_kernel(torch, nio, jpegs)
+        cli = _native_cli(torch, counters, work)
+    print(f"  {len(dropped)} warnings (samples dropped, each pass); the feature pass "
+          f"{cli['img_s']:.1f} img/s on real JPEGs against {synthetic_img_s:.1f} img/s "
+          f"on synthetic pixels (phase 7c)")
+    cos_min = _native_cosine(torch, nio)
+    print(f"  embedding cosine min {cos_min:.6f} over the other decoded fixtures "
+          f"(limit {NATIVE_COS_MIN})")
+    return {"colour": colour, "kernel": kernel, "cli": cli, "cos_min": cos_min}
 
 
 def _ggn_bound(likelihood: str, N: int, D: int, P: int) -> dict:
@@ -4261,6 +4660,7 @@ def mesh_cards() -> int:
 
     phase_device(torch)
     from bayesvlm_tpu_torch import kernels
+    from bayesvlm_tpu_torch.data import native_io
     from bayesvlm_tpu_torch.io.artifacts import save_synthetic_hessians
     from bayesvlm_tpu_torch.models import attention
     from bayesvlm_tpu_torch.models.configs import CONFIGS_BY_NAME, TINY_CLIP_CONFIG
@@ -4371,6 +4771,7 @@ def main() -> int:
 
     kind = phase_device(torch)
     from bayesvlm_tpu_torch import kernels
+    from bayesvlm_tpu_torch.data import native_io
     from bayesvlm_tpu_torch.io.artifacts import save_synthetic_hessians
     from bayesvlm_tpu_torch.models import attention, linear_int8, mlp_int8
     from bayesvlm_tpu_torch.models.configs import (
@@ -4422,6 +4823,8 @@ def main() -> int:
         **counters,
         "xlogy_rowsum": _Count(epig_joint.joint_xlogy_rowsums, "launches"),
         "xlogy_rowsum_int8": _Count(epig_joint.joint_xlogy_rowsums, "launches_int8"),
+        "ycc_to_rgb": native_io.ycc_to_rgb,
+        "resize_crop": native_io.resize_crop,
     }
     epig = _timed("epig_vs_plain", phase_epig_vs_plain, torch, epig_joint, all_counters)
     # the probes (10, 10b) run before the paths: 10b reads torch.profiler
@@ -4459,6 +4862,8 @@ def main() -> int:
             "block_path", phase_block_path, torch, counters, hdir, pixels, prompts,
             bf16_embeds, bf16_probs, bf16_img_s)
         stage1 = _timed("stage1", phase_stage1, torch, all_counters, pixels, prompts)
+        native = _timed("native_decode", phase_native_decode, torch, all_counters,
+                        S1_PAIRS / stage1["seconds"]["img features"])
         _timed("ggn", phase_ggn, torch)
         epig_path = _timed("epig_path", phase_epig_path, torch, all_counters, hdir)
         al_path = _timed("active_learning", phase_active_learning, torch, all_counters,
@@ -4619,6 +5024,29 @@ def main() -> int:
                                                "registers", "smem_bytes", "local_bytes",
                                                "cluster")}
                      for label, r in smith.items()}),
+        # no pallas_call behind these two: libjpeg's colour stage and host
+        # C++ in JAX (process_one); the rows are the native Stage-1 run's,
+        # resize_crop's its uint8 lane, fp32 beside it
+        dict(_entry("ycc_to_rgb", "bayesvlm_tpu_torch/csrc/jpeg_decode.cu",
+                    "native/bvt_io.cc:171", native["cli"]["launches"]["ycc_to_rgb"],
+                    native["colour"], None),
+             replaces_kind="libjpeg's colour stage inside jpeg_read_scanlines "
+                           "(no pallas_call)",
+             wrapper_ms=native["colour"]["wrapper_ms"],
+             src_bytes=native["colour"]["src_bytes"],
+             rgb_img_s=native["cli"]["rgb_img_s"]),
+        dict(_entry("resize_crop", "bayesvlm_tpu_torch/csrc/jpeg_decode.cu",
+                    "native/bvt_io.cc:196", native["cli"]["launches"]["resize_crop"],
+                    native["kernel"]["u8"], native["kernel"]["u8"]["library_ms"]),
+             replaces_kind="host C++ process_one (no pallas_call)",
+             # ms: the kernel alone (a CUDA graph's replay); wrapper_ms: a
+             # call, its metadata copy and output allocation included
+             wrapper_ms=native["kernel"]["u8"]["wrapper_ms"],
+             src_bytes=native["kernel"]["u8"]["src_bytes"],
+             fp32={k: native["kernel"]["fp32"][k] for k in (
+                 "max_abs_err", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by")},
+             nvjpeg_img_s=native["cli"]["nvjpeg_img_s"],
+             stage1_img_s=native["cli"]["img_s"], embed_cos_min=native["cos_min"]),
         *_probe_entries(probe_path, {**gemm_parts, **packed_parts}),
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,7 @@ from bayesvlm_tpu_torch.data.factory import DataModuleFactory
 from bayesvlm_tpu_torch.data.laion400m import Laion400mDataModule
 from bayesvlm_tpu_torch.data.tokenizer import HashTokenizer
 from bayesvlm_tpu_torch.data.transforms import default_transform
-from bayesvlm_tpu_torch.data.wds import WebDataset
+from bayesvlm_tpu_torch.data.wds import NativeDecodeLoader, WebDataset
 from bayesvlm_tpu_torch.inference.precompute import compute_features
 from bayesvlm_tpu_torch.io.artifacts import (
     HessianArtifacts,
@@ -148,14 +148,28 @@ def test_laion_module_options(laion_base, tmp_path, monkeypatch):
         DataModuleFactory().create("laion400m", subset_indices=[0])
     with pytest.raises(ValueError, match="Few shot"):
         DataModuleFactory().create("laion400m", use_few_shot=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        dm.enable_native_decode(32)
+    # the native lane is taken: on the CPU through libjpeg, and without a
+    # card the card's lane is refused by name
+    dm.setup()
+    dm.enable_native_decode(32, family="siglip", num_threads=3, out_uint8=True,
+                            device="cpu")
+    assert dm._native_decode == dict(image_size=32, num_threads=3, out_uint8=True,
+                                     device="cpu", mean=(0.5, 0.5, 0.5),
+                                     std=(0.5, 0.5, 0.5), square_resize=True)
+    loader = dm.test_dataloader()
+    assert isinstance(loader.loader, NativeDecodeLoader)
+    batch = next(iter(loader))
+    assert batch["image"].dtype == torch.uint8 and batch["image"].shape == (4, 32, 32, 3)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dm.enable_native_decode(32)
 
 
 def test_data_lane_imports_no_pil():
-    """The card machine has no PIL: the webdataset lane, the factory and
-    the CLI import without it."""
+    """The card machine has no PIL: the webdataset lane, the native decode
+    lane, the factory and the CLI import without it."""
     code = ("import sys; import bayesvlm_tpu_torch.data.wds, "
+            "bayesvlm_tpu_torch.data.native_io, "
             "bayesvlm_tpu_torch.data.laion400m, bayesvlm_tpu_torch.data.factory, "
             "bayesvlm_tpu_torch.hessian_estimation; assert 'PIL' not in sys.modules")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -342,6 +356,67 @@ def test_hessian_estimation_matches_jax(model, laion_base, tmp_path, monkeypatch
     assert {p.name: p.stat().st_mtime_ns for p in tdir.glob("*.pt")} == mtimes
 
 
+@pytest.fixture
+def jax_native_lib(tmp_path, monkeypatch):
+    """The JAX package's native library, built here by g++ (never `make -C
+    native`, which the JAX tests run) and loaded from tmp_path."""
+    if shutil.which("g++") is None or not Path("/usr/include/jpeglib.h").exists():
+        pytest.skip("the JAX native lane needs g++ and libjpeg's jpeglib.h")
+    from bayesvlm_tpu.data import native_io as jax_native_io
+
+    sys.path.insert(0, str(REPO / "tests" / "torch_jpeg"))
+    from make_fixtures import build_jax_reference
+
+    (tmp_path / "jax_native").mkdir()
+    monkeypatch.setattr(jax_native_io, "_LIB_PATH",
+                        build_jax_reference(tmp_path / "jax_native"))
+    monkeypatch.setattr(jax_native_io, "_lib", None)
+
+
+@pytest.mark.parametrize("model,u8_pipeline", [("tiny-clip", False), ("tiny-siglip", True)])
+def test_hessian_estimation_native_decode_matches_jax(model, u8_pipeline, laion_base,
+                                                      tmp_path, monkeypatch,
+                                                      jax_native_lib, capsys):
+    """`main(native_decode=True)` against the JAX CLI's on the same tars,
+    fp32 crops (CLIP: centre crop) and uint8 crops (SigLIP: square resize,
+    normalised by the encoder): the same printed line, the features at the
+    towers' tolerance, the factors and lambda as the PIL lane's test holds
+    them."""
+    monkeypatch.setenv("DATA_BASE_DIR", str(laion_base))
+    load = jax_models.load_model
+    monkeypatch.setattr(jax_models, "load_model",
+                        lambda *a, **k: load(*a, **{**k, "dtype": jnp.float32}))
+    monkeypatch.setattr(jax_encoders, "cast_gemm_params", lambda params, *a, **k: params)
+    j_img, j_txt, _ = jax_load_model_fp32(model)
+    wd = save_weights(tmp_path / "weights", jax.tree_util.tree_map(np.asarray, j_img.params),
+                      jax.tree_util.tree_map(np.asarray, j_txt.params))
+    jdir, tdir = tmp_path / "jax", tmp_path / "port"
+    kw = dict(**CLI_KW, model_str=model, native_decode=True, u8_pipeline=u8_pipeline)
+    jax_cli.main(**kw, hessian_dir=str(jdir), use_mesh=False)
+    jax_lines = capsys.readouterr().out.splitlines()
+    run = hessian_estimation.main(**kw, hessian_dir=str(tdir), weights_dir=str(wd),
+                                  device="cpu", dtype="fp32")
+    lines = capsys.readouterr().out.splitlines()
+    native_line = ("[native] batched C++ JPEG decode lane enabled (bilinear; see "
+                   "BASELINE.md for the measured delta)")
+    assert native_line in lines and native_line in jax_lines
+    for f in ("activations_img", "embeddings_img", "activations_txt", "embeddings_txt"):
+        ours = torch.load(tdir / f"{f}.pt").numpy()
+        assert ours.shape[0] == 28  # 7 batches of 4, drop_last
+        np.testing.assert_allclose(ours, np.asarray(load_pt_array(jdir / f"{f}.pt")),
+                                   rtol=TOWER_RTOL, atol=TOWER_ATOL, err_msg=f)
+    for f in FACTORS:
+        ours = torch.load(tdir / f"{f}_analytic.pt").numpy()
+        theirs = np.asarray(load_pt_array(jdir / f"{f}_analytic.pt"))
+        if f.startswith("A"):
+            np.testing.assert_allclose(ours, theirs, rtol=RTOL, atol=ATOL, err_msg=f)
+        else:  # B at 1e-4 of its largest entry, as in the PIL lane's test
+            assert np.abs(ours - theirs).max() <= RTOL * np.abs(theirs).max(), f
+    info, jinfo = load_info(tdir), load_info(jdir)
+    for key in ("lambda_img", "lambda_txt"):
+        assert info[key] == run[key] == pytest.approx(jinfo[key], rel=1e-4)
+
+
 def test_cli_runs_without_jax(laion_base, tmp_path):
     """`python -m bayesvlm_tpu_torch.hessian_estimation --device cpu`
     prints the JAX CLI's lines and loads no JAX, flax or JAX package."""
@@ -382,13 +457,13 @@ def test_cli_defaults_to_the_card_and_laion():
     {"u8_pipeline": True, "save_orbax": True}, {"save_orbax": True},
     {"dist_global_batch": True}, "COORDINATOR_ADDRESS"])
 def test_cli_refuses_unported_flags_before_loading(flag, tmp_path, monkeypatch):
-    """Each unported flag is refused by name before anything loads; the
-    ported --tokenizer_dir and --u8_pipeline beside one are not named.
-    The distribution and the checkpoint lane are ported: --dist_global_batch
-    on one process (it changes nothing there, as in JAX) and --save_orbax
-    (the factors_dcp/ lane) are taken and loading starts, and a
-    launch named in part (COORDINATOR_ADDRESS without NUM_PROCESSES /
-    PROCESS_ID) is refused before anything loads."""
+    """No flag is left unported: the native decode lane (--native_decode,
+    beside the ported --tokenizer_dir too), the distribution
+    (--dist_global_batch on one process: it changes nothing there, as in
+    JAX) and the checkpoint lane (--save_orbax, the factors_dcp/ lane) are
+    taken and loading starts, and a launch named in part
+    (COORDINATOR_ADDRESS without NUM_PROCESSES / PROCESS_ID) is refused
+    before anything loads."""
     import bayesvlm_tpu_torch.data.factory as factory
     import bayesvlm_tpu_torch.models.encoders as encoders
 
@@ -414,16 +489,9 @@ def test_cli_refuses_unported_flags_before_loading(flag, tmp_path, monkeypatch):
             hessian_estimation.main(**kw)
         assert loaded == [] and not (tmp_path / "h").exists()
         return
-    if flag == {"dist_global_batch": True} or "save_orbax" in flag:
-        with pytest.raises(_Loaded):
-            hessian_estimation.main(**kw, **flag)
-        assert loaded == ["load_model"]
-        return
-    with pytest.raises(NotImplementedError, match="not ported yet") as refused:
+    with pytest.raises(_Loaded):
         hessian_estimation.main(**kw, **flag)
-    assert loaded == [] and not (tmp_path / "h").exists()
-    assert "tokenizer" not in str(refused.value)
-    assert "u8_pipeline" not in str(refused.value)
+    assert loaded == ["load_model"]
 
 
 def test_load_hessians_names_an_orbax_only_directory(tmp_path):
