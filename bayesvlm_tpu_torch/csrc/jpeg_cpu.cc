@@ -17,6 +17,10 @@
 // (native_io.ycc_to_rgb_reference) on them to libjpeg's own RGB. A grey
 // or YCbCr image only (others status -1); the chroma planes must share
 // their sampling factors, and luma must have the largest.
+//
+// bvt_jpeg_coefficients gives libjpeg's DCT coefficients
+// (jpeg_read_coefficients), dequantised: the tests hold the walker of a
+// cut file's scan (csrc/jpeg_scan.cc) to them.
 
 #include <stddef.h>
 #include <stdint.h>
@@ -241,6 +245,63 @@ int bvt_jpeg_planes_cpu(const uint8_t* const* datas, const uint64_t* lens, int n
   return run(&t, num_threads);
 }
 
-void bvt_jpeg_free(uint8_t* rgb) { free(rgb); }
+// One JPEG's coefficients as libjpeg reads them (a cut stream: its
+// warning, and zeros past the MCU in which the data ran out), each times
+// its quantiser as jidctint.c's DEQUANTIZE multiplies (16-bit operands):
+// *out (malloc'ed, freed by bvt_jpeg_free) holds, component after
+// component, [height_in_blocks, width_in_blocks, 64] int32 in natural
+// order. dims: number of components, then per component width_in_blocks,
+// height_in_blocks, h and v sampling factors (4 ints each). Returns 0, or
+// nonzero with nothing allocated.
+int bvt_jpeg_coefficients(const uint8_t* data, uint64_t len, int32_t** out, int* dims) {
+  jpeg_decompress_struct cinfo;
+  JpegErr jerr;
+  int32_t* volatile buf = nullptr;  // freed on a longjmp
+  cinfo.err = jpeg_std_error(&jerr.mgr);
+  jerr.mgr.error_exit = jpeg_err_exit;
+  if (setjmp(jerr.jb)) {
+    jpeg_destroy_decompress(&cinfo);
+    free(buf);
+    return -1;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, data, (unsigned long)len);
+  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK || cinfo.num_components > 4) {
+    jpeg_destroy_decompress(&cinfo);
+    return -2;
+  }
+  jvirt_barray_ptr* arrays = jpeg_read_coefficients(&cinfo);
+  const int nc = cinfo.num_components;
+  size_t total = 0;
+  dims[0] = nc;
+  for (int c = 0; c < nc; ++c) {
+    const jpeg_component_info* comp = cinfo.comp_info + c;
+    dims[1 + 4 * c] = (int)comp->width_in_blocks;
+    dims[2 + 4 * c] = (int)comp->height_in_blocks;
+    dims[3 + 4 * c] = comp->h_samp_factor;
+    dims[4 + 4 * c] = comp->v_samp_factor;
+    total += (size_t)comp->width_in_blocks * comp->height_in_blocks * DCTSIZE2;
+  }
+  buf = (int32_t*)malloc(total * sizeof(int32_t));
+  size_t at = 0;
+  for (int c = 0; c < nc; ++c) {
+    const jpeg_component_info* comp = cinfo.comp_info + c;
+    const UINT16* q = comp->quant_table->quantval;
+    for (JDIMENSION r = 0; r < comp->height_in_blocks; ++r) {
+      JBLOCKARRAY row = (*cinfo.mem->access_virt_barray)((j_common_ptr)&cinfo, arrays[c],
+                                                         r, 1, FALSE);
+      for (JDIMENSION b = 0; b < comp->width_in_blocks; ++b) {
+        for (int k = 0; k < DCTSIZE2; ++k)
+          buf[at++] = (int32_t)row[0][b][k] * (int32_t)(int16_t)q[k];
+      }
+    }
+  }
+  jpeg_finish_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  *out = buf;
+  return 0;
+}
+
+void bvt_jpeg_free(void* p) { free(p); }
 
 }  // extern "C"

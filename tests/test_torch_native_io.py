@@ -9,9 +9,9 @@ plain colour stage on libjpeg's planes against libjpeg's RGB.
 The JAX reference library is `native/bvt_io.cc` compiled by g++ into a
 directory of this module's own (never `make -C native`, which the JAX
 tests run), loaded by pointing `bayesvlm_tpu.data.native_io` there. The
-`cuda`-marked tests hold the card's lane (nvJPEG, the ycc_to_rgb and
-resize_crop kernels) to the plain versions and the goldens; they skip
-without a card:
+`cuda`-marked tests hold the card's lane (nvJPEG, the ycc_to_rgb,
+resize_crop and planes_crop kernels, the patch of a cut stream) to the
+plain versions and the goldens; they skip without a card:
 
     python -m pytest --noconftest -m cuda tests/test_torch_native_io.py
 """
@@ -368,6 +368,52 @@ def test_ycc_to_rgb_kernel_matches_plain_on_card(cuda, jpegs):
     for mine, theirs in zip(out, ref):
         assert (mine is None) == (theirs is None)
         assert mine is None or (mine.is_cuda and torch.equal(mine, theirs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_planes_crop_kernel_matches_plain_on_card(cuda, jpegs, mode):
+    """The fused kernel (planes straight to crops) equals its plain version,
+    the colour stage then the resize and crop, bit for bit on the same
+    nvJPEG planes, uint8 and fp32, with one launch each; the card's
+    decode_batch(_u8) goes through it."""
+    size, square, mean, std = MODES[mode]
+    planes, st = native_io.decode_planes(jpegs, cuda)
+    np.testing.assert_array_equal(st, np.load(FIXTURE_DIR / "goldens.npz")["status"])
+    for u8 in (True, False):
+        before = native_io.planes_crop.launches
+        out = native_io.planes_crop(planes, size, square, mean, std, u8)
+        ref = native_io.planes_crop_reference(planes, size, square, mean, std, u8)
+        torch.cuda.synchronize()
+        assert native_io.planes_crop.launches == before + 1
+        assert out.is_cuda and torch.equal(out, ref)
+        if u8:
+            lane, _ = native_io.decode_batch_u8(jpegs, size, square_resize=square)
+        else:
+            lane, _ = native_io.decode_batch(jpegs, size, mean, std, square_resize=square)
+        assert native_io.planes_crop.launches == before + 2
+        assert torch.equal(lane, ref)
+
+
+@pytest.mark.cuda
+def test_cut_jpeg_is_patched_to_libjpegs_crop_on_card(cuda, jpegs, goldens):
+    """The half-cut fixture's planes, patched past the cut on the card, give
+    a 224 crop within max |d| 3 of libjpeg's (the two IDCTs' rounding), as
+    do the committed cut cases the walker covers."""
+    i = NAMES.index("truncated.jpg")
+    crops, st = native_io.decode_batch_u8([jpegs[i]], mf.CROP, device=cuda)
+    assert st.tolist() == [0]
+    d = (crops[0].cpu().int() - torch.from_numpy(goldens["u8_crop224"][i]).int()).abs()
+    assert int(d.max()) <= 3, int(d.max())
+    cut_gold = np.load(mf.CUT_GOLDENS)
+    cuts = [(FIXTURE_DIR / str(source)).read_bytes()[:int(offset)]
+            for source, offset in zip(cut_gold["source"], cut_gold["offset"])]
+    covered = [k for k, c in enumerate(cuts)
+               if native_io.scan_cut(c).kind == native_io.CUT_RAN_OUT]
+    crops, st = native_io.decode_batch_u8(cuts, mf.CROP, device=cuda)
+    for k in covered:
+        d = (crops[k].cpu().int() - torch.from_numpy(cut_gold["u8_crop224"][k]).int()).abs()
+        assert st[k] == 0 and int(d.max()) <= 3, (cut_gold["names"][k], int(d.max()))
 
 
 @pytest.mark.cuda
